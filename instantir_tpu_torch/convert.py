@@ -1,0 +1,253 @@
+"""JAX/Flax parameter tree (as numpy arrays) -> the port's state dicts.
+
+The port's own copy of the exporters of ``instantir_tpu/convert/flax_to_torch.py``
+that the restore path needs (``export_unet``, ``export_aggregator``,
+``export_resampler``, ``export_vae``, ``export_dinov2``). They emit the
+diffusers / HF ``transformers`` / reference state-dict names with OIHW conv
+and ``[out, in]`` linear weights, which are the port's parameter names, so
+``module.load_state_dict(to_torch(export_x(tree)), strict=True)`` carries a
+JAX model's weights across. The tree may hold numpy arrays or anything
+``np.asarray`` accepts.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _inv_linear(out: Dict[str, np.ndarray], prefix: str, node: Dict[str, Any]):
+    out[f"{prefix}.weight"] = np.ascontiguousarray(np.asarray(node["kernel"]).T)
+    if "bias" in node:
+        out[f"{prefix}.bias"] = np.asarray(node["bias"])
+
+
+def _inv_conv(out: Dict[str, np.ndarray], prefix: str, node: Dict[str, Any]):
+    out[f"{prefix}.weight"] = np.ascontiguousarray(np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)))
+    if "bias" in node:
+        out[f"{prefix}.bias"] = np.asarray(node["bias"])
+
+
+def _inv_norm(out: Dict[str, np.ndarray], prefix: str, node: Dict[str, Any]):
+    out[f"{prefix}.weight"] = np.asarray(node["scale"])
+    out[f"{prefix}.bias"] = np.asarray(node["bias"])
+
+
+def _inv_gn32(out, prefix, node):
+    _inv_norm(out, prefix, node["norm"])
+
+
+def _inv_lora_dense(out, prefix, node):
+    _inv_linear(out, prefix, node["base"])
+    if "lora_a" in node:
+        out[f"{prefix}.lora_A.weight"] = np.ascontiguousarray(np.asarray(node["lora_a"]["kernel"]).T)
+        out[f"{prefix}.lora_B.weight"] = np.ascontiguousarray(np.asarray(node["lora_b"]["kernel"]).T)
+
+
+def _inv_lora_conv(out, prefix, node):
+    _inv_conv(out, prefix, node["base"])
+    if "lora_a" in node:
+        out[f"{prefix}.lora_A.weight"] = np.ascontiguousarray(
+            np.transpose(np.asarray(node["lora_a"]["kernel"]), (3, 2, 0, 1))
+        )
+        out[f"{prefix}.lora_B.weight"] = np.ascontiguousarray(
+            np.transpose(np.asarray(node["lora_b"]["kernel"]), (3, 2, 0, 1))
+        )
+
+
+def _inv_time_embedding(out, prefix, node):
+    _inv_linear(out, f"{prefix}.linear_1", node["linear_1"])
+    _inv_linear(out, f"{prefix}.linear_2", node["linear_2"])
+    if "cond_proj" in node:
+        _inv_linear(out, f"{prefix}.cond_proj", node["cond_proj"])
+
+
+def _inv_attention(out, prefix, node):
+    _inv_lora_dense(out, f"{prefix}.to_q", node["to_q"])
+    _inv_lora_dense(out, f"{prefix}.to_k", node["to_k"])
+    _inv_lora_dense(out, f"{prefix}.to_v", node["to_v"])
+    _inv_lora_dense(out, f"{prefix}.to_out.0", node["to_out"])
+    if "to_k_ip" in node:
+        p = f"{prefix}.processor"
+        _inv_lora_dense(out, f"{p}.to_k_ip", node["to_k_ip"])
+        _inv_lora_dense(out, f"{p}.to_v_ip", node["to_v_ip"])
+        if "ln_k_ip" in node:
+            _inv_lora_dense(out, f"{p}.ln_k_ip.linear", node["ln_k_ip"]["linear"])
+            _inv_lora_dense(out, f"{p}.ln_v_ip.linear", node["ln_v_ip"]["linear"])
+
+
+def _inv_transformer_block(out, prefix, node):
+    _inv_norm(out, f"{prefix}.norm1", node["norm1"])
+    _inv_attention(out, f"{prefix}.attn1", node["attn1"])
+    if "attn2" in node:
+        _inv_norm(out, f"{prefix}.norm2", node["norm2"])
+        _inv_attention(out, f"{prefix}.attn2", node["attn2"])
+    _inv_norm(out, f"{prefix}.norm3", node["norm3"])
+    _inv_lora_dense(out, f"{prefix}.ff.net.0.proj", node["ff"]["proj"])
+    _inv_lora_dense(out, f"{prefix}.ff.net.2", node["ff"]["out"])
+
+
+def _inv_transformer2d(out, prefix, node):
+    _inv_gn32(out, f"{prefix}.norm", node["norm"])
+    _inv_lora_dense(out, f"{prefix}.proj_in", node["proj_in"])
+    _inv_lora_dense(out, f"{prefix}.proj_out", node["proj_out"])
+    for name, sub in node.items():
+        if name.startswith("blocks_"):
+            _inv_transformer_block(out, f"{prefix}.transformer_blocks.{name.split('_')[-1]}", sub)
+
+
+def _inv_resnet(out, prefix, node):
+    _inv_gn32(out, f"{prefix}.norm1", node["norm1"])
+    _inv_lora_conv(out, f"{prefix}.conv1", node["conv1"])
+    _inv_gn32(out, f"{prefix}.norm2", node["norm2"])
+    _inv_lora_conv(out, f"{prefix}.conv2", node["conv2"])
+    if "time_emb_proj" in node:
+        _inv_lora_dense(out, f"{prefix}.time_emb_proj", node["time_emb_proj"])
+    if "conv_shortcut" in node:
+        _inv_lora_conv(out, f"{prefix}.conv_shortcut", node["conv_shortcut"])
+
+
+def _inv_block(out, prefix, node):
+    for name, sub in sorted(node.items()):
+        if name.startswith("resnets_"):
+            _inv_resnet(out, f"{prefix}.resnets.{name.split('_')[-1]}", sub)
+        elif name.startswith("attentions_"):
+            _inv_transformer2d(out, f"{prefix}.attentions.{name.split('_')[-1]}", sub)
+        elif name == "downsamplers_0":
+            _inv_lora_conv(out, f"{prefix}.downsamplers.0.conv", sub["conv"])
+        elif name == "upsamplers_0":
+            _inv_lora_conv(out, f"{prefix}.upsamplers.0.conv", sub["conv"])
+
+
+def _inv_sft(out, prefix, node):
+    _inv_conv(out, f"{prefix}.0.mlp_shared.0", node["mlp_shared"])
+    _inv_conv(out, f"{prefix}.0.mul", node["mul"])
+    _inv_conv(out, f"{prefix}.0.add", node["add"])
+    _inv_conv(out, f"{prefix}.1", node["zero_conv"])
+
+
+def export_unet(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    p = tree["params"]
+    out: Dict[str, np.ndarray] = {}
+    _inv_conv(out, "conv_in", p["conv_in"]["base"])
+    _inv_time_embedding(out, "time_embedding", p["time_embedding"])
+    _inv_time_embedding(out, "add_embedding", p["add_embedding"])
+    for name, node in p.items():
+        if name.startswith("down_blocks_"):
+            _inv_block(out, f"down_blocks.{name.split('_')[-1]}", node)
+        elif name.startswith("up_blocks_"):
+            _inv_block(out, f"up_blocks.{name.split('_')[-1]}", node)
+    _inv_block(out, "mid_block", p["mid_block"])
+    _inv_gn32(out, "conv_norm_out", p["conv_norm_out"])
+    _inv_conv(out, "conv_out", p["conv_out"]["base"])
+    return out
+
+
+def export_aggregator(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    p = tree["params"]
+    out: Dict[str, np.ndarray] = {}
+    _inv_conv(out, "conv_in", p["conv_in"]["base"])
+    _inv_conv(out, "ref_conv_in", p["ref_conv_in"]["base"])
+    _inv_time_embedding(out, "time_embedding", p["time_embedding"])
+    _inv_time_embedding(out, "add_embedding", p["add_embedding"])
+    for name, node in p.items():
+        if name.startswith("down_blocks_"):
+            _inv_block(out, f"down_blocks.{name.split('_')[-1]}", node)
+        elif name.startswith("controlnet_down_blocks_"):
+            _inv_sft(out, f"controlnet_down_blocks.{name.split('_')[-1]}", node)
+    _inv_block(out, "mid_block", p["mid_block"])
+    _inv_sft(out, "controlnet_mid_block", p["controlnet_mid_block"])
+    return out
+
+
+def export_resampler(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    p = tree["params"]
+    out: Dict[str, np.ndarray] = {"latents": np.asarray(p["latents"])}
+    _inv_linear(out, "proj_in", p["proj_in"])
+    _inv_linear(out, "proj_out", p["proj_out"])
+    _inv_norm(out, "norm_out", p["norm_out"])
+    depth = len([k for k in p if k.endswith("_attn")])
+    for i in range(depth):
+        a = p[f"layers_{i}_attn"]
+        _inv_norm(out, f"layers.{i}.0.norm1", a["norm1"])
+        _inv_norm(out, f"layers.{i}.0.norm2", a["norm2"])
+        _inv_lora_dense(out, f"layers.{i}.0.to_q", a["to_q"])
+        _inv_lora_dense(out, f"layers.{i}.0.to_kv", a["to_kv"])
+        _inv_lora_dense(out, f"layers.{i}.0.to_out", a["to_out"])
+        _inv_norm(out, f"layers.{i}.1.0", p[f"layers_{i}_ff_norm"])
+        _inv_linear(out, f"layers.{i}.1.1", p[f"layers_{i}_ff_in"])
+        _inv_linear(out, f"layers.{i}.1.3", p[f"layers_{i}_ff_out"])
+    return out
+
+
+def export_vae(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    p = tree["params"]
+    out: Dict[str, np.ndarray] = {}
+
+    def vae_resnet(prefix, node):
+        _inv_gn32(out, f"{prefix}.norm1", node["norm1"])
+        _inv_conv(out, f"{prefix}.conv1", node["conv1"])
+        _inv_gn32(out, f"{prefix}.norm2", node["norm2"])
+        _inv_conv(out, f"{prefix}.conv2", node["conv2"])
+        if "conv_shortcut" in node:
+            _inv_conv(out, f"{prefix}.conv_shortcut", node["conv_shortcut"])
+
+    def vae_attention(prefix, node):
+        _inv_gn32(out, f"{prefix}.group_norm", node["group_norm"])
+        _inv_linear(out, f"{prefix}.to_q", node["to_q"])
+        _inv_linear(out, f"{prefix}.to_k", node["to_k"])
+        _inv_linear(out, f"{prefix}.to_v", node["to_v"])
+        _inv_linear(out, f"{prefix}.to_out.0", node["to_out"])
+
+    def side(side_name, kind):
+        sp = p[side_name]
+        _inv_conv(out, f"{side_name}.conv_in", sp["conv_in"])
+        for name, node in sp.items():
+            if "_resnets_" in name:
+                parts = name.split("_")  # e.g. down_blocks_0_resnets_1
+                vae_resnet(f"{side_name}.{kind}_blocks.{parts[2]}.resnets.{parts[4]}", node)
+            elif name.endswith("_downsample"):
+                _inv_conv(out, f"{side_name}.down_blocks.{name.split('_')[2]}.downsamplers.0.conv", node)
+            elif name.endswith("_upsample"):
+                _inv_conv(out, f"{side_name}.up_blocks.{name.split('_')[2]}.upsamplers.0.conv", node)
+        vae_resnet(f"{side_name}.mid_block.resnets.0", sp["mid_block"]["resnets_0"])
+        vae_attention(f"{side_name}.mid_block.attentions.0", sp["mid_block"]["attentions_0"])
+        vae_resnet(f"{side_name}.mid_block.resnets.1", sp["mid_block"]["resnets_1"])
+        _inv_gn32(out, f"{side_name}.conv_norm_out", sp["conv_norm_out"])
+        _inv_conv(out, f"{side_name}.conv_out", sp["conv_out"])
+
+    side("encoder", "down")
+    side("decoder", "up")
+    _inv_conv(out, "quant_conv", p["quant_conv"])
+    _inv_conv(out, "post_quant_conv", p["post_quant_conv"])
+    return out
+
+
+def export_dinov2(tree: Dict[str, Any], num_layers: int) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    p = tree["params"]
+    out["embeddings.cls_token"] = np.asarray(p["cls_token"])
+    out["embeddings.position_embeddings"] = np.asarray(p["pos_embed"])
+    _inv_conv(out, "embeddings.patch_embeddings.projection", p["patch_embed"])
+    _inv_norm(out, "layernorm", p["norm"])
+    for i in range(num_layers):
+        n = p[f"blocks_{i}"]
+        q = f"encoder.layer.{i}"
+        _inv_norm(out, f"{q}.norm1", n["norm1"])
+        _inv_linear(out, f"{q}.attention.attention.query", n["q"])
+        _inv_linear(out, f"{q}.attention.attention.key", n["k"])
+        _inv_linear(out, f"{q}.attention.attention.value", n["v"])
+        _inv_linear(out, f"{q}.attention.output.dense", n["proj"])
+        out[f"{q}.layer_scale1.lambda1"] = np.asarray(n["layerscale1"])
+        _inv_norm(out, f"{q}.norm2", n["norm2"])
+        _inv_linear(out, f"{q}.mlp.fc1", n["fc1"])
+        _inv_linear(out, f"{q}.mlp.fc2", n["fc2"])
+        out[f"{q}.layer_scale2.lambda1"] = np.asarray(n["layerscale2"])
+    return out
+
+
+def to_torch(state: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """numpy state dict -> tensors (``load_state_dict`` casts to each parameter's dtype)."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in state.items()}

@@ -1,0 +1,160 @@
+"""Core layers: LoRA-capable Linear/Conv, fp32 GroupNorm/LayerNorm, time embeddings.
+
+Twin of ``instantir_tpu/models/layers.py``. LoRA is functional: every
+LoRA-capable layer computes ``y = base(x) + lora_scale * (alpha/r) * B(A(x))``
+with zero-init B, and the caller passes ``lora_scale`` per forward (the
+previewer-on and previewer-off UNet passes share one set of weights). The
+branch is skipped when ``lora_scale`` is 0. Parameter names are the
+diffusers/PEFT state-dict names (``weight``, ``bias``, ``lora_A.weight``,
+``lora_B.weight``). Normalisation parameters are fp32 whatever the model dtype.
+The int8 ``Quantizable*`` branches of the JAX package are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from instantir_tpu_torch.ops.group_norm import group_norm_silu_nchw
+
+
+class LoRALinear(nn.Linear):
+    """Linear with an optional low-rank adapter branch (PEFT semantics)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, lora_rank: int = 0,
+                 lora_alpha: float = 1.0, dtype=None, device=None):
+        super().__init__(in_features, out_features, bias=bias, dtype=dtype, device=device)
+        self.lora_rank = lora_rank
+        self.lora_alpha = lora_alpha
+        if lora_rank > 0:
+            self.lora_A = nn.Linear(in_features, lora_rank, bias=False, dtype=dtype, device=device)
+            self.lora_B = nn.Linear(lora_rank, out_features, bias=False, dtype=dtype, device=device)
+            nn.init.zeros_(self.lora_B.weight)
+
+    def forward(self, x: torch.Tensor, lora_scale: float = 0.0) -> torch.Tensor:
+        x = x.to(self.weight.dtype)
+        y = F.linear(x, self.weight, self.bias)
+        if self.lora_rank > 0 and lora_scale != 0.0:
+            y = y + (lora_scale * self.lora_alpha / self.lora_rank) * self.lora_B(self.lora_A(x))
+        return y
+
+
+class LoRAConv2d(nn.Conv2d):
+    """NCHW conv with an optional low-rank adapter (A: k x k -> r, B: 1 x 1 -> out)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, stride: int = 1,
+                 padding: int = 1, bias: bool = True, lora_rank: int = 0, lora_alpha: float = 1.0,
+                 dtype=None, device=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding, bias=bias,
+                         dtype=dtype, device=device)
+        self.lora_rank = lora_rank
+        self.lora_alpha = lora_alpha
+        if lora_rank > 0:
+            self.lora_A = nn.Conv2d(in_channels, lora_rank, kernel_size, stride=stride, padding=padding,
+                                    bias=False, dtype=dtype, device=device)
+            self.lora_B = nn.Conv2d(lora_rank, out_channels, 1, bias=False, dtype=dtype, device=device)
+            nn.init.zeros_(self.lora_B.weight)
+
+    def forward(self, x: torch.Tensor, lora_scale: float = 0.0) -> torch.Tensor:
+        x = x.to(self.weight.dtype)
+        y = super().forward(x)
+        if self.lora_rank > 0 and lora_scale != 0.0:
+            y = y + (lora_scale * self.lora_alpha / self.lora_rank) * self.lora_B(self.lora_A(x))
+        return y
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm with fp32 statistics in the E[x^2] - mu^2 form (+ optional
+    fused SiLU); fp32 ``weight``/``bias``; output in ``dtype``."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5, fuse_silu: bool = False,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.fuse_silu = fuse_silu
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(num_channels, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_channels, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = group_norm_silu_nchw(x, self.weight, self.bias, self.num_groups, self.eps, self.fuse_silu)
+        return y.to(self.dtype)
+
+
+class LayerNorm32(nn.LayerNorm):
+    """LayerNorm computed in fp32 with fp32 parameters; output in ``dtype``."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, dtype=torch.float32, device=None):
+        super().__init__(dim, eps=eps, dtype=torch.float32, device=device)
+        self.out_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(self.out_dtype)
+
+
+def get_timestep_embedding(
+    timesteps: torch.Tensor,
+    embedding_dim: int,
+    flip_sin_to_cos: bool = True,
+    downscale_freq_shift: float = 0.0,
+    scale: float = 1.0,
+    max_period: int = 10000,
+) -> torch.Tensor:
+    """Sinusoidal timestep embedding (diffusers ``get_timestep_embedding``), fp32 always."""
+    half_dim = embedding_dim // 2
+    exponent = -math.log(max_period) * torch.arange(half_dim, dtype=torch.float32, device=timesteps.device)
+    exponent = exponent / (half_dim - downscale_freq_shift)
+    emb = torch.exp(exponent)[None, :] * timesteps.float()[:, None]
+    emb = scale * emb
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+    if flip_sin_to_cos:
+        emb = torch.cat([emb[:, half_dim:], emb[:, :half_dim]], dim=-1)
+    if embedding_dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedding(nn.Module):
+    """Two-layer MLP on the sinusoidal embedding, with optional ``cond_proj``."""
+
+    def __init__(self, in_channels: int, time_embed_dim: int, cond_proj_dim: Optional[int] = None,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        if cond_proj_dim is not None:
+            self.cond_proj = nn.Linear(cond_proj_dim, in_channels, bias=False, dtype=dtype, device=device)
+        else:
+            self.cond_proj = None
+        self.linear_1 = nn.Linear(in_channels, time_embed_dim, dtype=dtype, device=device)
+        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim, dtype=dtype, device=device)
+
+    def forward(self, sample: torch.Tensor, condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+        sample = sample.to(self.linear_1.weight.dtype)
+        if condition is not None:
+            if self.cond_proj is None:
+                raise ValueError("condition passed but cond_proj_dim is None")
+            sample = sample + self.cond_proj(condition.to(sample.dtype))
+        return self.linear_2(F.silu(self.linear_1(sample)))
+
+
+class AdaLayerNorm(nn.Module):
+    """Time-conditioned LayerNorm: ``LN(x)·(1+scale) + shift`` with
+    ``(shift, scale) = Linear(SiLU(temb))``; the linear is LoRA-capable."""
+
+    def __init__(self, embedding_dim: int, temb_dim: int, lora_rank: int = 0, lora_alpha: float = 1.0,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.linear = LoRALinear(temb_dim, 2 * embedding_dim, bias=True, lora_rank=lora_rank,
+                                 lora_alpha=lora_alpha, dtype=dtype, device=device)
+        nn.init.zeros_(self.linear.weight)
+        nn.init.zeros_(self.linear.bias)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor, lora_scale: float = 0.0) -> torch.Tensor:
+        emb = self.linear(F.silu(temb.to(self.linear.weight.dtype)), lora_scale)
+        shift, scale = emb[:, None, :].chunk(2, dim=-1)
+        normed = F.layer_norm(x.float(), (x.shape[-1],), eps=1e-6).to(x.dtype)
+        return normed * (1.0 + scale) + shift

@@ -1,0 +1,229 @@
+"""SDXL UNet2DConditionModel (NCHW, functional LoRA, fused IP branch).
+
+Twin of ``instantir_tpu/models/unet.py``. The config mirrors
+stabilityai/stable-diffusion-xl-base-1.0's UNet: blocks [320, 640, 1280],
+transformer depths [-, 2, 10], heads [5, 10, 20] (head_dim 64),
+cross-attention dim 2048, text_time added embeddings (2816 = 1280 pooled +
+6 x 256 time ids). The previewer LoRA is a forward argument (``lora_scale``),
+the image-prompt tokens an explicit input, and the time-aware IP AdaLN reads
+the UNet's own time embedding. Parameter names are the diffusers names.
+DeepCache's ``return_deep``/``cached_deep`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from instantir_tpu_torch.models.layers import GroupNorm32, TimestepEmbedding, get_timestep_embedding
+from instantir_tpu_torch.models.unet_blocks import (
+    CrossAttnDownBlock2D,
+    CrossAttnUpBlock2D,
+    DownBlock2D,
+    UNetMidBlock2DCrossAttn,
+    UpBlock2D,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    sample_size: int = 128
+    in_channels: int = 4
+    out_channels: int = 4
+    down_block_types: Tuple[str, ...] = ("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D")
+    up_block_types: Tuple[str, ...] = ("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D")
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280)
+    layers_per_block: int = 2
+    transformer_layers_per_block: Tuple[int, ...] = (1, 2, 10)
+    num_attention_heads: Tuple[int, ...] = (5, 10, 20)
+    cross_attention_dim: int = 2048
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
+    norm_num_groups: int = 32
+    time_cond_proj_dim: Optional[int] = None
+    flip_sin_to_cos: bool = True
+    freq_shift: float = 0.0
+    with_ip: bool = False  # decoupled image-prompt branch in every cross-attention
+    time_aware_ip: bool = True
+    lora_rank: int = 0  # previewer LoRA rank (0 = no LoRA params)
+    lora_alpha: float = 1.0
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+def sdxl_base_config(**overrides) -> UNetConfig:
+    return dataclasses.replace(UNetConfig(), **overrides)
+
+
+def tiny_unet_config(**overrides) -> UNetConfig:
+    """A shape-faithful miniature for CPU tests (same topology, tiny dims)."""
+    base = UNetConfig(
+        sample_size=16,
+        block_out_channels=(32, 64, 64),
+        transformer_layers_per_block=(1, 1, 2),
+        num_attention_heads=(2, 4, 4),
+        cross_attention_dim=32,
+        addition_time_embed_dim=8,
+        projection_class_embeddings_input_dim=8 * 6 + 16,
+        norm_num_groups=8,
+    )
+    return dataclasses.replace(base, **overrides)
+
+
+def down_stack_channels(cfg: UNetConfig) -> Tuple[int, ...]:
+    """Channels of every skip connection the down path pushes, in order."""
+    chans = [cfg.block_out_channels[0]]
+    for i, ch in enumerate(cfg.block_out_channels):
+        chans += [ch] * cfg.layers_per_block
+        if i < len(cfg.block_out_channels) - 1:
+            chans.append(ch)
+    return tuple(chans)
+
+
+def build_down_blocks(cfg: UNetConfig, has_cross_attention: bool, with_ip: bool, lora: dict, use_flash: bool,
+                      common: dict) -> nn.ModuleList:
+    """The SDXL down path (shared by the UNet and the Aggregator trunk)."""
+    blocks = []
+    in_ch = cfg.block_out_channels[0]
+    for i, block_type in enumerate(cfg.down_block_types):
+        out_ch = cfg.block_out_channels[i]
+        kw = dict(temb_channels=cfg.time_embed_dim, num_layers=cfg.layers_per_block,
+                  add_downsample=i < len(cfg.down_block_types) - 1, norm_num_groups=cfg.norm_num_groups,
+                  **lora, **common)
+        if block_type == "CrossAttnDownBlock2D":
+            heads = cfg.num_attention_heads[i]
+            blocks.append(CrossAttnDownBlock2D(
+                in_ch, out_ch, heads=heads, head_dim=out_ch // heads,
+                transformer_layers=cfg.transformer_layers_per_block[i],
+                cross_attention_dim=cfg.cross_attention_dim, has_cross_attention=has_cross_attention,
+                with_ip=with_ip, time_aware_ip=cfg.time_aware_ip, use_flash=use_flash, **kw))
+        elif block_type == "DownBlock2D":
+            blocks.append(DownBlock2D(in_ch, out_ch, **kw))
+        else:
+            raise ValueError(f"unknown down block type {block_type!r}")
+        in_ch = out_ch
+    return nn.ModuleList(blocks)
+
+
+def build_mid_block(cfg: UNetConfig, has_cross_attention: bool, with_ip: bool, lora: dict, use_flash: bool,
+                    common: dict) -> UNetMidBlock2DCrossAttn:
+    heads = cfg.num_attention_heads[-1]
+    mid_ch = cfg.block_out_channels[-1]
+    return UNetMidBlock2DCrossAttn(
+        mid_ch, cfg.time_embed_dim, heads=heads, head_dim=mid_ch // heads,
+        transformer_layers=cfg.transformer_layers_per_block[-1], cross_attention_dim=cfg.cross_attention_dim,
+        has_cross_attention=has_cross_attention, with_ip=with_ip, time_aware_ip=cfg.time_aware_ip,
+        norm_num_groups=cfg.norm_num_groups, use_flash=use_flash, **lora, **common)
+
+
+def time_and_added_embedding(cfg: UNetConfig, time_embedding: nn.Module, add_embedding: nn.Module,
+                             timesteps: torch.Tensor, added_text_embeds: torch.Tensor, added_time_ids: torch.Tensor,
+                             timestep_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """emb = TimeEmbedding(sinusoid(t)) + AddEmbedding([pooled, sinusoid(time_ids)]),
+    the sinusoids in fp32."""
+    b = added_text_embeds.shape[0]
+    t_emb = get_timestep_embedding(timesteps, cfg.block_out_channels[0], cfg.flip_sin_to_cos, cfg.freq_shift)
+    emb = time_embedding(t_emb, timestep_cond)
+    time_embeds = get_timestep_embedding(
+        added_time_ids.reshape(-1), cfg.addition_time_embed_dim, cfg.flip_sin_to_cos, cfg.freq_shift
+    ).reshape(b, -1)
+    add_embeds = torch.cat([added_text_embeds.float(), time_embeds], dim=-1)
+    return emb + add_embedding(add_embeds)
+
+
+class UNet2DConditionModel(nn.Module):
+    def __init__(self, config: UNetConfig, use_flash: bool = True, dtype=torch.float32, device=None):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.dtype = dtype
+        common = dict(dtype=dtype, device=device)
+        lora = dict(lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
+        c0 = cfg.block_out_channels[0]
+        self.conv_in = nn.Conv2d(cfg.in_channels, c0, 3, padding=1, **common)
+        self.time_embedding = TimestepEmbedding(c0, cfg.time_embed_dim, cfg.time_cond_proj_dim, **common)
+        self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, cfg.time_embed_dim,
+                                               **common)
+        self.down_blocks = build_down_blocks(cfg, True, cfg.with_ip, lora, use_flash, common)
+        self.mid_block = build_mid_block(cfg, True, cfg.with_ip, lora, use_flash, common)
+
+        skips = list(down_stack_channels(cfg))
+        reversed_channels = tuple(reversed(cfg.block_out_channels))
+        reversed_heads = tuple(reversed(cfg.num_attention_heads))
+        reversed_layers = tuple(reversed(cfg.transformer_layers_per_block))
+        up = []
+        prev_ch = cfg.block_out_channels[-1]
+        for i, block_type in enumerate(cfg.up_block_types):
+            out_ch = reversed_channels[i]
+            num_res = cfg.layers_per_block + 1
+            skip_channels = tuple(reversed(skips[-num_res:]))
+            del skips[-num_res:]
+            kw = dict(temb_channels=cfg.time_embed_dim, add_upsample=i < len(cfg.up_block_types) - 1,
+                      norm_num_groups=cfg.norm_num_groups, **lora, **common)
+            if block_type == "CrossAttnUpBlock2D":
+                heads = reversed_heads[i]
+                up.append(CrossAttnUpBlock2D(
+                    prev_ch, out_ch, skip_channels, heads=heads, head_dim=out_ch // heads,
+                    transformer_layers=reversed_layers[i], cross_attention_dim=cfg.cross_attention_dim,
+                    with_ip=cfg.with_ip, time_aware_ip=cfg.time_aware_ip, use_flash=use_flash, **kw))
+            elif block_type == "UpBlock2D":
+                up.append(UpBlock2D(prev_ch, out_ch, skip_channels, **kw))
+            else:
+                raise ValueError(f"unknown up block type {block_type!r}")
+            prev_ch = out_ch
+        self.up_blocks = nn.ModuleList(up)
+        self.conv_norm_out = GroupNorm32(cfg.norm_num_groups, c0, fuse_silu=True, **common)
+        self.conv_out = nn.Conv2d(c0, cfg.out_channels, 3, padding=1, **common)
+
+    def forward(
+        self,
+        sample: torch.Tensor,  # [B, C, H, W] latents
+        timesteps: torch.Tensor,  # [B] or scalar
+        encoder_hidden_states: torch.Tensor,  # [B, 77·k, cross_dim]
+        added_text_embeds: torch.Tensor,  # [B, pooled_dim]
+        added_time_ids: torch.Tensor,  # [B, 6]
+        ip_hidden_states: Optional[torch.Tensor] = None,  # [B, 64, cross_dim]
+        timestep_cond: Optional[torch.Tensor] = None,
+        down_block_additional_residuals: Optional[Sequence[torch.Tensor]] = None,
+        mid_block_additional_residual: Optional[torch.Tensor] = None,
+        lora_scale: float = 0.0,
+        ip_scale: Optional[float] = None,
+    ) -> torch.Tensor:
+        cfg = self.config
+        b = sample.shape[0]
+        timesteps = torch.as_tensor(timesteps, device=sample.device).reshape(-1).expand(b)
+        emb = time_and_added_embedding(cfg, self.time_embedding, self.add_embedding, timesteps,
+                                       added_text_embeds, added_time_ids, timestep_cond)
+        attn_kw = dict(encoder_hidden_states=encoder_hidden_states, ip_hidden_states=ip_hidden_states,
+                       attn_temb=emb, lora_scale=lora_scale, ip_scale=ip_scale)
+
+        sample = self.conv_in(sample.to(self.dtype))
+        down_res = (sample,)
+        for block in self.down_blocks:
+            if isinstance(block, CrossAttnDownBlock2D):
+                sample, res = block(sample, emb, **attn_kw)
+            else:
+                sample, res = block(sample, emb, lora_scale)
+            down_res = down_res + res
+
+        if down_block_additional_residuals is not None:
+            down_res = tuple(s + r.to(s.dtype) for s, r in zip(down_res, down_block_additional_residuals))
+
+        sample = self.mid_block(sample, emb, **attn_kw)
+        if mid_block_additional_residual is not None:
+            sample = sample + mid_block_additional_residual.to(sample.dtype)
+
+        for block in self.up_blocks:
+            num_res = len(block.resnets)
+            res, down_res = down_res[-num_res:], down_res[:-num_res]
+            if isinstance(block, CrossAttnUpBlock2D):
+                sample = block(sample, res, emb, **attn_kw)
+            else:
+                sample = block(sample, res, emb, lora_scale)
+
+        return self.conv_out(self.conv_norm_out(sample))

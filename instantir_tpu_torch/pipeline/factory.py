@@ -1,0 +1,73 @@
+"""Pipeline assembly: build the port's models on a device, with synthetic weights.
+
+Twin of ``instantir_tpu/pipeline/factory.py::build_pipeline``. The UNet,
+Aggregator, Resampler and DINOv2 run in ``dtype``; the VAE runs in fp32 (the
+reference's force_upcast). Every parameter is drawn on the device from a
+``torch.Generator`` seeded with ``seed``: weights vary (all-equal weights
+drive GroupNorm to NaN), norm scales are 1 and biases 0, and the LoRA-B and
+zero-conv weights are nonzero so those paths do real work. Real weights go in
+afterwards with ``load_state_dict``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from instantir_tpu_torch.models.aggregator import Aggregator
+from instantir_tpu_torch.models.dinov2 import DINOv2Config, DINOv2Model
+from instantir_tpu_torch.models.layers import GroupNorm32
+from instantir_tpu_torch.models.resampler import Resampler, ResamplerConfig
+from instantir_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
+from instantir_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from instantir_tpu_torch.pipeline.instantir import InstantIRPipeline
+from instantir_tpu_torch.schedulers.diffusion import sdxl_schedule
+
+
+@torch.no_grad()
+def synthesize_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every parameter of ``model`` in place from ``generator``."""
+    for name, p in model.named_parameters():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(owner_name) if owner_name else model
+        if isinstance(owner, (GroupNorm32, nn.LayerNorm)):
+            p.fill_(1.0 if leaf == "weight" else 0.0)
+            continue
+        if leaf == "bias":
+            p.zero_()
+            continue
+        if p.dim() >= 2 and p.shape[0] > 1:  # linear / conv weights: fan-in scaled
+            std = p[0].numel() ** -0.5
+        elif p.dim() >= 2:  # cls token, position embeddings, resampler latents
+            std = 0.02
+        else:  # layer scales
+            std = 0.1
+        p.copy_(torch.randn(p.shape, generator=generator, dtype=torch.float32, device=p.device) * std)
+    return model
+
+
+def build_pipeline(
+    unet_config: UNetConfig,
+    vae_config: VAEConfig,
+    resampler_config: ResamplerConfig,
+    dino_config: DINOv2Config,
+    seed: int = 0,
+    dtype: torch.dtype = torch.float32,
+    device="cuda",
+) -> InstantIRPipeline:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_pipeline: device 'cuda' requested but no CUDA device is available "
+                           "(pass device='cpu' to build on the CPU)")
+    models = [
+        UNet2DConditionModel(unet_config, dtype=dtype, device=device),
+        Aggregator(unet_config, dtype=dtype, device=device),
+        AutoencoderKL(vae_config, dtype=torch.float32, device=device),
+        Resampler(resampler_config, dtype=dtype, device=device),
+        DINOv2Model(dino_config, dtype=dtype, device=device),
+    ]
+    generator = torch.Generator(device=device).manual_seed(seed)
+    for model in models:
+        synthesize_weights(model.requires_grad_(False).eval(), generator)
+    unet, aggregator, vae, resampler, dino = models
+    return InstantIRPipeline(unet, aggregator, vae, resampler, dino, sdxl_schedule(), device=device)

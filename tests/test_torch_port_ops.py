@@ -1,0 +1,284 @@
+"""CPU parity of the PyTorch port's ops, layers and schedulers with their JAX twins.
+
+Inputs are made with numpy from a seed and fed to both packages; outputs are
+compared in fp32 unless a test says otherwise. The flash kernel itself is CUDA
+only: on the CPU the port's ``flash_attention`` runs its plain version,
+``flash_attention_reference``, which is held here against the JAX Pallas
+kernel in interpret mode; ``test_flash_kernel_matches_reference_on_card``
+holds the kernel against it and runs only where a card is present.
+"""
+
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from instantir_tpu.ops import attention as jattn
+from instantir_tpu.ops.group_norm import group_norm_silu_reference as jax_gn
+from instantir_tpu.schedulers import diffusion as jsched
+from instantir_tpu_torch import convert
+from instantir_tpu_torch.models import layers as tlayers
+from instantir_tpu_torch.ops import attention as tattn
+from instantir_tpu_torch.ops.group_norm import group_norm_silu_reference as torch_gn
+from instantir_tpu_torch.schedulers import diffusion as tsched
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def jlayers():
+    """The JAX layers (they need flax, which a machine that only runs the
+    ``cuda`` tests may lack)."""
+    return pytest.importorskip("instantir_tpu.models.layers")
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def _random_tree(shapes, seed):
+    """Every leaf of an abstract param tree filled from ``seed`` (kernels
+    fan-in scaled, norm scales near 1, biases and zero-init leaves nonzero)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = str(getattr(path[-1], "key", path[-1]))
+        if name == "scale":
+            return (1.0 + 0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+        if len(s.shape) >= 2:
+            return (rng.standard_normal(s.shape) / np.sqrt(np.prod(s.shape[:-1]))).astype(np.float32)
+        return (0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def _init_random(module, seed, *args, **kwargs):
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args, **kwargs))
+    return _random_tree(shapes, seed)
+
+
+# --------------------------------------------------------------------------
+# import rule
+# --------------------------------------------------------------------------
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    """No module of the port, and neither chip_smoke.py nor profile_torch.py,
+    imports jax, flax or the JAX package (``instantir_tpu_torch`` shares the
+    ``instantir_tpu`` prefix, so roots are compared whole)."""
+    files = sorted((REPO / "instantir_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "profile_torch.py"]
+    assert len(files) > 10
+    bad = []
+    for path in files:
+        for mod in _imported_modules(path):
+            root = mod.split(".")[0]
+            if root in ("jax", "jaxlib", "flax", "optax", "instantir_tpu"):
+                bad.append(f"{path.relative_to(REPO)}: {mod}")
+    assert not bad, bad
+
+
+# --------------------------------------------------------------------------
+# schedulers
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("schedule", ["linear", "scaled_linear"])
+def test_schedule_tables(schedule):
+    j = jsched.make_schedule(beta_schedule=schedule)
+    t = tsched.make_schedule(beta_schedule=schedule)
+    np.testing.assert_array_equal(np.asarray(j.alphas_cumprod), t.alphas_cumprod.numpy())
+    np.testing.assert_array_equal(np.asarray(j.betas), t.betas.numpy())
+    assert float(j.final_alpha_cumprod) == t.final_alpha_cumprod
+
+
+@pytest.mark.parametrize("spacing", ["leading", "trailing", "linspace"])
+@pytest.mark.parametrize("n", [4, 30])
+def test_inference_timesteps(spacing, n):
+    j = jsched.ddpm_inference_timesteps(n, timestep_spacing=spacing)
+    t = tsched.ddpm_inference_timesteps(n, timestep_spacing=spacing)
+    np.testing.assert_array_equal(j, t)
+    np.testing.assert_array_equal(jsched.ddpm_prev_timesteps(j, 1000, n), tsched.ddpm_prev_timesteps(t, 1000, n))
+
+
+STEP_CASES = [([901, 651], [651, 401]), ([1, 251], [-249, 1]), ([0, 0], [-1, -1])]
+
+
+@pytest.mark.parametrize("ts,prev", STEP_CASES)
+def test_ddpm_step(ts, prev):
+    rng = np.random.default_rng(1)
+    x, eps, noise = (rng.standard_normal((2, 8, 8, 4)).astype(np.float32) for _ in range(3))
+    js, ts_ = jsched.sdxl_schedule(), tsched.sdxl_schedule()
+    jp, jx0 = jsched.ddpm_step(js, eps, np.array(ts), np.array(prev), x, noise)
+    tp, tx0 = tsched.ddpm_step(ts_, _t(eps), torch.tensor(ts), torch.tensor(prev), _t(x), _t(noise))
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tx0.numpy(), np.asarray(jx0), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("ts", [[999, 500], [1, 21]])
+def test_add_noise_and_lcm_step(ts):
+    rng = np.random.default_rng(2)
+    x, eps = (rng.standard_normal((2, 8, 8, 4)).astype(np.float32) for _ in range(2))
+    js, ts_ = jsched.sdxl_schedule(), tsched.sdxl_schedule()
+    np.testing.assert_allclose(
+        tsched.add_noise(ts_, _t(x), _t(eps), torch.tensor(ts)).numpy(),
+        np.asarray(jsched.add_noise(js, x, eps, np.array(ts))), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        tsched.lcm_single_step(ts_, _t(eps), torch.tensor(ts), _t(x)).numpy(),
+        np.asarray(jsched.lcm_single_step(js, eps, np.array(ts), x)), rtol=1e-5, atol=1e-5)
+    jc = jsched.lcm_boundary_scalings(np.array(ts))
+    tc = tsched.lcm_boundary_scalings(torch.tensor(ts))
+    for a, b in zip(jc, tc):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# layers
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("lora_scale", [0.0, 0.7])
+def test_lora_dense(jlayers, lora_scale):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 5, 12)).astype(np.float32)
+    jm = jlayers.LoRADense(20, lora_rank=4, lora_alpha=2.0)
+    params = _init_random(jm, 0, x)
+    ref = np.asarray(jm.apply(params, x, lora_scale=lora_scale))
+    tm = tlayers.LoRALinear(12, 20, lora_rank=4, lora_alpha=2.0)
+    sd = {}
+    convert._inv_lora_dense(sd, "m", params["params"])
+    tm.load_state_dict({k[2:]: v for k, v in convert.to_torch(sd).items()}, strict=True)
+    with torch.no_grad():
+        got = tm(_t(x), lora_scale).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("lora_scale", [0.0, 0.7])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_lora_conv(jlayers, lora_scale, stride):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 8, 8, 6)).astype(np.float32)
+    jm = jlayers.LoRAConv(10, (3, 3), strides=(stride, stride), padding=1, lora_rank=3)
+    params = _init_random(jm, 1, x)
+    ref = np.asarray(jm.apply(params, x, lora_scale=lora_scale))
+    tm = tlayers.LoRAConv2d(6, 10, 3, stride=stride, padding=1, lora_rank=3)
+    sd = {}
+    convert._inv_lora_conv(sd, "m", params["params"])
+    tm.load_state_dict({k[2:]: v for k, v in convert.to_torch(sd).items()}, strict=True)
+    with torch.no_grad():
+        got = tm(_t(x).permute(0, 3, 1, 2), lora_scale).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("fuse_silu", [False, True])
+@pytest.mark.parametrize("offset", [0.0, 3.0])
+def test_group_norm32(jlayers, fuse_silu, offset):
+    """GroupNorm32 module and the NHWC function vs JAX; ``offset`` shifts the
+    mean so the E[x^2] - mu^2 form is exercised away from zero."""
+    rng = np.random.default_rng(5)
+    x = (offset + rng.standard_normal((2, 6, 5, 16))).astype(np.float32)
+    jm = jlayers.GroupNorm32(num_groups=4, epsilon=1e-6, fuse_silu=fuse_silu)
+    params = _init_random(jm, 2, x)
+    ref = np.asarray(jm.apply(params, x))
+    tm = tlayers.GroupNorm32(4, 16, eps=1e-6, fuse_silu=fuse_silu)
+    sd = {}
+    convert._inv_gn32(sd, "m", params["params"])
+    tm.load_state_dict({k[2:]: v for k, v in convert.to_torch(sd).items()}, strict=True)
+    with torch.no_grad():
+        got = tm(_t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    scale, bias = params["params"]["norm"]["scale"], params["params"]["norm"]["bias"]
+    fn = torch_gn(_t(x), _t(scale), _t(bias), 4, 1e-6, fuse_silu).numpy()
+    np.testing.assert_allclose(fn, np.asarray(jax_gn(x, scale, bias, 4, 1e-6, fuse_silu)), rtol=1e-5, atol=1e-5)
+
+
+def test_timestep_embedding_and_adaln(jlayers):
+    rng = np.random.default_rng(6)
+    ts = np.array([0, 1, 999, 500])
+    # atol 1e-5: one fp32 ulp of exp() in the frequencies, times t ~ 1000,
+    # moves the sinusoid's argument by ~1e-5 rad
+    for dim in (8, 7):
+        np.testing.assert_allclose(
+            tlayers.get_timestep_embedding(torch.tensor(ts), dim).numpy(),
+            np.asarray(jlayers.get_timestep_embedding(ts, dim)), rtol=0, atol=1e-5)
+    x = rng.standard_normal((2, 5, 16)).astype(np.float32)
+    temb = rng.standard_normal((2, 12)).astype(np.float32)
+    jm = jlayers.AdaLayerNorm(16, lora_rank=2)
+    params = _init_random(jm, 3, x, temb)
+    tm = tlayers.AdaLayerNorm(16, 12, lora_rank=2)
+    sd = {}
+    convert._inv_lora_dense(sd, "linear", params["params"]["linear"])
+    tm.load_state_dict(convert.to_torch(sd), strict=True)
+    for ls in (0.0, 0.5):
+        with torch.no_grad():
+            got = tm(_t(x), _t(temb), ls).numpy()
+        np.testing.assert_allclose(got, np.asarray(jm.apply(params, x, temb, lora_scale=ls)), rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+
+def _qkv(rng, sq, skv, h=2, d=64, b=2):
+    return tuple(rng.standard_normal((b, s, h, d)).astype(np.float32) for s in (sq, skv, skv))
+
+
+@pytest.mark.parametrize("sq,skv", [(77, 77), (128, 64), (256, 520)])
+def test_attention_xla(sq, skv):
+    q, k, v = _qkv(np.random.default_rng(7), sq, skv, d=32)
+    got = tattn.attention_xla(_t(q), _t(k), _t(v)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jattn.attention_xla(q, k, v)), rtol=1e-5, atol=1e-5)
+    # the dispatcher sends every CPU call to the plain path, as the JAX one does off-TPU
+    got2 = tattn.dot_product_attention(_t(q), _t(k), _t(v)).numpy()
+    np.testing.assert_array_equal(got2, got)
+
+
+# fp32 ≤ 1e-5: the same algorithm, only the blocking (64 keys here, the whole
+# row in the Pallas kernel) and so the summation order differ. bf16 ≤ 4e-3:
+# the band docs/perf.md states for the Pallas kernel vs the XLA path -- the
+# blocking changes which running max each P is rounded against.
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), ("bfloat16", 4e-3)])
+@pytest.mark.parametrize("sq,skv", [(256, 640), (200, 520)])
+def test_flash_reference_matches_pallas_interpret(dtype, tol, sq, skv):
+    q, k, v = _qkv(np.random.default_rng(8), sq, skv)
+    jdt = jnp.float32 if dtype is np.float32 else jnp.bfloat16
+    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
+    ref = jattn.flash_attention(jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt), interpret=True)
+    before = tattn.flash_attention_launches
+    got = tattn.flash_attention(_t(q).to(tdt), _t(k).to(tdt), _t(v).to(tdt))
+    assert tattn.flash_attention_launches == before  # the CPU path launches nothing
+    assert got.dtype == tdt and got.shape == q.shape
+    err = np.abs(got.float().numpy() - np.asarray(ref, np.float32)).max()
+    assert err <= tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1024, 2304, 1000])
+def test_flash_kernel_matches_reference_on_card(s):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(2, s, 4, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    before = tattn.flash_attention_launches
+    out = tattn.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_launches == before + 1
+    err = (out.float() - tattn.flash_attention_reference(q, k, v).float()).abs().max().item()
+    assert err <= 4e-3, err
+    with pytest.raises(ValueError):
+        tattn.flash_attention(q.float(), k.float(), v.float())
