@@ -10,16 +10,24 @@ which ends the script with a nonzero exit on failure:
    versions, TF32 switched off for matmuls and cuDNN convolutions;
 2. build: every kernel under ``instantir_tpu_torch/csrc`` from the checkout's
    sources, one ``nvcc`` per source, all started together;
-3. kernel check: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (plus ragged ones), with time, bound, the plain
-   version's time and a one-call library yardstick;
+3. kernel check: each of the five kernels (flash forward, flash forward with
+   lse, flash dQ, flash dK/dV, fused GroupNorm+SiLU) against its plain PyTorch
+   version on the card at the main paths' shapes (plus ragged ones), with
+   time, bound, the plain version's time and a one-call library yardstick;
 4. restore at full SDXL width with synthetic weights: a UNet forward with the
-   flash path against the plain attention path, then ``restore`` with every
-   launch counter set to 0 just before and read just after; the counts must
-   match the schedule, the image must be finite and 1024² RGB;
-5. summary: one JSON line of kernels, the card line, and the result line.
+   flash path against the plain attention path, then ``restore`` with the
+   fused GroupNorm off and on, every launch counter set to 0 just before each
+   and read just after; the counts must match the schedule, the images must be
+   finite, 1024² RGB and close to each other (``RESTORE_TOL``);
+5. stage-1 training at full SDXL width: three ``Stage1Trainer.train_step``s at
+   512² (batch 2) and one at 1024² (batch 1, gradient checkpointing); loss and
+   gradient norm finite, every trainable leaf moved, no frozen leaf changed,
+   and the launch counters of every step equal to the counts derived from the
+   config;
+6. summary: one JSON line of kernels, the card line, and the result line.
 
-Imports nothing of JAX and nothing of the JAX package.
+``--only kernels`` stops after phase 3 (exit 0, no result line): the quick
+check of a kernel edit. Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -36,9 +44,21 @@ REPO = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 FLASH_TOL = 4e-3  # max abs error, bf16: the band stated for the Pallas kernel vs the XLA path
-# (B, S, H) of the flash kernel on the main path -- UNet S=4096/1024, Aggregator
+LSE_TOL = 1e-3  # max abs error of the fp32 log2-domain logsumexp (values of order 10)
+GRAD_TOL = 2e-2  # dq/dk/dv: max abs error over the largest reference value (bf16 has 8 bits)
+GN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max abs error of normalised (O(1)) outputs
+FORWARD_TOL = 5e-2  # relative L2 of one UNet forward through a kernel against the same forward through its plain path
+# relative L2 of two whole restores that differ in one kernel: four CFG-7 steps
+# amplify a one-ulp bf16 difference a few thousand-fold (5.2e-2 measured for the
+# fused GroupNorm on vs off, whose single forward differs by 2e-2)
+RESTORE_TOL = 1e-1
+# (B, S, H) of the flash kernel on the restore path -- UNet S=4096/1024, Aggregator
 # H-concat S=8192/2048, CFG batch 2 -- plus a ragged 768² shape and S % 64 != 0
 FLASH_SHAPES = [(2, 4096, 10), (2, 1024, 20), (2, 8192, 10), (2, 2048, 20), (2, 2304, 10), (2, 1000, 10)]
+# the training path's own shapes: 512² batch 2, then 1024² batch 1
+TRAIN_SHAPES = [(2, 1024, 10), (1, 4096, 10), (1, 1024, 20)]
+# (C, H, W) of GroupNorm32 in the UNet at 1024² (CFG batch 2), plus a ragged one
+GN_SHAPES = [(320, 128, 128), (640, 64, 64), (1280, 32, 32), (1920, 64, 64), (960, 128, 128), (320, 45, 45)]
 
 
 def fail(msg: str) -> None:
@@ -50,30 +70,42 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median of per-call CUDA-event times in milliseconds."""
+def time_ms(torch, fn, iters: int = 10, warmup: int = 2, groups: int = 3) -> float:
+    """Milliseconds per call: ``groups`` runs of ``iters`` back-to-back calls,
+    each run between two CUDA events; the median of the runs' means. Back to
+    back the launches queue up, so a short kernel's time is the device's and
+    not the host's launch gap -- unless the host needs longer to issue a call
+    than the device to run it, as for the Triton launcher."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(iters):
+    means = []
+    for _ in range(groups):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        means.append(start.elapsed_time(end) / iters)
+    return statistics.median(means)
 
 
-def flash_bound_ms(b: int, s: int, h: int, d: int = 64):
-    flops = 4.0 * b * h * s * s * d  # Q·K^T and P·V, 2 flops per multiply-add
-    nbytes = 4.0 * b * s * h * d * 2  # q, k, v read once, o written once, bf16
+def bound_ms(flops: float, nbytes: float):
+    """The least time the card could take: operations over the peak bf16 rate
+    or bytes over the memory rate, whichever is larger."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def flash_bound_ms(b: int, s: int, h: int, products: int = 2, tensors: int = 4, rows_fp32: int = 0, d: int = 64):
+    """``products`` S x S x d matrix products (2 flops per multiply-add) against
+    ``tensors`` bf16 [B, S, H, d] operands and ``rows_fp32`` fp32 [B, H, S] ones,
+    each read or written once."""
+    return bound_ms(2.0 * products * b * h * s * s * d, tensors * b * s * h * d * 2.0 + rows_fp32 * b * h * s * 4.0)
+
+
 def check_flash(torch, attention) -> list:
-    """Phase 3: the flash kernel against its plain version at every shape."""
+    """Phase 3, K1: the flash forward against its plain version at every shape."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -85,7 +117,7 @@ def check_flash(torch, attention) -> list:
         ref = attention.flash_attention_reference(q, k, v)
         err = (out.float() - ref.float()).abs().max().item()
         ms = time_ms(torch, lambda: attention.flash_attention(q, k, v))
-        plain_ms = time_ms(torch, lambda: attention.flash_attention_reference(q, k, v), iters=3, warmup=1)
+        plain_ms = time_ms(torch, lambda: attention.flash_attention_reference(q, k, v), iters=2, warmup=1, groups=2)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
         bound, bound_by = flash_bound_ms(b, s, h)
@@ -98,6 +130,105 @@ def check_flash(torch, attention) -> list:
         if not err <= FLASH_TOL:
             fail(f"flash kernel disagrees with flash_attention_reference at B={b} S={s} H={h}: "
                  f"max abs error {err} > {FLASH_TOL}")
+    return rows
+
+
+def check_flash_training(torch, attention) -> dict:
+    """Phase 3, K2-K4: the forward with lse and the two backward kernels
+    against their plain versions, at the restore's shapes and the trainer's.
+    On the card the plain backward runs with 1024-wide blocks (the kernel's
+    rounding points; a 64-wide Python sweep of S=8192 would take minutes)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows = {"fwd_lse": [], "bwd_dq": [], "bwd_dkv": []}
+    for b, s, h in FLASH_SHAPES + TRAIN_SHAPES:
+        q, k, v, do = (torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+        shape = dict(B=b, S=s, H=h)
+        where = f"B={b} S={s} H={h}"
+
+        out, lse = attention.flash_attention_lse(q, k, v)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = attention.flash_attention_lse_reference(q, k, v)
+        err_o = (out.float() - ref_o.float()).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        if not (err_o <= FLASH_TOL and err_lse <= LSE_TOL):
+            fail(f"flash forward-with-lse disagrees with its plain version at {where}: o {err_o} (> {FLASH_TOL}?) "
+                 f"lse {err_lse} (> {LSE_TOL}?)")
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt)
+        bound, bound_by = flash_bound_ms(b, s, h, rows_fp32=1)
+        rows["fwd_lse"].append(dict(
+            **shape, max_abs_err=max(err_o, err_lse), ms=time_ms(torch, lambda: attention.flash_attention_lse(q, k, v)),
+            plain_ms=time_ms(torch, lambda: attention.flash_attention_lse_reference(q, k, v), iters=2, warmup=1, groups=2),
+            bound_ms=bound, bound_by=bound_by,
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))))
+
+        delta = attention.flash_delta(ref_o, do)
+        dq = attention.flash_backward_dq(q, k, v, do, ref_lse, delta)
+        dk, dv = attention.flash_backward_dkv(q, k, v, do, ref_lse, delta)
+        torch.cuda.synchronize()
+
+        def plain():
+            return attention.flash_backward_reference(q, k, v, ref_o, ref_lse, do, block_q=1024, block_k=1024)
+
+        refs = plain()
+        errs = [((x.float() - r.float()).abs().max() / r.float().abs().max()).item() for x, r in zip((dq, dk, dv), refs)]
+        if not all(e <= GRAD_TOL for e in errs):
+            fail(f"flash backward disagrees with flash_backward_reference at {where}: relative max errors "
+                 f"dq {errs[0]}, dk {errs[1]}, dv {errs[2]} (> {GRAD_TOL})")
+        plain_ms = time_ms(torch, plain, iters=1, warmup=0, groups=2)
+        dlib = torch.randn_like(lib_out)
+        library_ms = time_ms(
+            torch, lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dlib, retain_graph=True), iters=5, warmup=1)
+        for name, fn, err, products, tensors in (
+            ("bwd_dq", lambda: attention.flash_backward_dq(q, k, v, do, ref_lse, delta), errs[0], 3, 5),
+            ("bwd_dkv", lambda: attention.flash_backward_dkv(q, k, v, do, ref_lse, delta), max(errs[1:]), 4, 6),
+        ):
+            bound, bound_by = flash_bound_ms(b, s, h, products=products, tensors=tensors, rows_fp32=2)
+            rows[name].append(dict(**shape, max_abs_err=err, ms=time_ms(torch, fn), plain_ms=plain_ms,
+                                   bound_ms=bound, bound_by=bound_by, library_ms=library_ms))
+        r2, r3, r4 = (rows[n][-1] for n in ("fwd_lse", "bwd_dq", "bwd_dkv"))
+        log(f"  {where}: fwd+lse err {r2['max_abs_err']:.2e} {r2['ms']:.4f} ms (bound {r2['bound_ms']:.4f}, sdpa "
+            f"{r2['library_ms']:.4f}) | dq err {r3['max_abs_err']:.2e} {r3['ms']:.4f} ms (bound {r3['bound_ms']:.4f}) | "
+            f"dkv err {r4['max_abs_err']:.2e} {r4['ms']:.4f} ms (bound {r4['bound_ms']:.4f}) | plain bwd "
+            f"{plain_ms:.2f} ms, sdpa bwd {library_ms:.4f} ms")
+        del lib_out
+    return rows
+
+
+def check_group_norm(torch, group_norm) -> list:
+    """Phase 3, K5: the fused GroupNorm(+SiLU) against ``group_norm_silu_nchw``
+    at the UNet's shapes, bf16 and fp32, with and without SiLU."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for c, hh, ww in GN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(2, c, hh, ww, generator=g, device="cuda") * 1.5 + 0.5).to(dtype)
+            scale = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
+            bias = 0.1 * torch.randn(c, generator=g, device="cuda")
+            for silu in (False, True):
+                y = group_norm.group_norm_silu_fused(x, scale, bias, 32, 1e-5, silu)
+                torch.cuda.synchronize()
+                ref = group_norm.group_norm_silu_nchw(x, scale, bias, 32, 1e-5, silu)
+                err = (y.float() - ref.float()).abs().max().item()
+                name = str(dtype).split(".")[-1]
+                where = f"C={c} {hh}x{ww} {name} silu={silu}"
+                if y.dtype != dtype or not err <= GN_TOL[name]:
+                    fail(f"fused GroupNorm disagrees with group_norm_silu_nchw at {where}: {err} > {GN_TOL[name]}")
+                bound, bound_by = bound_ms(8.0 * x.numel(), 2.0 * x.numel() * x.element_size())
+                row = dict(C=c, H=hh, W=ww, dtype=name, silu=silu, max_abs_err=err, bound_ms=bound, bound_by=bound_by,
+                           ms=time_ms(torch, lambda: group_norm.group_norm_silu_fused(x, scale, bias, 32, 1e-5, silu)),
+                           plain_ms=time_ms(torch, lambda: group_norm.group_norm_silu_nchw(x, scale, bias, 32, 1e-5, silu),
+                                            iters=5, warmup=1),
+                           library_ms=None if silu else time_ms(
+                               torch, lambda: F.group_norm(x, 32, scale.to(dtype), bias.to(dtype), 1e-5)))
+                rows.append(row)
+                lib = "-" if silu else f"{row['library_ms']:.4f}"
+                log(f"  group_norm {where}: max_abs_err {err:.2e}  kernel {row['ms']:.4f} ms  bound {bound:.4f} ms "
+                    f"({bound_by})  plain {row['plain_ms']:.4f} ms  F.group_norm {lib} ms")
     return rows
 
 
@@ -136,8 +267,64 @@ def flash_launches_by_seq(phases, unet_calls: dict, agg_calls: dict) -> dict:
     return by_seq
 
 
-def run_restore(torch, steps: int, attention):
-    """Phase 4: the port's main path at full SDXL width on the card."""
+def group_norms_per_forward(cfg, with_up: bool = True) -> dict:
+    """GroupNorm32 calls of one UNet forward (two per resnet, one per
+    Transformer2D, plus ``conv_norm_out``), in all and in the first down block
+    alone; the Aggregator (``with_up=False``) has the down and mid path only."""
+    down0 = 2 * cfg.layers_per_block + (cfg.layers_per_block if cfg.down_block_types[0] != "DownBlock2D" else 0)
+    total = 2  # the mid block's transformer and conv_norm_out
+    total += 2 * 2  # mid resnets
+    for kind in cfg.down_block_types:
+        total += cfg.layers_per_block * (3 if kind == "CrossAttnDownBlock2D" else 2)
+    if with_up:
+        for kind in cfg.up_block_types:
+            total += (cfg.layers_per_block + 1) * (3 if kind == "CrossAttnUpBlock2D" else 2)
+    else:
+        total -= 1  # no conv_norm_out
+    return {"total": total, "down0": down0}
+
+
+def expected_train_launches(cfg, lat: int, checkpointing: bool) -> dict:
+    """Kernel launches of one stage-1 ``train_step`` (no accumulation). Only the
+    image-prompt projections and the Resampler train, so the first transformer
+    block's self-attention precedes every trainable leaf: it needs no gradient
+    and runs the inference forward (K1); every later long self-attention runs
+    the forward with lse (K2) and, once, dQ (K3) and dK/dV (K4). Gradient
+    checkpointing runs every block that holds or follows a trainable leaf a
+    second time (all but the first down block, which has no attention)."""
+    n_long = sum(flash_calls_per_forward(cfg, lat, lat, with_up=True).values())
+    first_level = next(i for i, kind in enumerate(cfg.down_block_types) if kind == "CrossAttnDownBlock2D")
+    first_is_long = (lat >> first_level) ** 2 >= 512
+    no_grad = 1 if first_is_long else 0
+    passes = 2 if checkpointing else 1
+    gn = group_norms_per_forward(cfg)
+    gn_launches = gn["total"] + ((gn["total"] - gn["down0"] - 1) if checkpointing else 0)
+    return {"flash_attention_fwd": no_grad * passes, "flash_attention_fwd_lse": (n_long - no_grad) * passes,
+            "flash_attention_bwd_dq": n_long - no_grad, "flash_attention_bwd_dkv": n_long - no_grad,
+            "group_norm_silu": gn_launches}
+
+
+COUNTERS = {
+    "flash_attention_fwd": ("attention", "flash_attention_launches"),
+    "flash_attention_fwd_lse": ("attention", "flash_attention_lse_launches"),
+    "flash_attention_bwd_dq": ("attention", "flash_backward_dq_launches"),
+    "flash_attention_bwd_dkv": ("attention", "flash_backward_dkv_launches"),
+    "group_norm_silu": ("group_norm", "group_norm_launches"),
+}
+
+
+def zero_counters(mods: dict) -> None:
+    for mod, attr in COUNTERS.values():
+        setattr(mods[mod], attr, 0)
+
+
+def read_counters(mods: dict) -> dict:
+    return {name: getattr(mods[mod], attr) for name, (mod, attr) in COUNTERS.items()}
+
+
+def run_restore(torch, steps: int, mods: dict):
+    """Phase 4: the port's restore path at full SDXL width on the card, with
+    the fused GroupNorm off and on."""
     from instantir_tpu_torch.models.attention import Attention
     from instantir_tpu_torch.models.dinov2 import dinov2_large_config
     from instantir_tpu_torch.models.resampler import instantir_resampler_config
@@ -146,6 +333,7 @@ def run_restore(torch, steps: int, attention):
     from instantir_tpu_torch.pipeline.factory import build_pipeline
     from instantir_tpu_torch.pipeline.instantir import RestoreConfig, build_step_phases
 
+    group_norm = mods["group_norm"]
     res = 1024
     ucfg = sdxl_base_config(with_ip=True, lora_rank=64)
     t0 = time.time()
@@ -168,20 +356,28 @@ def run_restore(torch, steps: int, attention):
     text = torch.cat([pe, pe])
     tids = torch.tensor([[512, 512, 0, 0, 512, 512]] * 2, dtype=torch.bfloat16, device="cuda")
     attns = [m for m in pipe.unet.modules() if isinstance(m, Attention)]
-    outs = []
-    with torch.no_grad():
-        for use_flash in (True, False):
-            for m in attns:
-                m.use_flash = use_flash
-            outs.append(pipe.unet(lat, torch.tensor([501, 501], device="cuda"), text, torch.cat([pooled, pooled]),
-                                  tids, ip_hidden_states=ip, lora_scale=1.0).float())
-    for m in attns:
-        m.use_flash = True
-    rel = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
-    log(f"  UNet forward, flash vs plain attention path: relative L2 difference {rel:.3e}")
-    if not (torch.isfinite(outs[0]).all() and rel <= 5e-2):
-        fail(f"UNet forward through the flash kernel disagrees with the plain path (relative L2 {rel})")
-    del outs
+    default_fused = group_norm.USE_FUSED
+
+    def forward(use_flash: bool, fused: bool):
+        for m in attns:
+            m.use_flash = use_flash
+        group_norm.USE_FUSED = fused
+        with torch.no_grad():
+            out = pipe.unet(lat, torch.tensor([501, 501], device="cuda"), text, torch.cat([pooled, pooled]), tids,
+                            ip_hidden_states=ip, lora_scale=1.0).float()
+        for m in attns:
+            m.use_flash = True
+        group_norm.USE_FUSED = default_fused
+        return out
+
+    plain = forward(use_flash=False, fused=False)
+    for what, out in (("flash vs plain attention path", forward(True, False)),
+                      ("fused vs plain GroupNorm", forward(False, True))):
+        rel = ((out - plain).norm() / plain.norm()).item()
+        log(f"  UNet forward, {what}: relative L2 difference {rel:.3e}")
+        if not (torch.isfinite(out).all() and rel <= FORWARD_TOL):
+            fail(f"UNet forward, {what}: relative L2 {rel} > {FORWARD_TOL}")
+    del plain, out
 
     cfg = RestoreConfig(num_inference_steps=steps, guidance_scale=7.0, preview_start=0.1, control_guidance_end=0.7)
     phases = build_step_phases(cfg)
@@ -189,57 +385,179 @@ def run_restore(torch, steps: int, attention):
     unet_calls = flash_calls_per_forward(ucfg, lat_hw, lat_hw, with_up=True)
     agg_calls = flash_calls_per_forward(ucfg, lat_hw, lat_hw, with_up=False, concat=2)
     by_seq = flash_launches_by_seq(phases, unet_calls, agg_calls)
-    expected = sum(by_seq.values())
+    n_unet = sum({"A": 1, "B": 2, "C": 1}[p["mode"]] * len(p["t"]) for p in phases)
+    n_agg = sum(len(p["t"]) for p in phases if p["mode"] != "C")
+    expected = {"flash_attention_fwd": sum(by_seq.values()),
+                "group_norm_silu": n_unet * group_norms_per_forward(ucfg)["total"]
+                + n_agg * group_norms_per_forward(ucfg, with_up=False)["total"]}
     log(f"  phases {[(p['mode'], len(p['t'])) for p in phases]}; flash launches per UNet forward {unet_calls}, "
         f"per Aggregator forward {agg_calls}; expected per restore: {expected}")
 
-    t0 = time.time()
-    pipe.restore(lq, pe, pooled, cfg=cfg, output_type="pt")  # warm-up: cuDNN/cuBLAS plans, allocator
-    torch.cuda.synchronize()
-    warm_s = time.time() - t0
+    def restore_once():
+        t0 = time.time()
+        image, _ = pipe.restore(lq, pe, pooled, cfg=cfg, output_type="pt",
+                                generator=torch.Generator(device="cuda").manual_seed(7))
+        torch.cuda.synchronize()
+        return image, time.time() - t0
 
-    attention.flash_attention_launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    image, _ = pipe.restore(lq, pe, pooled, cfg=cfg, output_type="pt")
-    torch.cuda.synchronize()
-    sec = time.time() - t0
-    launches = {"flash_attention_fwd": attention.flash_attention_launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  restore {res}² {steps} steps: {sec:.3f} s/image (first call {warm_s:.3f} s), peak memory {peak_gb:.2f} GB, "
-        f"flash launches {launches['flash_attention_fwd']}")
-    if tuple(image.shape) != (1, res, res, 3):
-        fail(f"restored image has shape {tuple(image.shape)}, expected (1, {res}, {res}, 3)")
-    if not torch.isfinite(image).all():
-        fail("restored image is not finite")
-    if launches["flash_attention_fwd"] != expected:
-        fail(f"flash kernel launched {launches['flash_attention_fwd']} times in the restore, expected {expected}")
-    return launches, sec, by_seq
+    # one warm-up each (cuDNN/cuBLAS plans, allocator, Triton compiles), then the
+    # timed runs in turns, because the eager restore is bound by the host, whose
+    # speed drifts by tens of percent within a call (it shares its CPU cores); a
+    # setting's time is the smallest of its runs, contention only ever adding
+    runs = {}
+    for fused in (False, True):
+        group_norm.USE_FUSED = fused
+        runs[fused] = dict(warm=restore_once()[1], secs=[])
+    for fused in (False, True, True, False) * (2 if steps <= 8 else 1):
+        group_norm.USE_FUSED = fused
+        zero_counters(mods)
+        torch.cuda.reset_peak_memory_stats()
+        image, sec = restore_once()
+        launches = read_counters(mods)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  restore {res}² {steps} steps, fused GroupNorm {'on' if fused else 'off'}: {sec:.3f} s/image "
+            f"(first call {runs[fused]['warm']:.3f} s), peak memory {peak_gb:.2f} GB, launches {launches}")
+        if tuple(image.shape) != (1, res, res, 3):
+            fail(f"restored image has shape {tuple(image.shape)}, expected (1, {res}, {res}, 3)")
+        if not torch.isfinite(image).all():
+            fail("restored image is not finite")
+        want = dict(expected, group_norm_silu=expected["group_norm_silu"] if fused else 0)
+        for name, n in launches.items():
+            if n != want.get(name, 0):
+                fail(f"{name} launched {n} times in the restore (fused GroupNorm {fused}), expected {want.get(name, 0)}")
+        runs[fused]["secs"].append(sec)
+        runs[fused].update(sec=min(runs[fused]["secs"]), image=image.float(), launches=launches)
+    group_norm.USE_FUSED = default_fused
+    rel = ((runs[True]["image"] - runs[False]["image"]).norm() / runs[False]["image"].norm()).item()
+    faster = min(runs, key=lambda f: runs[f]["sec"])
+    gap = abs(runs[True]["sec"] - runs[False]["sec"]) / runs[not faster]["sec"]
+    spread = max((max(r["secs"]) - min(r["secs"])) / min(r["secs"]) for r in runs.values())
+    log(f"  fused GroupNorm on vs off: {runs[True]['sec']:.3f} vs {runs[False]['sec']:.3f} s/image (best of "
+        f"{['%.3f' % x for x in runs[True]['secs']]} vs {['%.3f' % x for x in runs[False]['secs']]}): "
+        f"{'on' if faster else 'off'} is faster by {gap:.1%}, against a spread of {spread:.1%} between one setting's "
+        f"own runs{' (unresolved: the gap is inside the spread)' if gap < spread else ''}; relative L2 difference "
+        f"of the images {rel:.3e}; the port's default: {'on' if default_fused else 'off'}")
+    if not rel <= RESTORE_TOL:
+        fail(f"restores with the fused GroupNorm on and off differ by relative L2 {rel} > {RESTORE_TOL}")
+    chosen = runs[default_fused]
+    return (pipe, ucfg, chosen["launches"], chosen["sec"], by_seq, {f: runs[f]["sec"] for f in runs},
+            runs[True]["launches"])
 
 
-def kernel_entry(rows, launches: int, weight: dict) -> dict:
-    """One ``kernels`` entry: per-launch numbers averaged over the main
-    path's launches, weighted by the launches at each sequence length (the
-    ragged check shapes carry no weight); every shape's own numbers are under
-    ``shapes``."""
-    main = [r for r in rows if r["S"] in weight]
-    total = sum(weight[r["S"]] for r in main)
+def _checksums(torch, params: dict) -> dict:
+    """Per-leaf (sum, sum of squares) in fp64: changes with any element."""
+    out = {}
+    for name, p in params.items():
+        x = p.detach().double()
+        out[name] = (x.sum().item(), (x * x).sum().item())
+    return out
 
-    def mean(key):
-        return sum(r[key] * weight[r["S"]] for r in main) / total
 
-    bound_by = "operations" if all(r["bound_by"] == "operations" for r in main) else "bytes"
+def run_training(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
+    """Phase 5: stage-1 (DCP adapter) training steps at full SDXL width."""
+    from instantir_tpu_torch.train.stage1_adapter import Stage1Config, Stage1Trainer
+
+    cfg = Stage1Config(train_batch_size=2, resolution=512, lr_warmup_steps=0, max_train_steps=1000, output_dir="")
+    del pipe.aggregator  # stage 1 trains without it
+    torch.cuda.empty_cache()
+    trainer = Stage1Trainer(pipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder, cfg, device="cuda")
+    named = dict(trainer.named_parameters())
+    trainable = {n: p for n, p in named.items() if p.requires_grad}
+    frozen = {n: p for n, p in named.items() if not p.requires_grad}
+    log(f"  stage-1 trainer: {sum(p.numel() for p in trainable.values()) / 1e6:.2f} M trainable parameters in "
+        f"{len(trainable)} leaves, {sum(p.numel() for p in frozen.values()) / 1e9:.3f} B frozen in {len(frozen)}")
+    before_train, before_frozen = _checksums(torch, trainable), _checksums(torch, frozen)
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def make_batch(bsz: int, res: int):
+        gt = torch.rand(bsz, res, res, 3, generator=g, device="cuda") * 2.0 - 1.0
+        lq = (gt + 0.2 * torch.randn(gt.shape, generator=g, device="cuda")).clamp(-1.0, 1.0)
+        cond = {"prompt_embeds": (torch.randn(bsz, 77, 2048, generator=g, device="cuda") * 0.1).to(torch.bfloat16),
+                "pooled_embeds": (torch.randn(bsz, 1280, generator=g, device="cuda") * 0.1).to(torch.bfloat16),
+                "time_ids": torch.tensor([[res, res, 0, 0, res, res]] * bsz, dtype=torch.bfloat16, device="cuda")}
+        return trainer.prepare_batch({"lq": lq, "gt": gt}, cond)
+
+    def step(batch, expected: dict, what: str):
+        zero_counters(mods)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        metrics = trainer.train_step(batch, generator=g)
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        launches = read_counters(mods)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        log(f"  {what}: loss {loss:.5f}  grad_norm {gnorm:.4e}  {sec:.3f} s/step  peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  launches {launches}  on {card_line}")
+        if not (loss == loss and abs(loss) != float("inf") and gnorm == gnorm and abs(gnorm) != float("inf")):
+            fail(f"{what}: loss {loss} or grad_norm {gnorm} is not finite")
+        if launches != expected:
+            fail(f"{what}: kernel launches {launches} differ from the counts derived from the config {expected}")
+        return launches, sec
+
+    fused = mods["group_norm"].USE_FUSED
+    expected = expected_train_launches(ucfg, 512 // 8, checkpointing=False)
+    if not fused:
+        expected["group_norm_silu"] = 0
+    log(f"  512² batch 2, no checkpointing; expected launches per step {expected}")
+    batch = make_batch(2, 512)
+    total = {name: 0 for name in COUNTERS}
+    secs = []
+    for i in range(3):
+        launches, sec = step(batch, expected, f"train_step {i + 1}/3 at 512² batch 2")
+        secs.append(sec)
+        for name, n in launches.items():
+            total[name] += n
+
+    trainer.unet.gradient_checkpointing = True
+    expected_big = expected_train_launches(ucfg, 1024 // 8, checkpointing=True)
+    if not fused:
+        expected_big["group_norm_silu"] = 0
+    log(f"  1024² batch 1, gradient checkpointing; expected launches {expected_big}")
+    big, big_sec = step(make_batch(1, 1024), expected_big, "train_step at 1024² batch 1, checkpointing")
+    trainer.unet.gradient_checkpointing = False
+
+    after_train, after_frozen = _checksums(torch, trainable), _checksums(torch, frozen)
+    stuck = [n for n in trainable if after_train[n] == before_train[n]]
+    changed = [n for n in frozen if after_frozen[n] != before_frozen[n]]
+    if stuck:
+        fail(f"{len(stuck)} trainable leaves did not move in 4 steps, e.g. {stuck[:5]}")
+    if changed:
+        fail(f"{len(changed)} frozen leaves changed, e.g. {changed[:5]}")
+    log(f"  all {len(trainable)} trainable leaves moved, none of the {len(frozen)} frozen leaves changed; "
+        f"512² steps {['%.3f' % s for s in secs]} s (the first includes warm-up), 1024² step {big_sec:.3f} s")
+    return {"train_512": total, "train_1024": big, "sec_512": secs, "sec_1024": big_sec}
+
+
+def _weighted(rows, key, weights):
+    total = sum(weights)
+    return sum(r[key] * w for r, w in zip(rows, weights)) / total
+
+
+def kernel_entry(name, route, source, replaces, rows, weights, launches, by_path) -> dict:
+    """One ``kernels`` entry: per-launch numbers averaged over the shapes the
+    kernel's main path gives it, weighted by ``weights`` (one per row; the
+    ragged and other check shapes carry 0); every shape's own numbers are
+    under ``shapes``."""
+    main = [(r, w) for r, w in zip(rows, weights) if w]
+    mrows, mw = [r for r, _ in main], [w for _, w in main]
+    libs = [(r, w) for r, w in main if r["library_ms"] is not None]
+    bound_by = "operations" if all(r["bound_by"] == "operations" for r in mrows) else "bytes"
     return {
-        "name": "flash_attention_fwd", "route": "cuda", "source": "instantir_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "instantir_tpu/ops/attention.py:221", "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": mean("ms"), "plain_ms": mean("plain_ms"),
-        "bound_ms": mean("bound_ms"), "bound_by": bound_by, "library_ms": mean("library_ms"), "shapes": rows,
+        "name": name, "route": route, "source": source, "replaces": replaces, "launches": launches,
+        "launches_by_path": by_path, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": _weighted(mrows, "ms", mw), "plain_ms": _weighted(mrows, "plain_ms", mw),
+        "bound_ms": _weighted(mrows, "bound_ms", mw), "bound_by": bound_by,
+        "library_ms": _weighted([r for r, _ in libs], "library_ms", [w for _, w in libs]) if libs else None,
+        "shapes": rows,
     }
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="denoise steps of the full-width restore (30 = config #4)")
+    ap.add_argument("--only", choices=["kernels"], default=None,
+                    help="'kernels': stop after the kernel check (no result line)")
     args = ap.parse_args()
 
     if not (REPO / "instantir_tpu_torch" / "csrc").is_dir():
@@ -277,19 +595,56 @@ def main() -> None:
                 log(f"    {name}: {line.strip()}")
 
     # 3. kernel check
-    from instantir_tpu_torch.ops import attention
+    from instantir_tpu_torch.ops import attention, group_norm
 
+    mods = {"attention": attention, "group_norm": group_norm}
     log("[3] kernel check against the plain versions")
-    rows = check_flash(torch, attention)
+    k1_rows = check_flash(torch, attention)
+    train_rows = check_flash_training(torch, attention)
+    gn_rows = check_group_norm(torch, group_norm)
+    if args.only == "kernels":
+        log("kernel check passed (--only kernels: no restore, no training, no result line)")
+        return
 
     # 4. restore
-    log(f"[4] restore at SDXL width, {args.steps} steps")
-    launches, sec, by_seq = run_restore(torch, args.steps, attention)
+    log(f"[4] restore at SDXL width, {args.steps} steps, fused GroupNorm off and on")
+    pipe, ucfg, restore_launches, sec, by_seq, restore_secs, fused_launches = run_restore(torch, args.steps, mods)
 
-    # 5. summary
-    entry = kernel_entry(rows, launches["flash_attention_fwd"], by_seq)
-    log(f"[5] {args.steps}-step restore: {sec:.3f} s/image on {card_line}")
-    log(json.dumps({"kernels": [entry]}))
+    # 5. training
+    log("[5] stage-1 training at SDXL width")
+    train = run_training(torch, pipe, ucfg, mods, card_line)
+
+    # 6. summary
+    def by_path(name):
+        return {"restore": restore_launches[name], "restore_fused_group_norm": fused_launches[name],
+                "train_512": train["train_512"][name], "train_1024": train["train_1024"][name]}
+
+    src = "instantir_tpu_torch/csrc/"
+    jax_attn = "instantir_tpu/ops/attention.py"
+    train_weights = [1 if (r["B"], r["S"], r["H"]) == TRAIN_SHAPES[0] else 0 for r in train_rows["fwd_lse"]]
+    gn_weights = [1 if (r["dtype"] == "bfloat16" and (r["C"], r["H"], r["W"]) != GN_SHAPES[-1]) else 0 for r in gn_rows]
+    entries = [
+        kernel_entry("flash_attention_fwd", "cuda", src + "flash_fwd.cu", jax_attn + ":221", k1_rows,
+                     [by_seq.get(r["S"], 0) for r in k1_rows], restore_launches["flash_attention_fwd"],
+                     by_path("flash_attention_fwd")),
+        kernel_entry("flash_attention_fwd_lse", "cuda", src + "flash_fwd.cu", jax_attn + ":504", train_rows["fwd_lse"],
+                     train_weights, train["train_512"]["flash_attention_fwd_lse"], by_path("flash_attention_fwd_lse")),
+        kernel_entry("flash_attention_bwd_dq", "cuda", src + "flash_bwd.cu", jax_attn + ":597", train_rows["bwd_dq"],
+                     train_weights, train["train_512"]["flash_attention_bwd_dq"], by_path("flash_attention_bwd_dq")),
+        kernel_entry("flash_attention_bwd_dkv", "cuda", src + "flash_bwd.cu", jax_attn + ":617", train_rows["bwd_dkv"],
+                     train_weights, train["train_512"]["flash_attention_bwd_dkv"], by_path("flash_attention_bwd_dkv")),
+        kernel_entry("group_norm_silu", "triton", "instantir_tpu_torch/ops/group_norm.py",
+                     "instantir_tpu/ops/group_norm.py:72", gn_rows, gn_weights,
+                     fused_launches["group_norm_silu"],
+                     by_path("group_norm_silu")),
+    ]
+    for e in entries:
+        if not sum(e["launches_by_path"].values()) > 0:
+            fail(f"kernel {e['name']} was launched no time on any main path")
+    log(f"[6] {args.steps}-step restore: {sec:.3f} s/image (fused GroupNorm off {restore_secs[False]:.3f}, on "
+        f"{restore_secs[True]:.3f}); stage-1 step at 512² batch 2: {min(train['sec_512']):.3f} s; at 1024² batch 1 "
+        f"with checkpointing: {train['sec_1024']:.3f} s; on {card_line}")
+    log(json.dumps({"kernels": entries}))
     log(card_line)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

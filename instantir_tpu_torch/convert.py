@@ -8,10 +8,19 @@ and ``[out, in]`` linear weights, which are the port's parameter names, so
 ``module.load_state_dict(to_torch(export_x(tree)), strict=True)`` carries a
 JAX model's weights across. The tree may hold numpy arrays or anything
 ``np.asarray`` accepts.
+
+The exporters are linear re-layouts, so a *gradient* tree of a JAX train step
+(the same tree shape as the parameters, zeros at frozen leaves) goes through
+them unchanged: ``export_named`` runs several models' trees through their
+exporters and returns ``{"<model>.<parameter name>": array}``, the names of
+``train.common.named_parameters``, so gradients and updated parameters compare
+name by name. ``export_ip_adapter`` and ``export_adapter`` lay the stage-1
+result out as the reference's ``adapter.pt`` payload.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -251,3 +260,48 @@ def export_dinov2(tree: Dict[str, Any], num_layers: int) -> Dict[str, np.ndarray
 def to_torch(state: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """numpy state dict -> tensors (``load_state_dict`` casts to each parameter's dtype)."""
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in state.items()}
+
+
+_EXPORTERS = {"unet": export_unet, "aggregator": export_aggregator, "resampler": export_resampler, "vae": export_vae}
+
+
+def export_named(trees: Dict[str, Dict[str, Any]]) -> Dict[str, np.ndarray]:
+    """``{"unet": tree, "resampler": tree, ...}`` (parameters or gradients)
+    -> one flat dict under ``<model>.<parameter name>``."""
+    out: Dict[str, np.ndarray] = {}
+    for model, tree in trees.items():
+        for name, value in _EXPORTERS[model](tree).items():
+            out[f"{model}.{name}"] = value
+    return out
+
+
+_PROCESSOR = re.compile(r"^(down_blocks|up_blocks|mid_block)\.(.*\.attn2)\.processor\.(.+)$")
+
+
+def export_ip_adapter(unet_state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's UNet state dict -> ``adapter.pt["ip_adapter"]``: the ip
+    projections of every cross-attention under ``{2n+1}.to_k_ip.weight``-style
+    names, n counting the cross-attentions in the reference's processor order
+    (down, then up, then mid; attn1 takes the even numbers). LoRA leaves are
+    left out."""
+    group_order = {"down_blocks": 0, "up_blocks": 1, "mid_block": 2}
+    found: Dict[tuple, Dict[str, Any]] = {}
+    for key, value in unet_state.items():
+        m = _PROCESSOR.match(key)
+        if m is None or "lora_" in m.group(3):
+            continue
+        order = (group_order[m.group(1)], tuple(int(x) for x in re.findall(r"\d+", m.group(2))))
+        found.setdefault(order, {})[m.group(3)] = value
+    out: Dict[str, Any] = {}
+    for n, order in enumerate(sorted(found)):
+        for leaf, value in found[order].items():
+            out[f"{2 * n + 1}.{leaf}"] = value
+    return out
+
+
+def export_adapter(unet_state: Dict[str, Any], resampler_state: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """The reference-format ``adapter_ckpt.pt`` payload ``{image_proj,
+    ip_adapter}`` from the port's state dicts; the reference loads
+    ``image_proj`` strictly, so no LoRA leaf may leak in."""
+    return {"image_proj": {k: v for k, v in resampler_state.items() if "lora_" not in k},
+            "ip_adapter": export_ip_adapter(unet_state)}

@@ -3,6 +3,14 @@
 // Replaces the TPU kernel instantir_tpu/ops/attention.py::flash_attention
 // (_flash_kernel_resident / _flash_kernel): softmax(q k^T * scale) v with no
 // bias or mask, computed blockwise with an online softmax in the log2 domain.
+// A second entry point of the same kernel (template flag kWriteLse) replaces
+// ::_flash_forward_lse (_flash_fwd_lse_kernel_resident / _flash_fwd_lse_kernel),
+// the training forward: it also stores, per q row, the log2-domain logsumexp
+// lse2 = m + log2(l) in fp32 as lse[B, H, Sq], from which the backward
+// kernels (flash_bwd.cu) rebuild P = exp2(s2 - lse2). That is one more 4-byte
+// store per q row, so its bound is the forward's. Rows at or past sq of a
+// ragged last tile are not stored; kv_len >= 1 (checked by the entry point)
+// means every row has l > 0, so lse2 is finite.
 //
 // Numerics follow the Pallas kernel, not its blocking:
 //   * q is multiplied by scale*log2(e) in fp32 and rounded back to bf16;
@@ -68,10 +76,11 @@ __device__ __forceinline__ void mma_m16n8k16(float d[4], const uint32_t a[4], co
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+template <bool kWriteLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_d64_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                          int heads, int sq, int skv, float qscale) {
+                          float* __restrict__ lse, int heads, int sq, int skv, float qscale) {
   __shared__ __align__(16) __nv_bfloat16 s_q[kBlockQ * kPitch];
   __shared__ __align__(16) __nv_bfloat16 s_k[kBlockK * kPitch];
   __shared__ __align__(16) __nv_bfloat16 s_vt[kD * kPitch];  // [d][key]
@@ -247,21 +256,41 @@ flash_fwd_bf16_d64_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
           pack_bf16x2(acc[j][2] / l_run[1], acc[j][3] / l_run[1]);
     }
   }
+  if (kWriteLse && t == 0) {  // one thread of each group holds the row's m and l
+    float* lb = lse + (size_t)blockIdx.y * sq;  // [B, H, Sq]
+    if (s_lo < sq) lb[s_lo] = m_run[0] + log2f(l_run[0]);
+    if (s_hi < sq) lb[s_hi] = m_run[1] + log2f(l_run[1]);
+  }
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes). Launches on `stream` and returns
-// the cudaError_t of the launch (0 on success); it never synchronises.
-extern "C" int instantir_flash_fwd_bf16_d64(const void* q, const void* k, const void* v, void* o,
-                                            int batch, int heads, int sq, int skv, float qscale,
-                                            void* stream) {
+template <bool kWriteLse>
+int launch_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int heads,
+                     int sq, int skv, float qscale, void* stream) {
   if (batch <= 0 || heads <= 0 || sq <= 0 || skv <= 0 || (long long)batch * heads > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, batch * heads);
-  flash_fwd_bf16_d64_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_bf16_d64_kernel<kWriteLse><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), heads, sq, skv, qscale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), heads, sq,
+      skv, qscale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). Each launches on `stream` and
+// returns the cudaError_t of the launch (0 on success); it never synchronises.
+extern "C" int instantir_flash_fwd_bf16_d64(const void* q, const void* k, const void* v, void* o,
+                                            int batch, int heads, int sq, int skv, float qscale,
+                                            void* stream) {
+  return launch_flash_fwd<false>(q, k, v, o, nullptr, batch, heads, sq, skv, qscale, stream);
+}
+
+// The training forward: also writes lse[B, H, Sq] (fp32, log2 domain).
+extern "C" int instantir_flash_fwd_lse_bf16_d64(const void* q, const void* k, const void* v, void* o,
+                                                void* lse, int batch, int heads, int sq, int skv,
+                                                float qscale, void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_flash_fwd<true>(q, k, v, o, lse, batch, heads, sq, skv, qscale, stream);
 }

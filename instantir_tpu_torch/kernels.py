@@ -24,7 +24,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("flash_fwd",)
+SOURCES = ("flash_fwd", "flash_bwd")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # nvcc's stderr (ptxas register / shared-memory report) of builds made by this process

@@ -1,0 +1,18 @@
+"""Loss library of the port (twin of ``instantir_tpu/losses``)."""
+
+from instantir_tpu_torch.losses.loss_config import LossesConfig, SingleLossConfig, load_losses_config
+from instantir_tpu_torch.losses.losses import (
+    LOSS_REGISTRY,
+    DiffusionLossInputs,
+    HuberLoss,
+    L1Loss,
+    L2Loss,
+    Loss,
+    WeightedNoiseLoss,
+    build_losses,
+)
+
+__all__ = [
+    "LOSS_REGISTRY", "DiffusionLossInputs", "HuberLoss", "L1Loss", "L2Loss", "Loss", "LossesConfig",
+    "SingleLossConfig", "WeightedNoiseLoss", "build_losses", "load_losses_config",
+]

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from instantir_tpu_torch.ops.group_norm import group_norm_silu_nchw
+from instantir_tpu_torch.ops.group_norm import group_norm_silu
 
 
 class LoRALinear(nn.Linear):
@@ -69,7 +69,8 @@ class LoRAConv2d(nn.Conv2d):
 
 class GroupNorm32(nn.Module):
     """GroupNorm with fp32 statistics in the E[x^2] - mu^2 form (+ optional
-    fused SiLU); fp32 ``weight``/``bias``; output in ``dtype``."""
+    fused SiLU); fp32 ``weight``/``bias``; output in ``dtype``. Whether the
+    fused kernel or the plain version runs is ``ops.group_norm.USE_FUSED``."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5, fuse_silu: bool = False,
                  dtype=torch.float32, device=None):
@@ -82,7 +83,7 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = group_norm_silu_nchw(x, self.weight, self.bias, self.num_groups, self.eps, self.fuse_silu)
+        y = group_norm_silu(x, self.weight, self.bias, self.num_groups, self.eps, self.fuse_silu)
         return y.to(self.dtype)
 
 

@@ -17,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from instantir_tpu_torch.models.layers import GroupNorm32, TimestepEmbedding, get_timestep_embedding
 from instantir_tpu_torch.models.unet_blocks import (
@@ -50,6 +51,10 @@ class UNetConfig:
     time_aware_ip: bool = True
     lora_rank: int = 0  # previewer LoRA rank (0 = no LoRA params)
     lora_alpha: float = 1.0
+    # recompute each down/mid/up block in the backward pass instead of storing
+    # its activations (``torch.utils.checkpoint`` per block); the parameters
+    # and the outputs are the same with the flag on or off
+    gradient_checkpointing: bool = False
 
     @property
     def time_embed_dim(self) -> int:
@@ -142,6 +147,7 @@ class UNet2DConditionModel(nn.Module):
         cfg = config
         self.config = cfg
         self.dtype = dtype
+        self.gradient_checkpointing = cfg.gradient_checkpointing  # may be switched between calls
         common = dict(dtype=dtype, device=device)
         lora = dict(lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
         c0 = cfg.block_out_channels[0]
@@ -202,19 +208,24 @@ class UNet2DConditionModel(nn.Module):
         attn_kw = dict(encoder_hidden_states=encoder_hidden_states, ip_hidden_states=ip_hidden_states,
                        attn_temb=emb, lora_scale=lora_scale, ip_scale=ip_scale)
 
+        def run(block, *args, **kwargs):
+            if self.gradient_checkpointing and torch.is_grad_enabled():
+                return checkpoint(block, *args, use_reentrant=False, **kwargs)
+            return block(*args, **kwargs)
+
         sample = self.conv_in(sample.to(self.dtype))
         down_res = (sample,)
         for block in self.down_blocks:
             if isinstance(block, CrossAttnDownBlock2D):
-                sample, res = block(sample, emb, **attn_kw)
+                sample, res = run(block, sample, emb, **attn_kw)
             else:
-                sample, res = block(sample, emb, lora_scale)
+                sample, res = run(block, sample, emb, lora_scale)
             down_res = down_res + res
 
         if down_block_additional_residuals is not None:
             down_res = tuple(s + r.to(s.dtype) for s, r in zip(down_res, down_block_additional_residuals))
 
-        sample = self.mid_block(sample, emb, **attn_kw)
+        sample = run(self.mid_block, sample, emb, **attn_kw)
         if mid_block_additional_residual is not None:
             sample = sample + mid_block_additional_residual.to(sample.dtype)
 
@@ -222,8 +233,8 @@ class UNet2DConditionModel(nn.Module):
             num_res = len(block.resnets)
             res, down_res = down_res[-num_res:], down_res[:-num_res]
             if isinstance(block, CrossAttnUpBlock2D):
-                sample = block(sample, res, emb, **attn_kw)
+                sample = run(block, sample, res, emb, **attn_kw)
             else:
-                sample = block(sample, res, emb, lora_scale)
+                sample = run(block, sample, res, emb, lora_scale)
 
         return self.conv_out(self.conv_norm_out(sample))

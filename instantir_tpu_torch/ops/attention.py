@@ -1,4 +1,4 @@
-"""Attention ops: the hand-written Hopper flash-attention forward + the plain path.
+"""Attention ops: the hand-written Hopper flash-attention kernels + the plain path.
 
 Twin of ``instantir_tpu/ops/attention.py``. Layout convention: ``[batch, seq,
 heads, head_dim]`` (BSHD) at every public function, as in the JAX package.
@@ -9,22 +9,36 @@ heads, head_dim]`` (BSHD) at every public function, as in the JAX package.
   Pallas kernel ``flash_attention``. On a CUDA tensor it launches the kernel or
   raises; only a tensor on the CPU takes the plain version,
   ``flash_attention_reference``.
+* ``flash_attention_lse`` -- the training forward (port of
+  ``_flash_forward_lse``): the same kernel plus the per-row log2-domain
+  logsumexp ``[B, H, Sq]`` fp32; plain version ``flash_attention_lse_reference``.
+* ``flash_backward_dq`` / ``flash_backward_dkv`` -- the wrappers of
+  ``csrc/flash_bwd.cu``, the ports of the two Pallas kernels of
+  ``_flash_backward``; plain version ``flash_backward_reference``.
+* ``flash_attention_diff`` -- the ``torch.autograd.Function`` that ties them
+  together (twin of ``_flash_diff``).
 * ``dot_product_attention`` -- the dispatch rule of the JAX package: a
   self-attention with no bias, kv >= 512 and q >= 128 on the accelerator goes
-  to the flash kernel; everything else goes to ``attention_xla``.
+  to the flash kernels (the differentiable one when an input needs a
+  gradient); everything else goes to ``attention_xla``.
+
+Every wrapper has its own launch counter, bumped only where it launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 LOG2E = 1.4426950408889634
 
-# Launches of the flash kernel in this process (bumped only where it launches).
-flash_attention_launches = 0
+# Launches of each kernel in this process (bumped only where it launches).
+flash_attention_launches = 0  # forward without lse (inference)
+flash_attention_lse_launches = 0  # forward with lse (training)
+flash_backward_dq_launches = 0
+flash_backward_dkv_launches = 0
 
 
 def attention_xla(
@@ -45,18 +59,20 @@ def attention_xla(
     return out.to(q.dtype)
 
 
-def flash_attention_reference(
+def flash_attention_lse_reference(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     scale: Optional[float] = None,
     block_k: int = 64,
-) -> torch.Tensor:
-    """Plain-PyTorch version of the flash kernel: the same blocked online
-    softmax with the same rounding points (q pre-scaled by scale·log2e in fp32
-    and rounded to its dtype; fp32 scores, max and sum with exp2; P rounded to
-    the V dtype before P·V; fp32 accumulation; O = acc / l in the input dtype).
-    A ragged last K/V block is simply shorter. q/k/v: [B, S, H, D]."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-PyTorch version of the flash forward kernels: the same blocked
+    online softmax with the same rounding points (q pre-scaled by scale·log2e
+    in fp32 and rounded to its dtype; fp32 scores, max and sum with exp2; P
+    rounded to the V dtype before P·V; fp32 accumulation; O = acc / l in the
+    input dtype). A ragged last K/V block is simply shorter. q/k/v:
+    [B, S, H, D]. Returns ``(o, lse2)`` with ``lse2 = m + log2 l`` (the
+    logsumexp of the log2-domain scores), fp32 ``[B, H, Sq]``."""
     d = q.shape[-1]
     if scale is None:
         scale = d**-0.5
@@ -78,45 +94,159 @@ def flash_attention_reference(
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), vb.float())
         m = m_new
-    return (acc / l).to(q.dtype).permute(0, 2, 1, 3)
+    return (acc / l).to(q.dtype).permute(0, 2, 1, 3), (m + torch.log2(l)).squeeze(-1)
 
 
-_flash_fn = None
+def flash_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    block_k: int = 64,
+) -> torch.Tensor:
+    """The output of ``flash_attention_lse_reference`` alone."""
+    return flash_attention_lse_reference(q, k, v, scale, block_k)[0]
 
 
-def _flash_kernel():
-    global _flash_fn
-    if _flash_fn is None:
+def flash_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    scale: Optional[float] = None,
+    block_q: int = 64,
+    block_k: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain-PyTorch version of the two backward kernels: the blocked dQ sweep
+    (per q block over K/V blocks) and the blocked dK/dV sweep (per K/V block
+    over q blocks) of the Pallas bodies, with their rounding points:
+    ``q2 = dtype(fp32(q)·scale·log2e)``, ``k2`` likewise; ``p = exp2(s - lse2)``
+    in fp32; P and dS rounded to the input dtype before their products; fp32
+    accumulators; ``dq = dtype(acc·scale)``, ``dk = dtype(acc·scale)``,
+    ``dv = dtype(acc)``. ``D = rowsum(dO∘O)`` in fp32. q/k/v/o/do: [B, S, H, D];
+    lse: [B, H, Sq] fp32 (log2 domain). Returns (dq, dk, dv) in [B, S, H, D]."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = d**-0.5
+    dt = q.dtype
+
+    def fold(x):
+        return x.permute(0, 2, 1, 3)  # [B, H, S, D]
+
+    qf, kf, vf, dof = fold(q), fold(k), fold(v), fold(do)
+    delta = (dof.float() * fold(o).float()).sum(dim=-1, keepdim=True)  # [B, H, Sq, 1]
+    lse_c = lse.unsqueeze(-1)  # [B, H, Sq, 1]
+    q2 = (qf.float() * (scale * LOG2E)).to(dt).float()
+    k2 = (kf.float() * (scale * LOG2E)).to(dt).float()
+    qf32, kf32, vf32, dof32 = qf.float(), kf.float(), vf.float(), dof.float()
+    sq, skv = qf.shape[2], kf.shape[2]
+
+    dq = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+    for i0 in range(0, sq, block_q):
+        i = slice(i0, i0 + block_q)
+        for j0 in range(0, skv, block_k):
+            j = slice(j0, j0 + block_k)
+            s = torch.matmul(q2[:, :, i], kf32[:, :, j].transpose(-1, -2))
+            p = torch.exp2(s - lse_c[:, :, i])
+            dp = torch.matmul(dof32[:, :, i], vf32[:, :, j].transpose(-1, -2))
+            ds = (p * (dp - delta[:, :, i])).to(dt).float()
+            dq[:, :, i] += torch.matmul(ds, kf32[:, :, j])
+
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    lse_r, delta_r = lse_c.transpose(-1, -2), delta.transpose(-1, -2)  # [B, H, 1, Sq]
+    for j0 in range(0, skv, block_k):
+        j = slice(j0, j0 + block_k)
+        for i0 in range(0, sq, block_q):
+            i = slice(i0, i0 + block_q)
+            s_t = torch.matmul(k2[:, :, j], qf32[:, :, i].transpose(-1, -2))
+            p_t = torch.exp2(s_t - lse_r[:, :, :, i])
+            dv[:, :, j] += torch.matmul(p_t.to(dt).float(), dof32[:, :, i])
+            dp_t = torch.matmul(vf32[:, :, j], dof32[:, :, i].transpose(-1, -2))
+            ds_t = (p_t * (dp_t - delta_r[:, :, :, i])).to(dt).float()
+            dk[:, :, j] += torch.matmul(ds_t, qf32[:, :, i])
+
+    def unfold(x):
+        return x.permute(0, 2, 1, 3)
+
+    return unfold((dq * scale).to(dt)), unfold((dk * scale).to(k.dtype)), unfold(dv.to(v.dtype))
+
+
+_kernel_fns: dict = {}
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# C entry points: (source, symbol, argtypes)
+_ENTRY_POINTS = {
+    "fwd": ("flash_fwd", "instantir_flash_fwd_bf16_d64", [_PTR] * 4 + [_INT] * 4 + [ctypes.c_float, _PTR]),
+    "fwd_lse": ("flash_fwd", "instantir_flash_fwd_lse_bf16_d64",
+                [_PTR] * 5 + [_INT] * 4 + [ctypes.c_float, _PTR]),
+    "bwd_dq": ("flash_bwd", "instantir_flash_bwd_dq_bf16_d64",
+               [_PTR] * 7 + [_INT] * 4 + [ctypes.c_float, ctypes.c_float, _PTR]),
+    "bwd_dkv": ("flash_bwd", "instantir_flash_bwd_dkv_bf16_d64",
+                [_PTR] * 8 + [_INT] * 4 + [ctypes.c_float, ctypes.c_float, _PTR]),
+}
+
+
+def _kernel(name: str):
+    """The ctypes function of one entry point, its source built at first use."""
+    if name not in _kernel_fns:
         from instantir_tpu_torch import kernels
 
-        fn = kernels.load("flash_fwd").instantir_flash_fwd_bf16_d64
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        source, symbol, argtypes = _ENTRY_POINTS[name]
+        fn = getattr(kernels.load(source), symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _flash_fn = fn
-    return _flash_fn
+        _kernel_fns[name] = fn
+    return _kernel_fns[name]
 
 
-def _check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check_flash_inputs(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (k.is_cuda and v.is_cuda) or len({q.device, k.device, v.device}) != 1:
-        raise ValueError(f"flash_attention: q/k/v must share one CUDA device, got {q.device}, {k.device}, {v.device}")
+        raise ValueError(f"{what}: q/k/v must share one CUDA device, got {q.device}, {k.device}, {v.device}")
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention: the kernel takes bfloat16 only, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"{what}: the kernel takes bfloat16 only, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention: q/k/v must be [B, S, H, D]")
+        raise ValueError(f"{what}: q/k/v must be [B, S, H, D]")
     b, sq, h, d = q.shape
     if d != 64:
-        raise ValueError(f"flash_attention: the kernel takes head_dim 64 only, got {d}")
+        raise ValueError(f"{what}: the kernel takes head_dim 64 only, got {d}")
     if k.shape != v.shape or k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
-        raise ValueError(f"flash_attention: shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+        raise ValueError(f"{what}: shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if sq == 0 or k.shape[1] == 0:
-        raise ValueError("flash_attention: empty sequence")
+        # kv_len >= 1 also means no q row has all its keys masked: l > 0 and lse is finite
+        raise ValueError(f"{what}: empty sequence")
     if b * h > 65535:
-        raise ValueError(f"flash_attention: batch*heads {b * h} exceeds the grid limit 65535")
+        raise ValueError(f"{what}: batch*heads {b * h} exceeds the grid limit 65535")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be 16-byte aligned")
+        _check_operand(what, name, t)
+
+
+def _check_operand(what: str, name: str, t: torch.Tensor, like: Optional[torch.Tensor] = None,
+                   dtype: Optional[torch.dtype] = None, shape: Optional[tuple] = None) -> None:
+    """Contiguity and alignment of one kernel operand; with ``like``/``dtype``/
+    ``shape`` also its device, dtype and shape."""
+    if like is not None and t.device != like.device:
+        raise ValueError(f"{what}: {name} is on {t.device}, expected {like.device}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{what}: {name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: {name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: {name} must be 16-byte aligned")
+
+
+def _launch(what: str, name: str, like: torch.Tensor, *args) -> None:
+    """Launch one entry point on the current stream of ``like``'s device and
+    raise if the launch was refused."""
+    fn = _kernel(name)
+    with torch.cuda.device(like.device):
+        stream = torch.cuda.current_stream(like.device).cuda_stream
+        err = fn(*[_PTR(a.data_ptr()) if isinstance(a, torch.Tensor) else a for a in args], _PTR(stream))
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with cudaError_t {err}")
 
 
 def flash_attention(
@@ -129,29 +259,125 @@ def flash_attention(
 
     On CUDA tensors this launches ``csrc/flash_fwd.cu`` (bf16, head_dim 64;
     anything else raises). On CPU tensors it runs ``flash_attention_reference``.
+    Not differentiable: ``flash_attention_diff`` is.
     """
     global flash_attention_launches
     if not q.is_cuda:
         if k.is_cuda or v.is_cuda:
             raise ValueError("flash_attention: q is on the CPU but k/v are not")
         return flash_attention_reference(q, k, v, scale)
-    _check_flash_inputs(q, k, v)
+    _check_flash_inputs("flash_attention", q, k, v)
     b, sq, h, d = q.shape
     if scale is None:
         scale = d**-0.5
-    fn = _flash_kernel()
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()), ctypes.c_void_p(v.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), b, h, sq, k.shape[1], ctypes.c_float(scale * LOG2E),
-            ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed with cudaError_t {err}")
+    _launch("flash_attention", "fwd", q, q, k, v, out, b, h, sq, k.shape[1], ctypes.c_float(scale * LOG2E))
     flash_attention_launches += 1
     return out
+
+
+def flash_attention_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention`` that also returns the per-row log2-domain logsumexp
+    ``lse2 = m + log2 l`` as fp32 ``[B, H, Sq]`` (what the backward kernels
+    rebuild P from). CUDA tensors launch the lse entry point of
+    ``csrc/flash_fwd.cu`` or raise; CPU tensors run
+    ``flash_attention_lse_reference``."""
+    global flash_attention_lse_launches
+    if not q.is_cuda:
+        if k.is_cuda or v.is_cuda:
+            raise ValueError("flash_attention_lse: q is on the CPU but k/v are not")
+        return flash_attention_lse_reference(q, k, v, scale)
+    _check_flash_inputs("flash_attention_lse", q, k, v)
+    b, sq, h, d = q.shape
+    if scale is None:
+        scale = d**-0.5
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch("flash_attention_lse", "fwd_lse", q, q, k, v, out, lse, b, h, sq, k.shape[1],
+            ctypes.c_float(scale * LOG2E))
+    flash_attention_lse_launches += 1
+    return out, lse
+
+
+def _check_backward_inputs(what, q, k, v, do, lse, delta) -> None:
+    _check_flash_inputs(what, q, k, v)
+    b, sq, h, _ = q.shape
+    _check_operand(what, "do", do, like=q, dtype=torch.bfloat16, shape=q.shape)
+    _check_operand(what, "lse", lse, like=q, dtype=torch.float32, shape=(b, h, sq))
+    _check_operand(what, "delta", delta, like=q, dtype=torch.float32, shape=(b, h, sq))
+
+
+def flash_backward_dq(q, k, v, do, lse, delta, scale: Optional[float] = None) -> torch.Tensor:
+    """dQ = scale · Σ_j [P ∘ (dO·V_jᵀ − D)]·K_j with P = exp2(q2·Kᵀ − lse2).
+    CUDA only (``csrc/flash_bwd.cu``, bf16, head_dim 64): the plain version of
+    both backward kernels is ``flash_backward_reference``. q/k/v/do:
+    [B, S, H, 64]; lse, delta: fp32 [B, H, Sq]."""
+    global flash_backward_dq_launches
+    _check_backward_inputs("flash_backward_dq", q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    if scale is None:
+        scale = d**-0.5
+    dq = torch.empty_like(q)
+    _launch("flash_backward_dq", "bwd_dq", q, q, k, v, do, lse, delta, dq, b, h, sq, k.shape[1],
+            ctypes.c_float(scale * LOG2E), ctypes.c_float(scale))
+    flash_backward_dq_launches += 1
+    return dq
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dV = Σ_i Pᵀ·dO_i and dK = scale · Σ_i dSᵀ·Q_i with Sᵀ = k2·Qᵀ. CUDA
+    only (``csrc/flash_bwd.cu``); see ``flash_backward_dq``."""
+    global flash_backward_dkv_launches
+    _check_backward_inputs("flash_backward_dkv", q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    if scale is None:
+        scale = d**-0.5
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_backward_dkv", "bwd_dkv", q, q, k, v, do, lse, delta, dk, dv, b, h, sq, k.shape[1],
+            ctypes.c_float(scale * LOG2E), ctypes.c_float(scale))
+    flash_backward_dkv_launches += 1
+    return dk, dv
+
+
+def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO∘O) in fp32, [B, Sq, H, D] -> [B, H, Sq] (left to plain
+    torch, as the JAX package leaves it to XLA)."""
+    return (do.float() * o.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
+
+
+class _FlashAttentionDiff(torch.autograd.Function):
+    """Differentiable flash attention, the twin of ``_flash_diff``: forward
+    with lse, backward through the dQ and dK/dV kernels (their plain versions
+    on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = flash_attention_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()  # arrives as a view of the caller's reshape
+        if not q.is_cuda:
+            return (*flash_backward_reference(q, k, v, o, lse, do, ctx.scale), None)
+        delta = flash_delta(o, do)
+        dq = flash_backward_dq(q, k, v, do, lse, delta, ctx.scale)
+        dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """``flash_attention`` with a gradient. q/k/v: [B, S, H, D]."""
+    return _FlashAttentionDiff.apply(q, k, v, q.shape[-1] ** -0.5 if scale is None else scale)
 
 
 def dot_product_attention(
@@ -162,9 +388,14 @@ def dot_product_attention(
     bias: Optional[torch.Tensor] = None,
     use_flash: bool = True,
 ) -> torch.Tensor:
-    """Dispatching attention: the flash kernel on CUDA for long self-attention
+    """Dispatching attention: the flash kernels on CUDA for long self-attention
     (the JAX package's rule, with "on TPU" read as "on a CUDA tensor"),
-    ``attention_xla`` for everything else."""
+    ``attention_xla`` for everything else. Where an input needs a gradient the
+    differentiable kernels run (forward with lse, dQ and dK/dV backward);
+    otherwise the inference forward."""
     if use_flash and bias is None and q.is_cuda and k.shape[1] >= 512 and q.shape[1] >= 128:
-        return flash_attention(q, k, v, scale=q.shape[-1] ** -0.5 if scale is None else scale)
+        scale_v = q.shape[-1] ** -0.5 if scale is None else scale
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return flash_attention_diff(q, k, v, scale_v)
+        return flash_attention(q, k, v, scale=scale_v)
     return attention_xla(q, k, v, scale=scale, bias=bias)

@@ -213,3 +213,10 @@ def ddpm_inference_timesteps(
 def ddpm_prev_timesteps(timesteps: np.ndarray, num_train_timesteps: int, num_inference_steps: int) -> np.ndarray:
     """Per-entry previous timestep: t - T//n (may go negative at the end)."""
     return np.asarray(timesteps, dtype=np.int64) - num_train_timesteps // num_inference_steps
+
+
+def importance_sampling_weights(num_train_timesteps: int, alpha: float = 0.5) -> np.ndarray:
+    """Timestep-importance pmf: p(t) ∝ 1/T · (1 − alpha·cos(πt/T)), fp32 numpy."""
+    t = np.arange(num_train_timesteps, dtype=np.float64)
+    w = 1.0 / num_train_timesteps * (1.0 - alpha * np.cos(np.pi * t / num_train_timesteps))
+    return (w / w.sum()).astype(np.float32)

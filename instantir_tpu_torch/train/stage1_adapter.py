@@ -1,0 +1,282 @@
+"""Stage-1 trainer: DCP adapter pretraining (Resampler + IP attention).
+
+Twin of ``instantir_tpu/train/stage1_adapter.py``: train only the image-prompt
+pathway (the Resampler and the UNet's ``to_k_ip``/``to_v_ip``/``ln_k_ip``/
+``ln_v_ip``) on the eps-MSE objective with the *degraded* image's DINOv2
+tokens as condition:
+
+  DINO tokens of lq (with per-sample image drop -> zero-image tokens)
+  -> VAE-encode gt -> uniform t (optionally importance-weighted loss) -> add noise
+  -> UNet forward (IP attention, no LoRA, no aggregator)
+  -> sum of weighted diffusion losses -> update the ip parameters only.
+
+PyTorch idiom: the models are ``nn.Module``s whose ``requires_grad`` flags
+carry the trainable/frozen split, the optimiser is ``torch.optim.AdamW``
+behind optax's clip and schedule semantics (``common.ClippedAdamW``), and
+every random draw of a step is an optional argument (``Stage1Draws``) so a
+step can be held against the JAX step's own ``jax.random`` draws; otherwise
+the draws come from a ``torch.Generator`` on the trainer's device.
+
+Public tensors keep the JAX layout: NHWC images in [-1, 1], NHWC noise.
+Not ported yet: the RealESRGAN degradation (``prepare_batch`` takes an
+already degraded ``lq``/``gt`` pair), the host loop ``run`` with checkpoints,
+tracker, validation and preemption handling, 8-bit Adam, the int8 frozen
+UNet, and optimiser-state sharding over more than one device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from instantir_tpu_torch.losses import DiffusionLossInputs, build_losses
+from instantir_tpu_torch.losses.loss_config import LossesConfig, SingleLossConfig
+from instantir_tpu_torch.models.dinov2 import preprocess_dinov2
+from instantir_tpu_torch.models.vae import scale_latents, vae_scale_factor
+from instantir_tpu_torch.schedulers.diffusion import add_noise, importance_sampling_weights, sdxl_schedule
+from instantir_tpu_torch.train import common
+
+
+@dataclasses.dataclass
+class Stage1Config:
+    """The same fields and defaults as the JAX twin. Fields whose code is not
+    ported raise ``NotImplementedError`` when set away from "off"."""
+
+    output_dir: str = "stage1_out"
+    max_train_steps: int = 1000
+    train_batch_size: int = 96
+    shard_optimizer_state: bool = True  # a no-op on one device; more devices are not ported
+    learning_rate: float = 1e-4
+    lr_scheduler: str = "cosine"
+    lr_warmup_steps: int = 100
+    weight_decay: float = 1e-2
+    use_8bit_adam: bool = False  # not ported
+    quantize_frozen_unet: bool = False  # not ported
+    max_grad_norm: float = 1.0
+    prefetch_batches: int = 2  # used by the host loop, which is not ported
+    gradient_accumulation_steps: int = 1
+    resolution: int = 512
+    jit_degradation: bool = True  # used by the degradation, which is not ported
+    image_drop_rate: float = 0.05
+    importance_sampling: bool = False
+    checkpointing_steps: int = 500
+    checkpoints_total_limit: Optional[int] = 3
+    logging_steps: int = 10
+    seed: int = 42
+    sanity_check: bool = False
+    validation_steps: int = 0  # 0 disables; not ported
+    resume_from_checkpoint: Optional[str] = "latest"
+    handle_preemption: bool = False  # not ported
+    async_checkpointing: bool = False  # not ported
+    report_to: str = "tensorboard"
+
+
+_NOT_PORTED = {"use_8bit_adam": False, "quantize_frozen_unet": False, "handle_preemption": False,
+               "async_checkpointing": False, "validation_steps": 0}
+
+
+def _check_ported(cfg: Stage1Config) -> None:
+    for name, off in _NOT_PORTED.items():
+        if getattr(cfg, name) != off:
+            raise NotImplementedError(f"Stage1Config.{name}={getattr(cfg, name)!r} is not ported yet")
+
+
+def stage1_trainable_pred(path: Tuple[str, ...]) -> bool:
+    """Path ``(model, *parameter name parts)`` -> trains in stage 1?"""
+    joined = "/".join(path)
+    if "lora_" in joined:
+        return False
+    if path[0] == "resampler":
+        return True
+    return path[0] == "unet" and any(n in joined for n in ("to_k_ip", "to_v_ip", "ln_k_ip", "ln_v_ip"))
+
+
+@dataclasses.dataclass
+class Stage1Draws:
+    """The random draws of one step, any of which may be given: ``timesteps``
+    int ``[B]``; ``noise`` NHWC ``[B, h, w, 4]``, the eps target; ``drop_uniform``
+    ``[B]`` uniforms in [0, 1) compared with ``image_drop_rate``; ``vae_noise``
+    NHWC ``[B, h, w, 4]``, the VAE posterior draw."""
+
+    timesteps: Optional[torch.Tensor] = None
+    noise: Optional[torch.Tensor] = None
+    drop_uniform: Optional[torch.Tensor] = None
+    vae_noise: Optional[torch.Tensor] = None
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def build_stage1_step(unet, resampler, vae, image_encoder, schedule, losses, cfg: Stage1Config) -> Callable:
+    """Returns ``loss_fn(batch, draws, generator) -> (total, metrics)``, the
+    differentiable part of a step."""
+    iw = None
+    if cfg.importance_sampling:
+        iw = torch.from_numpy(importance_sampling_weights(schedule.num_train_timesteps))
+
+    def loss_fn(batch: Dict[str, torch.Tensor], draws: Optional[Stage1Draws] = None,
+                generator: Optional[torch.Generator] = None):
+        draws = draws or Stage1Draws()
+        lq, gt = batch["lq"], batch["gt"]  # NHWC in [-1, 1]
+        bsz, dev = gt.shape[0], gt.device
+        factor = vae_scale_factor(vae.config)
+        lat_shape = (bsz, gt.shape[1] // factor, gt.shape[2] // factor, vae.config.latent_channels)
+
+        def normal(given, shape):
+            if given is not None:
+                return given.to(dev)
+            return torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
+
+        with torch.no_grad():  # frozen encoders: DINOv2 tokens of lq, VAE latents of gt
+            pixels = preprocess_dinov2((lq + 1.0) / 2.0, size=image_encoder.config.image_size)
+            tokens_cond = image_encoder(_nchw(pixels))
+            tokens_uncond = batch["uncond_tokens"].to(tokens_cond.dtype).expand_as(tokens_cond)
+            u = draws.drop_uniform
+            if u is None:
+                u = torch.rand((bsz,), generator=generator, dtype=torch.float32, device=dev)
+            drop = (u.to(dev).reshape(bsz, 1, 1) < cfg.image_drop_rate)
+            tokens = torch.where(drop, tokens_uncond, tokens_cond)
+            z = vae.encode(_nchw(gt.float()), noise=_nchw(normal(draws.vae_noise, lat_shape)))
+            latents = scale_latents(vae.config, z)
+            # t is drawn uniformly and the loss weighted by T·p(t): drawing from
+            # p(t) and dividing would cancel to the uniform objective
+            t = draws.timesteps
+            if t is None:
+                t = common.sample_timesteps(generator, bsz, schedule.num_train_timesteps, None, device=dev)
+            t = t.to(dev).long()
+            noise = _nchw(normal(draws.noise, lat_shape))
+            noisy = add_noise(schedule, latents, noise, t)
+
+        ip_tokens = resampler(tokens)
+        eps_pred = unet(noisy, t, batch["prompt_embeds"], batch["pooled_embeds"], batch["time_ids"],
+                        ip_hidden_states=ip_tokens)
+
+        weights = None
+        if iw is not None:
+            weights = schedule.num_train_timesteps * iw.to(dev)[t]
+
+        total = 0.0
+        metrics = {}
+        for loss, w in losses:
+            val = loss(DiffusionLossInputs(predicted=eps_pred, target=noise, timesteps=t, weights=weights))
+            total = total + w * val
+            metrics[type(loss).__name__] = val.detach()
+        return total, metrics
+
+    return loss_fn
+
+
+class Stage1Trainer:
+    """Holds the models, the optimiser and the step. ``device="cuda"`` (the
+    default) raises without a card; pass ``device="cpu"`` to train on the CPU."""
+
+    def __init__(self, unet, resampler, vae, image_encoder, cfg: Stage1Config,
+                 losses_config: Optional[LossesConfig] = None, schedule=None, device="cuda"):
+        _check_ported(cfg)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Stage1Trainer: device 'cuda' requested but no CUDA device is available "
+                               "(pass device='cpu' to train on the CPU)")
+        self.cfg = cfg
+        self.unet, self.resampler, self.vae, self.image_encoder = unet, resampler, vae, image_encoder
+        self.models: Dict[str, nn.Module] = {"unet": unet, "resampler": resampler, "vae": vae,
+                                             "image_encoder": image_encoder}
+        for name, model in self.models.items():
+            where = {p.device.type for p in model.parameters()}
+            if where != {self.device.type}:
+                raise ValueError(f"Stage1Trainer: {name} lies on {sorted(where)}, the trainer on {self.device.type}")
+        self.schedule = (schedule or sdxl_schedule()).to(self.device)
+        losses = build_losses(losses_config.diffusion_losses if losses_config else [SingleLossConfig(name="L2Loss")])
+        self.trainable_names = common.set_trainable(self.models, stage1_trainable_pred)
+        named = self.named_parameters()
+        self.trainable: List[nn.Parameter] = [named[n] for n in self.trainable_names]
+        self.optimizer = common.make_adamw(
+            self.trainable,
+            common.lr_schedule(cfg.lr_scheduler, cfg.learning_rate, cfg.lr_warmup_steps, cfg.max_train_steps),
+            weight_decay=cfg.weight_decay, use_8bit=cfg.use_8bit_adam, max_grad_norm=cfg.max_grad_norm)
+        self._loss_fn = build_stage1_step(unet, resampler, vae, image_encoder, self.schedule, losses, cfg)
+        self._accumulated: Optional[List[torch.Tensor]] = None
+        self._micro_steps = 0
+        self._uncond_tok: Optional[torch.Tensor] = None
+        self._generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.global_step = 0
+        print(f"[stage1] trainable params: {common.count_params(self.trainable) / 1e6:.2f}M")
+
+    def named_parameters(self) -> Dict[str, nn.Parameter]:
+        """Every parameter of the four models under ``<model>.<name>``."""
+        return common.named_parameters(self.models)
+
+    @torch.no_grad()
+    def _uncond_image_tokens(self) -> torch.Tensor:
+        """DINOv2 tokens of the zero (preprocessed) image: constant while the
+        image encoder is frozen, so computed once."""
+        if self._uncond_tok is None:
+            size = self.image_encoder.config.image_size
+            self._uncond_tok = self.image_encoder(torch.zeros((1, 3, size, size), dtype=torch.float32,
+                                                              device=self.device))
+        return self._uncond_tok
+
+    def prepare_batch(self, batch: Dict[str, torch.Tensor], cond: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """An already degraded pair ``{"lq", "gt"}`` (NHWC in [-1, 1]) plus the
+        text conditioning ``{"prompt_embeds", "pooled_embeds", "time_ids"}`` ->
+        the step's batch on the trainer's device. Raw ``{"images", "kernel", ...}``
+        batches need the RealESRGAN degradation, which is not ported yet."""
+        if "lq" not in batch or "gt" not in batch:
+            raise NotImplementedError("prepare_batch: raw images need the on-device degradation "
+                                      "(data/degradation.py), which is not ported yet; pass 'lq' and 'gt'")
+        out = {"lq": torch.as_tensor(batch["lq"]).to(self.device), "gt": torch.as_tensor(batch["gt"]).to(self.device),
+               "uncond_tokens": self._uncond_image_tokens()}
+        out.update({k: torch.as_tensor(v).to(self.device) for k, v in cond.items()})
+        return out
+
+    def loss(self, batch, draws: Optional[Stage1Draws] = None, generator: Optional[torch.Generator] = None):
+        """The differentiable forward of a step: (weighted loss total, metrics)."""
+        return self._loss_fn(batch, draws, generator or self._generator)
+
+    def loss_and_grads(self, batch, draws: Optional[Stage1Draws] = None,
+                       generator: Optional[torch.Generator] = None):
+        """(loss, metrics, gradients of the trainable leaves in ``trainable_names`` order)."""
+        total, metrics = self.loss(batch, draws, generator)
+        grads = torch.autograd.grad(total, self.trainable)
+        return total.detach(), metrics, list(grads)
+
+    def train_step(self, batch, draws: Optional[Stage1Draws] = None,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """One (micro-)step. With ``gradient_accumulation_steps = k`` the
+        optimiser steps on every k-th call, on the mean of the k gradients;
+        ``grad_norm`` is this call's gradient norm before clipping."""
+        loss, metrics, grads = self.loss_and_grads(batch, draws, generator)
+        metrics["loss"] = loss
+        metrics["grad_norm"] = common.global_norm(grads)
+        k = self.cfg.gradient_accumulation_steps
+        if k > 1:
+            if self._accumulated is None:
+                self._accumulated = [g.float() for g in grads]
+            else:
+                for a, g in zip(self._accumulated, grads):
+                    a += g
+            self._micro_steps += 1
+            if self._micro_steps == k:
+                self.optimizer.step([(a / k).to(p.dtype) for a, p in zip(self._accumulated, self.trainable)])
+                self._accumulated, self._micro_steps = None, 0
+        else:
+            self.optimizer.step(grads)
+        self.global_step += 1
+        return metrics
+
+    def adapter_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The reference-format ``adapter_ckpt.pt`` payload ``{image_proj,
+        ip_adapter}`` (``convert.export_adapter``), on the CPU."""
+        from instantir_tpu_torch.convert import export_adapter
+
+        def cpu(model):
+            return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+        return export_adapter(cpu(self.unet), cpu(self.resampler))
+
+    def export_adapter(self, path: str) -> None:
+        torch.save(self.adapter_state(), path)

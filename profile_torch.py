@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of one restore of the PyTorch/CUDA port goes, on one NVIDIA GPU.
+"""Where the time of one restore, or of one stage-1 training step, of the
+PyTorch/CUDA port goes, on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 profile_torch.py [--steps 4]``.
-It builds the pipeline ``chip_smoke.py`` drives (SDXL width, synthetic
-weights, bf16 models and an fp32 VAE, 1024², CFG 7, preview_start 0.1,
-control_guidance_end 0.7), runs one warm-up restore, then reports
+Run from the root of a checkout: ``python3 profile_torch.py [--steps 4]`` or
+``python3 profile_torch.py --train [--resolution 512 --batch 2]``.
+It builds the models ``chip_smoke.py`` drives (SDXL width, synthetic weights,
+bf16 models and an fp32 VAE), warms up, then reports
 
-1. host wall time of one restore and the device time of each stage (CUDA
-   events around every model call, summed over the restore; a stage's time
-   includes any device idle inside it);
-2. a ``torch.profiler`` trace of one more restore: device kernel time by
-   kernel name (top 25) and the device busy share (kernel time / wall time).
+1. host wall time of one restore (1024², CFG 7, preview_start 0.1,
+   control_guidance_end 0.7) or one ``Stage1Trainer`` step and the device time
+   of each stage (CUDA events around every model call -- for a step also around
+   the backward pass and the optimiser; a stage's time includes any device idle
+   inside it);
+2. a ``torch.profiler`` trace of one more restore or step: device kernel time
+   by kernel name (top 25) and the device busy share (kernel time / wall time).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -29,7 +32,11 @@ REPO = Path(__file__).resolve().parent
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=4, help="denoise steps of the restore")
+    ap.add_argument("--train", action="store_true", help="profile one stage-1 training step, not a restore")
+    ap.add_argument("--resolution", type=int, default=512, help="--train: image size")
+    ap.add_argument("--batch", type=int, default=2, help="--train: batch size")
+    ap.add_argument("--checkpointing", action="store_true", help="--train: gradient checkpointing in the UNet")
     args = ap.parse_args()
 
     import torch
@@ -61,19 +68,59 @@ def main() -> None:
     cfg = RestoreConfig(num_inference_steps=args.steps, guidance_scale=7.0, preview_start=0.1,
                         control_guidance_end=0.7)
 
-    def restore():
-        pipe.restore(lq, pe, pooled, cfg=cfg, output_type="pt")
-        torch.cuda.synchronize()
+    events = []
+
+    def timed(label, fn):
+        """Run ``fn`` between two CUDA events recorded under ``label``."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        events.append((label, start, end))
+        return out
+
+    if args.train:
+        from instantir_tpu_torch.train.stage1_adapter import Stage1Config, Stage1Trainer
+
+        del pipe.aggregator
+        res, bsz = args.resolution, args.batch
+        trainer = Stage1Trainer(pipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder,
+                                Stage1Config(train_batch_size=bsz, resolution=res, lr_warmup_steps=0, output_dir=""),
+                                device="cuda")
+        trainer.unet.gradient_checkpointing = args.checkpointing
+        gt = torch.rand(bsz, res, res, 3, generator=g, device="cuda") * 2.0 - 1.0
+        noisy = (gt + 0.2 * torch.randn(gt.shape, generator=g, device="cuda")).clamp(-1.0, 1.0)
+        batch = trainer.prepare_batch({"lq": noisy, "gt": gt}, {
+            "prompt_embeds": pe.expand(bsz, -1, -1), "pooled_embeds": pooled.expand(bsz, -1),
+            "time_ids": torch.tensor([[res, res, 0, 0, res, res]] * bsz, dtype=torch.bfloat16, device="cuda")})
+        what = f"stage-1 step at {res}², batch {bsz}" + (", gradient checkpointing" if args.checkpointing else "")
+
+        def restore():  # one training step, in the pieces ``train_step`` is made of
+            total, _ = trainer.loss(batch, generator=g)
+            grads = timed("backward", lambda: torch.autograd.grad(total, trainer.trainable))
+            timed("optimiser", lambda: trainer.optimizer.step(list(grads)))
+            torch.cuda.synchronize()
+
+        stages = {"vae encoder": pipe.vae.encoder, "dinov2": pipe.image_encoder, "resampler": pipe.resampler,
+                  "unet forward": pipe.unet, "backward": None, "optimiser": None}
+    else:
+        what = f"{args.steps}-step restore"
+
+        def restore():
+            pipe.restore(lq, pe, pooled, cfg=cfg, output_type="pt")
+            torch.cuda.synchronize()
+
+        stages = {
+            "unet (previewer, LoRA on)": None, "unet (main)": None, "aggregator": pipe.aggregator,
+            "vae encoder": pipe.vae.encoder, "vae decoder": pipe.vae.decoder, "dinov2": pipe.image_encoder,
+            "resampler": pipe.resampler,
+        }
 
     restore()  # warm-up
+    restore()
+    events.clear()
 
     # 1. per-stage device time
-    events = []
-    stages = {
-        "unet (previewer, LoRA on)": None, "unet (main)": None, "aggregator": pipe.aggregator,
-        "vae encoder": pipe.vae.encoder, "vae decoder": pipe.vae.decoder, "dinov2": pipe.image_encoder,
-        "resampler": pipe.resampler,
-    }
     handles = []
 
     def hooks(label_of):
@@ -95,9 +142,10 @@ def main() -> None:
             pre, post = hooks(lambda kw, label=label: label)
             handles.append(module.register_forward_pre_hook(pre, with_kwargs=True))
             handles.append(module.register_forward_hook(post, with_kwargs=True))
-    pre, post = hooks(lambda kw: "unet (previewer, LoRA on)" if kw.get("lora_scale", 0.0) else "unet (main)")
-    handles.append(pipe.unet.register_forward_pre_hook(pre, with_kwargs=True))
-    handles.append(pipe.unet.register_forward_hook(post, with_kwargs=True))
+    if not args.train:
+        pre, post = hooks(lambda kw: "unet (previewer, LoRA on)" if kw.get("lora_scale", 0.0) else "unet (main)")
+        handles.append(pipe.unet.register_forward_pre_hook(pre, with_kwargs=True))
+        handles.append(pipe.unet.register_forward_hook(post, with_kwargs=True))
 
     t0 = time.time()
     restore()
@@ -108,7 +156,7 @@ def main() -> None:
     for label, start, end in events:
         per_stage[label] += start.elapsed_time(end)
         calls[label] += 1
-    print(f"\n{args.steps}-step restore: {wall:.3f} s host wall time", flush=True)
+    print(f"\n{what}: {wall:.3f} s host wall time", flush=True)
     print(f"{'stage':<28}{'calls':>6}{'device ms':>12}{'ms/call':>10}{'share':>8}")
     for label in stages:
         if calls[label]:
@@ -127,11 +175,12 @@ def main() -> None:
     kernel_us = defaultdict(float)
     kernel_n = defaultdict(int)
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # device activity only: the optimiser's range annotation is mirrored onto the device timeline
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.name.startswith("Optimizer."):
             kernel_us[evt.name] += evt.time_range.elapsed_us()
             kernel_n[evt.name] += 1
     busy = sum(kernel_us.values()) / 1e3
-    print(f"\nprofiled restore: {wall:.3f} s wall, device kernel time {busy:.1f} ms "
+    print(f"\nprofiled {what}: {wall:.3f} s wall, device kernel time {busy:.1f} ms "
           f"-> busy share {busy / (wall * 1e3):.1%} (profiler on)")
     if busy == 0:
         print("the profiler recorded no device time on this machine")
@@ -139,6 +188,10 @@ def main() -> None:
     print(f"{'kernel':<90}{'calls':>7}{'ms':>10}{'share':>8}")
     for name, us in sorted(kernel_us.items(), key=lambda kv: -kv[1])[:25]:
         print(f"{name[:88]:<90}{kernel_n[name]:>7}{us / 1e3:>10.1f}{us / 1e3 / busy:>8.1%}")
+    print("\nthe port's own kernels:")
+    for name, us in sorted(kernel_us.items(), key=lambda kv: -kv[1]):
+        if any(tag in name for tag in ("flash_fwd", "flash_bwd", "gn_stats", "gn_norm")):
+            print(f"{name[:88]:<90}{kernel_n[name]:>7}{us / 1e3:>10.1f}{us / 1e3 / busy:>8.1%}")
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
 """CPU parity of the PyTorch port's ops, layers and schedulers with their JAX twins.
 
 Inputs are made with numpy from a seed and fed to both packages; outputs are
-compared in fp32 unless a test says otherwise. The flash kernel itself is CUDA
-only: on the CPU the port's ``flash_attention`` runs its plain version,
-``flash_attention_reference``, which is held here against the JAX Pallas
-kernel in interpret mode; ``test_flash_kernel_matches_reference_on_card``
-holds the kernel against it and runs only where a card is present.
+compared in fp32 unless a test says otherwise. The kernels themselves are CUDA
+only: on the CPU the port's wrappers and autograd Functions run the kernels'
+plain versions (``flash_attention_lse_reference``, ``flash_backward_reference``,
+``group_norm_silu_nchw``), which are held here against the JAX Pallas kernels
+in interpret mode; the ``cuda``-marked tests hold each kernel against its
+plain version and run only where a card is present.
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ import pytest
 import torch
 
 from instantir_tpu.ops import attention as jattn
+from instantir_tpu.ops import group_norm as jgn
 from instantir_tpu.ops.group_norm import group_norm_silu_reference as jax_gn
 from instantir_tpu.schedulers import diffusion as jsched
 from instantir_tpu_torch import convert
 from instantir_tpu_torch.models import layers as tlayers
 from instantir_tpu_torch.ops import attention as tattn
+from instantir_tpu_torch.ops import group_norm as tgn
 from instantir_tpu_torch.ops.group_norm import group_norm_silu_reference as torch_gn
 from instantir_tpu_torch.schedulers import diffusion as tsched
 
@@ -90,6 +93,31 @@ def test_port_imports_no_jax():
             if root in ("jax", "jaxlib", "flax", "optax", "instantir_tpu"):
                 bad.append(f"{path.relative_to(REPO)}: {mod}")
     assert not bad, bad
+    covered = {str(f.relative_to(REPO)) for f in files}
+    for new in ("train/common.py", "train/stage1_adapter.py", "losses/losses.py", "losses/loss_config.py",
+                "ops/group_norm.py"):
+        assert f"instantir_tpu_torch/{new}" in covered
+
+
+def test_port_imports_triton_only_inside_functions():
+    """``triton`` (absent where there is no card) is imported only inside the
+    function that launches a kernel, never while a module is imported; the
+    Triton source is ``ops/group_norm.py``."""
+    users = []
+    for path in sorted((REPO / "instantir_tpu_torch").rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            if any(n.split(".")[0] == "triton" for n in names):
+                users.append(str(path.relative_to(REPO)))
+                assert node.col_offset > 0, f"{path}: triton imported at module level"
+                assert not any(node in ast.walk(top) for top in tree.body
+                               if not isinstance(top, (ast.FunctionDef, ast.ClassDef))), f"{path}: triton outside a def"
+    assert "instantir_tpu_torch/ops/group_norm.py" in users
 
 
 # --------------------------------------------------------------------------
@@ -144,6 +172,11 @@ def test_add_noise_and_lcm_step(ts):
     tc = tsched.lcm_boundary_scalings(torch.tensor(ts))
     for a, b in zip(jc, tc):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6)
+
+
+def test_importance_sampling_weights():
+    for n in (1000, 50):
+        np.testing.assert_array_equal(tsched.importance_sampling_weights(n), jsched.importance_sampling_weights(n))
 
 
 # --------------------------------------------------------------------------
@@ -206,6 +239,69 @@ def test_group_norm32(jlayers, fuse_silu, offset):
     np.testing.assert_allclose(fn, np.asarray(jax_gn(x, scale, bias, 4, 1e-6, fuse_silu)), rtol=1e-5, atol=1e-5)
 
 
+def _gn_inputs(seed, dtype):
+    rng = np.random.default_rng(seed)
+    x = (0.5 + 1.5 * rng.standard_normal((2, 8, 16, 16))).astype(np.float32)  # NHWC, H*W = 128
+    scale = (1.0 + 0.1 * rng.standard_normal(16)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(16)).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    return x, scale, bias, g, jdt, tdt
+
+
+# fp32 1e-5: the kernel's y = x·w + b against the plain (x − μ)·rstd·γ + β, two
+# fp32 roundings apart; bf16 2e-2: one bf16 ulp of outputs of magnitude ~2-4.
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("apply_silu", [False, True])
+def test_group_norm_function_matches_pallas_interpret_and_reference_vjp(dtype, tol, apply_silu):
+    """The K5 autograd Function (plain version on the CPU): forward against the
+    Pallas kernel in interpret mode, gradients against ``jax.vjp`` of the JAX
+    reference; NHWC on the JAX side, NCHW in the port."""
+    x, scale, bias, g, jdt, tdt = _gn_inputs(21, dtype)
+    want = jgn.group_norm_silu_pallas(jnp.asarray(x, jdt), scale, bias, 4, 1e-5, apply_silu, interpret=True)
+    _, vjp = jax.vjp(lambda *a: jgn.group_norm_silu_reference(*a, 4, 1e-5, apply_silu),
+                     jnp.asarray(x, jdt), jnp.asarray(scale), jnp.asarray(bias))
+    jdx, jds, jdb = vjp(jnp.asarray(g, jdt))
+
+    tx = _t(x).permute(0, 3, 1, 2).contiguous().to(tdt).requires_grad_()
+    ts, tb = _t(scale).requires_grad_(), _t(bias).requires_grad_()
+    before = tgn.group_norm_launches
+    y = tgn.group_norm_silu_diff(tx, ts, tb, 4, 1e-5, apply_silu)
+    assert tgn.group_norm_launches == before  # the CPU path launches nothing
+    assert y.dtype == tdt
+    got = y.detach().float().permute(0, 2, 3, 1).numpy()
+    assert np.abs(got - np.asarray(want, np.float32)).max() <= tol
+    dx, ds, db = torch.autograd.grad(y, (tx, ts, tb), _t(g).permute(0, 3, 1, 2).to(tdt))
+    assert dx.dtype == tdt and ds.dtype == torch.float32
+    for got_g, want_g in ((dx.float().permute(0, 2, 3, 1), jdx), (ds, jds), (db, jdb)):
+        want_g = np.asarray(want_g, np.float32)
+        assert np.abs(got_g.numpy() - want_g).max() <= tol * max(1.0, np.abs(want_g).max())
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_group_norm32_reads_the_setting(fused, monkeypatch):
+    """``GroupNorm32`` goes through the Function when ``USE_FUSED`` is on and
+    through the plain version when off; on the CPU both give the same values
+    and gradients."""
+    monkeypatch.setattr(tgn, "USE_FUSED", fused)
+    calls = []
+    real = tgn._GroupNormSiluDiff.apply
+    monkeypatch.setattr(tgn, "group_norm_silu_diff", lambda *a: calls.append(1) or real(*a))
+    x, scale, bias, g, _, _ = _gn_inputs(22, "float32")
+    m = tlayers.GroupNorm32(4, 16, fuse_silu=True)
+    m.load_state_dict({"weight": _t(scale), "bias": _t(bias)})
+    tx = _t(x).permute(0, 3, 1, 2).contiguous().requires_grad_()
+    y = m(tx)
+    assert len(calls) == (1 if fused else 0)
+    ref = tgn.group_norm_silu_nchw(tx, m.weight, m.bias, 4, 1e-5, True)
+    torch.testing.assert_close(y, ref, rtol=0, atol=0)
+    got = torch.autograd.grad(y, (tx, m.weight, m.bias), _t(g).permute(0, 3, 1, 2))
+    want = torch.autograd.grad(ref, (tx, m.weight, m.bias), _t(g).permute(0, 3, 1, 2))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
 def test_timestep_embedding_and_adaln(jlayers):
     rng = np.random.default_rng(6)
     ts = np.array([0, 1, 999, 500])
@@ -265,6 +361,134 @@ def test_flash_reference_matches_pallas_interpret(dtype, tol, sq, skv):
     assert got.dtype == tdt and got.shape == q.shape
     err = np.abs(got.float().numpy() - np.asarray(ref, np.float32)).max()
     assert err <= tol, err
+
+
+def _fold(x):
+    """[B, S, H, D] -> the Pallas kernels' [B·H, S, D]."""
+    b, s, h, d = x.shape
+    return np.asarray(x).transpose(0, 2, 1, 3).reshape(b * h, s, d)
+
+
+# fp32: atol 5e-5 + rtol 1e-3, the band tests/test_flash_attention_bwd.py holds
+# the Pallas backward to; bf16: 2e-2 of the largest reference value (8 bits of
+# mantissa; the block sizes, and so the summation order, differ).
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_lse_and_backward_references_match_pallas_interpret(dtype):
+    b, s, h, d = 1, 256, 2, 64
+    q, k, v = _qkv(np.random.default_rng(9), s, s, h=h, b=b)
+    g = np.random.default_rng(10).standard_normal(q.shape).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    scale = d**-0.5
+    jq, jk, jv, jg = (jnp.asarray(x, jdt) for x in (q, k, v, g))
+    jo, jlse = jattn._flash_forward_lse(jq, jk, jv, scale, interpret=True)
+    jgrads = jattn._flash_backward(jq, jk, jv, jo, jlse, jg, scale, interpret=True)
+
+    tq, tk, tv, tg = (_t(x).to(tdt) for x in (q, k, v, g))
+    o, lse = tattn.flash_attention_lse(tq, tk, tv, scale)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    want_lse = np.asarray(jlse, np.float32).reshape(b, h, s)
+    grads = tattn.flash_backward_reference(tq, tk, tv, o, lse, tg, scale)
+
+    def close(got, want):
+        got, want = got.float().numpy(), np.asarray(want, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, atol=5e-5, rtol=1e-3)
+        else:
+            assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+    close(o, jo)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-4 if dtype == "float32" else 2e-2, rtol=0)
+    for got, want in zip(grads, jgrads):
+        assert got.dtype == tdt and got.shape == q.shape
+        close(got, want)
+
+
+def _xla_grads(q, k, v, g):
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    return torch.autograd.grad(tattn.attention_xla(*leaves), leaves, g)
+
+
+def test_flash_backward_reference_ragged_matches_attention_xla_autograd():
+    """S=200 is no multiple of the 64-wide blocks: the last block is shorter."""
+    q, k, v = (_t(x) for x in _qkv(np.random.default_rng(11), 200, 200, b=1))
+    g = _t(np.random.default_rng(12).standard_normal(q.shape))
+    o, lse = tattn.flash_attention_lse_reference(q, k, v)
+    got = tattn.flash_backward_reference(q, k, v, o, lse, g)
+    for a, b in zip(got, _xla_grads(q, k, v, g)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=5e-5, rtol=1e-3)
+
+
+@pytest.mark.parametrize("sq,skv", [(256, 256), (200, 328)])
+def test_flash_attention_diff_gradients_match_attention_xla(sq, skv):
+    """The attention autograd Function (plain versions on the CPU; the kernels
+    have no fp64 path, so no gradcheck): its saving and returning of tensors,
+    through dq/dk/dv against autograd through ``attention_xla``, fp32."""
+    q, k, v = (_t(x).requires_grad_() for x in _qkv(np.random.default_rng(13), sq, skv, b=1))
+    g = _t(np.random.default_rng(14).standard_normal(q.shape))
+    counts = (tattn.flash_attention_lse_launches, tattn.flash_backward_dq_launches, tattn.flash_backward_dkv_launches)
+    out = tattn.flash_attention_diff(q, k, v)
+    got = torch.autograd.grad(out.reshape(1, sq, -1), (q, k, v), g.reshape(1, sq, -1))  # dO arrives as a view
+    assert counts == (tattn.flash_attention_lse_launches, tattn.flash_backward_dq_launches,
+                      tattn.flash_backward_dkv_launches)  # the CPU path launches nothing
+    np.testing.assert_allclose(out.detach().numpy(), tattn.attention_xla(q, k, v).detach().numpy(), atol=1e-5, rtol=0)
+    for a, b in zip(got, _xla_grads(q, k, v, g)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=5e-5, rtol=1e-3)
+    # only the inputs that need a gradient get one
+    out = tattn.flash_attention_diff(q.detach(), k, v.detach())
+    (dk,) = torch.autograd.grad(out, (k,), g)
+    np.testing.assert_allclose(dk.numpy(), got[1].numpy(), atol=1e-6, rtol=0)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc and Triton: the kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1024, 2304, 1000])
+def test_flash_training_kernels_match_references_on_card(s):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(2, s, 4, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    before = (tattn.flash_attention_lse_launches, tattn.flash_backward_dq_launches, tattn.flash_backward_dkv_launches)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = tattn.dot_product_attention(*leaves)  # an input needs a gradient: the differentiable kernels
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    after = (tattn.flash_attention_lse_launches, tattn.flash_backward_dq_launches, tattn.flash_backward_dkv_launches)
+    assert after == tuple(n + 1 for n in before)
+    ref_o, ref_lse = tattn.flash_attention_lse_reference(q, k, v)
+    _, lse = tattn.flash_attention_lse(q, k, v)
+    assert (out.float() - ref_o.float()).abs().max().item() <= 4e-3
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    refs = tattn.flash_backward_reference(q, k, v, ref_o, ref_lse, do, block_q=512, block_k=512)
+    for got, want in zip(grads, refs):
+        assert ((got.float() - want.float()).abs().max() / want.float().abs().max()).item() <= 2e-2
+    with pytest.raises(ValueError):
+        tattn.flash_attention_lse(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):
+        tattn.flash_backward_dq(q, k, v, do, ref_lse.double(), ref_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("shape", [(2, 320, 64, 64), (2, 1280, 16, 16), (1, 64, 45, 45)])
+def test_group_norm_kernel_matches_plain_version_on_card(shape, dtype, tol):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = (torch.randn(shape, generator=g, device="cuda") * 1.5 + 0.5).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(shape[1], generator=g, device="cuda")
+    bias = 0.1 * torch.randn(shape[1], generator=g, device="cuda")
+    for silu in (False, True):
+        before = tgn.group_norm_launches
+        y = tgn.group_norm_silu_fused(x, scale, bias, 32, 1e-5, silu)
+        torch.cuda.synchronize()
+        assert tgn.group_norm_launches == before + 1 and y.dtype == dtype
+        ref = tgn.group_norm_silu_nchw(x, scale, bias, 32, 1e-5, silu)
+        assert (y.float() - ref.float()).abs().max().item() <= tol
+    with pytest.raises(ValueError):
+        tgn.group_norm_silu_fused(x.transpose(2, 3), scale, bias, 32)
 
 
 @pytest.mark.cuda
