@@ -12,8 +12,10 @@ which ends the script with a nonzero exit on failure:
    sources, one ``nvcc`` per source, all started together;
 3. kernel check: each of the five kernels (flash forward, flash forward with
    lse, flash dQ, flash dK/dV, fused GroupNorm+SiLU) against its plain PyTorch
-   version on the card at the main paths' shapes (plus ragged ones), with
+   version on the card at the main paths' shapes (plus ragged ones, a cross
+   shape with Sq != Skv, a kv tail of 72 keys and an odd batch x heads), with
    time, bound, the plain version's time and a one-call library yardstick;
+   the forward wrappers' host time per call;
 4. restore at full SDXL width with synthetic weights: a UNet forward with the
    flash path against the plain attention path, then ``restore`` with the
    fused GroupNorm off and on, every launch counter set to 0 just before each
@@ -52,11 +54,17 @@ FORWARD_TOL = 5e-2  # relative L2 of one UNet forward through a kernel against t
 # amplify a one-ulp bf16 difference a few thousand-fold (5.2e-2 measured for the
 # fused GroupNorm on vs off, whose single forward differs by 2e-2)
 RESTORE_TOL = 1e-1
-# (B, S, H) of the flash kernel on the restore path -- UNet S=4096/1024, Aggregator
-# H-concat S=8192/2048, CFG batch 2 -- plus a ragged 768² shape and S % 64 != 0
-FLASH_SHAPES = [(2, 4096, 10), (2, 1024, 20), (2, 8192, 10), (2, 2048, 20), (2, 2304, 10), (2, 1000, 10)]
+# (B, S, H) of the flash kernel on the restore path: UNet S=4096/1024, Aggregator
+# H-concat S=8192/2048, CFG batch 2
+RESTORE_SHAPES = [(2, 4096, 10), (2, 1024, 20), (2, 8192, 10), (2, 2048, 20)]
 # the training path's own shapes: 512² batch 2, then 1024² batch 1
 TRAIN_SHAPES = [(2, 1024, 10), (1, 4096, 10), (1, 1024, 20)]
+# (B, Sq, Skv, H) checked beside them, off every main path: a ragged 768² shape,
+# S % 64 != 0, a cross shape (Sq != Skv, neither a multiple of the tiles), a kv
+# tail of 72 keys after 129 full tiles, and batch x heads = 15
+EXTRA_SHAPES = [(2, 2304, 2304, 10), (2, 1000, 1000, 10), (1, 200, 520, 10), (2, 8264, 8264, 10), (3, 1024, 1024, 5)]
+FLASH_SHAPES = [(b, s, s, h) for b, s, h in RESTORE_SHAPES] + EXTRA_SHAPES
+HOST_TIMING_SHAPE = RESTORE_SHAPES[1]  # most of a restore's launches
 # (C, H, W) of GroupNorm32 in the UNet at 1024² (CFG batch 2), plus a ragged one
 GN_SHAPES = [(320, 128, 128), (640, 64, 64), (1280, 32, 32), (1920, 64, 64), (960, 128, 128), (320, 45, 45)]
 
@@ -97,11 +105,28 @@ def bound_ms(flops: float, nbytes: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def flash_bound_ms(b: int, s: int, h: int, products: int = 2, tensors: int = 4, rows_fp32: int = 0, d: int = 64):
-    """``products`` S x S x d matrix products (2 flops per multiply-add) against
-    ``tensors`` bf16 [B, S, H, d] operands and ``rows_fp32`` fp32 [B, H, S] ones,
-    each read or written once."""
-    return bound_ms(2.0 * products * b * h * s * s * d, tensors * b * s * h * d * 2.0 + rows_fp32 * b * h * s * 4.0)
+def flash_bound_ms(b: int, sq: int, skv: int, h: int, products: int = 2, q_tensors: int = 2, kv_tensors: int = 2,
+                   rows_fp32: int = 0, d: int = 64):
+    """``products`` Sq x Skv x d matrix products (2 flops per multiply-add)
+    against ``q_tensors`` bf16 [B, Sq, H, d] and ``kv_tensors`` bf16
+    [B, Skv, H, d] operands and ``rows_fp32`` fp32 [B, H, Sq] ones, each read
+    or written once."""
+    return bound_ms(2.0 * products * b * h * sq * skv * d,
+                    (q_tensors * sq + kv_tensors * skv) * b * h * d * 2.0 + rows_fp32 * b * h * sq * 4.0)
+
+
+def host_us_per_call(torch, fn, calls: int = 200) -> float:
+    """Host microseconds a wrapper takes per call: the wall time of ``calls``
+    un-synchronised calls over their number (the device queue absorbs them),
+    then one synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def check_flash(torch, attention) -> list:
@@ -110,8 +135,9 @@ def check_flash(torch, attention) -> list:
 
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for b, s, h in FLASH_SHAPES:
-        q, k, v = (torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    for b, s, skv, h in FLASH_SHAPES:
+        q = torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(b, skv, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
         out = attention.flash_attention(q, k, v)
         torch.cuda.synchronize()
         ref = attention.flash_attention_reference(q, k, v)
@@ -120,32 +146,40 @@ def check_flash(torch, attention) -> list:
         plain_ms = time_ms(torch, lambda: attention.flash_attention_reference(q, k, v), iters=2, warmup=1, groups=2)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        bound, bound_by = flash_bound_ms(b, s, h)
-        row = dict(B=b, S=s, H=h, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                   library_ms=library_ms)
+        bound, bound_by = flash_bound_ms(b, s, skv, h)
+        row = dict(B=b, S=s, Skv=skv, H=h, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=bound_by, library_ms=library_ms)
         rows.append(row)
-        log(f"  flash B={b} S={s} H={h}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  bound {bound:.4f} ms "
+        log(f"  flash B={b} Sq={s} Skv={skv} H={h}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  bound {bound:.4f} ms "
             f"({bound_by})  plain {plain_ms:.3f} ms  sdpa {library_ms:.4f} ms  "
-            f"({4.0 * b * h * s * s * 64 / ms / 1e9:.1f} TFLOP/s)")
+            f"({4.0 * b * h * s * skv * 64 / ms / 1e9:.1f} TFLOP/s)")
         if not err <= FLASH_TOL:
-            fail(f"flash kernel disagrees with flash_attention_reference at B={b} S={s} H={h}: "
+            fail(f"flash kernel disagrees with flash_attention_reference at B={b} Sq={s} Skv={skv} H={h}: "
                  f"max abs error {err} > {FLASH_TOL}")
+    b, s, h = HOST_TIMING_SHAPE
+    q, k, v = (torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    log(f"  host time per call at B={b} S={s} H={h} (200 un-synchronised calls): flash_attention "
+        f"{host_us_per_call(torch, lambda: attention.flash_attention(q, k, v)):.2f} us, flash_attention_lse "
+        f"{host_us_per_call(torch, lambda: attention.flash_attention_lse(q, k, v)):.2f} us")
     return rows
 
 
 def check_flash_training(torch, attention) -> dict:
     """Phase 3, K2-K4: the forward with lse and the two backward kernels
-    against their plain versions, at the restore's shapes and the trainer's.
-    On the card the plain backward runs with 1024-wide blocks (the kernel's
-    rounding points; a 64-wide Python sweep of S=8192 would take minutes)."""
+    against their plain versions, at the restore's shapes, the trainer's and
+    the extra ones. The backward kernels are fed the forward kernel's own
+    output and lse, their plain version the plain forward's. On the card the
+    plain backward runs with 1024-wide blocks (the kernel's rounding points; a
+    64-wide Python sweep of S=8192 would take minutes)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = {"fwd_lse": [], "bwd_dq": [], "bwd_dkv": []}
-    for b, s, h in FLASH_SHAPES + TRAIN_SHAPES:
-        q, k, v, do = (torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
-        shape = dict(B=b, S=s, H=h)
-        where = f"B={b} S={s} H={h}"
+    for b, s, skv, h in FLASH_SHAPES + [(b, s, s, h) for b, s, h in TRAIN_SHAPES]:
+        q, do = (torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, skv, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+        shape = dict(B=b, S=s, Skv=skv, H=h)
+        where = f"B={b} Sq={s} Skv={skv} H={h}"
 
         out, lse = attention.flash_attention_lse(q, k, v)
         torch.cuda.synchronize()
@@ -157,16 +191,16 @@ def check_flash_training(torch, attention) -> dict:
                  f"lse {err_lse} (> {LSE_TOL}?)")
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qt, kt, vt)
-        bound, bound_by = flash_bound_ms(b, s, h, rows_fp32=1)
+        bound, bound_by = flash_bound_ms(b, s, skv, h, rows_fp32=1)
         rows["fwd_lse"].append(dict(
             **shape, max_abs_err=max(err_o, err_lse), ms=time_ms(torch, lambda: attention.flash_attention_lse(q, k, v)),
             plain_ms=time_ms(torch, lambda: attention.flash_attention_lse_reference(q, k, v), iters=2, warmup=1, groups=2),
             bound_ms=bound, bound_by=bound_by,
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))))
 
-        delta = attention.flash_delta(ref_o, do)
-        dq = attention.flash_backward_dq(q, k, v, do, ref_lse, delta)
-        dk, dv = attention.flash_backward_dkv(q, k, v, do, ref_lse, delta)
+        delta = attention.flash_delta(out, do)
+        dq = attention.flash_backward_dq(q, k, v, do, lse, delta)
+        dk, dv = attention.flash_backward_dkv(q, k, v, do, lse, delta)
         torch.cuda.synchronize()
 
         def plain():
@@ -181,11 +215,12 @@ def check_flash_training(torch, attention) -> dict:
         dlib = torch.randn_like(lib_out)
         library_ms = time_ms(
             torch, lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dlib, retain_graph=True), iters=5, warmup=1)
-        for name, fn, err, products, tensors in (
-            ("bwd_dq", lambda: attention.flash_backward_dq(q, k, v, do, ref_lse, delta), errs[0], 3, 5),
-            ("bwd_dkv", lambda: attention.flash_backward_dkv(q, k, v, do, ref_lse, delta), max(errs[1:]), 4, 6),
+        for name, fn, err, products, q_tensors, kv_tensors in (
+            ("bwd_dq", lambda: attention.flash_backward_dq(q, k, v, do, lse, delta), errs[0], 3, 3, 2),
+            ("bwd_dkv", lambda: attention.flash_backward_dkv(q, k, v, do, lse, delta), max(errs[1:]), 4, 2, 4),
         ):
-            bound, bound_by = flash_bound_ms(b, s, h, products=products, tensors=tensors, rows_fp32=2)
+            bound, bound_by = flash_bound_ms(b, s, skv, h, products=products, q_tensors=q_tensors,
+                                             kv_tensors=kv_tensors, rows_fp32=2)
             rows[name].append(dict(**shape, max_abs_err=err, ms=time_ms(torch, fn), plain_ms=plain_ms,
                                    bound_ms=bound, bound_by=bound_by, library_ms=library_ms))
         r2, r3, r4 = (rows[n][-1] for n in ("fwd_lse", "bwd_dq", "bwd_dkv"))
@@ -591,7 +626,7 @@ def main() -> None:
     log(f"[2] built {list(kernels.SOURCES)} in {time.time() - t0:.2f} s")
     for name, text in kernels.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "arning" in line:
                 log(f"    {name}: {line.strip()}")
 
     # 3. kernel check
@@ -621,11 +656,15 @@ def main() -> None:
 
     src = "instantir_tpu_torch/csrc/"
     jax_attn = "instantir_tpu/ops/attention.py"
-    train_weights = [1 if (r["B"], r["S"], r["H"]) == TRAIN_SHAPES[0] else 0 for r in train_rows["fwd_lse"]]
+    def shape_of(r):
+        return (r["B"], r["S"], r["H"]) if r["S"] == r["Skv"] else None
+
+    train_weights = [1 if shape_of(r) == TRAIN_SHAPES[0] else 0 for r in train_rows["fwd_lse"]]
     gn_weights = [1 if (r["dtype"] == "bfloat16" and (r["C"], r["H"], r["W"]) != GN_SHAPES[-1]) else 0 for r in gn_rows]
     entries = [
         kernel_entry("flash_attention_fwd", "cuda", src + "flash_fwd.cu", jax_attn + ":221", k1_rows,
-                     [by_seq.get(r["S"], 0) for r in k1_rows], restore_launches["flash_attention_fwd"],
+                     [by_seq.get(r["S"], 0) if shape_of(r) in RESTORE_SHAPES else 0 for r in k1_rows],
+                     restore_launches["flash_attention_fwd"],
                      by_path("flash_attention_fwd")),
         kernel_entry("flash_attention_fwd_lse", "cuda", src + "flash_fwd.cu", jax_attn + ":504", train_rows["fwd_lse"],
                      train_weights, train["train_512"]["flash_attention_fwd_lse"], by_path("flash_attention_fwd_lse")),

@@ -7,10 +7,10 @@
 // ::_flash_forward_lse (_flash_fwd_lse_kernel_resident / _flash_fwd_lse_kernel),
 // the training forward: it also stores, per q row, the log2-domain logsumexp
 // lse2 = m + log2(l) in fp32 as lse[B, H, Sq], from which the backward
-// kernels (flash_bwd.cu) rebuild P = exp2(s2 - lse2). That is one more 4-byte
-// store per q row, so its bound is the forward's. Rows at or past sq of a
+// kernels (flash_bwd.cu) rebuild P = exp2(s2 - lse2). Rows at or past sq of a
 // ragged last tile are not stored; kv_len >= 1 (checked by the entry point)
-// means every row has l > 0, so lse2 is finite.
+// and never visiting a tile that lies wholly past kv_len mean every row has
+// l > 0, so lse2 is finite.
 //
 // Numerics follow the Pallas kernel, not its blocking:
 //   * q is multiplied by scale*log2(e) in fp32 and rounded back to bf16;
@@ -19,27 +19,49 @@
 //   * P is rounded to bf16 before P v, which accumulates in fp32;
 //   * O = acc / l is stored in bf16.
 //
-// What bounds it on the H100: at the main path's shapes (S = 1024..8192,
-// head_dim 64) the work is 4*S^2*D FLOP per (batch, head) against 4*S*D*2
-// bytes of q/k/v/o, i.e. ~S/2 FLOP per byte -- far above the ~295 FLOP/B ridge,
-// so the kernel is bound by tensor-core operations (989 TFLOP/s dense bf16),
-// and secondarily by the exp2/max/sum passes over each [64, 64] score tile.
-// Per 1024² restore at 30 steps it does ~1.28e14 FLOP in 4,074 launches, a
-// bound of ~0.13 s; per call at B=2: S=8192/H=10 0.35 ms, S=4096/H=10
-// 0.087 ms, S=2048/H=20 0.043 ms, S=1024/H=20 0.011 ms.
+// What bounds it on the H100 (head_dim 64, S = 1024..8192):
+//   * operations: 4*S^2*64 FLOP per (batch, head) against 4*S*64*2 bytes of
+//     q/k/v/o is ~S/2 FLOP per byte, far above the card's ~295 FLOP/B ridge, so
+//     the bound is the tensor cores' 989 TFLOP/s. Per 64x64 score tile the
+//     two products are 8 wgmma m64n64k16, 32 clocks each: 256 clocks of an SM;
+//   * exp2: the same tile needs 4,096 exp2 on the special-function units, 16
+//     results per clock per SM by the usual figure: 256 clocks again, 8 per
+//     warp instruction. A kernel whose products and softmax take turns stops
+//     near half of its operations bound; this one does (see PERF.md);
+//   * L2 traffic: every CTA streams all K and V of its (batch, head), so a
+//     launch reads B*H*S^2*256/rows bytes from L2 with `rows` q rows per CTA:
+//     0.67 GB at B=2, S=4096, H=10 with 128 rows (1.34 GB with 64).
 //
-// Design (a simple one that is right first): one CTA of 4 warps per
-// (batch*head, 64-row q tile); each warp owns 16 q rows. The q tile is scaled,
-// staged through shared memory once and kept in registers as mma A fragments.
-// K/V walk in 64-key tiles staged through shared memory (V stored transposed
-// so every mma B fragment is one 32-bit load); Q K^T and P V run on the tensor
-// cores with mma.sync m16n8k16 bf16 -> fp32. P never leaves registers: the
-// score accumulator fragment is re-packed as the A fragment of P V. Rows are
-// padded to 72 elements so fragment loads are free of bank conflicts.
-// Ragged tails are masked: keys at or past kv_len score -inf (and their K/V
-// rows are zero-filled), q rows at or past sq are computed on zeros and not
-// stored. TMA, wgmma, warp specialisation and K/V double buffering are left
-// for later work.
+// Design.
+//   * One CTA = kWG warpgroups (1 or 2), each owning 64 q rows. The entry
+//     point counts the waves either choice needs (2 CTAs of 128 rows or 3 of
+//     64 per SM) and takes 128 rows unless 64 fill the card better.
+//   * Both products are wgmma.mma_async m64n64k16 (bf16 -> fp32). S = Q K^T
+//     reads Q and K from shared memory (both K-major). O += P V takes P from
+//     registers (the score accumulator, after the softmax, packed to bf16 in
+//     place: the accumulator layout is the A-fragment layout) and V from
+//     shared memory as it arrives, [key][d], as an MN-major B operand (the
+//     instruction's transpose flag): no transposed copy.
+//   * Shared-memory tiles are 64 rows of 128 bytes in the 128-byte swizzle
+//     (16-byte chunk c of row r lies at chunk c ^ (r % 8)), base aligned to
+//     1024 bytes, descriptors with layout type B128 and a stride of 1024
+//     bytes between 8-row groups; no padding.
+//   * K and V tiles of 64 keys come in by 16-byte cp.async copies, made by
+//     all threads, into a ring of kStages stages (K tile + V tile each), two
+//     tiles ahead of the one being multiplied; rows at or past kv_len are
+//     zero-filled by the copy's src-size operand. Each turn of the loop:
+//     cp.async.wait_group -> fence.proxy.async (wgmma reads shared memory
+//     through the async proxy) -> __syncthreads -> start the copy of tile
+//     j + kStages - 2 into the stage that tile j - 2 left.
+//   * Q K^T of tile j and P V of tile j - 1 are started together; the softmax
+//     of tile j starts when S is there, while P V may still run. Two CTAs
+//     (or three) are resident per SM so that one's products can run under
+//     another's softmax.
+//   * The running sum l stays a per-thread partial sum until the epilogue;
+//     the row maximum is reduced over the 4 threads of a row every tile.
+//
+// Shared memory: [Q: kWG x 8 KB][stage 0: K 8 KB, V 8 KB] ... [stage kStages-1],
+// plus up to 1 KB of alignment slack.
 //
 // Layout: q [B, Sq, H, 64], k/v [B, Skv, H, 64], o [B, Sq, H, 64], all
 // contiguous; each (b, h) row is 128 contiguous bytes at a stride of H*64.
@@ -51,15 +73,15 @@
 
 namespace {
 
-constexpr int kD = 64;        // head_dim
-constexpr int kBlockQ = 64;   // q rows per CTA
-constexpr int kBlockK = 64;   // keys per K/V tile
-constexpr int kWarps = 4;     // 16 q rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kPitch = 72;    // padded smem row pitch in bf16 elements
+constexpr int kD = 64;                       // head_dim
+constexpr int kBlockK = 64;                  // keys per K/V tile
+constexpr int kStages = 4;                   // K/V ring depth
+constexpr int kTileBytes = 64 * kD * 2;      // one 64-row tile of 128-byte rows
+constexpr int kStageBytes = 2 * kTileBytes;  // K tile + V tile
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ uint32_t ld_smem_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -67,32 +89,106 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d = a (16x16, row) * b (16x8, col) + d; bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_m16n8k16(float d[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <bool kWriteLse>
-__global__ void __launch_bounds__(kThreads)
+// 16-byte asynchronous copy global -> shared; bytes past src_bytes are zero-filled.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+// Orders shared-memory writes of the generic proxy before reads of the async proxy (wgmma).
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+// Keeps the compiler from moving uses of registers that a wgmma in flight writes or reads.
+template <int kN>
+__device__ __forceinline__ void reg_fence(float (&x)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+template <int kN>
+__device__ __forceinline__ void reg_fence(uint32_t (&x)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(x[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a tile of 128-byte rows in the 128-byte
+// swizzle: start address, leading byte offset 1 (unused: one swizzle atom
+// wide), 1024 bytes between 8-row groups, layout type B128.
+__device__ __forceinline__ uint64_t make_desc(uint32_t smem_addr) {
+  return static_cast<uint64_t>((smem_addr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+#define ACC32(d)                                                                                                    \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),      \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),       \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define ACC32_REGS                                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
+  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64x64 fp32) = a (64x16, shared, K-major) * b (16x64, shared, K-major: [n][k]) + (scale_d ? d : 0)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_REGS ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64x64 fp32) += a (64x16, registers) * b (16x64, shared, MN-major: [k][n], the transpose flag set)
+__device__ __forceinline__ void wgmma_m64n64k16_rs_bt(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                                      uint32_t a3, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_REGS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+template <int kWG>
+constexpr int smem_bytes() {
+  return kWG * kTileBytes + kStages * kStageBytes + 1024;
+}
+
+template <int kWG, bool kWriteLse>
+__global__ void __launch_bounds__(kWG * 128, kWG == 2 ? 2 : 3)
 flash_fwd_bf16_d64_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                          float* __restrict__ lse, int heads, int sq, int skv, float qscale) {
-  __shared__ __align__(16) __nv_bfloat16 s_q[kBlockQ * kPitch];
-  __shared__ __align__(16) __nv_bfloat16 s_k[kBlockK * kPitch];
-  __shared__ __align__(16) __nv_bfloat16 s_vt[kD * kPitch];  // [d][key]
+                          float* __restrict__ lse, int heads, int sq, int skv, int n_qtiles, float qscale) {
+  constexpr int kThreads = kWG * 128;
+  constexpr int kRows = kWG * 64;                 // q rows per CTA
+  constexpr int kRowStep = kThreads / 8;          // rows one pass of all threads copies
+  constexpr int kCopies = kBlockK / kRowStep;     // 16-byte copies per thread per K (or V) tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ring_base = q_base + kWG * kTileBytes;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
-  const int g = lane >> 2;  // mma group id: fragment row (A/C) or column (B)
-  const int t = lane & 3;   // thread in group
-  const int b = blockIdx.y / heads;
-  const int h = blockIdx.y % heads;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int g = lane >> 2;  // accumulator row within the warp's 16 (and g + 8)
+  const int t = lane & 3;   // accumulator column pair
+  const int bh = blockIdx.x / n_qtiles;
+  const int q0 = (blockIdx.x % n_qtiles) * kRows;
+  const int b = bh / heads;
+  const int h = bh % heads;
   const size_t row_stride = (size_t)heads * kD;
 
   const __nv_bfloat16* qb = q + ((size_t)b * sq * heads + h) * kD;
@@ -100,8 +196,34 @@ flash_fwd_bf16_d64_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   const __nv_bfloat16* vb = v + ((size_t)b * skv * heads + h) * kD;
   __nv_bfloat16* ob = o + ((size_t)b * sq * heads + h) * kD;
 
+  const int n_tiles = (skv + kBlockK - 1) / kBlockK;
+
+  // This thread's share of every K/V tile: chunk ld_ch of rows ld_row + i*kRowStep.
+  const int ld_row = tid >> 3;
+  const int ld_ch = tid & 7;
+  const uint32_t ld_off = ld_row * 128 + ((ld_ch ^ (ld_row & 7)) << 4);  // kRowStep % 8 == 0: the swizzle holds for every i
+
+  auto load_tile = [&](int tile) {
+    const uint32_t st = ring_base + (tile % kStages) * kStageBytes + ld_off;
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      const int key = tile * kBlockK + ld_row + i * kRowStep;
+      const bool ok = key < skv;
+      const size_t goff = (size_t)(ok ? key : 0) * row_stride + ld_ch * 8;
+      cp_async_16(st + i * kRowStep * 128, kb + goff, ok ? 16 : 0);
+      cp_async_16(st + kTileBytes + i * kRowStep * 128, vb + goff, ok ? 16 : 0);
+    }
+  };
+
+  // Start the ring: tiles 0 .. kStages-2, one commit group each (empty where there is no tile).
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) load_tile(i);
+    cp_async_commit();
+  }
+
   // Stage the q tile, pre-scaled by scale*log2(e) in fp32 and rounded to bf16.
-  for (int c = tid; c < kBlockQ * (kD / 8); c += kThreads) {
+  for (int c = tid; c < kRows * 8; c += kThreads) {
     const int r = c >> 3;
     const int ch = c & 7;
     const int s = q0 + r;
@@ -110,157 +232,192 @@ flash_fwd_bf16_d64_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
     __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
 #pragma unroll
     for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * qscale);
-    *reinterpret_cast<uint4*>(&s_q[r * kPitch + ch * 8]) = val;
-  }
-  __syncthreads();
-
-  // q as mma A fragments: 4 k-steps of 16 along head_dim.
-  uint32_t qf[4][4];
-  const int r0 = warp * 16 + g;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const int c0 = ks * 16 + t * 2;
-    qf[ks][0] = ld_smem_u32(&s_q[r0 * kPitch + c0]);
-    qf[ks][1] = ld_smem_u32(&s_q[(r0 + 8) * kPitch + c0]);
-    qf[ks][2] = ld_smem_u32(&s_q[r0 * kPitch + c0 + 8]);
-    qf[ks][3] = ld_smem_u32(&s_q[(r0 + 8) * kPitch + c0 + 8]);
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(q_base + r * 128 + ((ch ^ (r & 7)) << 4)),
+                 "r"(val.x), "r"(val.y), "r"(val.z), "r"(val.w)
+                 : "memory");
   }
 
-  // Online-softmax state for this thread's two rows (r0 and r0 + 8).
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const uint64_t desc_q = make_desc(q_base + wg * kTileBytes);
+  const uint64_t desc_ring = make_desc(ring_base);
 
-  for (int k0 = 0; k0 < skv; k0 += kBlockK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int c = tid; c < kBlockK * (kD / 8); c += kThreads) {
-      const int r = c >> 3;
-      const int ch = c & 7;
-      const int s = k0 + r;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (s < skv) {
-        kv = *reinterpret_cast<const uint4*>(kb + (size_t)s * row_stride + ch * 8);
-        vv = *reinterpret_cast<const uint4*>(vb + (size_t)s * row_stride + ch * 8);
+  float sacc[32];  // scores of the current tile, then exp2(s - m)
+  float oacc[32];  // output accumulator
+  uint32_t pa[16];  // P in bf16, as 4 A fragments (16 keys each)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
+  // Online-softmax state of this thread's two rows (g and g + 8 of its warp's
+  // 16): running max, and this thread's partial running sum.
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float alpha0, alpha1;
+
+  auto start_qk = [&](int tile) {
+    const uint64_t dk = desc_ring + (uint64_t)((tile % kStages) * (kStageBytes >> 4));
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_ss(sacc, desc_q + 2 * ks, dk + 2 * ks, ks > 0);
+  };
+  auto start_pv = [&](int tile) {
+    const uint64_t dv = desc_ring + (uint64_t)((tile % kStages) * (kStageBytes >> 4) + (kTileBytes >> 4));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_rs_bt(oacc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                            dv + kk * ((16 * 128) >> 4));
+  };
+  // sacc <- exp2(sacc - m_new); updates m and l; leaves the rescale factors in alpha0/1.
+  auto softmax = [&](int tile) {
+    if (tile == n_tiles - 1 && (skv % kBlockK)) {  // ragged kv tail
+      const int k0 = tile * kBlockK;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (k0 + (i >> 2) * 8 + t * 2 + (i & 1) >= skv) sacc[i] = -INFINITY;
       }
-      *reinterpret_cast<uint4*>(&s_k[r * kPitch + ch * 8]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s_vt[(ch * 8 + i) * kPitch + r] = ve[i];
     }
-    __syncthreads();
-
-    // S = q k^T: 8 n-tiles of 8 keys, fp32 accumulators in the C layout.
-    float sc[8][4];
+    float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-      const int key = j * 8 + g;
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        uint32_t bf[2];
-        const int d0 = ks * 16 + t * 2;
-        bf[0] = ld_smem_u32(&s_k[key * kPitch + d0]);
-        bf[1] = ld_smem_u32(&s_k[key * kPitch + d0 + 8]);
-        mma_m16n8k16(sc[j], qf[ks], bf);
-      }
-    }
-
-    if (k0 + kBlockK > skv) {  // ragged kv tail
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (k0 + j * 8 + t * 2 + (e & 1) >= skv) sc[j][e] = -INFINITY;
-        }
-      }
-    }
-
-    // m_new = max(m, rowmax(S)); rows are spread over the 4 threads of a group.
-    float mx0 = m_run[0];
-    float mx1 = m_run[1];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+      mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
     }
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-
-    const float alpha0 = exp2f(m_run[0] - mx0);
-    const float alpha1 = exp2f(m_run[1] - mx1);
-    float rs0 = 0.f;
-    float rs1 = 0.f;
+    alpha0 = ex2(m0 - mx0);
+    alpha1 = ex2(m1 - mx1);
+    float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      sc[j][0] = exp2f(sc[j][0] - mx0);
-      sc[j][1] = exp2f(sc[j][1] - mx0);
-      sc[j][2] = exp2f(sc[j][2] - mx1);
-      sc[j][3] = exp2f(sc[j][3] - mx1);
-      rs0 += sc[j][0] + sc[j][1];
-      rs1 += sc[j][2] + sc[j][3];
+      sacc[4 * j] = ex2(sacc[4 * j] - mx0);
+      sacc[4 * j + 1] = ex2(sacc[4 * j + 1] - mx0);
+      sacc[4 * j + 2] = ex2(sacc[4 * j + 2] - mx1);
+      sacc[4 * j + 3] = ex2(sacc[4 * j + 3] - mx1);
+      rs0 += sacc[4 * j] + sacc[4 * j + 1];
+      rs1 += sacc[4 * j + 2] + sacc[4 * j + 3];
     }
-    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
-    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
-    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
-    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
-    l_run[0] = l_run[0] * alpha0 + rs0;
-    l_run[1] = l_run[1] * alpha1 + rs1;
-    m_run[0] = mx0;
-    m_run[1] = mx1;
-
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      acc[j][0] *= alpha0;
-      acc[j][1] *= alpha0;
-      acc[j][2] *= alpha1;
-      acc[j][3] *= alpha1;
-    }
-
-    // acc += P v: P (rounded to bf16) is re-packed from the score fragments.
+    l0 = l0 * alpha0 + rs0;
+    l1 = l1 * alpha1 + rs1;
+    m0 = mx0;
+    m1 = mx1;
+  };
+  // P (rounded to bf16) re-packed from the score accumulator as A fragments.
+  auto pack_p = [&]() {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(sc[2 * kk][0], sc[2 * kk][1]);
-      pa[1] = pack_bf16x2(sc[2 * kk][2], sc[2 * kk][3]);
-      pa[2] = pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      pa[3] = pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-      const int key0 = kk * 16 + t * 2;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t bf[2];
-        const int dd = j * 8 + g;
-        bf[0] = ld_smem_u32(&s_vt[dd * kPitch + key0]);
-        bf[1] = ld_smem_u32(&s_vt[dd * kPitch + key0 + 8]);
-        mma_m16n8k16(acc[j], pa, bf);
-      }
+      pa[4 * kk] = pack_bf16x2(sacc[8 * kk], sacc[8 * kk + 1]);
+      pa[4 * kk + 1] = pack_bf16x2(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+      pa[4 * kk + 2] = pack_bf16x2(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+      pa[4 * kk + 3] = pack_bf16x2(sacc[8 * kk + 6], sacc[8 * kk + 7]);
     }
+  };
+
+  // Tile 0: S = Q K^T, softmax; its P V joins the next turn's products.
+  cp_async_wait<kStages - 2>();
+  fence_proxy_async();
+  __syncthreads();
+  wgmma_fence();
+  start_qk(0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(sacc);
+  softmax(0);
+  pack_p();
+
+  for (int j = 1; j < n_tiles; ++j) {
+    cp_async_wait<kStages - 3>();  // tile j has landed (this thread's copies)
+    fence_proxy_async();
+    __syncthreads();  // ... everyone's; and every warp is done with tile j - 2
+    if (j + kStages - 2 < n_tiles) load_tile(j + kStages - 2);
+    cp_async_commit();
+
+    reg_fence(sacc);
+    reg_fence(oacc);
+    reg_fence(pa);
+    wgmma_fence();
+    start_qk(j);
+    wgmma_commit();
+    start_pv(j - 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // S of tile j is there; P V of tile j - 1 may run on
+    reg_fence(sacc);
+    softmax(j);
+    reg_fence(sacc);
+    wgmma_wait<0>();
+    reg_fence(oacc);
+    reg_fence(pa);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      oacc[4 * jj] *= alpha0;
+      oacc[4 * jj + 1] *= alpha0;
+      oacc[4 * jj + 2] *= alpha1;
+      oacc[4 * jj + 3] *= alpha1;
+    }
+    pack_p();
   }
 
+  reg_fence(oacc);
+  reg_fence(pa);
+  wgmma_fence();
+  start_pv(n_tiles - 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(oacc);
+
+  // The row sums over the 4 threads that share a row.
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+
   // O = acc / l in bf16; rows past sq are not stored.
-  const int s_lo = q0 + r0;
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int s_lo = q0 + wg * 64 + warp * 16 + g;
   const int s_hi = s_lo + 8;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = j * 8 + t * 2;
     if (s_lo < sq) {
       *reinterpret_cast<uint32_t*>(ob + (size_t)s_lo * row_stride + col) =
-          pack_bf16x2(acc[j][0] / l_run[0], acc[j][1] / l_run[0]);
+          pack_bf16x2(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
     }
     if (s_hi < sq) {
       *reinterpret_cast<uint32_t*>(ob + (size_t)s_hi * row_stride + col) =
-          pack_bf16x2(acc[j][2] / l_run[1], acc[j][3] / l_run[1]);
+          pack_bf16x2(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
     }
   }
-  if (kWriteLse && t == 0) {  // one thread of each group holds the row's m and l
-    float* lb = lse + (size_t)blockIdx.y * sq;  // [B, H, Sq]
-    if (s_lo < sq) lb[s_lo] = m_run[0] + log2f(l_run[0]);
-    if (s_hi < sq) lb[s_hi] = m_run[1] + log2f(l_run[1]);
+  if (kWriteLse && t == 0) {  // one thread of each group of 4 writes the row's lse
+    float* lb = lse + (size_t)bh * sq;  // [B, H, Sq]
+    if (s_lo < sq) lb[s_lo] = m0 + log2f(l0);
+    if (s_hi < sq) lb[s_hi] = m1 + log2f(l1);
   }
+}
+
+template <int kWG, bool kWriteLse>
+int launch_variant(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int heads, int sq,
+                   int skv, float qscale, int device, cudaStream_t stream) {
+  auto kernel = flash_fwd_bf16_d64_kernel<kWG, kWriteLse>;
+  static bool configured[kMaxDevices] = {};  // per device: dynamic shared memory above 48 KB is opt-in
+  if (!configured[device]) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<kWG>());
+    if (err != cudaSuccess) return (int)err;
+    configured[device] = true;
+  }
+  const int n_qtiles = (sq + kWG * 64 - 1) / (kWG * 64);
+  kernel<<<(unsigned)(n_qtiles * batch * heads), kWG * 128, smem_bytes<kWG>(), stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), heads, sq,
+      skv, n_qtiles, qscale);
+  return (int)cudaGetLastError();
+}
+
+// Rows of q per CTA, from the waves each choice needs. 128 rows (two
+// warpgroups share the K/V ring: half the L2 traffic) run 2 CTAs per SM, 64
+// rows run 3, and a warpgroup takes the same time per tile either way, so a
+// wave of 128-row CTAs costs 4 units against 3 for a wave of 64-row CTAs.
+__host__ int warpgroups_per_cta(int sq, long long batch_heads, int sms) {
+  const long long ctas128 = (long long)((sq + 127) / 128) * batch_heads;
+  const long long ctas64 = (long long)((sq + 63) / 64) * batch_heads;
+  const long long waves128 = (ctas128 + 2LL * sms - 1) / (2LL * sms);
+  const long long waves64 = (ctas64 + 3LL * sms - 1) / (3LL * sms);
+  return 3 * waves64 < 4 * waves128 ? 1 : 2;
 }
 
 template <bool kWriteLse>
@@ -269,12 +426,19 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o, void*
   if (batch <= 0 || heads <= 0 || sq <= 0 || skv <= 0 || (long long)batch * heads > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, batch * heads);
-  flash_fwd_bf16_d64_kernel<kWriteLse><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), heads, sq,
-      skv, qscale);
-  return (int)cudaGetLastError();
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  static int sm_count[kMaxDevices] = {};
+  if (sm_count[device] == 0) {
+    err = cudaDeviceGetAttribute(&sm_count[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return warpgroups_per_cta(sq, (long long)batch * heads, sm_count[device]) == 2
+             ? launch_variant<2, kWriteLse>(q, k, v, o, lse, batch, heads, sq, skv, qscale, device, s)
+             : launch_variant<1, kWriteLse>(q, k, v, o, lse, batch, heads, sq, skv, qscale, device, s);
 }
 
 }  // namespace

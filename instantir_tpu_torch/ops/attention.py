@@ -6,9 +6,11 @@ heads, head_dim]`` (BSHD) at every public function, as in the JAX package.
 * ``attention_xla`` -- the plain path: fp32 logits and softmax, probabilities
   rounded to the V dtype before P·V (the JAX reference path's semantics).
 * ``flash_attention`` -- the wrapper of ``csrc/flash_fwd.cu``, the port of the
-  Pallas kernel ``flash_attention``. On a CUDA tensor it launches the kernel or
-  raises; only a tensor on the CPU takes the plain version,
-  ``flash_attention_reference``.
+  Pallas kernel ``flash_attention`` (``wgmma`` products, K/V tiles of 64 keys
+  through a ``cp.async`` ring, 64 or 128 q rows per CTA chosen by the C entry
+  point). On a CUDA tensor it launches the kernel or raises; only a tensor on
+  the CPU takes the plain version, ``flash_attention_reference``, whose
+  ``block_k`` default is the kernel's key tile.
 * ``flash_attention_lse`` -- the training forward (port of
   ``_flash_forward_lse``): the same kernel plus the per-row log2-domain
   logsumexp ``[B, H, Sq]`` fp32; plain version ``flash_attention_lse_reference``.
@@ -202,7 +204,7 @@ def _kernel(name: str):
 
 
 def _check_flash_inputs(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if not (k.is_cuda and v.is_cuda) or len({q.device, k.device, v.device}) != 1:
+    if not k.is_cuda or k.device != q.device or v.device != q.device:
         raise ValueError(f"{what}: q/k/v must share one CUDA device, got {q.device}, {k.device}, {v.device}")
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
         raise ValueError(f"{what}: the kernel takes bfloat16 only, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -238,13 +240,28 @@ def _check_operand(what: str, name: str, t: torch.Tensor, like: Optional[torch.T
         raise ValueError(f"{what}: {name} must be 16-byte aligned")
 
 
+def _current_raw_stream(device: torch.device) -> int:
+    """The current stream's handle on ``device``. The raw getter, where this
+    PyTorch has it, costs a tenth of building a ``torch.cuda.Stream``, and the
+    wrappers sit on paths that the host bounds."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _launch(what: str, name: str, like: torch.Tensor, *args) -> None:
     """Launch one entry point on the current stream of ``like``'s device and
     raise if the launch was refused."""
     fn = _kernel(name)
-    with torch.cuda.device(like.device):
-        stream = torch.cuda.current_stream(like.device).cuda_stream
-        err = fn(*[_PTR(a.data_ptr()) if isinstance(a, torch.Tensor) else a for a in args], _PTR(stream))
+    # plain ints and floats: ``argtypes`` converts them, which costs less than building ctypes objects here
+    call = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    call.append(_current_raw_stream(like.device))
+    if torch.cuda.current_device() == like.device.index:  # the usual case: no device switch to pay for
+        err = fn(*call)
+    else:
+        with torch.cuda.device(like.device):
+            err = fn(*call)
     if err != 0:
         raise RuntimeError(f"{what}: kernel launch failed with cudaError_t {err}")
 
@@ -271,7 +288,7 @@ def flash_attention(
     if scale is None:
         scale = d**-0.5
     out = torch.empty_like(q)
-    _launch("flash_attention", "fwd", q, q, k, v, out, b, h, sq, k.shape[1], ctypes.c_float(scale * LOG2E))
+    _launch("flash_attention", "fwd", q, q, k, v, out, b, h, sq, k.shape[1], scale * LOG2E)
     flash_attention_launches += 1
     return out
 
@@ -297,9 +314,9 @@ def flash_attention_lse(
     if scale is None:
         scale = d**-0.5
     out = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lse = q.new_empty((b, h, sq), dtype=torch.float32)
     _launch("flash_attention_lse", "fwd_lse", q, q, k, v, out, lse, b, h, sq, k.shape[1],
-            ctypes.c_float(scale * LOG2E))
+            scale * LOG2E)
     flash_attention_lse_launches += 1
     return out, lse
 
@@ -324,7 +341,7 @@ def flash_backward_dq(q, k, v, do, lse, delta, scale: Optional[float] = None) ->
         scale = d**-0.5
     dq = torch.empty_like(q)
     _launch("flash_backward_dq", "bwd_dq", q, q, k, v, do, lse, delta, dq, b, h, sq, k.shape[1],
-            ctypes.c_float(scale * LOG2E), ctypes.c_float(scale))
+            scale * LOG2E, scale)
     flash_backward_dq_launches += 1
     return dq
 
@@ -339,7 +356,7 @@ def flash_backward_dkv(q, k, v, do, lse, delta, scale: Optional[float] = None) -
         scale = d**-0.5
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_backward_dkv", "bwd_dkv", q, q, k, v, do, lse, delta, dk, dv, b, h, sq, k.shape[1],
-            ctypes.c_float(scale * LOG2E), ctypes.c_float(scale))
+            scale * LOG2E, scale)
     flash_backward_dkv_launches += 1
     return dk, dv
 

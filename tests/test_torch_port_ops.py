@@ -12,6 +12,8 @@ plain version and run only where a card is present.
 from __future__ import annotations
 
 import ast
+import functools
+import re
 from pathlib import Path
 
 import jax
@@ -25,6 +27,7 @@ from instantir_tpu.ops import group_norm as jgn
 from instantir_tpu.ops.group_norm import group_norm_silu_reference as jax_gn
 from instantir_tpu.schedulers import diffusion as jsched
 from instantir_tpu_torch import convert
+from instantir_tpu_torch import kernels as tkernels
 from instantir_tpu_torch.models import layers as tlayers
 from instantir_tpu_torch.ops import attention as tattn
 from instantir_tpu_torch.ops import group_norm as tgn
@@ -344,19 +347,32 @@ def test_attention_xla(sq, skv):
     np.testing.assert_array_equal(got2, got)
 
 
-# fp32 ≤ 1e-5: the same algorithm, only the blocking (64 keys here, the whole
-# row in the Pallas kernel) and so the summation order differ. bf16 ≤ 4e-3:
-# the band docs/perf.md states for the Pallas kernel vs the XLA path -- the
-# blocking changes which running max each P is rounded against.
-@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), ("bfloat16", 4e-3)])
-@pytest.mark.parametrize("sq,skv", [(256, 640), (200, 520)])
-def test_flash_reference_matches_pallas_interpret(dtype, tol, sq, skv):
+@functools.lru_cache(maxsize=None)
+def _pallas_flash_forward(bf16: bool, sq: int, skv: int):
+    """The Pallas forward in interpret mode on the seeded inputs, traced once
+    per shape and dtype whatever the plain version's blocking."""
     q, k, v = _qkv(np.random.default_rng(8), sq, skv)
-    jdt = jnp.float32 if dtype is np.float32 else jnp.bfloat16
-    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
     ref = jattn.flash_attention(jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt), interpret=True)
+    return q, k, v, np.asarray(ref, np.float32)
+
+
+# fp32 ≤ 1e-5: the same algorithm, only the blocking (64 or 128 keys here, the
+# whole row in the Pallas kernel) and so the summation order differ. bf16 ≤
+# 4e-3: the band docs/perf.md states for the Pallas kernel vs the XLA path --
+# the blocking changes which running max each P is rounded against. skv = 592
+# leaves a tail of 16 keys under 64-key blocks and of 80 under 128-key ones.
+@pytest.mark.parametrize("block_k", [64, 128])
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), ("bfloat16", 4e-3)])
+@pytest.mark.parametrize("sq,skv", [(256, 640), (200, 520), (200, 592)])
+def test_flash_reference_matches_pallas_interpret(dtype, tol, sq, skv, block_k):
+    q, k, v, ref = _pallas_flash_forward(dtype != np.float32, sq, skv)
+    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
     before = tattn.flash_attention_launches
-    got = tattn.flash_attention(_t(q).to(tdt), _t(k).to(tdt), _t(v).to(tdt))
+    if block_k == 64:  # the wrapper's own choice on the CPU: the kernel's key tile
+        got = tattn.flash_attention(_t(q).to(tdt), _t(k).to(tdt), _t(v).to(tdt))
+    else:
+        got = tattn.flash_attention_reference(_t(q).to(tdt), _t(k).to(tdt), _t(v).to(tdt), block_k=block_k)
     assert tattn.flash_attention_launches == before  # the CPU path launches nothing
     assert got.dtype == tdt and got.shape == q.shape
     err = np.abs(got.float().numpy() - np.asarray(ref, np.float32)).max()
@@ -372,23 +388,36 @@ def _fold(x):
 # fp32: atol 5e-5 + rtol 1e-3, the band tests/test_flash_attention_bwd.py holds
 # the Pallas backward to; bf16: 2e-2 of the largest reference value (8 bits of
 # mantissa; the block sizes, and so the summation order, differ).
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_lse_and_backward_references_match_pallas_interpret(dtype):
+@functools.lru_cache(maxsize=None)
+def _pallas_flash_training(dtype: str):
+    """The Pallas forward-with-lse and backward in interpret mode on the seeded
+    inputs, traced once per dtype."""
     b, s, h, d = 1, 256, 2, 64
     q, k, v = _qkv(np.random.default_rng(9), s, s, h=h, b=b)
     g = np.random.default_rng(10).standard_normal(q.shape).astype(np.float32)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jq, jk, jv, jg = (jnp.asarray(x, jdt) for x in (q, k, v, g))
+    jo, jlse = jattn._flash_forward_lse(jq, jk, jv, d**-0.5, interpret=True)
+    jgrads = jattn._flash_backward(jq, jk, jv, jo, jlse, jg, d**-0.5, interpret=True)
+    return q, k, v, g, jo, jlse, jgrads
+
+
+@pytest.mark.parametrize("block_k", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_lse_and_backward_references_match_pallas_interpret(dtype, block_k):
+    b, s, h, d = 1, 256, 2, 64
+    q, k, v, g, jo, jlse, jgrads = _pallas_flash_training(dtype)
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
     scale = d**-0.5
-    jq, jk, jv, jg = (jnp.asarray(x, jdt) for x in (q, k, v, g))
-    jo, jlse = jattn._flash_forward_lse(jq, jk, jv, scale, interpret=True)
-    jgrads = jattn._flash_backward(jq, jk, jv, jo, jlse, jg, scale, interpret=True)
 
     tq, tk, tv, tg = (_t(x).to(tdt) for x in (q, k, v, g))
-    o, lse = tattn.flash_attention_lse(tq, tk, tv, scale)
+    if block_k == 64:  # the wrapper's own choice on the CPU: the kernel's key tile
+        o, lse = tattn.flash_attention_lse(tq, tk, tv, scale)
+    else:
+        o, lse = tattn.flash_attention_lse_reference(tq, tk, tv, scale, block_k=block_k)
     assert lse.shape == (b, h, s) and lse.dtype == torch.float32
     want_lse = np.asarray(jlse, np.float32).reshape(b, h, s)
-    grads = tattn.flash_backward_reference(tq, tk, tv, o, lse, tg, scale)
+    grads = tattn.flash_backward_reference(tq, tk, tv, o, lse, tg, scale, block_k=block_k)
 
     def close(got, want):
         got, want = got.float().numpy(), np.asarray(want, np.float32)
@@ -440,17 +469,49 @@ def test_flash_attention_diff_gradients_match_attention_xla(sq, skv):
     np.testing.assert_allclose(dk.numpy(), got[1].numpy(), atol=1e-6, rtol=0)
 
 
+def _c_parameters(source: str, symbol: str) -> int:
+    """Parameters of the ``extern "C"`` function ``symbol`` in a CUDA source."""
+    m = re.search(r'extern\s+"C"\s+int\s+' + re.escape(symbol) + r"\s*\(([^)]*)\)\s*\{", source)
+    assert m, f'no extern "C" int {symbol}(...) definition'
+    return len([a for a in m.group(1).split(",") if a.strip()])
+
+
+@pytest.mark.parametrize("name", sorted(tattn._ENTRY_POINTS))
+def test_entry_points_match_their_sources(name):
+    """Every ctypes binding names an ``extern "C"`` function of its source with
+    as many parameters as its ``argtypes``: a renamed or re-ordered entry
+    point would otherwise show only on the card."""
+    source, symbol, argtypes = tattn._ENTRY_POINTS[name]
+    assert source in tkernels.SOURCES
+    text = (tkernels.CSRC / f"{source}.cu").read_text()
+    assert _c_parameters(text, symbol) == len(argtypes)
+
+
+def test_kernel_sources_exist_and_hold_one_forward_kernel():
+    for name in tkernels.SOURCES:
+        assert (tkernels.CSRC / f"{name}.cu").is_file(), name
+    fwd = (tkernels.CSRC / "flash_fwd.cu").read_text()
+    assert len(re.findall(r"__global__\s+void", fwd)) == 1
+    assert "wgmma.mma_async" in fwd and "cp.async" in fwd and "mma.sync" not in fwd.split("#include", 1)[1]
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc and Triton: the kernels have no CPU mode")
 
 
+# beside the square shapes: Sq != Skv with neither a multiple of the tiles, and
+# a kv tail of 72 keys
+CARD_SHAPES = [(1024, 1024), (2304, 2304), (1000, 1000), (200, 520), (1024, 1096)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [1024, 2304, 1000])
-def test_flash_training_kernels_match_references_on_card(s):
+@pytest.mark.parametrize("s,skv", CARD_SHAPES)
+def test_flash_training_kernels_match_references_on_card(s, skv):
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (torch.randn(2, s, 4, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    q, do = (torch.randn(2, s, 4, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(2, skv, 4, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
     before = (tattn.flash_attention_lse_launches, tattn.flash_backward_dq_launches, tattn.flash_backward_dkv_launches)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out = tattn.dot_product_attention(*leaves)  # an input needs a gradient: the differentiable kernels
@@ -492,12 +553,13 @@ def test_group_norm_kernel_matches_plain_version_on_card(shape, dtype, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [1024, 2304, 1000])
-def test_flash_kernel_matches_reference_on_card(s):
+@pytest.mark.parametrize("s,skv", CARD_SHAPES)
+def test_flash_kernel_matches_reference_on_card(s, skv):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(2, s, 4, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    q = torch.randn(2, s, 4, 64, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(2, skv, 4, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
     before = tattn.flash_attention_launches
     out = tattn.flash_attention(q, k, v)
     torch.cuda.synchronize()
