@@ -13,9 +13,9 @@ which ends the script with a nonzero exit on failure:
 3. kernel check: each of the five kernels (flash forward, flash forward with
    lse, flash dQ, flash dK/dV, fused GroupNorm+SiLU) against its plain PyTorch
    version on the card at the main paths' shapes (plus ragged ones, a cross
-   shape with Sq != Skv, a kv tail of 72 keys and an odd batch x heads), with
-   time, bound, the plain version's time and a one-call library yardstick;
-   the forward wrappers' host time per call;
+   shape with Sq != Skv, a kv tail of 72 keys, an odd batch x heads and an odd
+   S), with time, bound, the plain version's time and a one-call library
+   yardstick; the forward and backward wrappers' host time per call;
 4. restore at full SDXL width with synthetic weights: a UNet forward with the
    flash path against the plain attention path, then ``restore`` with the
    fused GroupNorm off and on, every launch counter set to 0 just before each
@@ -61,8 +61,10 @@ RESTORE_SHAPES = [(2, 4096, 10), (2, 1024, 20), (2, 8192, 10), (2, 2048, 20)]
 TRAIN_SHAPES = [(2, 1024, 10), (1, 4096, 10), (1, 1024, 20)]
 # (B, Sq, Skv, H) checked beside them, off every main path: a ragged 768² shape,
 # S % 64 != 0, a cross shape (Sq != Skv, neither a multiple of the tiles), a kv
-# tail of 72 keys after 129 full tiles, and batch x heads = 15
-EXTRA_SHAPES = [(2, 2304, 2304, 10), (2, 1000, 1000, 10), (1, 200, 520, 10), (2, 8264, 8264, 10), (3, 1024, 1024, 5)]
+# tail of 72 keys after 129 full tiles, batch x heads = 15, and an odd S (the
+# fp32 lse and D rows of a (batch, head) start off 16-byte alignment)
+EXTRA_SHAPES = [(2, 2304, 2304, 10), (2, 1000, 1000, 10), (1, 200, 520, 10), (2, 8264, 8264, 10), (3, 1024, 1024, 5),
+                (1, 1001, 1001, 10)]
 FLASH_SHAPES = [(b, s, s, h) for b, s, h in RESTORE_SHAPES] + EXTRA_SHAPES
 HOST_TIMING_SHAPE = RESTORE_SHAPES[1]  # most of a restore's launches
 # (C, H, W) of GroupNorm32 in the UNet at 1024² (CFG batch 2), plus a ragged one
@@ -229,6 +231,14 @@ def check_flash_training(torch, attention) -> dict:
             f"dkv err {r4['max_abs_err']:.2e} {r4['ms']:.4f} ms (bound {r4['bound_ms']:.4f}) | plain bwd "
             f"{plain_ms:.2f} ms, sdpa bwd {library_ms:.4f} ms")
         del lib_out
+    b, s, h = TRAIN_SHAPES[0]
+    q, k, v, do = (torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    out, lse = attention.flash_attention_lse(q, k, v)
+    delta = attention.flash_delta(out, do)
+    dq_us = host_us_per_call(torch, lambda: attention.flash_backward_dq(q, k, v, do, lse, delta))
+    dkv_us = host_us_per_call(torch, lambda: attention.flash_backward_dkv(q, k, v, do, lse, delta))
+    log(f"  host time per call at B={b} S={s} H={h} (200 un-synchronised calls): flash_backward_dq {dq_us:.2f} us, "
+        f"flash_backward_dkv {dkv_us:.2f} us")
     return rows
 
 

@@ -71,6 +71,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kD = 64;                       // head_dim
@@ -78,88 +80,6 @@ constexpr int kBlockK = 64;                  // keys per K/V tile
 constexpr int kStages = 4;                   // K/V ring depth
 constexpr int kTileBytes = 64 * kD * 2;      // one 64-row tile of 128-byte rows
 constexpr int kStageBytes = 2 * kTileBytes;  // K tile + V tile
-constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 16-byte asynchronous copy global -> shared; bytes past src_bytes are zero-filled.
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-// Orders shared-memory writes of the generic proxy before reads of the async proxy (wgmma).
-__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-}
-// Keeps the compiler from moving uses of registers that a wgmma in flight writes or reads.
-template <int kN>
-__device__ __forceinline__ void reg_fence(float (&x)[kN]) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(x[i])::"memory");
-}
-template <int kN>
-__device__ __forceinline__ void reg_fence(uint32_t (&x)[kN]) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(x[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a tile of 128-byte rows in the 128-byte
-// swizzle: start address, leading byte offset 1 (unused: one swizzle atom
-// wide), 1024 bytes between 8-row groups, layout type B128.
-__device__ __forceinline__ uint64_t make_desc(uint32_t smem_addr) {
-  return static_cast<uint64_t>((smem_addr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-#define ACC32(d)                                                                                                    \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),      \
-      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),       \
-      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-#define ACC32_REGS                                                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
-  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (64x64 fp32) = a (64x16, shared, K-major) * b (16x64, shared, K-major: [n][k]) + (scale_d ? d : 0)
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_REGS ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC32(d)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// d (64x64 fp32) += a (64x16, registers) * b (16x64, shared, MN-major: [k][n], the transpose flag set)
-__device__ __forceinline__ void wgmma_m64n64k16_rs_bt(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
-                                                      uint32_t a3, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_REGS
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC32(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
-}
 
 template <int kWG>
 constexpr int smem_bytes() {
@@ -392,14 +312,11 @@ flash_fwd_bf16_d64_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
 
 template <int kWG, bool kWriteLse>
 int launch_variant(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int heads, int sq,
-                   int skv, float qscale, int device, cudaStream_t stream) {
+                   int skv, float qscale, cudaStream_t stream) {
   auto kernel = flash_fwd_bf16_d64_kernel<kWG, kWriteLse>;
-  static bool configured[kMaxDevices] = {};  // per device: dynamic shared memory above 48 KB is opt-in
-  if (!configured[device]) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<kWG>());
-    if (err != cudaSuccess) return (int)err;
-    configured[device] = true;
-  }
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = allow_smem(kernel, smem_bytes<kWG>(), configured);
+  if (err != cudaSuccess) return (int)err;
   const int n_qtiles = (sq + kWG * 64 - 1) / (kWG * 64);
   kernel<<<(unsigned)(n_qtiles * batch * heads), kWG * 128, smem_bytes<kWG>(), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -423,9 +340,7 @@ __host__ int warpgroups_per_cta(int sq, long long batch_heads, int sms) {
 template <bool kWriteLse>
 int launch_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int heads,
                      int sq, int skv, float qscale, void* stream) {
-  if (batch <= 0 || heads <= 0 || sq <= 0 || skv <= 0 || (long long)batch * heads > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (bad_shape(batch, heads, sq, skv)) return (int)cudaErrorInvalidValue;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -437,8 +352,8 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o, void*
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return warpgroups_per_cta(sq, (long long)batch * heads, sm_count[device]) == 2
-             ? launch_variant<2, kWriteLse>(q, k, v, o, lse, batch, heads, sq, skv, qscale, device, s)
-             : launch_variant<1, kWriteLse>(q, k, v, o, lse, batch, heads, sq, skv, qscale, device, s);
+             ? launch_variant<2, kWriteLse>(q, k, v, o, lse, batch, heads, sq, skv, qscale, s)
+             : launch_variant<1, kWriteLse>(q, k, v, o, lse, batch, heads, sq, skv, qscale, s);
 }
 
 }  // namespace

@@ -7,11 +7,13 @@ in ``.gitignore``) under a name keyed by a hash of the sources and flags, so an
 edit rebuilds and an unchanged tree reuses the earlier build. Nothing is built
 at import: the first call that needs a kernel builds it.
 
-The target is ``sm_90a``, not plain ``sm_90``: ``csrc/flash_fwd.cu`` uses
-``wgmma``, which exists only there. It needs nothing beyond the CUDA toolkit's
-own headers and runtime (no ``-lcuda``, no extra include path): its K/V copies
-are ``cp.async``, so no tensor map is encoded on the host. ``-Xptxas -v`` keeps
-each kernel's registers, spills and warnings in ``build_logs``.
+The target is ``sm_90a``, not plain ``sm_90``: both sources use ``wgmma``
+(through the PTX wrappers of ``csrc/hopper.cuh``, whose bytes are part of every
+build's key), which exists only there. They need nothing beyond the CUDA
+toolkit's own headers and runtime (no ``-lcuda``, no extra include path): their
+tile copies are ``cp.async``, so no tensor map is encoded on the host.
+``-Xptxas -v`` keeps each kernel's registers, spills and warnings in
+``build_logs``.
 """
 
 from __future__ import annotations

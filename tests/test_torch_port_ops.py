@@ -402,9 +402,13 @@ def _pallas_flash_training(dtype: str):
     return q, k, v, g, jo, jlse, jgrads
 
 
+@pytest.mark.parametrize("block_q", [64, 128])
 @pytest.mark.parametrize("block_k", [64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_lse_and_backward_references_match_pallas_interpret(dtype, block_k):
+def test_flash_lse_and_backward_references_match_pallas_interpret(dtype, block_k, block_q):
+    """The plain forward-with-lse and backward against the Pallas kernels in
+    interpret mode, at the blockings the kernels use (64 or 128 q rows or keys
+    per CTA)."""
     b, s, h, d = 1, 256, 2, 64
     q, k, v, g, jo, jlse, jgrads = _pallas_flash_training(dtype)
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
@@ -417,7 +421,7 @@ def test_flash_lse_and_backward_references_match_pallas_interpret(dtype, block_k
         o, lse = tattn.flash_attention_lse_reference(tq, tk, tv, scale, block_k=block_k)
     assert lse.shape == (b, h, s) and lse.dtype == torch.float32
     want_lse = np.asarray(jlse, np.float32).reshape(b, h, s)
-    grads = tattn.flash_backward_reference(tq, tk, tv, o, lse, tg, scale, block_k=block_k)
+    grads = tattn.flash_backward_reference(tq, tk, tv, o, lse, tg, scale, block_q=block_q, block_k=block_k)
 
     def close(got, want):
         got, want = got.float().numpy(), np.asarray(want, np.float32)
@@ -488,11 +492,20 @@ def test_entry_points_match_their_sources(name):
 
 
 def test_kernel_sources_exist_and_hold_one_forward_kernel():
+    """The forward source holds one kernel and the backward source two; both
+    include the shared header of Hopper PTX wrappers, multiply only with
+    ``wgmma`` and stream by ``cp.async`` (in the source or the header)."""
     for name in tkernels.SOURCES:
         assert (tkernels.CSRC / f"{name}.cu").is_file(), name
-    fwd = (tkernels.CSRC / "flash_fwd.cu").read_text()
-    assert len(re.findall(r"__global__\s+void", fwd)) == 1
-    assert "wgmma.mma_async" in fwd and "cp.async" in fwd and "mma.sync" not in fwd.split("#include", 1)[1]
+    header = (tkernels.CSRC / "hopper.cuh").read_text()
+    assert "wgmma.mma_async" in header and "cp.async" in header
+    for name, kernels in (("flash_fwd", 1), ("flash_bwd", 2)):
+        text = (tkernels.CSRC / f"{name}.cu").read_text()
+        assert '#include "hopper.cuh"' in text, name
+        assert len(re.findall(r"__global__\s+void", text)) == kernels, name
+        body = text.split("#include", 1)[1] + header
+        assert "wgmma.mma_async" in body and "cp.async" in body, name
+        assert "mma.sync" not in body and "ldmatrix" not in body, name
 
 
 def _need_card():
@@ -500,9 +513,9 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU with nvcc and Triton: the kernels have no CPU mode")
 
 
-# beside the square shapes: Sq != Skv with neither a multiple of the tiles, and
-# a kv tail of 72 keys
-CARD_SHAPES = [(1024, 1024), (2304, 2304), (1000, 1000), (200, 520), (1024, 1096)]
+# beside the square shapes: Sq != Skv with neither a multiple of the tiles, a kv
+# tail of 72 keys, and an odd S (lse and D rows start off 16-byte alignment)
+CARD_SHAPES = [(1024, 1024), (2304, 2304), (1000, 1000), (200, 520), (1024, 1096), (1001, 1001)]
 
 
 @pytest.mark.cuda
