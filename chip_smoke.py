@@ -14,8 +14,10 @@ which ends the script with a nonzero exit on failure:
    lse, flash dQ, flash dK/dV, fused GroupNorm+SiLU) against its plain PyTorch
    version on the card at the main paths' shapes (plus ragged ones, a cross
    shape with Sq != Skv, a kv tail of 72 keys, an odd batch x heads and an odd
-   S), with time, bound, the plain version's time and a one-call library
-   yardstick; the forward and backward wrappers' host time per call;
+   S; for GroupNorm every shape of the restore in bf16, fp16 and fp32, a
+   ragged one and one past a cluster's shared memory), with time, bound, the
+   plain version's time and a one-call library yardstick; the wrappers' host
+   time per call; GroupNorm's device time from a CUDA-graph replay;
 4. restore at full SDXL width with synthetic weights: a UNet forward with the
    flash path against the plain attention path, then ``restore`` with the
    fused GroupNorm off and on, every launch counter set to 0 just before each
@@ -29,7 +31,8 @@ which ends the script with a nonzero exit on failure:
 6. summary: one JSON line of kernels, the card line, and the result line.
 
 ``--only kernels`` stops after phase 3 (exit 0, no result line): the quick
-check of a kernel edit. Imports nothing of JAX and nothing of the JAX package.
+check of a kernel edit; ``--only group_norm`` runs phase 3 for K5 alone.
+Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -48,7 +51,10 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 FLASH_TOL = 4e-3  # max abs error, bf16: the band stated for the Pallas kernel vs the XLA path
 LSE_TOL = 1e-3  # max abs error of the fp32 log2-domain logsumexp (values of order 10)
 GRAD_TOL = 2e-2  # dq/dk/dv: max abs error over the largest reference value (bf16 has 8 bits)
-GN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max abs error of normalised (O(1)) outputs
+# max abs error of the kernel's normalised (O(1)) outputs against the plain version's fp32 values (before
+# their rounding to x's dtype): half an ulp of outputs below 8 plus the fp32 difference; fp16 the bf16 band
+# over its 8x finer ulp. Two values rounded apart can differ by a whole ulp (0.031 in bf16 above 4).
+GN_TOL = {"bfloat16": 2e-2, "float16": 2.5e-3, "float32": 1e-4}
 FORWARD_TOL = 5e-2  # relative L2 of one UNet forward through a kernel against the same forward through its plain path
 # relative L2 of two whole restores that differ in one kernel: four CFG-7 steps
 # amplify a one-ulp bf16 difference a few thousand-fold (5.2e-2 measured for the
@@ -67,8 +73,15 @@ EXTRA_SHAPES = [(2, 2304, 2304, 10), (2, 1000, 1000, 10), (1, 200, 520, 10), (2,
                 (1, 1001, 1001, 10)]
 FLASH_SHAPES = [(b, s, s, h) for b, s, h in RESTORE_SHAPES] + EXTRA_SHAPES
 HOST_TIMING_SHAPE = RESTORE_SHAPES[1]  # most of a restore's launches
-# (C, H, W) of GroupNorm32 in the UNet at 1024² (CFG batch 2), plus a ragged one
-GN_SHAPES = [(320, 128, 128), (640, 64, 64), (1280, 32, 32), (1920, 64, 64), (960, 128, 128), (320, 45, 45)]
+# (C, H, W) of GroupNorm32 on the restore path at 1024², CFG batch 2: the UNet's twelve shapes, then the
+# Aggregator's five (its H-concat doubles H); beside them a ragged shape (a group's slab is 40,500 bytes in
+# bf16, so slabs start off 16-byte alignment) and one whose slabs exceed a cluster's shared memory in bf16
+# and fp32 (the kernel's "reread" path). Phase 3 holds the first seventeen to the shapes derived from the config.
+GN_UNET_SHAPES = [(320, 128, 128), (640, 128, 128), (960, 128, 128), (320, 64, 64), (640, 64, 64), (960, 64, 64),
+                  (1280, 64, 64), (1920, 64, 64), (640, 32, 32), (1280, 32, 32), (1920, 32, 32), (2560, 32, 32)]
+GN_AGG_SHAPES = [(320, 256, 128), (320, 128, 64), (640, 128, 64), (640, 64, 32), (1280, 64, 32)]
+GN_SHAPES = GN_UNET_SHAPES + GN_AGG_SHAPES + [(320, 45, 45), (128, 512, 512)]
+GN_BATCH = 2
 
 
 def fail(msg: str) -> None:
@@ -85,7 +98,7 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2, groups: int = 3) -> flo
     each run between two CUDA events; the median of the runs' means. Back to
     back the launches queue up, so a short kernel's time is the device's and
     not the host's launch gap -- unless the host needs longer to issue a call
-    than the device to run it, as for the Triton launcher."""
+    than the device to run it (``graph_ms`` reads the device alone)."""
     for _ in range(warmup):
         fn()
     means = []
@@ -117,18 +130,21 @@ def flash_bound_ms(b: int, sq: int, skv: int, h: int, products: int = 2, q_tenso
                     (q_tensors * sq + kv_tensors * skv) * b * h * d * 2.0 + rows_fp32 * b * h * sq * 4.0)
 
 
-def host_us_per_call(torch, fn, calls: int = 200) -> float:
+def host_us_per_call(torch, fn, calls: int = 200, runs: int = 5) -> float:
     """Host microseconds a wrapper takes per call: the wall time of ``calls``
     un-synchronised calls over their number (the device queue absorbs them),
-    then one synchronize."""
+    each run followed by one synchronize; the median of ``runs`` runs (the
+    host shares its cores, so single runs spread by tens of percent)."""
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    us = (time.perf_counter() - t0) / calls * 1e6
-    torch.cuda.synchronize()
-    return us
+    per_run = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_run.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(per_run)
 
 
 def check_flash(torch, attention) -> list:
@@ -160,7 +176,7 @@ def check_flash(torch, attention) -> list:
                  f"max abs error {err} > {FLASH_TOL}")
     b, s, h = HOST_TIMING_SHAPE
     q, k, v = (torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
-    log(f"  host time per call at B={b} S={s} H={h} (200 un-synchronised calls): flash_attention "
+    log(f"  host time per call at B={b} S={s} H={h} (median of 5 runs of 200 calls): flash_attention "
         f"{host_us_per_call(torch, lambda: attention.flash_attention(q, k, v)):.2f} us, flash_attention_lse "
         f"{host_us_per_call(torch, lambda: attention.flash_attention_lse(q, k, v)):.2f} us")
     return rows
@@ -237,44 +253,151 @@ def check_flash_training(torch, attention) -> dict:
     delta = attention.flash_delta(out, do)
     dq_us = host_us_per_call(torch, lambda: attention.flash_backward_dq(q, k, v, do, lse, delta))
     dkv_us = host_us_per_call(torch, lambda: attention.flash_backward_dkv(q, k, v, do, lse, delta))
-    log(f"  host time per call at B={b} S={s} H={h} (200 un-synchronised calls): flash_backward_dq {dq_us:.2f} us, "
-        f"flash_backward_dkv {dkv_us:.2f} us")
+    log(f"  host time per call at B={b} S={s} H={h} (median of 5 runs of 200 calls): flash_backward_dq "
+        f"{dq_us:.2f} us, flash_backward_dkv {dkv_us:.2f} us")
     return rows
 
 
-def check_group_norm(torch, group_norm) -> list:
+def graph_ms(torch, fn, calls: int = 10, replays: int = 3) -> float:
+    """Device milliseconds per call: ``calls`` calls captured in one CUDA
+    graph, each replay between two CUDA events; the median of ``replays``
+    replays over ``calls``. A replay issues the kernels without the host's
+    launch path, so the reading is the device's even where the host takes
+    longer per call than the device."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capturing stream, as torch.cuda.graph asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    means = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        means.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(means)
+
+
+def check_group_norm(torch, group_norm, gn_by_shape: dict) -> list:
     """Phase 3, K5: the fused GroupNorm(+SiLU) against ``group_norm_silu_nchw``
-    at the UNet's shapes, bf16 and fp32, with and without SiLU."""
+    (its fp32 values: see ``GN_TOL``) at every shape of the restore path and
+    the extra ones, bf16, fp16 and fp32, with and without SiLU: back-to-back
+    and device (CUDA graph) time, the host time of the dispatch under
+    ``torch.no_grad()`` (bf16 and fp16: the dtypes it sends to the kernel),
+    bound, plain version, ``F.group_norm`` and the launch plan (cluster size
+    and path; "-" for a package without one)."""
     import torch.nn.functional as F
 
+    if sorted(gn_by_shape) != sorted(GN_UNET_SHAPES + GN_AGG_SHAPES):
+        fail(f"GroupNorm shapes derived from the config {sorted(gn_by_shape)} differ from GN_SHAPES' restore shapes")
+    plan_of = getattr(group_norm, "gn_plan", None)
     g = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for c, hh, ww in GN_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
-            x = (torch.randn(2, c, hh, ww, generator=g, device="cuda") * 1.5 + 0.5).to(dtype)
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            x = (torch.randn(GN_BATCH, c, hh, ww, generator=g, device="cuda") * 1.5 + 0.5).to(dtype)
             scale = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
             bias = 0.1 * torch.randn(c, generator=g, device="cuda")
+            scale_d, bias_d = scale.to(dtype), bias.to(dtype)
+            plan = plan_of(GN_BATCH, c, hh * ww, 32, x.element_size()) if plan_of else None
             for silu in (False, True):
                 y = group_norm.group_norm_silu_fused(x, scale, bias, 32, 1e-5, silu)
                 torch.cuda.synchronize()
-                ref = group_norm.group_norm_silu_nchw(x, scale, bias, 32, 1e-5, silu)
-                err = (y.float() - ref.float()).abs().max().item()
-                name = str(dtype).split(".")[-1]
+                ref = group_norm.group_norm_silu_nchw(x.float(), scale, bias, 32, 1e-5, silu)
+                err = (y.float() - ref).abs().max().item()
                 where = f"C={c} {hh}x{ww} {name} silu={silu}"
                 if y.dtype != dtype or not err <= GN_TOL[name]:
                     fail(f"fused GroupNorm disagrees with group_norm_silu_nchw at {where}: {err} > {GN_TOL[name]}")
+                del y, ref
+
+                def fused():
+                    return group_norm.group_norm_silu_fused(x, scale, bias, 32, 1e-5, silu)
+
+                def dispatch():
+                    return group_norm.group_norm_silu(x, scale, bias, 32, 1e-5, silu)
+
+                with torch.no_grad():
+                    host_us = host_us_per_call(torch, dispatch) if dtype != torch.float32 else None
                 bound, bound_by = bound_ms(8.0 * x.numel(), 2.0 * x.numel() * x.element_size())
                 row = dict(C=c, H=hh, W=ww, dtype=name, silu=silu, max_abs_err=err, bound_ms=bound, bound_by=bound_by,
-                           ms=time_ms(torch, lambda: group_norm.group_norm_silu_fused(x, scale, bias, 32, 1e-5, silu)),
+                           cs=plan.cs if plan else None, path=plan.path if plan else None,
+                           ms=time_ms(torch, fused), device_ms=graph_ms(torch, fused),
+                           host_us=host_us,
                            plain_ms=time_ms(torch, lambda: group_norm.group_norm_silu_nchw(x, scale, bias, 32, 1e-5, silu),
                                             iters=5, warmup=1),
                            library_ms=None if silu else time_ms(
-                               torch, lambda: F.group_norm(x, 32, scale.to(dtype), bias.to(dtype), 1e-5)))
+                               torch, lambda: F.group_norm(x, 32, scale_d, bias_d, 1e-5)))
                 rows.append(row)
                 lib = "-" if silu else f"{row['library_ms']:.4f}"
-                log(f"  group_norm {where}: max_abs_err {err:.2e}  kernel {row['ms']:.4f} ms  bound {bound:.4f} ms "
-                    f"({bound_by})  plain {row['plain_ms']:.4f} ms  F.group_norm {lib} ms")
+                host = "-" if row["host_us"] is None else f"{row['host_us']:.1f}"
+                log(f"  group_norm {where}: max_abs_err {err:.2e}  kernel {row['ms']:.4f} ms  device "
+                    f"{row['device_ms']:.4f} ms ({bound / row['device_ms']:.0%} of bound)  host {host} us  bound "
+                    f"{bound:.4f} ms ({bound_by})  plain {row['plain_ms']:.4f} ms  F.group_norm {lib} ms  cs "
+                    f"{row['cs'] or '-'} {row['path'] or '-'}")
+            del x
     return rows
+
+
+def group_norm_shapes_per_forward(cfg, lat_h: int, lat_w: int, with_up: bool, concat: int = 1) -> dict:
+    """GroupNorm32 calls of one UNet (``with_up``) or Aggregator (``concat=2``:
+    its H-concat; no up path, no ``conv_norm_out``) forward, by (C, H, W): each
+    resnet normalises its input (a skip connection added on the up path) and
+    its output channels, each Transformer2D its channels."""
+    from instantir_tpu_torch.models.unet import down_stack_channels
+
+    counts: dict = {}
+    chans = cfg.block_out_channels
+
+    def add(c: int, level: int, k: int = 1):
+        key = (c, (lat_h * concat) >> level, lat_w >> level)
+        counts[key] = counts.get(key, 0) + k
+
+    c_in = chans[0]
+    for i, kind in enumerate(cfg.down_block_types):
+        for _ in range(cfg.layers_per_block):
+            add(c_in, i)
+            add(chans[i], i, 2 if kind == "CrossAttnDownBlock2D" else 1)
+            c_in = chans[i]
+    add(chans[-1], len(chans) - 1, 5)  # the mid block: two resnets and a transformer
+    if with_up:
+        skips = list(down_stack_channels(cfg))
+        for i, kind in enumerate(cfg.up_block_types):
+            level = len(chans) - 1 - i
+            for _ in range(cfg.layers_per_block + 1):
+                add(c_in + skips.pop(), level)
+                c_in = chans[level]
+                add(c_in, level, 2 if kind == "CrossAttnUpBlock2D" else 1)
+        add(chans[0], 0)  # conv_norm_out
+    return counts
+
+
+def forwards_per_restore(phases):
+    """(UNet forwards, Aggregator forwards) of one restore: a step of mode A
+    runs the Aggregator and the main UNet, B adds the previewer UNet, C runs
+    the UNet."""
+    n_unet = sum({"A": 1, "B": 2, "C": 1}[p["mode"]] * len(p["t"]) for p in phases)
+    n_agg = sum(len(p["t"]) for p in phases if p["mode"] != "C")
+    return n_unet, n_agg
+
+
+def group_norm_launches_by_shape(cfg, phases, lat: int) -> dict:
+    """K5 launches of one restore by (C, H, W) (batch 2 throughout)."""
+    n_unet, n_agg = forwards_per_restore(phases)
+    out: dict = {}
+    for counts, n in ((group_norm_shapes_per_forward(cfg, lat, lat, with_up=True), n_unet),
+                      (group_norm_shapes_per_forward(cfg, lat, lat, with_up=False, concat=2), n_agg)):
+        for shape, k in counts.items():
+            out[shape] = out.get(shape, 0) + k * n
+    return out
 
 
 def flash_calls_per_forward(cfg, lat_h: int, lat_w: int, with_up: bool, concat: int = 1) -> dict:
@@ -367,20 +490,25 @@ def read_counters(mods: dict) -> dict:
     return {name: getattr(mods[mod], attr) for name, (mod, attr) in COUNTERS.items()}
 
 
-def run_restore(torch, steps: int, mods: dict):
+def restore_config(steps: int):
+    """The restore's settings: BASELINE config #4 at ``steps`` denoise steps."""
+    from instantir_tpu_torch.pipeline.instantir import RestoreConfig
+
+    return RestoreConfig(num_inference_steps=steps, guidance_scale=7.0, preview_start=0.1, control_guidance_end=0.7)
+
+
+def run_restore(torch, steps: int, mods: dict, ucfg):
     """Phase 4: the port's restore path at full SDXL width on the card, with
     the fused GroupNorm off and on."""
     from instantir_tpu_torch.models.attention import Attention
     from instantir_tpu_torch.models.dinov2 import dinov2_large_config
     from instantir_tpu_torch.models.resampler import instantir_resampler_config
-    from instantir_tpu_torch.models.unet import sdxl_base_config
     from instantir_tpu_torch.models.vae import sdxl_vae_config
     from instantir_tpu_torch.pipeline.factory import build_pipeline
-    from instantir_tpu_torch.pipeline.instantir import RestoreConfig, build_step_phases
+    from instantir_tpu_torch.pipeline.instantir import build_step_phases
 
     group_norm = mods["group_norm"]
     res = 1024
-    ucfg = sdxl_base_config(with_ip=True, lora_rank=64)
     t0 = time.time()
     pipe = build_pipeline(ucfg, sdxl_vae_config(), instantir_resampler_config(lora_rank=64), dinov2_large_config(),
                           seed=0, dtype=torch.bfloat16, device="cuda")
@@ -424,17 +552,20 @@ def run_restore(torch, steps: int, mods: dict):
             fail(f"UNet forward, {what}: relative L2 {rel} > {FORWARD_TOL}")
     del plain, out
 
-    cfg = RestoreConfig(num_inference_steps=steps, guidance_scale=7.0, preview_start=0.1, control_guidance_end=0.7)
+    cfg = restore_config(steps)
     phases = build_step_phases(cfg)
     lat_hw = res // 8
     unet_calls = flash_calls_per_forward(ucfg, lat_hw, lat_hw, with_up=True)
     agg_calls = flash_calls_per_forward(ucfg, lat_hw, lat_hw, with_up=False, concat=2)
     by_seq = flash_launches_by_seq(phases, unet_calls, agg_calls)
-    n_unet = sum({"A": 1, "B": 2, "C": 1}[p["mode"]] * len(p["t"]) for p in phases)
-    n_agg = sum(len(p["t"]) for p in phases if p["mode"] != "C")
+    n_unet, n_agg = forwards_per_restore(phases)
     expected = {"flash_attention_fwd": sum(by_seq.values()),
                 "group_norm_silu": n_unet * group_norms_per_forward(ucfg)["total"]
                 + n_agg * group_norms_per_forward(ucfg, with_up=False)["total"]}
+    by_shape = sum(group_norm_launches_by_shape(ucfg, phases, lat_hw).values())
+    if by_shape != expected["group_norm_silu"]:
+        fail(f"GroupNorm launches derived by shape ({by_shape}) differ from those derived by block "
+             f"({expected['group_norm_silu']})")
     log(f"  phases {[(p['mode'], len(p['t'])) for p in phases]}; flash launches per UNet forward {unet_calls}, "
         f"per Aggregator forward {agg_calls}; expected per restore: {expected}")
 
@@ -445,7 +576,7 @@ def run_restore(torch, steps: int, mods: dict):
         torch.cuda.synchronize()
         return image, time.time() - t0
 
-    # one warm-up each (cuDNN/cuBLAS plans, allocator, Triton compiles), then the
+    # one warm-up each (cuDNN/cuBLAS plans, allocator), then the
     # timed runs in turns, because the eager restore is bound by the host, whose
     # speed drifts by tens of percent within a call (it shares its CPU cores); a
     # setting's time is the smallest of its runs, contention only ever adding
@@ -485,7 +616,7 @@ def run_restore(torch, steps: int, mods: dict):
     if not rel <= RESTORE_TOL:
         fail(f"restores with the fused GroupNorm on and off differ by relative L2 {rel} > {RESTORE_TOL}")
     chosen = runs[default_fused]
-    return (pipe, ucfg, chosen["launches"], chosen["sec"], by_seq, {f: runs[f]["sec"] for f in runs},
+    return (pipe, chosen["launches"], chosen["sec"], by_seq, {f: runs[f]["sec"] for f in runs},
             runs[True]["launches"])
 
 
@@ -588,21 +719,22 @@ def kernel_entry(name, route, source, replaces, rows, weights, launches, by_path
     mrows, mw = [r for r, _ in main], [w for _, w in main]
     libs = [(r, w) for r, w in main if r["library_ms"] is not None]
     bound_by = "operations" if all(r["bound_by"] == "operations" for r in mrows) else "bytes"
+    extra = {"device_ms": _weighted(mrows, "device_ms", mw)} if "device_ms" in mrows[0] else {}
     return {
         "name": name, "route": route, "source": source, "replaces": replaces, "launches": launches,
         "launches_by_path": by_path, "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": _weighted(mrows, "ms", mw), "plain_ms": _weighted(mrows, "plain_ms", mw),
         "bound_ms": _weighted(mrows, "bound_ms", mw), "bound_by": bound_by,
         "library_ms": _weighted([r for r, _ in libs], "library_ms", [w for _, w in libs]) if libs else None,
-        "shapes": rows,
+        **extra, "shapes": rows,
     }
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="denoise steps of the full-width restore (30 = config #4)")
-    ap.add_argument("--only", choices=["kernels"], default=None,
-                    help="'kernels': stop after the kernel check (no result line)")
+    ap.add_argument("--only", choices=["kernels", "group_norm"], default=None,
+                    help="'kernels': stop after the kernel check (no result line); 'group_norm': check K5 alone")
     args = ap.parse_args()
 
     if not (REPO / "instantir_tpu_torch" / "csrc").is_dir():
@@ -640,20 +772,25 @@ def main() -> None:
                 log(f"    {name}: {line.strip()}")
 
     # 3. kernel check
+    from instantir_tpu_torch.models.unet import sdxl_base_config
     from instantir_tpu_torch.ops import attention, group_norm
+    from instantir_tpu_torch.pipeline.instantir import build_step_phases
 
     mods = {"attention": attention, "group_norm": group_norm}
+    ucfg = sdxl_base_config(with_ip=True, lora_rank=64)
+    gn_by_shape = group_norm_launches_by_shape(ucfg, build_step_phases(restore_config(args.steps)), 1024 // 8)
     log("[3] kernel check against the plain versions")
-    k1_rows = check_flash(torch, attention)
-    train_rows = check_flash_training(torch, attention)
-    gn_rows = check_group_norm(torch, group_norm)
-    if args.only == "kernels":
-        log("kernel check passed (--only kernels: no restore, no training, no result line)")
+    if args.only != "group_norm":
+        k1_rows = check_flash(torch, attention)
+        train_rows = check_flash_training(torch, attention)
+    gn_rows = check_group_norm(torch, group_norm, gn_by_shape)
+    if args.only:
+        log(f"kernel check passed (--only {args.only}: no restore, no training, no result line)")
         return
 
     # 4. restore
     log(f"[4] restore at SDXL width, {args.steps} steps, fused GroupNorm off and on")
-    pipe, ucfg, restore_launches, sec, by_seq, restore_secs, fused_launches = run_restore(torch, args.steps, mods)
+    pipe, restore_launches, sec, by_seq, restore_secs, fused_launches = run_restore(torch, args.steps, mods, ucfg)
 
     # 5. training
     log("[5] stage-1 training at SDXL width")
@@ -670,7 +807,7 @@ def main() -> None:
         return (r["B"], r["S"], r["H"]) if r["S"] == r["Skv"] else None
 
     train_weights = [1 if shape_of(r) == TRAIN_SHAPES[0] else 0 for r in train_rows["fwd_lse"]]
-    gn_weights = [1 if (r["dtype"] == "bfloat16" and (r["C"], r["H"], r["W"]) != GN_SHAPES[-1]) else 0 for r in gn_rows]
+    gn_weights = [gn_by_shape.get((r["C"], r["H"], r["W"]), 0) if r["dtype"] == "bfloat16" else 0 for r in gn_rows]
     entries = [
         kernel_entry("flash_attention_fwd", "cuda", src + "flash_fwd.cu", jax_attn + ":221", k1_rows,
                      [by_seq.get(r["S"], 0) if shape_of(r) in RESTORE_SHAPES else 0 for r in k1_rows],
@@ -682,7 +819,7 @@ def main() -> None:
                      train_weights, train["train_512"]["flash_attention_bwd_dq"], by_path("flash_attention_bwd_dq")),
         kernel_entry("flash_attention_bwd_dkv", "cuda", src + "flash_bwd.cu", jax_attn + ":617", train_rows["bwd_dkv"],
                      train_weights, train["train_512"]["flash_attention_bwd_dkv"], by_path("flash_attention_bwd_dkv")),
-        kernel_entry("group_norm_silu", "triton", "instantir_tpu_torch/ops/group_norm.py",
+        kernel_entry("group_norm_silu", "cuda", src + "group_norm.cu",
                      "instantir_tpu/ops/group_norm.py:72", gn_rows, gn_weights,
                      fused_launches["group_norm_silu"],
                      by_path("group_norm_silu")),

@@ -34,6 +34,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from instantir_tpu_torch import kernels
+
 LOG2E = 1.4426950408889634
 
 # Launches of each kernel in this process (bumped only where it launches).
@@ -176,7 +178,6 @@ def flash_backward_reference(
     return unfold((dq * scale).to(dt)), unfold((dk * scale).to(k.dtype)), unfold(dv.to(v.dtype))
 
 
-_kernel_fns: dict = {}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C entry points: (source, symbol, argtypes)
 _ENTRY_POINTS = {
@@ -188,19 +189,6 @@ _ENTRY_POINTS = {
     "bwd_dkv": ("flash_bwd", "instantir_flash_bwd_dkv_bf16_d64",
                 [_PTR] * 8 + [_INT] * 4 + [ctypes.c_float, ctypes.c_float, _PTR]),
 }
-
-
-def _kernel(name: str):
-    """The ctypes function of one entry point, its source built at first use."""
-    if name not in _kernel_fns:
-        from instantir_tpu_torch import kernels
-
-        source, symbol, argtypes = _ENTRY_POINTS[name]
-        fn = getattr(kernels.load(source), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _kernel_fns[name] = fn
-    return _kernel_fns[name]
 
 
 def _check_flash_inputs(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -240,30 +228,11 @@ def _check_operand(what: str, name: str, t: torch.Tensor, like: Optional[torch.T
         raise ValueError(f"{what}: {name} must be 16-byte aligned")
 
 
-def _current_raw_stream(device: torch.device) -> int:
-    """The current stream's handle on ``device``. The raw getter, where this
-    PyTorch has it, costs a tenth of building a ``torch.cuda.Stream``, and the
-    wrappers sit on paths that the host bounds."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(device.index)
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _launch(what: str, name: str, like: torch.Tensor, *args) -> None:
-    """Launch one entry point on the current stream of ``like``'s device and
-    raise if the launch was refused."""
-    fn = _kernel(name)
-    # plain ints and floats: ``argtypes`` converts them, which costs less than building ctypes objects here
+    """Launch one entry point (its source built at first use) on the current
+    stream of ``like``'s device and raise if the launch was refused."""
     call = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    call.append(_current_raw_stream(like.device))
-    if torch.cuda.current_device() == like.device.index:  # the usual case: no device switch to pay for
-        err = fn(*call)
-    else:
-        with torch.cuda.device(like.device):
-            err = fn(*call)
-    if err != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with cudaError_t {err}")
+    kernels.launch(what, kernels.bind(*_ENTRY_POINTS[name]), like.device, call)
 
 
 def flash_attention(

@@ -1,4 +1,4 @@
-"""GroupNorm(+SiLU) with fp32 statistics: the fused Triton kernel and the plain version.
+"""GroupNorm(+SiLU) with fp32 statistics: the cluster kernel and the plain version.
 
 Twin of ``instantir_tpu/ops/group_norm.py``. Statistics use the
 E[x^2] - mu^2 form clamped at 0 -- not ``F.group_norm``'s variance -- so the
@@ -6,53 +6,128 @@ port rounds where the JAX package does.
 
 * ``group_norm_silu_nchw`` -- the plain version (twin of
   ``group_norm_silu_reference``, channels first).
-* ``group_norm_silu_fused`` -- the wrapper of the Triton kernels below, the
-  port of the Pallas function ``group_norm_silu_pallas``. On a CUDA tensor it
-  launches them or raises; only a tensor on the CPU takes the plain version.
-* ``group_norm_silu_diff`` -- the ``torch.autograd.Function`` around it (twin
-  of ``_gn_silu_diff``): backward differentiates the plain formula and saves
-  x, not the fp32 intermediates.
+* ``group_norm_silu_fused`` -- the wrapper of ``csrc/group_norm.cu``, the port
+  of the Pallas function ``group_norm_silu_pallas``. On a CUDA tensor it
+  launches the kernel or raises; only a tensor on the CPU takes the plain
+  version.
+* ``gn_plan`` / ``slab_slices`` -- the launch plan the wrapper hands the kernel
+  (cluster size, shared memory per CTA) and the partition of a (batch, group)
+  slab among a cluster's CTAs that the kernel computes on the device.
+* ``group_norm_silu_diff`` -- the ``torch.autograd.Function`` around the
+  wrapper (twin of ``_gn_silu_diff``): backward differentiates the plain
+  formula and saves x, not the fp32 intermediates.
 * ``group_norm_silu`` -- the dispatch ``GroupNorm32`` calls, governed by the
   module-level setting ``USE_FUSED``.
 
-Why Triton and not CUDA C++ here: the function is a reduction followed by a
-fused elementwise pass with no matrix product, which Triton compiles to the
-same coalesced 16-byte loads, warp reductions and ``ex2`` a hand-written CUDA
-kernel would use. What bounds it on the H100 is bytes: x is read (twice: once
-for the statistics, once to normalise; the second read of a UNet-sized
-activation comes from the 50 MB L2 when it fits) and y written once, against
-a few operations per element; the design keeps every intermediate (fp32 copy,
-centred copy, pre-activation) out of device memory and reads and writes the
-model dtype.
-
-The tensors are NCHW, so one (batch, group) is a contiguous slab of
-``C/G * H*W`` elements. Two kernels, like the Pallas function: partial fp32
-sums of x and x^2 per (batch, group, split), then ``y = x*w + b`` (+SiLU) in
-x's dtype per (batch, channel, block), where each program of the second kernel
-folds the tiny group arithmetic (mean, clamped variance, rstd, per-channel
-``w = rstd*gamma``, ``b = beta - mean*w``) from the partials itself, so no
-torch op sits between the two launches. Any H*W is taken: tails are masked.
+The kernel (its source note has the details): what bounds it on the H100 is
+bytes -- x read once and y written once against a few operations per element.
+One launch of B*G thread-block clusters: each cluster's CTAs bring their runs
+of one contiguous (batch, group) slab into shared memory with bulk copies, sum
+x and x^2 in fp32, exchange the partial sums through distributed shared memory
+and normalise from shared memory, so x is read from device memory once where
+the Triton pair it replaced read it twice; and one ctypes call on the raw
+stream where that pair paid two launches through Triton's Python launcher.
 """
 
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
+
 import torch
 import torch.nn.functional as F
 
+from instantir_tpu_torch import kernels
+
 # The port's counterpart of the JAX package's INSTANTIR_PALLAS_GN switch: True
 # sends every GroupNorm32 on a half-precision CUDA tensor through the fused
-# Triton kernel, False through the plain version. On by default from the H100
-# measurements of chip_smoke.py (PERF.md): per call the kernel takes 2-10x less
-# time than the plain version at every UNet shape; the difference that makes
-# to a whole restore (a few percent) is inside the host's run-to-run spread.
+# kernel, False through the plain version. On by default from the H100
+# measurements of chip_smoke.py (PERF.md).
 USE_FUSED = True
 
-# Launches of the fused kernel pair in this process (bumped only where it launches).
+# Launches of the fused kernel in this process (bumped only where it launches).
 group_norm_launches = 0
 
-_STATS_BLOCK = 2048
-_NORM_BLOCK = 2048
-_MAX_SPLITS = 64
+# The card the plan is made for (an H100: PERF.md names the one measured).
+H100_SMS = 132
+SMEM_PER_SM = 233_472  # 228 KB of an SM's shared memory that CTAs may take
+SMEM_PER_CTA = 232_448  # 227 KB, the opt-in limit of one CTA
+SMEM_RESERVED_PER_CTA = 1_024  # what the runtime keeps of an SM's shared memory for each resident CTA
+STATIC_SMEM = 256  # bound on the kernel's __shared__ variables (kStaticSmemBound in the source)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+PORTABLE_CLUSTER = 8  # larger clusters need cudaFuncAttributeNonPortableClusterSizeAllowed
+MIN_SLICE_BYTES = 8_192  # a cluster grown to fill the card stops before a CTA's run falls below this
+CTAS_PER_SM = 3  # a CTA's shared memory is at most this share of an SM's
+
+
+@dataclass(frozen=True)
+class GnPlan:
+    """How ``csrc/group_norm.cu`` is launched for one shape: ``cs`` CTAs per
+    cluster (``non_portable`` above 8), each keeping ``res_vec`` 16-byte
+    vectors of its run in ``smem_bytes`` of dynamic shared memory (the data,
+    then fp32 w and b for the group's channels). ``path`` is "resident" when
+    every run fits, "reread" when the rest of a run is read from device memory
+    a second time."""
+
+    cs: int
+    non_portable: bool
+    res_vec: int
+    smem_bytes: int
+    path: str
+
+
+def slab_slices(start: int, n: int, itemsize: int, cs: int) -> List[Dict[str, Tuple[int, int]]]:
+    """The kernel's partition of one (batch, group) slab of ``n`` elements
+    whose first element lies ``start`` elements after a 16-byte boundary: per
+    CTA rank, element ranges (relative to the slab) of its ``head`` (rank 0:
+    the elements before the first 16-byte boundary), its ``body`` (a run of
+    whole 16-byte vectors) and its ``tail`` (the last rank: the elements after
+    the last boundary). Empty ranges are ``(i, i)``."""
+    vec = 16 // itemsize
+    mis = (start * itemsize) % 16
+    head = min((16 - mis) // itemsize if mis else 0, n)
+    nvec = (n - head) // vec
+    tail0 = head + nvec * vec
+    out = []
+    for r in range(cs):
+        v0, v1 = nvec * r // cs, nvec * (r + 1) // cs
+        out.append({"head": (0, head) if r == 0 else (0, 0),
+                     "body": (head + v0 * vec, head + v1 * vec),
+                     "tail": (tail0, n) if r == cs - 1 else (n, n)})
+    return out
+
+
+def gn_plan(batch: int, channels: int, hw: int, groups: int, itemsize: int, num_sms: int = H100_SMS) -> GnPlan:
+    """The cluster size and shared memory of a launch. The cluster grows
+    (powers of two up to 16) until every CTA's run fits in a third of an SM's
+    shared memory, so that three CTAs share an SM and one's loads and sums
+    overlap another's normalising and stores (measured on the H100 against
+    half and a quarter: PERF.md §6); then, up to 8, until the grid covers
+    the card's SMs, as long as a run stays at least ``MIN_SLICE_BYTES``. A
+    slab larger than 16 such runs keeps what fits and takes the "reread"
+    path."""
+    cpg = channels // groups
+    n = cpg * hw
+    table = 8 * cpg  # fp32 w and b per channel of the group
+    cap = (SMEM_PER_SM // CTAS_PER_SM - SMEM_RESERVED_PER_CTA - STATIC_SMEM - table) // 16
+    if cap < 1:
+        raise ValueError(f"group_norm_silu_fused: {cpg} channels per group leave no shared memory for data")
+    vec = 16 // itemsize
+    nvec = n * itemsize // 16  # the most whole vectors a slab's body holds: one that starts aligned
+
+    def run(cs: int) -> int:  # the longest run of a CTA, in vectors
+        return max(s["body"][1] - s["body"][0] for s in slab_slices(0, n, itemsize, cs)) // vec
+
+    cs = 1
+    while cs < CLUSTER_SIZES[-1] and run(cs) > cap:
+        cs *= 2
+    while (cs < PORTABLE_CLUSTER and batch * groups * cs < num_sms
+           and nvec * 16 // (2 * cs) >= MIN_SLICE_BYTES):
+        cs *= 2
+    res_vec = min(run(cs), cap)
+    return GnPlan(cs=cs, non_portable=cs > PORTABLE_CLUSTER, res_vec=res_vec, smem_bytes=res_vec * 16 + table,
+                  path="resident" if res_vec >= run(cs) else "reread")
 
 
 def group_norm_silu_nchw(
@@ -80,86 +155,51 @@ def group_norm_silu_reference(
     return y.permute(0, 2, 3, 1)
 
 
-_triton_kernels = None
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# C entry points: (source, symbol, argtypes)
+_ENTRY_POINTS = {
+    "group_norm_silu": ("group_norm", "instantir_group_norm_silu", [_PTR] * 4 + [_INT] * 11 + [ctypes.c_float, _PTR]),
+}
+# per (shape, dtype, device, groups): the launch's integer arguments
+_launch_ints: Dict[tuple, tuple] = {}
 
 
-def _kernels():
-    """The two ``@triton.jit`` kernels, defined at first use: ``triton`` is
-    imported here and nowhere at module level, so the module imports where
-    Triton is absent."""
-    global _triton_kernels, triton, tl
-    if _triton_kernels is not None:
-        return _triton_kernels
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def gn_stats_kernel(x_ptr, part_ptr, n, split_size, nsplit, BLOCK: tl.constexpr):
-        # program (bg, split): fp32 sum and sum of squares of one split of the
-        # contiguous (batch, group) slab of n elements
-        bg = tl.program_id(0)
-        split = tl.program_id(1)
-        base = bg.to(tl.int64) * n
-        start = split * split_size
-        acc_s = tl.zeros([BLOCK], dtype=tl.float32)
-        acc_q = tl.zeros([BLOCK], dtype=tl.float32)
-        for i in range(0, split_size, BLOCK):
-            offs = start + i + tl.arange(0, BLOCK)
-            x = tl.load(x_ptr + base + offs, mask=offs < n, other=0.0).to(tl.float32)
-            acc_s += x
-            acc_q += x * x
-        out = (bg * nsplit + split) * 2
-        tl.store(part_ptr + out, tl.sum(acc_s, axis=0))
-        tl.store(part_ptr + out + 1, tl.sum(acc_q, axis=0))
-
-    @triton.jit
-    def gn_norm_kernel(x_ptr, y_ptr, w_ptr, b_ptr, part_ptr, hw, cpg, channels, n, nsplit, eps,
-                       APPLY_SILU: tl.constexpr, SPLITS_P2: tl.constexpr, BLOCK: tl.constexpr):
-        # program (b*C + c, block): the group statistics from the partials,
-        # folded into this channel's w and b, then y = x*w + b (+SiLU)
-        bc = tl.program_id(0)
-        blk = tl.program_id(1)
-        c = bc % channels
-        bg = bc // cpg  # = b*G + c // cpg, because C = G*cpg
-        idx = tl.arange(0, SPLITS_P2)
-        pmask = idx < nsplit
-        s = tl.sum(tl.load(part_ptr + (bg * nsplit + idx) * 2, mask=pmask, other=0.0), axis=0)
-        q = tl.sum(tl.load(part_ptr + (bg * nsplit + idx) * 2 + 1, mask=pmask, other=0.0), axis=0)
-        mean = s / n
-        var = tl.maximum(q / n - mean * mean, 0.0)
-        rstd = 1.0 / tl.sqrt(var + eps)
-        w = rstd * tl.load(w_ptr + c).to(tl.float32)
-        b = tl.load(b_ptr + c).to(tl.float32) - mean * w
-        offs = blk * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < hw
-        base = bc.to(tl.int64) * hw
-        x = tl.load(x_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-        y = x * w + b
-        if APPLY_SILU:
-            y = y * tl.sigmoid(y)
-        tl.store(y_ptr + base + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    _triton_kernels = (triton, gn_stats_kernel, gn_norm_kernel)
-    return _triton_kernels
+def _shape_ints(x: torch.Tensor, num_groups: int) -> tuple:
+    """The checks that depend on x's shape and dtype alone, and the launch's
+    integers (dtype code, B*G, G, n, hw, cpg, then the plan's cs,
+    non_portable, res_vec, smem_bytes), once per shape."""
+    key = (x.shape, x.dtype, x.device, num_groups)
+    ints = _launch_ints.get(key)
+    if ints is None:
+        if x.dtype not in _DTYPE_CODE:
+            raise ValueError(f"group_norm_silu_fused: x must be bfloat16, float16 or float32, got {x.dtype}")
+        if x.dim() < 3:
+            raise ValueError(f"group_norm_silu_fused: x must be [B, C, *spatial], got {tuple(x.shape)}")
+        b, c = x.shape[:2]
+        if c % num_groups:
+            raise ValueError(f"group_norm_silu_fused: {c} channels do not divide into {num_groups} groups")
+        if x.numel() == 0:
+            raise ValueError("group_norm_silu_fused: empty input")
+        n = x.numel() // (b * num_groups)
+        if n > 2**31 - 1:
+            raise ValueError("group_norm_silu_fused: a (batch, group) slab exceeds 2**31 - 1 elements")
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        plan = gn_plan(b, c, n * num_groups // c, num_groups, x.element_size(), sms)
+        ints = _launch_ints[key] = (_DTYPE_CODE[x.dtype], b * num_groups, num_groups, n, n * num_groups // c,
+                                    c // num_groups, plan.cs, int(plan.non_portable), plan.res_vec, plan.smem_bytes)
+    return ints
 
 
-def _check_gn_inputs(x, scale, bias, num_groups) -> None:
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise ValueError(f"group_norm_silu_fused: x must be bfloat16, float16 or float32, got {x.dtype}")
-    if x.dim() < 3:
-        raise ValueError(f"group_norm_silu_fused: x must be [B, C, *spatial], got {tuple(x.shape)}")
-    c = x.shape[1]
-    if c % num_groups:
-        raise ValueError(f"group_norm_silu_fused: {c} channels do not divide into {num_groups} groups")
+def _check_operands(x, scale, bias) -> None:
     if not x.is_contiguous():
         raise ValueError("group_norm_silu_fused: x must be contiguous (NCHW)")
-    if x.numel() == 0:
-        raise ValueError("group_norm_silu_fused: empty input")
+    if x.data_ptr() % 16:
+        raise ValueError("group_norm_silu_fused: x must be 16-byte aligned")
+    c = x.shape[1]
     for name, t in (("scale", scale), ("bias", bias)):
-        if t.device != x.device or tuple(t.shape) != (c,) or not t.is_contiguous():
-            raise ValueError(f"group_norm_silu_fused: {name} must be a contiguous [{c}] tensor on {x.device}")
-    if x.shape[0] * c > 2**31 - 1:
-        raise ValueError("group_norm_silu_fused: batch*channels exceeds the grid limit")
+        if t.dtype != torch.float32 or t.device != x.device or t.shape != (c,) or not t.is_contiguous():
+            raise ValueError(f"group_norm_silu_fused: {name} must be a contiguous float32 [{c}] tensor on {x.device}")
 
 
 def group_norm_silu_fused(
@@ -167,26 +207,17 @@ def group_norm_silu_fused(
     apply_silu: bool = False,
 ) -> torch.Tensor:
     """Fused GroupNorm(+SiLU) over channels-first ``[B, C, *spatial]``, output
-    in x's dtype. CUDA tensors launch the Triton kernels or raise; CPU tensors
-    run ``group_norm_silu_nchw``. Not differentiable: ``group_norm_silu_diff`` is."""
+    in x's dtype; ``scale`` and ``bias`` fp32 ``[C]``. CUDA tensors launch
+    ``csrc/group_norm.cu`` once or raise; CPU tensors run
+    ``group_norm_silu_nchw``. Not differentiable: ``group_norm_silu_diff`` is."""
     global group_norm_launches
     if not x.is_cuda:
         return group_norm_silu_nchw(x, scale, bias, num_groups, eps, apply_silu)
-    _check_gn_inputs(x, scale, bias, num_groups)
-    triton, stats_kernel, norm_kernel = _kernels()
-    b, c = x.shape[:2]
-    hw = x.numel() // (b * c)
-    cpg = c // num_groups
-    n = cpg * hw
-    nsplit = max(1, min(_MAX_SPLITS, triton.cdiv(n, 4 * _STATS_BLOCK)))
-    split_size = triton.cdiv(triton.cdiv(n, nsplit), _STATS_BLOCK) * _STATS_BLOCK
-    partials = torch.empty((b * num_groups, nsplit, 2), dtype=torch.float32, device=x.device)
+    ints = _shape_ints(x, num_groups)
+    _check_operands(x, scale, bias)
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stats_kernel[(b * num_groups, nsplit)](x, partials, n, split_size, nsplit, BLOCK=_STATS_BLOCK, num_warps=8)
-        norm_kernel[(b * c, triton.cdiv(hw, _NORM_BLOCK))](
-            x, y, scale, bias, partials, hw, cpg, c, n, nsplit, eps,
-            APPLY_SILU=apply_silu, SPLITS_P2=max(16, triton.next_power_of_2(nsplit)), BLOCK=_NORM_BLOCK, num_warps=8)
+    kernels.launch("group_norm_silu_fused", kernels.bind(*_ENTRY_POINTS["group_norm_silu"]), x.device,
+                   (x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), *ints, int(apply_silu), eps))
     group_norm_launches += 1
     return y
 
@@ -221,9 +252,14 @@ def group_norm_silu_diff(x, scale, bias, num_groups: int, eps: float = 1e-5, app
 
 def group_norm_silu(x, scale, bias, num_groups: int, eps: float = 1e-5, apply_silu: bool = False):
     """Dispatching GroupNorm(+SiLU) over ``[B, C, *spatial]``: with
-    ``USE_FUSED`` on, the fused kernel (through its autograd Function) for
-    everything but fp32 tensors on the card -- the fp32 VAE keeps the plain
-    path, as in the JAX package; with it off, the plain version."""
+    ``USE_FUSED`` on, the fused kernel for everything but fp32 tensors on the
+    card -- the fp32 VAE keeps the plain path, as in the JAX package -- through
+    its autograd Function only where an input needs a gradient (the restore,
+    under ``torch.no_grad()``, calls the wrapper directly); with it off, the
+    plain version."""
     if USE_FUSED and not (x.is_cuda and x.dtype == torch.float32):
-        return group_norm_silu_diff(x.contiguous(), scale, bias, num_groups, eps, apply_silu)
+        x = x.contiguous()
+        if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or bias.requires_grad):
+            return group_norm_silu_diff(x, scale, bias, num_groups, eps, apply_silu)
+        return group_norm_silu_fused(x, scale, bias, num_groups, eps, apply_silu)
     return group_norm_silu_nchw(x, scale, bias, num_groups, eps, apply_silu)

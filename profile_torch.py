@@ -190,7 +190,7 @@ def main() -> None:
         print(f"{name[:88]:<90}{kernel_n[name]:>7}{us / 1e3:>10.1f}{us / 1e3 / busy:>8.1%}")
     print("\nthe port's own kernels:")
     for name, us in sorted(kernel_us.items(), key=lambda kv: -kv[1]):
-        if any(tag in name for tag in ("flash_fwd", "flash_bwd", "gn_stats", "gn_norm")):
+        if any(tag in name for tag in ("flash_fwd", "flash_bwd", "group_norm_silu_kernel")):
             print(f"{name[:88]:<90}{kernel_n[name]:>7}{us / 1e3:>10.1f}{us / 1e3 / busy:>8.1%}")
 
 

@@ -1,0 +1,110 @@
+"""The port's hand-written kernels against their plain versions on the card.
+
+Every test but the first is marked ``cuda`` and skips where no NVIDIA GPU is
+present: the kernels (``instantir_tpu_torch/csrc``) have no CPU mode. The file
+imports only ``torch`` and the port, so it runs on a machine without JAX:
+``python -m pytest --noconftest tests/test_torch_port_kernels.py -m cuda``
+(the repository's conftest imports JAX).
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from instantir_tpu_torch.ops import attention as tattn
+from instantir_tpu_torch.ops import group_norm as tgn
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc: the kernels have no CPU mode")
+
+
+# beside the square shapes: Sq != Skv with neither a multiple of the tiles, a kv
+# tail of 72 keys, and an odd S (lse and D rows start off 16-byte alignment)
+CARD_SHAPES = [(1024, 1024), (2304, 2304), (1000, 1000), (200, 520), (1024, 1096), (1001, 1001)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,skv", CARD_SHAPES)
+def test_flash_training_kernels_match_references_on_card(s, skv):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, do = (torch.randn(2, s, 4, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(2, skv, 4, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    before = (tattn.flash_attention_lse_launches, tattn.flash_backward_dq_launches, tattn.flash_backward_dkv_launches)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = tattn.dot_product_attention(*leaves)  # an input needs a gradient: the differentiable kernels
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    after = (tattn.flash_attention_lse_launches, tattn.flash_backward_dq_launches, tattn.flash_backward_dkv_launches)
+    assert after == tuple(n + 1 for n in before)
+    ref_o, ref_lse = tattn.flash_attention_lse_reference(q, k, v)
+    _, lse = tattn.flash_attention_lse(q, k, v)
+    assert (out.float() - ref_o.float()).abs().max().item() <= 4e-3
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    refs = tattn.flash_backward_reference(q, k, v, ref_o, ref_lse, do, block_q=512, block_k=512)
+    for got, want in zip(grads, refs):
+        assert ((got.float() - want.float()).abs().max() / want.float().abs().max()).item() <= 2e-2
+    with pytest.raises(ValueError):
+        tattn.flash_attention_lse(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):
+        tattn.flash_backward_dq(q, k, v, do, ref_lse.double(), ref_lse)
+
+
+# [B, C, H, W] with 32 groups: between them every cluster size (1 at the ragged
+# 45², 2, 4, 8 at 320x128² bf16, 16 at 960x128² bf16) and, at 960x128² fp32,
+# the path that reads again what does not fit in the cluster's shared memory
+CARD_GN_SHAPES = [(2, 320, 64, 64), (2, 1280, 16, 16), (1, 64, 45, 45), (2, 640, 128, 128), (2, 960, 128, 128),
+                  (2, 320, 128, 128)]
+
+
+def test_card_group_norm_shapes_cover_every_cluster_size_and_path():
+    """The card's GroupNorm cases reach every cluster size and both paths of
+    the launch plan (a check of the plan, run on the CPU too)."""
+    plans = [tgn.gn_plan(b, c, h * w, 32, itemsize) for b, c, h, w in CARD_GN_SHAPES for itemsize in (2, 4)]
+    assert {p.cs for p in plans} == set(tgn.CLUSTER_SIZES)
+    assert {p.path for p in plans} == {"resident", "reread"}
+
+
+# against the plain version's fp32 values (before their rounding to x's dtype):
+# half an ulp of outputs below 8 plus the fp32 difference (chip_smoke.GN_TOL)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4), (torch.float16, 2.5e-3)])
+@pytest.mark.parametrize("shape", CARD_GN_SHAPES)
+def test_group_norm_kernel_matches_plain_version_on_card(shape, dtype, tol):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = (torch.randn(shape, generator=g, device="cuda") * 1.5 + 0.5).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(shape[1], generator=g, device="cuda")
+    bias = 0.1 * torch.randn(shape[1], generator=g, device="cuda")
+    for silu in (False, True):
+        before = tgn.group_norm_launches
+        y = tgn.group_norm_silu_fused(x, scale, bias, 32, 1e-5, silu)
+        torch.cuda.synchronize()
+        assert tgn.group_norm_launches == before + 1 and y.dtype == dtype
+        ref = tgn.group_norm_silu_nchw(x.float(), scale, bias, 32, 1e-5, silu)
+        assert (y.float() - ref).abs().max().item() <= tol
+    with pytest.raises(ValueError):
+        tgn.group_norm_silu_fused(x.transpose(2, 3), scale, bias, 32)
+    with pytest.raises(ValueError):
+        tgn.group_norm_silu_fused(x, scale.to(dtype) if dtype != torch.float32 else scale.double(), bias, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,skv", CARD_SHAPES)
+def test_flash_kernel_matches_reference_on_card(s, skv):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(2, s, 4, 64, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(2, skv, 4, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    before = tattn.flash_attention_launches
+    out = tattn.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_launches == before + 1
+    err = (out.float() - tattn.flash_attention_reference(q, k, v).float()).abs().max().item()
+    assert err <= 4e-3, err
+    with pytest.raises(ValueError):
+        tattn.flash_attention(q.float(), k.float(), v.float())

@@ -5,8 +5,8 @@ compared in fp32 unless a test says otherwise. The kernels themselves are CUDA
 only: on the CPU the port's wrappers and autograd Functions run the kernels'
 plain versions (``flash_attention_lse_reference``, ``flash_backward_reference``,
 ``group_norm_silu_nchw``), which are held here against the JAX Pallas kernels
-in interpret mode; the ``cuda``-marked tests hold each kernel against its
-plain version and run only where a card is present.
+in interpret mode; ``tests/test_torch_port_kernels.py`` holds each kernel
+against its plain version on a card.
 """
 
 from __future__ import annotations
@@ -103,24 +103,13 @@ def test_port_imports_no_jax():
 
 
 def test_port_imports_triton_only_inside_functions():
-    """``triton`` (absent where there is no card) is imported only inside the
-    function that launches a kernel, never while a module is imported; the
-    Triton source is ``ops/group_norm.py``."""
-    users = []
-    for path in sorted((REPO / "instantir_tpu_torch").rglob("*.py")):
-        tree = ast.parse(path.read_text(), filename=str(path))
-        for node in ast.walk(tree):
-            names = []
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.module:
-                names = [node.module]
-            if any(n.split(".")[0] == "triton" for n in names):
-                users.append(str(path.relative_to(REPO)))
-                assert node.col_offset > 0, f"{path}: triton imported at module level"
-                assert not any(node in ast.walk(top) for top in tree.body
-                               if not isinstance(top, (ast.FunctionDef, ast.ClassDef))), f"{path}: triton outside a def"
-    assert "instantir_tpu_torch/ops/group_norm.py" in users
+    """No module of the port imports ``triton``, inside a function or not:
+    every kernel is CUDA C++ (``csrc/``), and the port needs no Triton."""
+    files = sorted((REPO / "instantir_tpu_torch").rglob("*.py"))
+    assert len(files) > 10
+    users = [f"{path.relative_to(REPO)}: {mod}" for path in files for mod in _imported_modules(path)
+             if mod.split(".")[0] == "triton"]
+    assert not users, users
 
 
 # --------------------------------------------------------------------------
@@ -253,6 +242,15 @@ def _gn_inputs(seed, dtype):
     return x, scale, bias, g, jdt, tdt
 
 
+@functools.lru_cache(maxsize=None)
+def _pallas_group_norm(dtype: str, apply_silu: bool) -> np.ndarray:
+    """The Pallas GroupNorm in interpret mode on ``_gn_inputs(21, dtype)``
+    (NHWC), traced once per dtype and SiLU setting."""
+    x, scale, bias, _, jdt, _ = _gn_inputs(21, dtype)
+    return np.asarray(jgn.group_norm_silu_pallas(jnp.asarray(x, jdt), scale, bias, 4, 1e-5, apply_silu,
+                                                 interpret=True), np.float32)
+
+
 # fp32 1e-5: the kernel's y = x·w + b against the plain (x − μ)·rstd·γ + β, two
 # fp32 roundings apart; bf16 2e-2: one bf16 ulp of outputs of magnitude ~2-4.
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
@@ -262,7 +260,7 @@ def test_group_norm_function_matches_pallas_interpret_and_reference_vjp(dtype, t
     Pallas kernel in interpret mode, gradients against ``jax.vjp`` of the JAX
     reference; NHWC on the JAX side, NCHW in the port."""
     x, scale, bias, g, jdt, tdt = _gn_inputs(21, dtype)
-    want = jgn.group_norm_silu_pallas(jnp.asarray(x, jdt), scale, bias, 4, 1e-5, apply_silu, interpret=True)
+    want = _pallas_group_norm(dtype, apply_silu)
     _, vjp = jax.vjp(lambda *a: jgn.group_norm_silu_reference(*a, 4, 1e-5, apply_silu),
                      jnp.asarray(x, jdt), jnp.asarray(scale), jnp.asarray(bias))
     jdx, jds, jdb = vjp(jnp.asarray(g, jdt))
@@ -274,7 +272,7 @@ def test_group_norm_function_matches_pallas_interpret_and_reference_vjp(dtype, t
     assert tgn.group_norm_launches == before  # the CPU path launches nothing
     assert y.dtype == tdt
     got = y.detach().float().permute(0, 2, 3, 1).numpy()
-    assert np.abs(got - np.asarray(want, np.float32)).max() <= tol
+    assert np.abs(got - want).max() <= tol
     dx, ds, db = torch.autograd.grad(y, (tx, ts, tb), _t(g).permute(0, 3, 1, 2).to(tdt))
     assert dx.dtype == tdt and ds.dtype == torch.float32
     for got_g, want_g in ((dx.float().permute(0, 2, 3, 1), jdx), (ds, jds), (db, jdb)):
@@ -303,6 +301,139 @@ def test_group_norm32_reads_the_setting(fused, monkeypatch):
     want = torch.autograd.grad(ref, (tx, m.weight, m.bias), _t(g).permute(0, 3, 1, 2))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def _blocked_group_norm(x, scale, bias, groups, eps, apply_silu, cs, res_vec):
+    """Plain mirror of ``csrc/group_norm.cu``'s arithmetic, for the tests: each
+    (batch, group) slab cut among ``cs`` CTAs by ``slab_slices``; a CTA's fp32
+    partial sums of x and x² taken over what it reads from device memory (the
+    part of its run past ``res_vec`` vectors, the head, the tail) and then over
+    its shared-memory copy; the partials added in rank order; mean, clamped
+    variance and rstd folded into per-channel w and b; y = x·w + b (+SiLU),
+    the part past ``res_vec`` read again."""
+    b, c = x.shape[:2]
+    cpg = c // groups
+    n = x.numel() // (b * groups)
+    hw = n // cpg
+    vec = 16 // x.element_size()
+    flat = x.reshape(b * groups, n).float()
+    out = torch.empty_like(flat)
+    channel = torch.arange(n) // hw
+    for bg in range(b * groups):
+        row = flat[bg]
+        total_s = total_q = torch.zeros((), dtype=torch.float32)
+        for sl in tgn.slab_slices(bg * n, n, x.element_size(), cs):
+            b0, b1 = sl["body"]
+            kept = min(b1, b0 + res_vec * vec)
+            part_s = part_q = torch.zeros((), dtype=torch.float32)
+            for lo, hi in ((kept, b1), sl["head"], sl["tail"], (b0, kept)):
+                part_s = part_s + row[lo:hi].sum()
+                part_q = part_q + (row[lo:hi] * row[lo:hi]).sum()
+            total_s, total_q = total_s + part_s, total_q + part_q
+        mean = total_s / n
+        rstd = torch.rsqrt((total_q / n - mean * mean).clamp(min=0.0) + eps)
+        g = bg % groups
+        w = rstd * scale[g * cpg:(g + 1) * cpg].float()
+        shift = bias[g * cpg:(g + 1) * cpg].float() - mean * w
+        y = row * w[channel] + shift[channel]
+        out[bg] = torch.nn.functional.silu(y) if apply_silu else y
+    return out.reshape(x.shape).to(x.dtype)
+
+
+# (cs, res_vec): one CTA holding its whole slab; four holding theirs; sixteen,
+# and four that keep 3 vectors each and read the rest of their runs again
+@pytest.mark.parametrize("cs,res_vec", [(1, 1 << 20), (4, 1 << 20), (16, 1 << 20), (4, 3)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("apply_silu", [False, True])
+def test_group_norm_blocked_mirror_matches_pallas_interpret(dtype, tol, apply_silu, cs, res_vec):
+    """The kernel's arithmetic (per-CTA partials in rank order, the re-read of
+    what does not fit) against the Pallas kernel in interpret mode."""
+    x, scale, bias, _, _, tdt = _gn_inputs(21, dtype)
+    tx = _t(x).permute(0, 3, 1, 2).contiguous().to(tdt)
+    got = _blocked_group_norm(tx, _t(scale), _t(bias), 4, 1e-5, apply_silu, cs, res_vec)
+    assert got.dtype == tdt
+    assert np.abs(got.float().permute(0, 2, 3, 1).numpy() - _pallas_group_norm(dtype, apply_silu)).max() <= tol
+
+
+@pytest.mark.parametrize("cs,res_vec", [(1, 1 << 20), (4, 7), (16, 1 << 20)])
+def test_group_norm_blocked_mirror_ragged_matches_plain_version(cs, res_vec):
+    """A ragged shape (2 channels of 45² per group: every slab but the first
+    starts off 16-byte alignment, so the heads and tails are not empty) in
+    fp32 against the plain version."""
+    rng = np.random.default_rng(23)
+    x = _t(0.5 + 1.5 * rng.standard_normal((2, 8, 45, 45)))
+    scale, bias = _t(1.0 + 0.1 * rng.standard_normal(8)), _t(0.1 * rng.standard_normal(8))
+    for silu in (False, True):
+        got = _blocked_group_norm(x, scale, bias, 4, 1e-5, silu, cs, res_vec)
+        want = tgn.group_norm_silu_nchw(x, scale, bias, 4, 1e-5, silu)
+        assert (got - want).abs().max().item() <= 1e-5
+
+
+# (C, H, W) of GroupNorm32 at 1024² (CFG batch 2): the UNet's twelve and the
+# Aggregator's five (H-concat); then a ragged one
+GN_MAIN_SHAPES = [(320, 128, 128), (640, 128, 128), (960, 128, 128), (320, 64, 64), (640, 64, 64), (960, 64, 64),
+                  (1280, 64, 64), (1920, 64, 64), (640, 32, 32), (1280, 32, 32), (1920, 32, 32), (2560, 32, 32),
+                  (320, 256, 128), (320, 128, 64), (640, 128, 64), (640, 64, 32), (1280, 64, 32)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", GN_MAIN_SHAPES + [(320, 45, 45)])
+def test_group_norm_plan_tiles_slabs_and_fits(shape, itemsize):
+    """The host's launch plan at every main-path shape (bf16/fp16 and fp32):
+    the CTAs' slices tile each slab exactly, head and tail included, at every
+    alignment a slab can start at; 1 <= cs <= 16, above 8 only as a
+    non-portable cluster; a CTA's shared memory within the card's limit; and
+    in 2-byte types three CTAs (so at least two) share an SM, the grid covers
+    the card and every run fits in shared memory."""
+    c, h, w = shape
+    b, groups = 2, 32
+    n = c // groups * h * w
+    plan = tgn.gn_plan(b, c, h * w, groups, itemsize)
+    assert plan.cs in tgn.CLUSTER_SIZES and 1 <= plan.cs <= 16
+    assert plan.non_portable == (plan.cs > tgn.PORTABLE_CLUSTER)
+    assert plan.smem_bytes == plan.res_vec * 16 + 8 * (c // groups)
+    assert plan.smem_bytes + tgn.STATIC_SMEM <= tgn.SMEM_PER_CTA
+    vec = 16 // itemsize
+    runs = []
+    for bg in range(min(b * groups, 16)):  # (bg·n·itemsize) % 16 repeats within 16 slabs
+        covered = []
+        for r, sl in enumerate(tgn.slab_slices(bg * n, n, itemsize, plan.cs)):
+            b0, b1 = sl["body"]
+            assert ((bg * n + b0) * itemsize) % 16 == 0 and (b1 - b0) % vec == 0
+            assert sl["head"][1] - sl["head"][0] < vec and sl["tail"][1] - sl["tail"][0] < vec
+            covered += [sl["head"], sl["body"], sl["tail"]] if r == 0 or r == plan.cs - 1 else [sl["body"]]
+            runs.append((b1 - b0) // vec)
+        covered = sorted(rng for rng in covered if rng[1] > rng[0])
+        assert covered[0][0] == 0 and covered[-1][1] == n
+        assert all(prev[1] == nxt[0] for prev, nxt in zip(covered, covered[1:]))
+    assert (max(runs) <= plan.res_vec) == (plan.path == "resident")
+    if itemsize == 2 and shape in GN_MAIN_SHAPES:
+        assert tgn.CTAS_PER_SM * (plan.smem_bytes + tgn.STATIC_SMEM + tgn.SMEM_RESERVED_PER_CTA) <= tgn.SMEM_PER_SM
+        assert tgn.CTAS_PER_SM >= 2
+        assert b * groups * plan.cs >= tgn.H100_SMS
+        assert plan.path == "resident"
+
+
+def test_group_norm_dispatch_skips_the_function_without_grad(monkeypatch):
+    """Under ``torch.no_grad()`` (the restore) the dispatch calls the wrapper
+    and not the autograd Function, even for inputs that require a gradient;
+    with gradients on it goes through the Function. On the CPU nothing
+    launches."""
+    calls = []
+    real = tgn._GroupNormSiluDiff.apply
+    monkeypatch.setattr(tgn._GroupNormSiluDiff, "apply", lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setattr(tgn, "USE_FUSED", True)
+    x, scale, bias, _, _, _ = _gn_inputs(22, "float32")
+    tx = _t(x).permute(0, 3, 1, 2).contiguous().requires_grad_()
+    ts, tb = _t(scale).requires_grad_(), _t(bias)
+    before = tgn.group_norm_launches
+    with torch.no_grad():
+        y = tgn.group_norm_silu(tx, ts, tb, 4, 1e-5, True)
+    assert not calls and y.grad_fn is None
+    torch.testing.assert_close(y, tgn.group_norm_silu_nchw(tx, ts, tb, 4, 1e-5, True), rtol=0, atol=0)
+    y = tgn.group_norm_silu(tx, ts, tb, 4, 1e-5, True)
+    assert len(calls) == 1 and y.grad_fn is not None
+    assert tgn.group_norm_launches == before
 
 
 def test_timestep_embedding_and_adaln(jlayers):
@@ -480,12 +611,17 @@ def _c_parameters(source: str, symbol: str) -> int:
     return len([a for a in m.group(1).split(",") if a.strip()])
 
 
-@pytest.mark.parametrize("name", sorted(tattn._ENTRY_POINTS))
+ENTRY_POINTS = {**tattn._ENTRY_POINTS, **tgn._ENTRY_POINTS}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_entry_points_match_their_sources(name):
-    """Every ctypes binding names an ``extern "C"`` function of its source with
-    as many parameters as its ``argtypes``: a renamed or re-ordered entry
-    point would otherwise show only on the card."""
-    source, symbol, argtypes = tattn._ENTRY_POINTS[name]
+    """Every ctypes binding (the attention and GroupNorm modules') names an
+    ``extern "C"`` function of its source with as many parameters as its
+    ``argtypes``: a renamed or re-ordered entry point would otherwise show
+    only on the card."""
+    assert len(ENTRY_POINTS) == len(tattn._ENTRY_POINTS) + len(tgn._ENTRY_POINTS)
+    source, symbol, argtypes = ENTRY_POINTS[name]
     assert source in tkernels.SOURCES
     text = (tkernels.CSRC / f"{source}.cu").read_text()
     assert _c_parameters(text, symbol) == len(argtypes)
@@ -494,7 +630,9 @@ def test_entry_points_match_their_sources(name):
 def test_kernel_sources_exist_and_hold_one_forward_kernel():
     """The forward source holds one kernel and the backward source two; both
     include the shared header of Hopper PTX wrappers, multiply only with
-    ``wgmma`` and stream by ``cp.async`` (in the source or the header)."""
+    ``wgmma`` and stream by ``cp.async`` (in the source or the header). The
+    GroupNorm source holds one kernel, launched as clusters: it brings x in by
+    a bulk copy and meets its peers at ``barrier.cluster``."""
     for name in tkernels.SOURCES:
         assert (tkernels.CSRC / f"{name}.cu").is_file(), name
     header = (tkernels.CSRC / "hopper.cuh").read_text()
@@ -506,78 +644,9 @@ def test_kernel_sources_exist_and_hold_one_forward_kernel():
         body = text.split("#include", 1)[1] + header
         assert "wgmma.mma_async" in body and "cp.async" in body, name
         assert "mma.sync" not in body and "ldmatrix" not in body, name
-
-
-def _need_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with nvcc and Triton: the kernels have no CPU mode")
-
-
-# beside the square shapes: Sq != Skv with neither a multiple of the tiles, a kv
-# tail of 72 keys, and an odd S (lse and D rows start off 16-byte alignment)
-CARD_SHAPES = [(1024, 1024), (2304, 2304), (1000, 1000), (200, 520), (1024, 1096), (1001, 1001)]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("s,skv", CARD_SHAPES)
-def test_flash_training_kernels_match_references_on_card(s, skv):
-    _need_card()
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q, do = (torch.randn(2, s, 4, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
-    k, v = (torch.randn(2, skv, 4, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
-    before = (tattn.flash_attention_lse_launches, tattn.flash_backward_dq_launches, tattn.flash_backward_dkv_launches)
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    out = tattn.dot_product_attention(*leaves)  # an input needs a gradient: the differentiable kernels
-    grads = torch.autograd.grad(out, leaves, do)
-    torch.cuda.synchronize()
-    after = (tattn.flash_attention_lse_launches, tattn.flash_backward_dq_launches, tattn.flash_backward_dkv_launches)
-    assert after == tuple(n + 1 for n in before)
-    ref_o, ref_lse = tattn.flash_attention_lse_reference(q, k, v)
-    _, lse = tattn.flash_attention_lse(q, k, v)
-    assert (out.float() - ref_o.float()).abs().max().item() <= 4e-3
-    assert (lse - ref_lse).abs().max().item() <= 1e-3
-    refs = tattn.flash_backward_reference(q, k, v, ref_o, ref_lse, do, block_q=512, block_k=512)
-    for got, want in zip(grads, refs):
-        assert ((got.float() - want.float()).abs().max() / want.float().abs().max()).item() <= 2e-2
-    with pytest.raises(ValueError):
-        tattn.flash_attention_lse(q.float(), k.float(), v.float())
-    with pytest.raises(ValueError):
-        tattn.flash_backward_dq(q, k, v, do, ref_lse.double(), ref_lse)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
-@pytest.mark.parametrize("shape", [(2, 320, 64, 64), (2, 1280, 16, 16), (1, 64, 45, 45)])
-def test_group_norm_kernel_matches_plain_version_on_card(shape, dtype, tol):
-    _need_card()
-    g = torch.Generator(device="cuda").manual_seed(1)
-    x = (torch.randn(shape, generator=g, device="cuda") * 1.5 + 0.5).to(dtype)
-    scale = 1.0 + 0.1 * torch.randn(shape[1], generator=g, device="cuda")
-    bias = 0.1 * torch.randn(shape[1], generator=g, device="cuda")
-    for silu in (False, True):
-        before = tgn.group_norm_launches
-        y = tgn.group_norm_silu_fused(x, scale, bias, 32, 1e-5, silu)
-        torch.cuda.synchronize()
-        assert tgn.group_norm_launches == before + 1 and y.dtype == dtype
-        ref = tgn.group_norm_silu_nchw(x, scale, bias, 32, 1e-5, silu)
-        assert (y.float() - ref.float()).abs().max().item() <= tol
-    with pytest.raises(ValueError):
-        tgn.group_norm_silu_fused(x.transpose(2, 3), scale, bias, 32)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("s,skv", CARD_SHAPES)
-def test_flash_kernel_matches_reference_on_card(s, skv):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(2, s, 4, 64, generator=g, device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn(2, skv, 4, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
-    before = tattn.flash_attention_launches
-    out = tattn.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    assert tattn.flash_attention_launches == before + 1
-    err = (out.float() - tattn.flash_attention_reference(q, k, v).float()).abs().max().item()
-    assert err <= 4e-3, err
-    with pytest.raises(ValueError):
-        tattn.flash_attention(q.float(), k.float(), v.float())
+    text = (tkernels.CSRC / "group_norm.cu").read_text()
+    assert len(re.findall(r"__global__\s+void", text)) == 1
+    for needle in ("barrier.cluster.arrive", "barrier.cluster.wait", "cp.async.bulk.shared::cluster.global",
+                   "ld.shared::cluster", "cudaLaunchAttributeClusterDimension",
+                   "cudaFuncAttributeNonPortableClusterSizeAllowed", "cudaOccupancyMaxActiveClusters"):
+        assert needle in text, needle
