@@ -11,24 +11,34 @@ which ends the script with a nonzero exit on failure:
 2. build: every kernel under ``instantir_tpu_torch/csrc`` from the checkout's
    sources, one ``nvcc`` per source, all started together;
 3. kernel check: each of the five kernels (flash forward, flash forward with
-   lse, flash dQ, flash dK/dV, fused GroupNorm+SiLU) against its plain PyTorch
-   version on the card at the main paths' shapes (plus ragged ones, a cross
-   shape with Sq != Skv, a kv tail of 72 keys, an odd batch x heads and an odd
-   S; for GroupNorm every shape of the restore in bf16, fp16 and fp32, a
-   ragged one and one past a cluster's shared memory), with time, bound, the
-   plain version's time and a one-call library yardstick; the wrappers' host
-   time per call; GroupNorm's device time from a CUDA-graph replay;
+   lse, flash dQ, flash dK/dV, fused GroupNorm+SiLU) and the four fp32 entry
+   points of the flash kernels against their plain PyTorch versions on the
+   card at the main paths' shapes (plus ragged ones, a cross shape with Sq !=
+   Skv, a kv tail of 72 keys, an odd batch x heads and an odd S; for GroupNorm
+   every shape of the restore in bf16, fp16 and fp32, a ragged one, one past a
+   cluster's shared memory, and the fp32 paths' shapes in fp32), with time,
+   bound, the plain version's time
+   and a one-call library yardstick; the wrappers' host time per call;
+   GroupNorm's device time from a CUDA-graph replay;
 4. restore at full SDXL width with synthetic weights: a UNet forward with the
    flash path against the plain attention path, then ``restore`` with the
    fused GroupNorm off and on, every launch counter set to 0 just before each
    and read just after; the counts must match the schedule, the images must be
    finite, 1024² RGB and close to each other (``RESTORE_TOL``);
-5. stage-1 training at full SDXL width: three ``Stage1Trainer.train_step``s at
-   512² (batch 2) and one at 1024² (batch 1, gradient checkpointing); loss and
-   gradient norm finite, every trainable leaf moved, no frozen leaf changed,
-   and the launch counters of every step equal to the counts derived from the
-   config;
-6. summary: one JSON line of kernels, the card line, and the result line.
+5. stage-2 (Aggregator) training at full SDXL width: two
+   ``Stage2Trainer.train_step``s at 512² (batch 2) and one at 1024² (batch 1,
+   gradient checkpointing on the UNet and the Aggregator); loss,
+   ``preview_error_latent`` and gradient norm finite, every Aggregator leaf
+   moved, no frozen leaf changed, and every step's launch counters equal to
+   the counts derived from the config;
+6. stage-1 training at full SDXL width: three ``Stage1Trainer.train_step``s at
+   512² (batch 2) and one at 1024² (batch 1, gradient checkpointing); the same
+   checks;
+7. fp32, after the bf16 models are freed: ``build_pipeline`` with its default
+   dtype restores a 512² image in 4 steps and one fp32 ``Stage1Trainer`` step
+   runs at 512², batch 1, both through the fp32 flash entry points and the
+   fused GroupNorm with launch counts derived from the config;
+8. summary: one JSON line of kernels, the card line, and the result line.
 
 ``--only kernels`` stops after phase 3 (exit 0, no result line): the quick
 check of a kernel edit; ``--only group_norm`` runs phase 3 for K5 alone.
@@ -38,6 +48,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -47,10 +58,16 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+# H100 SXM fp32 FFMA rate outside the tensor cores: 132 SMs x 128 lanes x 2 operations x 1.98 GHz
+PEAK_FP32_FLOPS = 66.9e12
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 FLASH_TOL = 4e-3  # max abs error, bf16: the band stated for the Pallas kernel vs the XLA path
 LSE_TOL = 1e-3  # max abs error of the fp32 log2-domain logsumexp (values of order 10)
 GRAD_TOL = 2e-2  # dq/dk/dv: max abs error over the largest reference value (bf16 has 8 bits)
+# fp32 entry points against the plain fp32 version on the same card: only the summation order differs
+F32_REL_L2 = 1e-5  # relative L2 error of outputs and gradients
+F32_REL_MAX = 1e-4  # max abs error over the reference's max abs
+F32_LSE_TOL = 1e-5  # max abs error of lse (values near 10: a few fp32 ulps)
 # max abs error of the kernel's normalised (O(1)) outputs against the plain version's fp32 values (before
 # their rounding to x's dtype): half an ulp of outputs below 8 plus the fp32 difference; fp16 the bf16 band
 # over its 8x finer ulp. Two values rounded apart can differ by a whole ulp (0.031 in bf16 above 4).
@@ -65,6 +82,12 @@ RESTORE_TOL = 1e-1
 RESTORE_SHAPES = [(2, 4096, 10), (2, 1024, 20), (2, 8192, 10), (2, 2048, 20)]
 # the training path's own shapes: 512² batch 2, then 1024² batch 1
 TRAIN_SHAPES = [(2, 1024, 10), (1, 4096, 10), (1, 1024, 20)]
+# stage 2's Aggregator (H-concat) shapes: W, X at 1024² batch 1, Y, Z at 512² batch 2
+STAGE2_SHAPES = [(1, 8192, 10), (1, 2048, 20), (2, 2048, 10), (2, 512, 20)]
+# the fp32 paths' shapes: the 512² restore (UNet S=1024, Aggregator 2048 and 512; CFG batch 2) and the
+# fp32 stage-1 step at 512² batch 1
+F32_PATH_SHAPES = [(2, 1024, 10), (2, 2048, 10), (2, 512, 20), (1, 1024, 10)]
+F32_RES = 512
 # (B, Sq, Skv, H) checked beside them, off every main path: a ragged 768² shape,
 # S % 64 != 0, a cross shape (Sq != Skv, neither a multiple of the tiles), a kv
 # tail of 72 keys after 129 full tiles, batch x heads = 15, and an odd S (the
@@ -72,6 +95,7 @@ TRAIN_SHAPES = [(2, 1024, 10), (1, 4096, 10), (1, 1024, 20)]
 EXTRA_SHAPES = [(2, 2304, 2304, 10), (2, 1000, 1000, 10), (1, 200, 520, 10), (2, 8264, 8264, 10), (3, 1024, 1024, 5),
                 (1, 1001, 1001, 10)]
 FLASH_SHAPES = [(b, s, s, h) for b, s, h in RESTORE_SHAPES] + EXTRA_SHAPES
+F32_SHAPES = [(b, s, s, h) for b, s, h in F32_PATH_SHAPES] + EXTRA_SHAPES
 HOST_TIMING_SHAPE = RESTORE_SHAPES[1]  # most of a restore's launches
 # (C, H, W) of GroupNorm32 on the restore path at 1024², CFG batch 2: the UNet's twelve shapes, then the
 # Aggregator's five (its H-concat doubles H); beside them a ragged shape (a group's slab is 40,500 bytes in
@@ -113,21 +137,24 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2, groups: int = 3) -> flo
     return statistics.median(means)
 
 
-def bound_ms(flops: float, nbytes: float):
-    """The least time the card could take: operations over the peak bf16 rate
-    or bytes over the memory rate, whichever is larger."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    """The least time the card could take: operations over the peak rate of
+    their type (bf16 tensor cores unless given) or bytes over the memory rate,
+    whichever is larger."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def flash_bound_ms(b: int, sq: int, skv: int, h: int, products: int = 2, q_tensors: int = 2, kv_tensors: int = 2,
-                   rows_fp32: int = 0, d: int = 64):
+                   rows_fp32: int = 0, d: int = 64, f32: bool = False):
     """``products`` Sq x Skv x d matrix products (2 flops per multiply-add)
-    against ``q_tensors`` bf16 [B, Sq, H, d] and ``kv_tensors`` bf16
-    [B, Skv, H, d] operands and ``rows_fp32`` fp32 [B, H, Sq] ones, each read
-    or written once."""
+    against ``q_tensors`` [B, Sq, H, d] and ``kv_tensors`` [B, Skv, H, d]
+    operands (bf16, or fp32 at the FFMA rate with ``f32``) and ``rows_fp32``
+    fp32 [B, H, Sq] ones, each read or written once."""
+    itemsize = 4.0 if f32 else 2.0
     return bound_ms(2.0 * products * b * h * sq * skv * d,
-                    (q_tensors * sq + kv_tensors * skv) * b * h * d * 2.0 + rows_fp32 * b * h * sq * 4.0)
+                    (q_tensors * sq + kv_tensors * skv) * b * h * d * itemsize + rows_fp32 * b * h * sq * 4.0,
+                    PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS)
 
 
 def host_us_per_call(torch, fn, calls: int = 200, runs: int = 5) -> float:
@@ -148,12 +175,15 @@ def host_us_per_call(torch, fn, calls: int = 200, runs: int = 5) -> float:
 
 
 def check_flash(torch, attention) -> list:
-    """Phase 3, K1: the flash forward against its plain version at every shape."""
+    """Phase 3, K1: the flash forward against its plain version at every
+    shape: the restore's, the extra ones and the training paths' (stage 1's
+    first self-attention; stage 2's previewer and the main UNet's down and
+    mid blocks)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for b, s, skv, h in FLASH_SHAPES:
+    for b, s, skv, h in FLASH_SHAPES + [(b, s, s, h) for b, s, h in TRAIN_SHAPES]:
         q = torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16)
         k, v = (torch.randn(b, skv, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
         out = attention.flash_attention(q, k, v)
@@ -193,7 +223,7 @@ def check_flash_training(torch, attention) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = {"fwd_lse": [], "bwd_dq": [], "bwd_dkv": []}
-    for b, s, skv, h in FLASH_SHAPES + [(b, s, s, h) for b, s, h in TRAIN_SHAPES]:
+    for b, s, skv, h in FLASH_SHAPES + [(b, s, s, h) for b, s, h in TRAIN_SHAPES + STAGE2_SHAPES]:
         q, do = (torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
         k, v = (torch.randn(b, skv, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
         shape = dict(B=b, S=s, Skv=skv, H=h)
@@ -258,6 +288,85 @@ def check_flash_training(torch, attention) -> dict:
     return rows
 
 
+def f32_errors(got, want):
+    """(relative L2 error, max abs error over the reference's max abs, max abs error) in fp64."""
+    diff = got.double() - want.double()
+    return ((diff.norm() / want.double().norm()).item(), (diff.abs().max() / want.double().abs().max()).item(),
+            diff.abs().max().item())
+
+
+def check_flash_f32(torch, attention) -> dict:
+    """Phase 3, the fp32 entry points of K1-K4 (``csrc/flash_f32.cu``) against
+    the plain fp32 versions at the fp32 paths' shapes and the extra ones:
+    outputs and gradients to ``F32_REL_L2`` / ``F32_REL_MAX``, lse to
+    ``F32_LSE_TOL``. Bound: operations at the FFMA rate; library: SDPA and its
+    backward in fp32 with TF32 off. The plain backward runs with 1024-wide
+    blocks (in fp32 the blocking moves no rounding point, only the order of
+    the sums)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = {"fwd": [], "fwd_lse": [], "bwd_dq": [], "bwd_dkv": []}
+    for b, s, skv, h in F32_SHAPES:
+        q, do = (torch.randn(b, s, h, 64, generator=g, device="cuda") for _ in range(2))
+        k, v = (torch.randn(b, skv, h, 64, generator=g, device="cuda") for _ in range(2))
+        shape = dict(B=b, S=s, Skv=skv, H=h)
+        where = f"B={b} Sq={s} Skv={skv} H={h}"
+        out = attention.flash_attention(q, k, v)
+        out_lse, lse = attention.flash_attention_lse(q, k, v)
+        delta = attention.flash_delta(out_lse, do)
+        dq = attention.flash_backward_dq(q, k, v, do, lse, delta)
+        dk, dv = attention.flash_backward_dkv(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = attention.flash_attention_lse_reference(q, k, v)
+
+        def plain_bwd():
+            return attention.flash_backward_reference(q, k, v, ref_o, ref_lse, do, block_q=1024, block_k=1024)
+
+        refs = plain_bwd()
+        errs = {}
+        for name, got, want in (("o", out, ref_o), ("o_lse", out_lse, ref_o), ("dq", dq, refs[0]),
+                                ("dk", dk, refs[1]), ("dv", dv, refs[2])):
+            errs[name] = f32_errors(got, want)
+            rel_l2, rel_max, _ = errs[name]
+            if not (got.dtype == torch.float32 and rel_l2 <= F32_REL_L2 and rel_max <= F32_REL_MAX):
+                fail(f"fp32 flash {name} disagrees with its plain fp32 version at {where}: relative L2 {rel_l2} "
+                     f"(> {F32_REL_L2}?), max abs over the reference's {rel_max} (> {F32_REL_MAX}?), dtype {got.dtype}")
+        err_lse = (lse - ref_lse).abs().max().item()
+        if not err_lse <= F32_LSE_TOL:
+            fail(f"fp32 flash lse disagrees with its plain fp32 version at {where}: {err_lse} > {F32_LSE_TOL}")
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt)
+        dlib = torch.randn_like(lib_out)
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        lib_bwd = time_ms(
+            torch, lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dlib, retain_graph=True), iters=5, warmup=1)
+        plain_fwd = time_ms(torch, lambda: attention.flash_attention_lse_reference(q, k, v), iters=2, warmup=1, groups=2)
+        plain_bwd_ms = time_ms(torch, plain_bwd, iters=1, warmup=0, groups=2)
+        for name, fn, err, plain_ms, library_ms, bound_args in (
+            ("fwd", lambda: attention.flash_attention(q, k, v), errs["o"], plain_fwd, lib_fwd, {}),
+            ("fwd_lse", lambda: attention.flash_attention_lse(q, k, v), errs["o_lse"], plain_fwd, lib_fwd,
+             dict(rows_fp32=1)),
+            ("bwd_dq", lambda: attention.flash_backward_dq(q, k, v, do, lse, delta), errs["dq"], plain_bwd_ms, lib_bwd,
+             dict(products=3, q_tensors=3, kv_tensors=2, rows_fp32=2)),
+            ("bwd_dkv", lambda: attention.flash_backward_dkv(q, k, v, do, lse, delta),
+             max(errs["dk"], errs["dv"], key=lambda e: e[0]), plain_bwd_ms, lib_bwd,
+             dict(products=4, q_tensors=2, kv_tensors=4, rows_fp32=2)),
+        ):
+            bound, bound_by = flash_bound_ms(b, s, skv, h, f32=True, **bound_args)
+            max_abs = max(err[2], err_lse) if name == "fwd_lse" else err[2]
+            rows[name].append(dict(**shape, max_abs_err=max_abs, rel_l2_err=err[0], ms=time_ms(torch, fn),
+                                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=library_ms))
+        r1, r2, r3, r4 = (rows[n][-1] for n in ("fwd", "fwd_lse", "bwd_dq", "bwd_dkv"))
+        log(f"  fp32 {where}: fwd rel L2 {r1['rel_l2_err']:.2e} {r1['ms']:.4f} ms (bound {r1['bound_ms']:.4f}, sdpa "
+            f"{lib_fwd:.4f}) | fwd+lse lse err {err_lse:.2e} {r2['ms']:.4f} ms | dq rel L2 {r3['rel_l2_err']:.2e} "
+            f"{r3['ms']:.4f} ms (bound {r3['bound_ms']:.4f}) | dkv rel L2 {r4['rel_l2_err']:.2e} {r4['ms']:.4f} ms "
+            f"(bound {r4['bound_ms']:.4f}) | plain fwd {plain_fwd:.3f} ms, bwd {plain_bwd_ms:.2f} ms, sdpa bwd "
+            f"{lib_bwd:.4f} ms")
+        del lib_out, refs
+    return rows
+
+
 def graph_ms(torch, fn, calls: int = 10, replays: int = 3) -> float:
     """Device milliseconds per call: ``calls`` calls captured in one CUDA
     graph, each replay between two CUDA events; the median of ``replays``
@@ -286,12 +395,13 @@ def graph_ms(torch, fn, calls: int = 10, replays: int = 3) -> float:
     return statistics.median(means)
 
 
-def check_group_norm(torch, group_norm, gn_by_shape: dict) -> list:
+def check_group_norm(torch, group_norm, gn_by_shape: dict, path_cases: list) -> list:
     """Phase 3, K5: the fused GroupNorm(+SiLU) against ``group_norm_silu_nchw``
-    (its fp32 values: see ``GN_TOL``) at every shape of the restore path and
-    the extra ones, bf16, fp16 and fp32, with and without SiLU: back-to-back
-    and device (CUDA graph) time, the host time of the dispatch under
-    ``torch.no_grad()`` (bf16 and fp16: the dtypes it sends to the kernel),
+    (its fp32 values: see ``GN_TOL``) at every shape of the 1024² restore
+    path and the extra ones in bf16, fp16 and fp32, and at the other main
+    paths' ``path_cases`` ((B, (C, H, W), dtypes): training, the fp32
+    paths), with and without SiLU: back-to-back and device (CUDA graph) time,
+    the host time of the dispatch under ``torch.no_grad()`` (bf16 and fp16),
     bound, plain version, ``F.group_norm`` and the launch plan (cluster size
     and path; "-" for a package without one)."""
     import torch.nn.functional as F
@@ -301,20 +411,22 @@ def check_group_norm(torch, group_norm, gn_by_shape: dict) -> list:
     plan_of = getattr(group_norm, "gn_plan", None)
     g = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for c, hh, ww in GN_SHAPES:
-        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+    every_dtype = (torch.bfloat16, torch.float16, torch.float32)
+    cases = [(GN_BATCH, shape, every_dtype) for shape in GN_SHAPES] + path_cases
+    for batch, (c, hh, ww), dtypes in cases:
+        for dtype in dtypes:
             name = str(dtype).split(".")[-1]
-            x = (torch.randn(GN_BATCH, c, hh, ww, generator=g, device="cuda") * 1.5 + 0.5).to(dtype)
+            x = (torch.randn(batch, c, hh, ww, generator=g, device="cuda") * 1.5 + 0.5).to(dtype)
             scale = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
             bias = 0.1 * torch.randn(c, generator=g, device="cuda")
             scale_d, bias_d = scale.to(dtype), bias.to(dtype)
-            plan = plan_of(GN_BATCH, c, hh * ww, 32, x.element_size()) if plan_of else None
+            plan = plan_of(batch, c, hh * ww, 32, x.element_size()) if plan_of else None
             for silu in (False, True):
                 y = group_norm.group_norm_silu_fused(x, scale, bias, 32, 1e-5, silu)
                 torch.cuda.synchronize()
                 ref = group_norm.group_norm_silu_nchw(x.float(), scale, bias, 32, 1e-5, silu)
                 err = (y.float() - ref).abs().max().item()
-                where = f"C={c} {hh}x{ww} {name} silu={silu}"
+                where = f"B={batch} C={c} {hh}x{ww} {name} silu={silu}"
                 if y.dtype != dtype or not err <= GN_TOL[name]:
                     fail(f"fused GroupNorm disagrees with group_norm_silu_nchw at {where}: {err} > {GN_TOL[name]}")
                 del y, ref
@@ -328,7 +440,7 @@ def check_group_norm(torch, group_norm, gn_by_shape: dict) -> list:
                 with torch.no_grad():
                     host_us = host_us_per_call(torch, dispatch) if dtype != torch.float32 else None
                 bound, bound_by = bound_ms(8.0 * x.numel(), 2.0 * x.numel() * x.element_size())
-                row = dict(C=c, H=hh, W=ww, dtype=name, silu=silu, max_abs_err=err, bound_ms=bound, bound_by=bound_by,
+                row = dict(B=batch, C=c, H=hh, W=ww, dtype=name, silu=silu, max_abs_err=err, bound_ms=bound, bound_by=bound_by,
                            cs=plan.cs if plan else None, path=plan.path if plan else None,
                            ms=time_ms(torch, fused), device_ms=graph_ms(torch, fused),
                            host_us=host_us,
@@ -472,13 +584,107 @@ def expected_train_launches(cfg, lat: int, checkpointing: bool) -> dict:
             "group_norm_silu": gn_launches}
 
 
+def up_group_norms(cfg) -> int:
+    """GroupNorm32 calls of one UNet's up blocks (two per resnet, one per Transformer2D)."""
+    return sum((cfg.layers_per_block + 1) * (3 if kind == "CrossAttnUpBlock2D" else 2) for kind in cfg.up_block_types)
+
+
+def expected_stage2_launches(cfg, s2cfg, lat: int, checkpointing: bool) -> dict:
+    """Kernel launches of one stage-2 ``train_step`` (no accumulation) with
+    the adapter frozen: only the Aggregator trains. The previewer (one UNet
+    forward, two with ``cfg_scale > 1``) runs under ``no_grad``: K1. The main
+    UNet's down and mid blocks see no input and no parameter that needs a
+    gradient: K1. Its up blocks take the skips that carry the Aggregator's
+    residuals, and every Aggregator attention has trainable inputs: each of
+    those long self-attentions runs the forward with lse (K2) and, once, dQ
+    (K3) and dK/dV (K4). K5 follows the same split between forwards.
+    Gradient checkpointing recomputes the blocks whose outputs need a gradient
+    (the UNet's up blocks, every Aggregator block): their K2 and K5 run twice;
+    a block whose outputs need none is not recomputed."""
+    if s2cfg.optimize_adapter:
+        fail("expected_stage2_launches derives the counts for a frozen adapter (optimize_adapter=False)")
+    full = sum(flash_calls_per_forward(cfg, lat, lat, with_up=True).values())
+    down_mid = sum(flash_calls_per_forward(cfg, lat, lat, with_up=False).values())
+    agg = sum(flash_calls_per_forward(cfg, lat, lat, with_up=False, concat=2).values())
+    previewer = 2 if s2cfg.cfg_scale > 1.0 else 1
+    passes = 2 if checkpointing else 1
+    grad_attn = full - down_mid + agg
+    gn_unet = group_norms_per_forward(cfg)["total"]
+    gn_agg = group_norms_per_forward(cfg, with_up=False)["total"]
+    gn_again = up_group_norms(cfg) + gn_agg if checkpointing else 0
+    return {"flash_attention_fwd": previewer * full + down_mid, "flash_attention_fwd_lse": grad_attn * passes,
+            "flash_attention_bwd_dq": grad_attn, "flash_attention_bwd_dkv": grad_attn,
+            "group_norm_silu": (previewer + 1) * gn_unet + gn_agg + gn_again}
+
+
+def heads_by_seq(cfg, lat: int, concat: int = 1) -> dict:
+    """Heads (head_dim 64) of each level's self-attention, by its sequence
+    length, in a UNet (``concat=1``) or the Aggregator's H-concat (2)."""
+    return {((lat * concat) >> i) * (lat >> i): c // 64 for i, c in enumerate(cfg.block_out_channels)}
+
+
+def _add_by_shape(out: dict, cfg, lat: int, batch: int, by_seq: dict, n: int, concat: int = 1) -> None:
+    heads = heads_by_seq(cfg, lat, concat)
+    for s, c in by_seq.items():
+        out[(batch, s, heads[s])] = out.get((batch, s, heads[s]), 0) + c * n
+
+
+def flash_launches_by_shape(cfg, s2cfg) -> dict:
+    """{path: {kernel: {(B, S, H): launches}}} of the bf16 flash kernels on
+    the four training paths as phases 5 and 6 drive them (stage 1: three
+    steps at 512² batch 2, one at 1024² batch 1 checkpointed; stage 2: two
+    and one), split by shape as ``expected_train_launches`` and
+    ``expected_stage2_launches`` count them in all."""
+    first_level = next(i for i, kind in enumerate(cfg.down_block_types) if kind == "CrossAttnDownBlock2D")
+    out = {}
+    for path, stage, res, batch, steps, checkpointing in (
+            ("train_512", 1, 512, 2, 3, False), ("train_1024", 1, 1024, 1, 1, True),
+            ("train_stage2_512", 2, 512, 2, 2, False), ("train_stage2_1024", 2, 1024, 1, 1, True)):
+        lat, passes = res // 8, 2 if checkpointing else 1
+        full = flash_calls_per_forward(cfg, lat, lat, with_up=True)
+        kernels = {name: {} for name in COUNTERS if name.startswith("flash_") and not name.endswith("_f32")}
+        if stage == 1:
+            s0 = (lat >> first_level) ** 2
+            no_grad = {s0: 1} if s0 >= 512 else {}
+            _add_by_shape(kernels["flash_attention_fwd"], cfg, lat, batch, no_grad, steps * passes)
+            unet_grad, agg = {s: c - no_grad.get(s, 0) for s, c in full.items()}, {}
+        else:
+            down_mid = flash_calls_per_forward(cfg, lat, lat, with_up=False)
+            previewer = 2 if s2cfg.cfg_scale > 1.0 else 1
+            _add_by_shape(kernels["flash_attention_fwd"], cfg, lat, batch,
+                          {s: previewer * c + down_mid.get(s, 0) for s, c in full.items()}, steps)
+            unet_grad = {s: c - down_mid.get(s, 0) for s, c in full.items()}
+            agg = flash_calls_per_forward(cfg, lat, lat, with_up=False, concat=2)
+        for name, n in (("flash_attention_fwd_lse", steps * passes), ("flash_attention_bwd_dq", steps),
+                        ("flash_attention_bwd_dkv", steps)):
+            _add_by_shape(kernels[name], cfg, lat, batch, unet_grad, n)
+            _add_by_shape(kernels[name], cfg, lat, batch, agg, n, concat=2)
+        out[path] = kernels
+    return out
+
+
 COUNTERS = {
     "flash_attention_fwd": ("attention", "flash_attention_launches"),
     "flash_attention_fwd_lse": ("attention", "flash_attention_lse_launches"),
     "flash_attention_bwd_dq": ("attention", "flash_backward_dq_launches"),
     "flash_attention_bwd_dkv": ("attention", "flash_backward_dkv_launches"),
     "group_norm_silu": ("group_norm", "group_norm_launches"),
+    "flash_attention_fwd_f32": ("attention", "flash_attention_f32_launches"),
+    "flash_attention_fwd_lse_f32": ("attention", "flash_attention_lse_f32_launches"),
+    "flash_attention_bwd_dq_f32": ("attention", "flash_backward_dq_f32_launches"),
+    "flash_attention_bwd_dkv_f32": ("attention", "flash_backward_dkv_f32_launches"),
 }
+
+
+def every_counter(expected: dict) -> dict:
+    """``expected`` with a 0 for every counter it does not name."""
+    return {name: expected.get(name, 0) for name in COUNTERS}
+
+
+def as_f32(expected: dict) -> dict:
+    """The counts of a bf16 path for the same path in fp32: each flash count
+    moves to its fp32 entry point; K5 takes every dtype, so its count stays."""
+    return every_counter({(f"{name}_f32" if name.startswith("flash_") else name): n for name, n in expected.items()})
 
 
 def zero_counters(mods: dict) -> None:
@@ -629,12 +835,111 @@ def _checksums(torch, params: dict) -> dict:
     return out
 
 
+def training_batch(torch, g, bsz: int, res: int, dtype, uncond: bool = False):
+    """A degraded pair (gt uniform in [-1, 1], lq = gt plus noise) and the text
+    conditioning, drawn from ``g``; with ``uncond`` also the stage-2 uncond
+    text embeds (zeros, as for an empty prompt)."""
+    gt = torch.rand(bsz, res, res, 3, generator=g, device="cuda") * 2.0 - 1.0
+    lq = (gt + 0.2 * torch.randn(gt.shape, generator=g, device="cuda")).clamp(-1.0, 1.0)
+    cond = {"prompt_embeds": (torch.randn(bsz, 77, 2048, generator=g, device="cuda") * 0.1).to(dtype),
+            "pooled_embeds": (torch.randn(bsz, 1280, generator=g, device="cuda") * 0.1).to(dtype),
+            "time_ids": torch.tensor([[res, res, 0, 0, res, res]] * bsz, dtype=dtype, device="cuda")}
+    if uncond:
+        cond.update(uncond_prompt_embeds=torch.zeros_like(cond["prompt_embeds"]),
+                    uncond_pooled_embeds=torch.zeros_like(cond["pooled_embeds"]))
+    return {"lq": lq, "gt": gt}, cond
+
+
+def train_step_checked(torch, trainer, batch, g, mods: dict, expected: dict, what: str, card_line: str):
+    """One ``train_step`` with every counter set to 0 just before it and read
+    just after: the metrics must be finite and the counts equal ``expected``.
+    Returns (launches, seconds, metrics)."""
+    zero_counters(mods)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    metrics = trainer.train_step(batch, generator=g)
+    torch.cuda.synchronize()
+    sec = time.time() - t0
+    launches = read_counters(mods)
+    values = {k: float(v) for k, v in metrics.items()}
+    shown = "  ".join(f"{k} {v:.5g}" for k, v in values.items())
+    log(f"  {what}: {shown}  {sec:.3f} s/step  peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB  "
+        f"launches {launches}  on {card_line}")
+    if not all(v == v and abs(v) != float("inf") for v in values.values()):
+        fail(f"{what}: metrics {values} are not all finite")
+    if launches != expected:
+        fail(f"{what}: kernel launches {launches} differ from the counts derived from the config {expected}")
+    return launches, sec, values
+
+
+def check_leaves(torch, before_train: dict, before_frozen: dict, trainable: dict, frozen: dict, what: str) -> None:
+    """Every trainable leaf moved, no frozen leaf changed (``_checksums``)."""
+    after_train, after_frozen = _checksums(torch, trainable), _checksums(torch, frozen)
+    stuck = [n for n in trainable if after_train[n] == before_train[n]]
+    changed = [n for n in frozen if after_frozen[n] != before_frozen[n]]
+    if stuck:
+        fail(f"{what}: {len(stuck)} trainable leaves did not move, e.g. {stuck[:5]}")
+    if changed:
+        fail(f"{what}: {len(changed)} frozen leaves changed, e.g. {changed[:5]}")
+    log(f"  {what}: all {len(trainable)} trainable leaves moved, none of the {len(frozen)} frozen leaves changed")
+
+
+def run_stage2(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
+    """Phase 5: stage-2 (Aggregator) training steps at full SDXL width."""
+    from instantir_tpu_torch.train.stage2_aggregator import Stage2Config, Stage2Trainer
+
+    cfg = Stage2Config(train_batch_size=2, resolution=512, lr_warmup_steps=0, output_dir="")
+    trainer = Stage2Trainer(pipe.unet, pipe.aggregator, pipe.resampler, pipe.vae, pipe.image_encoder, cfg,
+                            device="cuda")
+    named = trainer.named_parameters()
+    trainable = {n: p for n, p in named.items() if p.requires_grad}
+    frozen = {n: p for n, p in named.items() if not p.requires_grad}
+    if not all(n.startswith("aggregator.") for n in trainable):
+        fail("stage 2 with a frozen adapter trains leaves outside the Aggregator")
+    log(f"  stage-2 trainer: {sum(p.numel() for p in trainable.values()) / 1e6:.2f} M trainable parameters in "
+        f"{len(trainable)} leaves, {sum(p.numel() for p in frozen.values()) / 1e9:.3f} B frozen in {len(frozen)}; "
+        f"fp32 EMA adapter copy of {len(trainer.ema_adapter)} leaves")
+    before_train, before_frozen = _checksums(torch, trainable), _checksums(torch, frozen)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {"train_stage2_512": {name: 0 for name in COUNTERS}, "sec_512": []}
+    expected = every_counter(expected_stage2_launches(ucfg, cfg, 512 // 8, checkpointing=False))
+    if not mods["group_norm"].USE_FUSED:
+        expected["group_norm_silu"] = 0
+    log(f"  512² batch 2, no checkpointing; expected launches per step {expected}")
+    batch = trainer.prepare_batch(*training_batch(torch, g, 2, 512, torch.bfloat16, uncond=True))
+    for i in range(2):
+        launches, sec, _ = train_step_checked(torch, trainer, batch, g, mods, expected,
+                                              f"stage-2 train_step {i + 1}/2 at 512² batch 2", card_line)
+        out["sec_512"].append(sec)
+        for name, n in launches.items():
+            out["train_stage2_512"][name] += n
+    out["peak_gb_512"] = torch.cuda.max_memory_allocated() / 1e9
+
+    trainer.unet.gradient_checkpointing = trainer.aggregator.gradient_checkpointing = True
+    expected = every_counter(expected_stage2_launches(ucfg, cfg, 1024 // 8, checkpointing=True))
+    if not mods["group_norm"].USE_FUSED:
+        expected["group_norm_silu"] = 0
+    log(f"  1024² batch 1, gradient checkpointing on the UNet and the Aggregator; expected launches {expected}")
+    batch = trainer.prepare_batch(*training_batch(torch, g, 1, 1024, torch.bfloat16, uncond=True))
+    out["train_stage2_1024"], out["sec_1024"], _ = train_step_checked(
+        torch, trainer, batch, g, mods, expected, "stage-2 train_step at 1024² batch 1, checkpointing", card_line)
+    out["peak_gb_1024"] = torch.cuda.max_memory_allocated() / 1e9
+    trainer.unet.gradient_checkpointing = trainer.aggregator.gradient_checkpointing = False
+    check_leaves(torch, before_train, before_frozen, trainable, frozen, "stage 2, 3 steps")
+    out["cfg"] = cfg
+    log(f"  stage-2 512² steps {['%.3f' % x for x in out['sec_512']]} s (the first includes warm-up), peak "
+        f"{out['peak_gb_512']:.2f} GB; 1024² step {out['sec_1024']:.3f} s, peak {out['peak_gb_1024']:.2f} GB; "
+        f"on {card_line}")
+    return out
+
+
 def run_training(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     """Phase 5: stage-1 (DCP adapter) training steps at full SDXL width."""
     from instantir_tpu_torch.train.stage1_adapter import Stage1Config, Stage1Trainer
 
     cfg = Stage1Config(train_batch_size=2, resolution=512, lr_warmup_steps=0, max_train_steps=1000, output_dir="")
     del pipe.aggregator  # stage 1 trains without it
+    gc.collect()
     torch.cuda.empty_cache()
     trainer = Stage1Trainer(pipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder, cfg, device="cuda")
     named = dict(trainer.named_parameters())
@@ -647,32 +952,13 @@ def run_training(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(3)
 
     def make_batch(bsz: int, res: int):
-        gt = torch.rand(bsz, res, res, 3, generator=g, device="cuda") * 2.0 - 1.0
-        lq = (gt + 0.2 * torch.randn(gt.shape, generator=g, device="cuda")).clamp(-1.0, 1.0)
-        cond = {"prompt_embeds": (torch.randn(bsz, 77, 2048, generator=g, device="cuda") * 0.1).to(torch.bfloat16),
-                "pooled_embeds": (torch.randn(bsz, 1280, generator=g, device="cuda") * 0.1).to(torch.bfloat16),
-                "time_ids": torch.tensor([[res, res, 0, 0, res, res]] * bsz, dtype=torch.bfloat16, device="cuda")}
-        return trainer.prepare_batch({"lq": lq, "gt": gt}, cond)
+        return trainer.prepare_batch(*training_batch(torch, g, bsz, res, torch.bfloat16))
 
     def step(batch, expected: dict, what: str):
-        zero_counters(mods)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        metrics = trainer.train_step(batch, generator=g)
-        torch.cuda.synchronize()
-        sec = time.time() - t0
-        launches = read_counters(mods)
-        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
-        log(f"  {what}: loss {loss:.5f}  grad_norm {gnorm:.4e}  {sec:.3f} s/step  peak memory "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  launches {launches}  on {card_line}")
-        if not (loss == loss and abs(loss) != float("inf") and gnorm == gnorm and abs(gnorm) != float("inf")):
-            fail(f"{what}: loss {loss} or grad_norm {gnorm} is not finite")
-        if launches != expected:
-            fail(f"{what}: kernel launches {launches} differ from the counts derived from the config {expected}")
-        return launches, sec
+        return train_step_checked(torch, trainer, batch, g, mods, expected, what, card_line)
 
     fused = mods["group_norm"].USE_FUSED
-    expected = expected_train_launches(ucfg, 512 // 8, checkpointing=False)
+    expected = every_counter(expected_train_launches(ucfg, 512 // 8, checkpointing=False))
     if not fused:
         expected["group_norm_silu"] = 0
     log(f"  512² batch 2, no checkpointing; expected launches per step {expected}")
@@ -680,29 +966,89 @@ def run_training(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     total = {name: 0 for name in COUNTERS}
     secs = []
     for i in range(3):
-        launches, sec = step(batch, expected, f"train_step {i + 1}/3 at 512² batch 2")
+        launches, sec, _ = step(batch, expected, f"train_step {i + 1}/3 at 512² batch 2")
         secs.append(sec)
         for name, n in launches.items():
             total[name] += n
 
     trainer.unet.gradient_checkpointing = True
-    expected_big = expected_train_launches(ucfg, 1024 // 8, checkpointing=True)
+    expected_big = every_counter(expected_train_launches(ucfg, 1024 // 8, checkpointing=True))
     if not fused:
         expected_big["group_norm_silu"] = 0
     log(f"  1024² batch 1, gradient checkpointing; expected launches {expected_big}")
-    big, big_sec = step(make_batch(1, 1024), expected_big, "train_step at 1024² batch 1, checkpointing")
+    big, big_sec, _ = step(make_batch(1, 1024), expected_big, "train_step at 1024² batch 1, checkpointing")
     trainer.unet.gradient_checkpointing = False
-
-    after_train, after_frozen = _checksums(torch, trainable), _checksums(torch, frozen)
-    stuck = [n for n in trainable if after_train[n] == before_train[n]]
-    changed = [n for n in frozen if after_frozen[n] != before_frozen[n]]
-    if stuck:
-        fail(f"{len(stuck)} trainable leaves did not move in 4 steps, e.g. {stuck[:5]}")
-    if changed:
-        fail(f"{len(changed)} frozen leaves changed, e.g. {changed[:5]}")
-    log(f"  all {len(trainable)} trainable leaves moved, none of the {len(frozen)} frozen leaves changed; "
-        f"512² steps {['%.3f' % s for s in secs]} s (the first includes warm-up), 1024² step {big_sec:.3f} s")
+    check_leaves(torch, before_train, before_frozen, trainable, frozen, "stage 1, 4 steps")
+    log(f"  512² steps {['%.3f' % s for s in secs]} s (the first includes warm-up), 1024² step {big_sec:.3f} s")
     return {"train_512": total, "train_1024": big, "sec_512": secs, "sec_1024": big_sec}
+
+
+def run_fp32(torch, ucfg, mods: dict, card_line: str) -> dict:
+    """Phase 7: the default (fp32) ``build_pipeline`` restores a 512² image in
+    4 steps, then one fp32 ``Stage1Trainer`` step at 512², batch 1; both
+    through the fp32 flash entry points and K5 (fp32 UNet and Aggregator
+    GroupNorms), counts derived from the config."""
+    from instantir_tpu_torch.models.dinov2 import dinov2_large_config
+    from instantir_tpu_torch.models.resampler import instantir_resampler_config
+    from instantir_tpu_torch.models.vae import sdxl_vae_config
+    from instantir_tpu_torch.pipeline.factory import build_pipeline
+    from instantir_tpu_torch.pipeline.instantir import build_step_phases
+    from instantir_tpu_torch.train.stage1_adapter import Stage1Config, Stage1Trainer
+
+    res, lat = F32_RES, F32_RES // 8
+    t0 = time.time()
+    pipe = build_pipeline(ucfg, sdxl_vae_config(), instantir_resampler_config(lora_rank=64), dinov2_large_config(),
+                          seed=0, device="cuda")
+    torch.cuda.synchronize()
+    dtypes = {p.dtype for m in (pipe.unet, pipe.aggregator, pipe.resampler, pipe.image_encoder) for p in m.parameters()}
+    if dtypes != {torch.float32}:
+        fail(f"build_pipeline's default dtype built {dtypes}, expected fp32")
+    log(f"  built the default (fp32) SDXL-width pipeline in {time.time() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    cfg = restore_config(4)
+    phases = build_step_phases(cfg)
+    by_seq = flash_launches_by_seq(phases, flash_calls_per_forward(ucfg, lat, lat, with_up=True),
+                                   flash_calls_per_forward(ucfg, lat, lat, with_up=False, concat=2))
+    fused = mods["group_norm"].USE_FUSED
+    expected = every_counter({"flash_attention_fwd_f32": sum(by_seq.values()), "group_norm_silu": sum(
+        group_norm_launches_by_shape(ucfg, phases, lat).values()) if fused else 0})
+    g = torch.Generator(device="cuda").manual_seed(6)
+    lq = torch.rand(1, res, res, 3, generator=g, device="cuda") * 2.0 - 1.0
+    pe = torch.randn(1, 77, 2048, generator=g, device="cuda") * 0.1
+    pooled = torch.randn(1, 1280, generator=g, device="cuda") * 0.1
+    out = {"by_seq": by_seq, "restore_sec": []}
+    for i in range(2):  # the first call includes warm-up
+        zero_counters(mods)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        image, _ = pipe.restore(lq, pe, pooled, cfg=cfg, output_type="pt",
+                                generator=torch.Generator(device="cuda").manual_seed(7))
+        torch.cuda.synchronize()
+        out["restore_sec"].append(time.time() - t0)
+        out["restore"] = read_counters(mods)
+        log(f"  fp32 restore {res}² 4 steps ({i + 1}/2): {out['restore_sec'][-1]:.3f} s/image, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches {out['restore']} on {card_line}")
+        if out["restore"] != expected:
+            fail(f"fp32 restore: kernel launches {out['restore']} differ from the counts derived from the config "
+                 f"{expected}")
+        if tuple(image.shape) != (1, res, res, 3) or image.dtype != torch.float32 or not torch.isfinite(image).all():
+            fail(f"fp32 restore: the image is not finite fp32 RGB of shape (1, {res}, {res}, 3): "
+                 f"{tuple(image.shape)} {image.dtype}")
+    out["peak_gb_restore"] = torch.cuda.max_memory_allocated() / 1e9
+
+    del pipe.aggregator  # stage 1 trains without it
+    torch.cuda.empty_cache()
+    scfg = Stage1Config(train_batch_size=1, resolution=res, lr_warmup_steps=0, max_train_steps=1000, output_dir="")
+    trainer = Stage1Trainer(pipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder, scfg, device="cuda")
+    expected = as_f32(expected_train_launches(ucfg, lat, checkpointing=False))
+    if not fused:
+        expected["group_norm_silu"] = 0
+    batch = trainer.prepare_batch(*training_batch(torch, g, 1, res, torch.float32))
+    out["train"], out["train_sec"], _ = train_step_checked(
+        torch, trainer, batch, g, mods, expected, f"fp32 stage-1 train_step at {res}² batch 1", card_line)
+    out["peak_gb_train"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
 
 
 def _weighted(rows, key, weights):
@@ -779,11 +1125,27 @@ def main() -> None:
     mods = {"attention": attention, "group_norm": group_norm}
     ucfg = sdxl_base_config(with_ip=True, lora_rank=64)
     gn_by_shape = group_norm_launches_by_shape(ucfg, build_step_phases(restore_config(args.steps)), 1024 // 8)
+    # K5's other main-path shapes: the UNet's and the Aggregator's at 512² (bf16 training and the fp32 restore,
+    # batch 2, where not already among GN_SHAPES; the fp32 stage-1 step, batch 1, the UNet's) and at 1024²
+    # batch 1 (bf16 training)
+    bf16, fp32 = torch.bfloat16, torch.float32
+
+    def gn_shapes(res: int, aggregator: bool = True) -> list:
+        lat = res // 8
+        shapes = set(group_norm_shapes_per_forward(ucfg, lat, lat, with_up=True))
+        if aggregator:
+            shapes |= set(group_norm_shapes_per_forward(ucfg, lat, lat, with_up=False, concat=2))
+        return sorted(shapes)
+
+    gn_cases = ([(GN_BATCH, shape, (bf16, fp32)) for shape in gn_shapes(F32_RES) if shape not in GN_SHAPES]
+                + [(1, shape, (fp32,)) for shape in gn_shapes(F32_RES, aggregator=False)]
+                + [(1, shape, (bf16,)) for shape in gn_shapes(1024)])
     log("[3] kernel check against the plain versions")
     if args.only != "group_norm":
         k1_rows = check_flash(torch, attention)
         train_rows = check_flash_training(torch, attention)
-    gn_rows = check_group_norm(torch, group_norm, gn_by_shape)
+        f32_rows = check_flash_f32(torch, attention)
+    gn_rows = check_group_norm(torch, group_norm, gn_by_shape, gn_cases)
     if args.only:
         log(f"kernel check passed (--only {args.only}: no restore, no training, no result line)")
         return
@@ -792,44 +1154,97 @@ def main() -> None:
     log(f"[4] restore at SDXL width, {args.steps} steps, fused GroupNorm off and on")
     pipe, restore_launches, sec, by_seq, restore_secs, fused_launches = run_restore(torch, args.steps, mods, ucfg)
 
-    # 5. training
-    log("[5] stage-1 training at SDXL width")
-    train = run_training(torch, pipe, ucfg, mods, card_line)
+    # 5. stage-2 training (before stage 1, which frees the Aggregator)
+    log("[5] stage-2 (Aggregator) training at SDXL width")
+    stage2 = run_stage2(torch, pipe, ucfg, mods, card_line)
 
-    # 6. summary
+    # 6. stage-1 training
+    log("[6] stage-1 training at SDXL width")
+    train = run_training(torch, pipe, ucfg, mods, card_line)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. fp32
+    log(f"[7] fp32: default build_pipeline, 512² restore and a stage-1 step ({torch.cuda.memory_allocated() / 1e9:.2f} "
+        "GB still allocated)")
+    f32 = run_fp32(torch, ucfg, mods, card_line)
+
+    # 8. summary
     def by_path(name):
         return {"restore": restore_launches[name], "restore_fused_group_norm": fused_launches[name],
-                "train_512": train["train_512"][name], "train_1024": train["train_1024"][name]}
+                "train_512": train["train_512"][name], "train_1024": train["train_1024"][name],
+                "train_stage2_512": stage2["train_stage2_512"][name],
+                "train_stage2_1024": stage2["train_stage2_1024"][name],
+                "fp32": f32["restore"][name] + f32["train"][name]}
 
     src = "instantir_tpu_torch/csrc/"
     jax_attn = "instantir_tpu/ops/attention.py"
     def shape_of(r):
         return (r["B"], r["S"], r["H"]) if r["S"] == r["Skv"] else None
 
-    train_weights = [1 if shape_of(r) == TRAIN_SHAPES[0] else 0 for r in train_rows["fwd_lse"]]
-    gn_weights = [gn_by_shape.get((r["C"], r["H"], r["W"]), 0) if r["dtype"] == "bfloat16" else 0 for r in gn_rows]
+    # the bf16 flash kernels' numbers are weighted by their launches at each shape on every main path: the
+    # restore's (twice: with the fused GroupNorm off and on) and the training paths', whose split by shape
+    # must add up to the counts read in phases 5 and 6
+    by_shape = flash_launches_by_shape(ucfg, stage2["cfg"])
+    for path, kernels_of_path in by_shape.items():
+        for name, counts in kernels_of_path.items():
+            if sum(counts.values()) != by_path(name)[path]:
+                fail(f"{name} on {path}: launches split by shape {counts} do not add up to the {by_path(name)[path]} "
+                     "read in the run")
+
+    def train_weights(name, rows):
+        return [sum(by_shape[p][name].get(shape_of(r), 0) for p in by_shape) for r in rows]
+
+    k1_weights = [w + (2 * by_seq.get(r["S"], 0) if shape_of(r) in RESTORE_SHAPES else 0)
+                  for r, w in zip(k1_rows, train_weights("flash_attention_fwd", k1_rows))]
+    # K5: weighted over the 1024² restore (bf16, CFG batch 2), the path its entry's launches count
+    gn_weights = [gn_by_shape.get((r["C"], r["H"], r["W"]), 0) if (r["dtype"], r["B"]) == ("bfloat16", GN_BATCH)
+                  else 0 for r in gn_rows]
+    # fp32: K1 by the 512² restore's launches per sequence (all CFG batch 2), K2-K4 by the stage-1 step's shape
+    f32_fwd_weights = [f32["by_seq"].get(r["S"], 0) if shape_of(r) in F32_PATH_SHAPES[:3] else 0
+                       for r in f32_rows["fwd"]]
+    f32_train_weights = [1 if shape_of(r) == F32_PATH_SHAPES[3] else 0 for r in f32_rows["fwd_lse"]]
+    f32_src = src + "flash_f32.cu"
     entries = [
-        kernel_entry("flash_attention_fwd", "cuda", src + "flash_fwd.cu", jax_attn + ":221", k1_rows,
-                     [by_seq.get(r["S"], 0) if shape_of(r) in RESTORE_SHAPES else 0 for r in k1_rows],
+        kernel_entry("flash_attention_fwd", "cuda", src + "flash_fwd.cu", jax_attn + ":221", k1_rows, k1_weights,
                      restore_launches["flash_attention_fwd"],
                      by_path("flash_attention_fwd")),
         kernel_entry("flash_attention_fwd_lse", "cuda", src + "flash_fwd.cu", jax_attn + ":504", train_rows["fwd_lse"],
-                     train_weights, train["train_512"]["flash_attention_fwd_lse"], by_path("flash_attention_fwd_lse")),
+                     train_weights("flash_attention_fwd_lse", train_rows["fwd_lse"]), train["train_512"]["flash_attention_fwd_lse"],
+                     by_path("flash_attention_fwd_lse")),
         kernel_entry("flash_attention_bwd_dq", "cuda", src + "flash_bwd.cu", jax_attn + ":597", train_rows["bwd_dq"],
-                     train_weights, train["train_512"]["flash_attention_bwd_dq"], by_path("flash_attention_bwd_dq")),
+                     train_weights("flash_attention_bwd_dq", train_rows["bwd_dq"]), train["train_512"]["flash_attention_bwd_dq"],
+                     by_path("flash_attention_bwd_dq")),
         kernel_entry("flash_attention_bwd_dkv", "cuda", src + "flash_bwd.cu", jax_attn + ":617", train_rows["bwd_dkv"],
-                     train_weights, train["train_512"]["flash_attention_bwd_dkv"], by_path("flash_attention_bwd_dkv")),
+                     train_weights("flash_attention_bwd_dkv", train_rows["bwd_dkv"]), train["train_512"]["flash_attention_bwd_dkv"],
+                     by_path("flash_attention_bwd_dkv")),
         kernel_entry("group_norm_silu", "cuda", src + "group_norm.cu",
                      "instantir_tpu/ops/group_norm.py:72", gn_rows, gn_weights,
                      fused_launches["group_norm_silu"],
                      by_path("group_norm_silu")),
+        kernel_entry("flash_attention_fwd_f32", "cuda", f32_src, jax_attn + ":221", f32_rows["fwd"], f32_fwd_weights,
+                     f32["restore"]["flash_attention_fwd_f32"], by_path("flash_attention_fwd_f32")),
+        kernel_entry("flash_attention_fwd_lse_f32", "cuda", f32_src, jax_attn + ":504", f32_rows["fwd_lse"],
+                     f32_train_weights, f32["train"]["flash_attention_fwd_lse_f32"],
+                     by_path("flash_attention_fwd_lse_f32")),
+        kernel_entry("flash_attention_bwd_dq_f32", "cuda", f32_src, jax_attn + ":597", f32_rows["bwd_dq"],
+                     f32_train_weights, f32["train"]["flash_attention_bwd_dq_f32"],
+                     by_path("flash_attention_bwd_dq_f32")),
+        kernel_entry("flash_attention_bwd_dkv_f32", "cuda", f32_src, jax_attn + ":617", f32_rows["bwd_dkv"],
+                     f32_train_weights, f32["train"]["flash_attention_bwd_dkv_f32"],
+                     by_path("flash_attention_bwd_dkv_f32")),
     ]
     for e in entries:
         if not sum(e["launches_by_path"].values()) > 0:
             fail(f"kernel {e['name']} was launched no time on any main path")
-    log(f"[6] {args.steps}-step restore: {sec:.3f} s/image (fused GroupNorm off {restore_secs[False]:.3f}, on "
-        f"{restore_secs[True]:.3f}); stage-1 step at 512² batch 2: {min(train['sec_512']):.3f} s; at 1024² batch 1 "
-        f"with checkpointing: {train['sec_1024']:.3f} s; on {card_line}")
+    log(f"[8] {args.steps}-step restore: {sec:.3f} s/image (fused GroupNorm off {restore_secs[False]:.3f}, on "
+        f"{restore_secs[True]:.3f}); stage-2 step at 512² batch 2: {min(stage2['sec_512']):.3f} s, peak "
+        f"{stage2['peak_gb_512']:.2f} GB; at 1024² batch 1 with checkpointing: {stage2['sec_1024']:.3f} s, peak "
+        f"{stage2['peak_gb_1024']:.2f} GB; stage-1 step at 512² batch 2: {min(train['sec_512']):.3f} s; at 1024² "
+        f"batch 1 with checkpointing: {train['sec_1024']:.3f} s; fp32 512² 4-step restore "
+        f"{min(f32['restore_sec']):.3f} s/image (peak {f32['peak_gb_restore']:.2f} GB), fp32 stage-1 step at 512² "
+        f"batch 1 {f32['train_sec']:.3f} s (peak {f32['peak_gb_train']:.2f} GB); on {card_line}")
     log(json.dumps({"kernels": entries}))
     log(card_line)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 // shared-memory addresses, bf16 packing, exp2, cp.async copies and the proxy
 // fence, the wgmma fence / commit / wait and register fences, the 128-byte
 // swizzle descriptor, and the two wgmma m64n64k16 forms both sources use; and
-// the host checks their entry points share (shape, shared-memory opt-in).
+// the host checks their entry points share (shape, shared-memory opt-in), of
+// which the fp32 kernels of flash_f32.cu use the shape check.
 //
 // Tile layout every descriptor here assumes: 64 rows of 128 bytes (64 bf16),
 // 16-byte chunk c of row r at chunk c ^ (r % 8), 1024 bytes between 8-row

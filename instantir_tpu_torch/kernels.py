@@ -9,8 +9,9 @@ at import: the first call that needs a kernel builds it.
 
 The target is ``sm_90a``, not plain ``sm_90``: the flash sources use ``wgmma``
 (through the PTX wrappers of ``csrc/hopper.cuh``, whose bytes are part of every
-build's key), which exists only there; ``group_norm.cu`` uses thread-block
-clusters and 1-D bulk copies. They need nothing beyond the CUDA toolkit's own
+build's key), which exists only there; ``flash_f32.cu`` holds their fp32
+counterparts, FFMA kernels on the CUDA cores; ``group_norm.cu`` uses
+thread-block clusters and 1-D bulk copies. They need nothing beyond the CUDA toolkit's own
 headers and runtime (no ``-lcuda``, no extra include path): their copies are
 ``cp.async`` and ``cp.async.bulk`` without a tensor map, and the cluster
 launch is ``cudaLaunchKernelEx``. ``-Xptxas -v`` keeps each kernel's
@@ -39,7 +40,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("flash_fwd", "flash_bwd", "group_norm")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_f32", "group_norm")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _bound: Dict[Tuple[str, str], object] = {}

@@ -9,7 +9,9 @@ Twin of ``instantir_tpu/models/aggregator.py::Aggregator``:
     halves and passed through an SFT head (3x3 conv -> SiLU -> gamma/beta convs
     modulating the ref half) and a zero-init 1x1 conv, times
     ``conditioning_scale``.
-The Aggregator never carries LoRA. ``pad_concat``, ``attn1_mode`` and
+The Aggregator never carries LoRA. With ``gradient_checkpointing`` (from
+``UNetConfig``, switchable between calls) each down block and the mid block
+is recomputed in the backward pass. ``pad_concat``, ``attn1_mode`` and
 ``aggregator_adapter`` are not ported yet.
 """
 
@@ -19,6 +21,7 @@ from typing import Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from instantir_tpu_torch.models.layers import TimestepEmbedding
 from instantir_tpu_torch.models.unet import (
@@ -66,6 +69,7 @@ class Aggregator(nn.Module):
         cfg = config
         self.config = cfg
         self.dtype = dtype
+        self.gradient_checkpointing = cfg.gradient_checkpointing  # may be switched between calls
         common = dict(dtype=dtype, device=device)
         no_lora = dict(lora_rank=0, lora_alpha=1.0)
         c0 = cfg.block_out_channels[0]
@@ -99,12 +103,17 @@ class Aggregator(nn.Module):
         emb = time_and_added_embedding(cfg, self.time_embedding, self.add_embedding, timesteps,
                                        added_text_embeds, added_time_ids)
 
+        def run(block, *args):
+            if self.gradient_checkpointing and torch.is_grad_enabled():
+                return checkpoint(block, *args, use_reentrant=False)
+            return block(*args)
+
         x = torch.cat([self.conv_in(sample.to(self.dtype)), self.ref_conv_in(controlnet_cond.to(self.dtype))], dim=2)
         res_samples = (x,)
         for block in self.down_blocks:
-            x, res = block(x, emb)
+            x, res = run(block, x, emb)
             res_samples = res_samples + res
-        x = self.mid_block(x, emb)
+        x = run(self.mid_block, x, emb)
 
         down = tuple(self._head(head, r) * conditioning_scale
                      for head, r in zip(self.controlnet_down_blocks, res_samples))

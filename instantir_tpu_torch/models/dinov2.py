@@ -4,14 +4,16 @@ Twin of ``instantir_tpu/models/dinov2.py``: facebook/dinov2-large (patch-14
 conv embed, CLS token, learned position embeddings, 24 pre-LN blocks with
 LayerScale, exact-GELU MLP, final LayerNorm); returns ``last_hidden_state``.
 Parameter names are the HF ``transformers`` names. Attention runs the plain
-path (257 tokens). Only the native position grid is supported: the pipeline
-always feeds ``image_size``² pixels, and other grids raise.
+path (257 tokens). A patch grid other than the native one gets the position
+embeddings resized bicubically, as ``jax.image.resize(method="cubic")`` does
+(the trainers feed 224² pixels whatever ``image_size`` is).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -135,14 +137,17 @@ class DINOv2Model(nn.Module):
         b, _, h, w = pixel_values.shape
         gh, gw = h // cfg.patch_size, w // cfg.patch_size
         native = cfg.image_size // cfg.patch_size
-        if (gh, gw) != (native, native):
-            raise NotImplementedError(
-                f"position-embedding interpolation is not ported: feed {cfg.image_size}² pixels, got {h}x{w}"
-            )
         emb = self.embeddings
         x = emb.patch_embeddings.projection(pixel_values.to(self.dtype)).flatten(2).transpose(1, 2)
         x = torch.cat([emb.cls_token.expand(b, 1, -1), x], dim=1)
-        x = x + emb.position_embeddings.float().to(self.dtype)
+        pos = emb.position_embeddings.float()
+        if (gh, gw) != (native, native):
+            grid = pos[0, 1:].reshape(native, native, -1)
+            wy = _resize_weights(native, gh, _keys_cubic, pos.device)
+            wx = _resize_weights(native, gw, _keys_cubic, pos.device)
+            grid = torch.einsum("pw,hwc->hpc", wx, torch.einsum("oh,hwc->owc", wy, grid))
+            pos = torch.cat([pos[:, :1], grid.reshape(1, gh * gw, -1)], dim=1)
+        x = x + pos.to(self.dtype)
         for block in self.encoder.layer:
             x = block(x)
         return self.layernorm(x)
@@ -153,18 +158,40 @@ DINOV2_MEAN: Tuple[float, float, float] = (0.485, 0.456, 0.406)
 DINOV2_STD: Tuple[float, float, float] = (0.229, 0.224, 0.225)
 
 
-def _linear_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """[out, in] weights of ``jax.image.resize(method="linear")`` along one
-    axis: half-pixel centres, a triangle kernel widened by the scale when
-    downsampling (antialiasing), each row normalised to sum 1."""
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(0.0, 1.0 - x)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel with a = -0.5 (``jax.image``'s "cubic";
+    ``F.interpolate(mode="bicubic")`` uses a = -0.75 and no antialiasing)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+def _resize_matrix(in_size: int, out_size: int, kernel: Callable[[np.ndarray], np.ndarray]) -> np.ndarray:
+    """[out, in] weights of ``jax.image.resize`` along one axis for a kernel
+    (``_triangle``: "linear"; ``_keys_cubic``: "cubic"): half-pixel centres,
+    the kernel widened by the scale when downsampling (antialiasing), each row
+    normalised to sum 1, which drops the taps that fall outside the input."""
     scale = out_size / in_size
     kernel_scale = max(1.0 / scale, 1.0)
     sample_f = (np.arange(out_size, dtype=np.float64) + 0.5) / scale - 0.5
     x = np.abs(sample_f[:, None] - np.arange(in_size, dtype=np.float64)[None, :]) / kernel_scale
-    weights = np.maximum(0.0, 1.0 - x)
+    weights = kernel(x)
     total = weights.sum(axis=1, keepdims=True)
     weights = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps, weights / np.where(total == 0, 1, total), 0)
     return weights.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_weights(in_size: int, out_size: int, kernel: Callable[[np.ndarray], np.ndarray],
+                    device: torch.device) -> torch.Tensor:
+    """``_resize_matrix`` on ``device``, built and copied there once per
+    (sizes, kernel, device): a training step resizes every batch, and each
+    copy from host memory would stall the stream. Callers do not write to it."""
+    return torch.from_numpy(_resize_matrix(in_size, out_size, kernel)).to(device)
 
 
 def preprocess_dinov2(images: torch.Tensor, size: int = 224) -> torch.Tensor:
@@ -172,8 +199,8 @@ def preprocess_dinov2(images: torch.Tensor, size: int = 224) -> torch.Tensor:
     the JAX ``jax.image.resize`` weights) and ImageNet-normalized, [B, H, W, 3]."""
     b, h, w, c = images.shape
     if (h, w) != (size, size):
-        wy = torch.from_numpy(_linear_resize_matrix(h, size)).to(images.device)
-        wx = torch.from_numpy(_linear_resize_matrix(w, size)).to(images.device)
+        wy = _resize_weights(h, size, _triangle, images.device)
+        wx = _resize_weights(w, size, _triangle, images.device)
         images = torch.einsum("oh,bhwc->bowc", wy, images.float())
         images = torch.einsum("pw,bowc->bopc", wx, images).to(images.dtype)
     mean = torch.tensor(DINOV2_MEAN, dtype=images.dtype, device=images.device)

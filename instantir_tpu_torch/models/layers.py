@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from instantir_tpu_torch.ops.group_norm import group_norm_silu
+from instantir_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_nchw
 
 
 class LoRALinear(nn.Linear):
@@ -70,20 +70,24 @@ class LoRAConv2d(nn.Conv2d):
 class GroupNorm32(nn.Module):
     """GroupNorm with fp32 statistics in the E[x^2] - mu^2 form (+ optional
     fused SiLU); fp32 ``weight``/``bias``; output in ``dtype``. Whether the
-    fused kernel or the plain version runs is ``ops.group_norm.USE_FUSED``."""
+    fused kernel or the plain version runs is ``ops.group_norm.USE_FUSED``;
+    a module built with ``use_kernel=False`` (the VAE's) always runs the
+    plain version."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5, fuse_silu: bool = False,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, use_kernel: bool = True):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
         self.fuse_silu = fuse_silu
+        self.use_kernel = use_kernel
         self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(num_channels, dtype=torch.float32, device=device))
         self.bias = nn.Parameter(torch.zeros(num_channels, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = group_norm_silu(x, self.weight, self.bias, self.num_groups, self.eps, self.fuse_silu)
+        norm = group_norm_silu if self.use_kernel else group_norm_silu_nchw
+        y = norm(x, self.weight, self.bias, self.num_groups, self.eps, self.fuse_silu)
         return y.to(self.dtype)
 
 

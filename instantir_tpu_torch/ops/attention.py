@@ -24,7 +24,11 @@ heads, head_dim]`` (BSHD) at every public function, as in the JAX package.
   to the flash kernels (the differentiable one when an input needs a
   gradient); everything else goes to ``attention_xla``.
 
-Every wrapper has its own launch counter, bumped only where it launches.
+Every wrapper takes bf16 or fp32 (one dtype for all its operands), as the
+Pallas kernels take any float dtype: bf16 launches the ``wgmma`` kernels
+above, fp32 the FFMA kernels of ``csrc/flash_f32.cu`` (the tensor cores take
+fp32 only as TF32, short of the fp32 tolerance). Every entry point has its own
+launch counter, bumped only where it launches.
 """
 
 from __future__ import annotations
@@ -43,6 +47,11 @@ flash_attention_launches = 0  # forward without lse (inference)
 flash_attention_lse_launches = 0  # forward with lse (training)
 flash_backward_dq_launches = 0
 flash_backward_dkv_launches = 0
+# the fp32 entry points (csrc/flash_f32.cu)
+flash_attention_f32_launches = 0
+flash_attention_lse_f32_launches = 0
+flash_backward_dq_f32_launches = 0
+flash_backward_dkv_f32_launches = 0
 
 
 def attention_xla(
@@ -178,24 +187,30 @@ def flash_backward_reference(
     return unfold((dq * scale).to(dt)), unfold((dk * scale).to(k.dtype)), unfold(dv.to(v.dtype))
 
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# C entry points: (source, symbol, argtypes)
-_ENTRY_POINTS = {
-    "fwd": ("flash_fwd", "instantir_flash_fwd_bf16_d64", [_PTR] * 4 + [_INT] * 4 + [ctypes.c_float, _PTR]),
-    "fwd_lse": ("flash_fwd", "instantir_flash_fwd_lse_bf16_d64",
-                [_PTR] * 5 + [_INT] * 4 + [ctypes.c_float, _PTR]),
-    "bwd_dq": ("flash_bwd", "instantir_flash_bwd_dq_bf16_d64",
-               [_PTR] * 7 + [_INT] * 4 + [ctypes.c_float, ctypes.c_float, _PTR]),
-    "bwd_dkv": ("flash_bwd", "instantir_flash_bwd_dkv_bf16_d64",
-                [_PTR] * 8 + [_INT] * 4 + [ctypes.c_float, ctypes.c_float, _PTR]),
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "fwd": [_PTR] * 4 + [_INT] * 4 + [_FLOAT, _PTR],
+    "fwd_lse": [_PTR] * 5 + [_INT] * 4 + [_FLOAT, _PTR],
+    "bwd_dq": [_PTR] * 7 + [_INT] * 4 + [_FLOAT, _FLOAT, _PTR],
+    "bwd_dkv": [_PTR] * 8 + [_INT] * 4 + [_FLOAT, _FLOAT, _PTR],
 }
+# C entry points: (source, symbol, argtypes); the fp32 ones take the same arguments
+_ENTRY_POINTS = {
+    "fwd": ("flash_fwd", "instantir_flash_fwd_bf16_d64", _ARGTYPES["fwd"]),
+    "fwd_lse": ("flash_fwd", "instantir_flash_fwd_lse_bf16_d64", _ARGTYPES["fwd_lse"]),
+    "bwd_dq": ("flash_bwd", "instantir_flash_bwd_dq_bf16_d64", _ARGTYPES["bwd_dq"]),
+    "bwd_dkv": ("flash_bwd", "instantir_flash_bwd_dkv_bf16_d64", _ARGTYPES["bwd_dkv"]),
+    **{f"{name}_f32": ("flash_f32", f"instantir_flash_{name}_f32_d64", argtypes) for name, argtypes in _ARGTYPES.items()},
+}
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _check_flash_inputs(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{what}: the kernels take bfloat16 or float32, one dtype for q, k and v; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not k.is_cuda or k.device != q.device or v.device != q.device:
         raise ValueError(f"{what}: q/k/v must share one CUDA device, got {q.device}, {k.device}, {v.device}")
-    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
-        raise ValueError(f"{what}: the kernel takes bfloat16 only, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{what}: q/k/v must be [B, S, H, D]")
     b, sq, h, d = q.shape
@@ -228,11 +243,14 @@ def _check_operand(what: str, name: str, t: torch.Tensor, like: Optional[torch.T
         raise ValueError(f"{what}: {name} must be 16-byte aligned")
 
 
-def _launch(what: str, name: str, like: torch.Tensor, *args) -> None:
-    """Launch one entry point (its source built at first use) on the current
-    stream of ``like``'s device and raise if the launch was refused."""
+def _launch(what: str, name: str, like: torch.Tensor, *args) -> bool:
+    """Launch entry point ``name`` (its ``_f32`` twin for fp32 ``like``; the
+    source built at first use) on the current stream of ``like``'s device and
+    raise if the launch was refused. Returns whether the fp32 twin ran."""
+    f32 = like.dtype == torch.float32
     call = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    kernels.launch(what, kernels.bind(*_ENTRY_POINTS[name]), like.device, call)
+    kernels.launch(what, kernels.bind(*_ENTRY_POINTS[name + "_f32" if f32 else name]), like.device, call)
+    return f32
 
 
 def flash_attention(
@@ -243,11 +261,12 @@ def flash_attention(
 ) -> torch.Tensor:
     """Blocked online-softmax attention. q/k/v: [B, S, H, D] -> [B, Sq, H, D].
 
-    On CUDA tensors this launches ``csrc/flash_fwd.cu`` (bf16, head_dim 64;
-    anything else raises). On CPU tensors it runs ``flash_attention_reference``.
-    Not differentiable: ``flash_attention_diff`` is.
+    On CUDA tensors this launches ``csrc/flash_fwd.cu`` (bf16) or
+    ``csrc/flash_f32.cu`` (fp32), head_dim 64; anything else raises. On CPU
+    tensors it runs ``flash_attention_reference``. Not differentiable:
+    ``flash_attention_diff`` is.
     """
-    global flash_attention_launches
+    global flash_attention_launches, flash_attention_f32_launches
     if not q.is_cuda:
         if k.is_cuda or v.is_cuda:
             raise ValueError("flash_attention: q is on the CPU but k/v are not")
@@ -257,8 +276,10 @@ def flash_attention(
     if scale is None:
         scale = d**-0.5
     out = torch.empty_like(q)
-    _launch("flash_attention", "fwd", q, q, k, v, out, b, h, sq, k.shape[1], scale * LOG2E)
-    flash_attention_launches += 1
+    if _launch("flash_attention", "fwd", q, q, k, v, out, b, h, sq, k.shape[1], scale * LOG2E):
+        flash_attention_f32_launches += 1
+    else:
+        flash_attention_launches += 1
     return out
 
 
@@ -271,9 +292,9 @@ def flash_attention_lse(
     """``flash_attention`` that also returns the per-row log2-domain logsumexp
     ``lse2 = m + log2 l`` as fp32 ``[B, H, Sq]`` (what the backward kernels
     rebuild P from). CUDA tensors launch the lse entry point of
-    ``csrc/flash_fwd.cu`` or raise; CPU tensors run
-    ``flash_attention_lse_reference``."""
-    global flash_attention_lse_launches
+    ``csrc/flash_fwd.cu`` (bf16) or ``csrc/flash_f32.cu`` (fp32) or raise;
+    CPU tensors run ``flash_attention_lse_reference``."""
+    global flash_attention_lse_launches, flash_attention_lse_f32_launches
     if not q.is_cuda:
         if k.is_cuda or v.is_cuda:
             raise ValueError("flash_attention_lse: q is on the CPU but k/v are not")
@@ -284,49 +305,55 @@ def flash_attention_lse(
         scale = d**-0.5
     out = torch.empty_like(q)
     lse = q.new_empty((b, h, sq), dtype=torch.float32)
-    _launch("flash_attention_lse", "fwd_lse", q, q, k, v, out, lse, b, h, sq, k.shape[1],
-            scale * LOG2E)
-    flash_attention_lse_launches += 1
+    if _launch("flash_attention_lse", "fwd_lse", q, q, k, v, out, lse, b, h, sq, k.shape[1], scale * LOG2E):
+        flash_attention_lse_f32_launches += 1
+    else:
+        flash_attention_lse_launches += 1
     return out, lse
 
 
 def _check_backward_inputs(what, q, k, v, do, lse, delta) -> None:
     _check_flash_inputs(what, q, k, v)
     b, sq, h, _ = q.shape
-    _check_operand(what, "do", do, like=q, dtype=torch.bfloat16, shape=q.shape)
+    _check_operand(what, "do", do, like=q, dtype=q.dtype, shape=q.shape)
     _check_operand(what, "lse", lse, like=q, dtype=torch.float32, shape=(b, h, sq))
     _check_operand(what, "delta", delta, like=q, dtype=torch.float32, shape=(b, h, sq))
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, scale: Optional[float] = None) -> torch.Tensor:
     """dQ = scale · Σ_j [P ∘ (dO·V_jᵀ − D)]·K_j with P = exp2(q2·Kᵀ − lse2).
-    CUDA only (``csrc/flash_bwd.cu``, bf16, head_dim 64): the plain version of
-    both backward kernels is ``flash_backward_reference``. q/k/v/do:
-    [B, S, H, 64]; lse, delta: fp32 [B, H, Sq]."""
-    global flash_backward_dq_launches
+    CUDA only (``csrc/flash_bwd.cu`` for bf16, ``csrc/flash_f32.cu`` for fp32,
+    head_dim 64): the plain version of both backward kernels is
+    ``flash_backward_reference``. q/k/v/do: [B, S, H, 64]; lse, delta: fp32
+    [B, H, Sq]."""
+    global flash_backward_dq_launches, flash_backward_dq_f32_launches
     _check_backward_inputs("flash_backward_dq", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     if scale is None:
         scale = d**-0.5
     dq = torch.empty_like(q)
-    _launch("flash_backward_dq", "bwd_dq", q, q, k, v, do, lse, delta, dq, b, h, sq, k.shape[1],
-            scale * LOG2E, scale)
-    flash_backward_dq_launches += 1
+    if _launch("flash_backward_dq", "bwd_dq", q, q, k, v, do, lse, delta, dq, b, h, sq, k.shape[1],
+               scale * LOG2E, scale):
+        flash_backward_dq_f32_launches += 1
+    else:
+        flash_backward_dq_launches += 1
     return dq
 
 
 def flash_backward_dkv(q, k, v, do, lse, delta, scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """dV = Σ_i Pᵀ·dO_i and dK = scale · Σ_i dSᵀ·Q_i with Sᵀ = k2·Qᵀ. CUDA
-    only (``csrc/flash_bwd.cu``); see ``flash_backward_dq``."""
-    global flash_backward_dkv_launches
+    only (``csrc/flash_bwd.cu``, ``csrc/flash_f32.cu``); see ``flash_backward_dq``."""
+    global flash_backward_dkv_launches, flash_backward_dkv_f32_launches
     _check_backward_inputs("flash_backward_dkv", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     if scale is None:
         scale = d**-0.5
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_backward_dkv", "bwd_dkv", q, q, k, v, do, lse, delta, dk, dv, b, h, sq, k.shape[1],
-            scale * LOG2E, scale)
-    flash_backward_dkv_launches += 1
+    if _launch("flash_backward_dkv", "bwd_dkv", q, q, k, v, do, lse, delta, dk, dv, b, h, sq, k.shape[1],
+               scale * LOG2E, scale):
+        flash_backward_dkv_f32_launches += 1
+    else:
+        flash_backward_dkv_launches += 1
     return dk, dv
 
 

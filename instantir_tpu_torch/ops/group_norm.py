@@ -41,8 +41,8 @@ import torch.nn.functional as F
 from instantir_tpu_torch import kernels
 
 # The port's counterpart of the JAX package's INSTANTIR_PALLAS_GN switch: True
-# sends every GroupNorm32 on a half-precision CUDA tensor through the fused
-# kernel, False through the plain version. On by default from the H100
+# sends every GroupNorm32 on a CUDA tensor through the fused kernel (except
+# the VAE's, built with ``use_kernel=False``), False through the plain version. On by default from the H100
 # measurements of chip_smoke.py (PERF.md).
 USE_FUSED = True
 
@@ -252,12 +252,11 @@ def group_norm_silu_diff(x, scale, bias, num_groups: int, eps: float = 1e-5, app
 
 def group_norm_silu(x, scale, bias, num_groups: int, eps: float = 1e-5, apply_silu: bool = False):
     """Dispatching GroupNorm(+SiLU) over ``[B, C, *spatial]``: with
-    ``USE_FUSED`` on, the fused kernel for everything but fp32 tensors on the
-    card -- the fp32 VAE keeps the plain path, as in the JAX package -- through
-    its autograd Function only where an input needs a gradient (the restore,
-    under ``torch.no_grad()``, calls the wrapper directly); with it off, the
-    plain version."""
-    if USE_FUSED and not (x.is_cuda and x.dtype == torch.float32):
+    ``USE_FUSED`` on, the fused kernel in every dtype, through its autograd
+    Function only where an input needs a gradient (the restore, under
+    ``torch.no_grad()``, calls the wrapper directly); with it off, the plain
+    version."""
+    if USE_FUSED:
         x = x.contiguous()
         if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or bias.requires_grad):
             return group_norm_silu_diff(x, scale, bias, num_groups, eps, apply_silu)

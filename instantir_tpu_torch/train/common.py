@@ -1,12 +1,15 @@
-"""What the trainers share: parameter selection, LR schedules, AdamW, timestep draws.
+"""What the trainers share: parameter selection, LR schedules, AdamW, timestep
+draws, the EMA helpers and the trainer frame.
 
-Twin of the parts of ``instantir_tpu/train/common.py`` that stage 1 uses, in
-PyTorch idiom: a path predicate sets ``requires_grad`` on named parameters
-(in place of partitioned pytrees) and ``torch.optim.AdamW`` with optax's
-global-norm clip and schedule semantics stands in for the optax chain. The
-mesh/ZeRO helpers, ``quantize_frozen_unet``, 8-bit Adam, the checkpoint
-manager, the tracker, batch pipelining, the preemption handler and the EMA
-helpers of the JAX package are not ported yet.
+Twin of the parts of ``instantir_tpu/train/common.py`` that stages 1 and 2 use,
+in PyTorch idiom: a path predicate sets ``requires_grad`` on named parameters
+(in place of partitioned pytrees), ``torch.optim.AdamW`` with optax's
+global-norm clip and schedule semantics stands in for the optax chain, and
+the EMA helpers work on dicts of name -> tensor. ``Trainer`` holds what the
+JAX ``Stage1Trainer`` and ``Stage2Trainer`` repeat. The mesh/ZeRO helpers,
+``quantize_frozen_unet``, 8-bit Adam, the checkpoint manager, the tracker,
+batch pipelining and the preemption handler of the JAX package are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -16,6 +19,10 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+
+from instantir_tpu_torch.losses import build_losses
+from instantir_tpu_torch.losses.loss_config import LossesConfig, SingleLossConfig
+from instantir_tpu_torch.schedulers.diffusion import sdxl_schedule
 
 PathPred = Callable[[Tuple[str, ...]], bool]
 
@@ -127,3 +134,140 @@ def sample_timesteps(generator: torch.Generator, batch: int, num_train_timesteps
         return torch.randint(0, num_train_timesteps, (batch,), generator=generator, device=device)
     probs = torch.as_tensor(importance_weights, dtype=torch.float32, device=device)
     return torch.multinomial(probs, batch, replacement=True, generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# EMA (dicts of name -> tensor; in place, where the JAX package returns new trees)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def ema_update(ema: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor], decay: float) -> None:
+    """``ema <- ema·d + new·(1−d)`` in place, ``new`` cast to each EMA tensor's
+    dtype (reference ``update_ema_model``, ``train_stage2_aggregator.py:719-722``)."""
+    for name, e in ema.items():
+        e.copy_(e * decay + new[name].to(e.dtype) * (1.0 - decay))
+
+
+@torch.no_grad()
+def masked_ema_update(ema: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor], mask: Dict[str, bool],
+                      decay: float) -> None:
+    """``ema_update`` on the names ``mask`` selects; the others track ``new`` exactly."""
+    for name, e in ema.items():
+        n = new[name].to(e.dtype)
+        e.copy_(e * decay + n * (1.0 - decay) if mask[name] else n)
+
+
+def swap_masked(params: Dict[str, torch.Tensor], donor: Dict[str, torch.Tensor],
+                mask: Dict[str, bool]) -> Dict[str, torch.Tensor]:
+    """The tensors of ``donor`` where ``mask`` is set, those of ``params``
+    elsewhere: the analogue of the reference's EMA attn-processor swap
+    (``train_stage2_aggregator.py:1535-1540``)."""
+    return {name: donor[name] if mask[name] else p for name, p in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# The trainer frame
+# ---------------------------------------------------------------------------
+
+# The trainers feed DINOv2 224² pixels whatever its native grid, as the JAX
+# trainers do; the encoder resizes its position embeddings to fit.
+DINO_TRAIN_SIZE = 224
+
+
+class Trainer:
+    """The models on one device, the trainable split from a path predicate,
+    ``ClippedAdamW`` on the trainable leaves, every draw of a step from a
+    seeded ``torch.Generator`` unless given, and gradient accumulation. A
+    subclass sets ``self._loss_fn(batch, draws, generator) -> (total,
+    metrics)``. ``device="cuda"`` (the default) raises without a card; pass
+    ``device="cpu"`` to train on the CPU."""
+
+    def __init__(self, tag: str, models: Dict[str, nn.Module], cfg, pred: PathPred,
+                 losses_config: Optional[LossesConfig], schedule, device):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"{type(self).__name__}: device 'cuda' requested but no CUDA device is available "
+                               "(pass device='cpu' to train on the CPU)")
+        self.cfg = cfg
+        self.models = models
+        for name, model in models.items():
+            where = {p.device.type for p in model.parameters()}
+            if where != {self.device.type}:
+                raise ValueError(f"{type(self).__name__}: {name} lies on {sorted(where)}, "
+                                 f"the trainer on {self.device.type}")
+        self.schedule = (schedule or sdxl_schedule()).to(self.device)
+        self.losses = build_losses(losses_config.diffusion_losses if losses_config
+                                   else [SingleLossConfig(name="L2Loss")])
+        self.trainable_names = set_trainable(models, pred)
+        named = self.named_parameters()
+        self.trainable: List[nn.Parameter] = [named[n] for n in self.trainable_names]
+        self.optimizer = make_adamw(
+            self.trainable, lr_schedule(cfg.lr_scheduler, cfg.learning_rate, cfg.lr_warmup_steps, cfg.max_train_steps),
+            weight_decay=cfg.weight_decay, use_8bit=cfg.use_8bit_adam, max_grad_norm=cfg.max_grad_norm)
+        self._loss_fn: Optional[Callable] = None
+        self._accumulated: Optional[List[torch.Tensor]] = None
+        self._micro_steps = 0
+        self._uncond_tok: Optional[torch.Tensor] = None
+        self._generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.global_step = 0
+        print(f"[{tag}] trainable params: {count_params(self.trainable) / 1e6:.2f}M")
+
+    def named_parameters(self) -> Dict[str, nn.Parameter]:
+        """Every parameter of the models under ``<model>.<name>``."""
+        return named_parameters(self.models)
+
+    @torch.no_grad()
+    def _uncond_image_tokens(self) -> torch.Tensor:
+        """DINOv2 tokens of the zero (preprocessed) 224² image: constant while
+        the image encoder is frozen, so computed once."""
+        if self._uncond_tok is None:
+            self._uncond_tok = self.models["image_encoder"](
+                torch.zeros((1, 3, DINO_TRAIN_SIZE, DINO_TRAIN_SIZE), dtype=torch.float32, device=self.device))
+        return self._uncond_tok
+
+    def prepare_batch(self, batch: Dict[str, torch.Tensor], cond: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """An already degraded pair ``{"lq", "gt"}`` (NHWC in [-1, 1]) plus the
+        text conditioning (``cond``, whatever the step reads) -> the step's
+        batch on the trainer's device. Raw ``{"images", "kernel", ...}``
+        batches need the RealESRGAN degradation, which is not ported yet."""
+        if "lq" not in batch or "gt" not in batch:
+            raise NotImplementedError("prepare_batch: raw images need the on-device degradation "
+                                      "(data/degradation.py), which is not ported yet; pass 'lq' and 'gt'")
+        out = {"lq": torch.as_tensor(batch["lq"]).to(self.device), "gt": torch.as_tensor(batch["gt"]).to(self.device),
+               "uncond_tokens": self._uncond_image_tokens()}
+        out.update({k: torch.as_tensor(v).to(self.device) for k, v in cond.items()})
+        return out
+
+    def loss(self, batch, draws=None, generator: Optional[torch.Generator] = None):
+        """The differentiable forward of a step: (weighted loss total, metrics)."""
+        return self._loss_fn(batch, draws, generator or self._generator)
+
+    def loss_and_grads(self, batch, draws=None, generator: Optional[torch.Generator] = None):
+        """(loss, metrics, gradients of the trainable leaves in ``trainable_names`` order)."""
+        total, metrics = self.loss(batch, draws, generator)
+        grads = torch.autograd.grad(total, self.trainable)
+        return total.detach(), metrics, list(grads)
+
+    def train_step(self, batch, draws=None, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """One (micro-)step. With ``gradient_accumulation_steps = k`` the
+        optimiser steps on every k-th call, on the mean of the k gradients;
+        ``grad_norm`` is this call's gradient norm before clipping."""
+        loss, metrics, grads = self.loss_and_grads(batch, draws, generator)
+        metrics["loss"] = loss
+        metrics["grad_norm"] = global_norm(grads)
+        k = self.cfg.gradient_accumulation_steps
+        if k > 1:
+            if self._accumulated is None:
+                self._accumulated = [g.float() for g in grads]
+            else:
+                for a, g in zip(self._accumulated, grads):
+                    a += g
+            self._micro_steps += 1
+            if self._micro_steps == k:
+                self.optimizer.step([(a / k).to(p.dtype) for a, p in zip(self._accumulated, self.trainable)])
+                self._accumulated, self._micro_steps = None, 0
+        else:
+            self.optimizer.step(grads)
+        self.global_step += 1
+        return metrics

@@ -5,7 +5,7 @@ pathway (the Resampler and the UNet's ``to_k_ip``/``to_v_ip``/``ln_k_ip``/
 ``ln_v_ip``) on the eps-MSE objective with the *degraded* image's DINOv2
 tokens as condition:
 
-  DINO tokens of lq (with per-sample image drop -> zero-image tokens)
+  DINO tokens of lq at 224² (with per-sample image drop -> zero-image tokens)
   -> VAE-encode gt -> uniform t (optionally importance-weighted loss) -> add noise
   -> UNet forward (IP attention, no LoRA, no aggregator)
   -> sum of weighted diffusion losses -> update the ip parameters only.
@@ -27,16 +27,15 @@ UNet, and optimiser-state sharding over more than one device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
-from torch import nn
 
-from instantir_tpu_torch.losses import DiffusionLossInputs, build_losses
-from instantir_tpu_torch.losses.loss_config import LossesConfig, SingleLossConfig
+from instantir_tpu_torch.losses import DiffusionLossInputs
+from instantir_tpu_torch.losses.loss_config import LossesConfig
 from instantir_tpu_torch.models.dinov2 import preprocess_dinov2
 from instantir_tpu_torch.models.vae import scale_latents, vae_scale_factor
-from instantir_tpu_torch.schedulers.diffusion import add_noise, importance_sampling_weights, sdxl_schedule
+from instantir_tpu_torch.schedulers.diffusion import add_noise, importance_sampling_weights
 from instantir_tpu_torch.train import common
 
 
@@ -132,7 +131,7 @@ def build_stage1_step(unet, resampler, vae, image_encoder, schedule, losses, cfg
             return torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
 
         with torch.no_grad():  # frozen encoders: DINOv2 tokens of lq, VAE latents of gt
-            pixels = preprocess_dinov2((lq + 1.0) / 2.0, size=image_encoder.config.image_size)
+            pixels = preprocess_dinov2((lq + 1.0) / 2.0, size=common.DINO_TRAIN_SIZE)
             tokens_cond = image_encoder(_nchw(pixels))
             tokens_uncond = batch["uncond_tokens"].to(tokens_cond.dtype).expand_as(tokens_cond)
             u = draws.drop_uniform
@@ -170,103 +169,18 @@ def build_stage1_step(unet, resampler, vae, image_encoder, schedule, losses, cfg
     return loss_fn
 
 
-class Stage1Trainer:
-    """Holds the models, the optimiser and the step. ``device="cuda"`` (the
-    default) raises without a card; pass ``device="cpu"`` to train on the CPU."""
+class Stage1Trainer(common.Trainer):
+    """Holds the models, the optimiser and the step (``common.Trainer``).
+    ``device="cuda"`` (the default) raises without a card; pass
+    ``device="cpu"`` to train on the CPU."""
 
     def __init__(self, unet, resampler, vae, image_encoder, cfg: Stage1Config,
                  losses_config: Optional[LossesConfig] = None, schedule=None, device="cuda"):
         _check_ported(cfg)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Stage1Trainer: device 'cuda' requested but no CUDA device is available "
-                               "(pass device='cpu' to train on the CPU)")
-        self.cfg = cfg
         self.unet, self.resampler, self.vae, self.image_encoder = unet, resampler, vae, image_encoder
-        self.models: Dict[str, nn.Module] = {"unet": unet, "resampler": resampler, "vae": vae,
-                                             "image_encoder": image_encoder}
-        for name, model in self.models.items():
-            where = {p.device.type for p in model.parameters()}
-            if where != {self.device.type}:
-                raise ValueError(f"Stage1Trainer: {name} lies on {sorted(where)}, the trainer on {self.device.type}")
-        self.schedule = (schedule or sdxl_schedule()).to(self.device)
-        losses = build_losses(losses_config.diffusion_losses if losses_config else [SingleLossConfig(name="L2Loss")])
-        self.trainable_names = common.set_trainable(self.models, stage1_trainable_pred)
-        named = self.named_parameters()
-        self.trainable: List[nn.Parameter] = [named[n] for n in self.trainable_names]
-        self.optimizer = common.make_adamw(
-            self.trainable,
-            common.lr_schedule(cfg.lr_scheduler, cfg.learning_rate, cfg.lr_warmup_steps, cfg.max_train_steps),
-            weight_decay=cfg.weight_decay, use_8bit=cfg.use_8bit_adam, max_grad_norm=cfg.max_grad_norm)
-        self._loss_fn = build_stage1_step(unet, resampler, vae, image_encoder, self.schedule, losses, cfg)
-        self._accumulated: Optional[List[torch.Tensor]] = None
-        self._micro_steps = 0
-        self._uncond_tok: Optional[torch.Tensor] = None
-        self._generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        self.global_step = 0
-        print(f"[stage1] trainable params: {common.count_params(self.trainable) / 1e6:.2f}M")
-
-    def named_parameters(self) -> Dict[str, nn.Parameter]:
-        """Every parameter of the four models under ``<model>.<name>``."""
-        return common.named_parameters(self.models)
-
-    @torch.no_grad()
-    def _uncond_image_tokens(self) -> torch.Tensor:
-        """DINOv2 tokens of the zero (preprocessed) image: constant while the
-        image encoder is frozen, so computed once."""
-        if self._uncond_tok is None:
-            size = self.image_encoder.config.image_size
-            self._uncond_tok = self.image_encoder(torch.zeros((1, 3, size, size), dtype=torch.float32,
-                                                              device=self.device))
-        return self._uncond_tok
-
-    def prepare_batch(self, batch: Dict[str, torch.Tensor], cond: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """An already degraded pair ``{"lq", "gt"}`` (NHWC in [-1, 1]) plus the
-        text conditioning ``{"prompt_embeds", "pooled_embeds", "time_ids"}`` ->
-        the step's batch on the trainer's device. Raw ``{"images", "kernel", ...}``
-        batches need the RealESRGAN degradation, which is not ported yet."""
-        if "lq" not in batch or "gt" not in batch:
-            raise NotImplementedError("prepare_batch: raw images need the on-device degradation "
-                                      "(data/degradation.py), which is not ported yet; pass 'lq' and 'gt'")
-        out = {"lq": torch.as_tensor(batch["lq"]).to(self.device), "gt": torch.as_tensor(batch["gt"]).to(self.device),
-               "uncond_tokens": self._uncond_image_tokens()}
-        out.update({k: torch.as_tensor(v).to(self.device) for k, v in cond.items()})
-        return out
-
-    def loss(self, batch, draws: Optional[Stage1Draws] = None, generator: Optional[torch.Generator] = None):
-        """The differentiable forward of a step: (weighted loss total, metrics)."""
-        return self._loss_fn(batch, draws, generator or self._generator)
-
-    def loss_and_grads(self, batch, draws: Optional[Stage1Draws] = None,
-                       generator: Optional[torch.Generator] = None):
-        """(loss, metrics, gradients of the trainable leaves in ``trainable_names`` order)."""
-        total, metrics = self.loss(batch, draws, generator)
-        grads = torch.autograd.grad(total, self.trainable)
-        return total.detach(), metrics, list(grads)
-
-    def train_step(self, batch, draws: Optional[Stage1Draws] = None,
-                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """One (micro-)step. With ``gradient_accumulation_steps = k`` the
-        optimiser steps on every k-th call, on the mean of the k gradients;
-        ``grad_norm`` is this call's gradient norm before clipping."""
-        loss, metrics, grads = self.loss_and_grads(batch, draws, generator)
-        metrics["loss"] = loss
-        metrics["grad_norm"] = common.global_norm(grads)
-        k = self.cfg.gradient_accumulation_steps
-        if k > 1:
-            if self._accumulated is None:
-                self._accumulated = [g.float() for g in grads]
-            else:
-                for a, g in zip(self._accumulated, grads):
-                    a += g
-            self._micro_steps += 1
-            if self._micro_steps == k:
-                self.optimizer.step([(a / k).to(p.dtype) for a, p in zip(self._accumulated, self.trainable)])
-                self._accumulated, self._micro_steps = None, 0
-        else:
-            self.optimizer.step(grads)
-        self.global_step += 1
-        return metrics
+        models = {"unet": unet, "resampler": resampler, "vae": vae, "image_encoder": image_encoder}
+        super().__init__("stage1", models, cfg, stage1_trainable_pred, losses_config, schedule, device)
+        self._loss_fn = build_stage1_step(unet, resampler, vae, image_encoder, self.schedule, self.losses, cfg)
 
     def adapter_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The reference-format ``adapter_ckpt.pt`` payload ``{image_proj,

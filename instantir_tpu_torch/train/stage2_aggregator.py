@@ -1,0 +1,283 @@
+"""Stage-2 trainer: Aggregator training with the frozen previewer.
+
+Twin of ``instantir_tpu/train/stage2_aggregator.py`` (rebuild of the
+reference's ``train_stage2_aggregator.py:1451-1676``). Per step:
+
+  1. condition drops from one uniform per sample: image / text / both;
+  2. DINOv2 tokens of lq at 224², VAE encodes of gt and lq (fp32, sampled);
+  3. uniform t, noisy gt;
+  4. the previewer (no gradient, **EMA adapter**, LoRA on at ``lora_alpha``)
+     predicts eps on the noisy gt, with the train-time CFG
+     w = 1 + u·(cfg_scale − 1) when ``cfg_scale > 1``, then one LCM step;
+  5. the Aggregator on (lq latent, t, preview) -> residuals, under gradient;
+  6. the main UNet (LoRA off, live adapter) on the noisy gt with the residuals
+     -> eps; the losses, importance-weighted by T·p(t) if asked;
+  7. update the Aggregator (and the adapter under ``optimize_adapter``), and
+     EMA-update the adapter copy every ``ema_update_steps`` steps.
+
+PyTorch idiom as in stage 1 (``common.Trainer``): ``requires_grad`` carries
+the trainable split, every draw of a step is an optional argument
+(``Stage2Draws``), and the previewer reads the EMA tensors through
+``torch.func.functional_call`` rather than a swap into the modules. The EMA
+copy is fp32 whatever the models' dtype: the JAX modules keep fp32 parameters
+under bf16 compute, and a bf16 copy at decay 0.999 would drop every update
+smaller than half an ulp. Not ported yet: the RealESRGAN degradation
+(``prepare_batch`` takes an already degraded ``lq``/``gt`` pair), the host
+loop ``run`` with checkpoints, tracker, validation and preemption handling,
+8-bit Adam, the int8 frozen UNet and ``aggregator_adapter``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch.func import functional_call
+
+from instantir_tpu_torch.losses import DiffusionLossInputs
+from instantir_tpu_torch.losses.loss_config import LossesConfig
+from instantir_tpu_torch.models.dinov2 import preprocess_dinov2
+from instantir_tpu_torch.models.vae import scale_latents, vae_scale_factor
+from instantir_tpu_torch.schedulers.diffusion import add_noise, importance_sampling_weights, lcm_single_step
+from instantir_tpu_torch.train import common
+from instantir_tpu_torch.train.stage1_adapter import stage1_trainable_pred
+
+
+@dataclasses.dataclass
+class Stage2Config:
+    """The same fields and defaults as the JAX twin. Fields whose code is not
+    ported raise ``NotImplementedError`` when set away from "off"."""
+
+    output_dir: str = "stage2_out"
+    max_train_steps: int = 1000
+    train_batch_size: int = 6
+    shard_optimizer_state: bool = True  # a no-op on one device; more devices are not ported
+    learning_rate: float = 1e-4
+    lr_scheduler: str = "constant"
+    lr_warmup_steps: int = 100
+    weight_decay: float = 1e-2
+    use_8bit_adam: bool = False  # not ported
+    quantize_frozen_unet: bool = False  # not ported
+    max_grad_norm: float = 1.0
+    prefetch_batches: int = 2  # used by the host loop, which is not ported
+    gradient_accumulation_steps: int = 1
+    resolution: int = 512
+    jit_degradation: bool = True  # used by the degradation, which is not ported
+    image_drop_rate: float = 0.0
+    text_drop_rate: float = 0.85
+    cond_drop_rate: float = 0.15
+    cfg_scale: float = 1.0  # train-time previewer CFG
+    lora_alpha: float = 1.0
+    optimize_adapter: bool = False
+    use_ema_adapter: bool = True
+    ema_decay: float = 0.999
+    ema_update_steps: int = 1
+    importance_sampling: bool = False
+    aggregator_adapter: bool = False  # not ported
+    adapter_tokens: int = 64  # read by aggregator_adapter only
+    checkpointing_steps: int = 500
+    checkpoints_total_limit: Optional[int] = 3
+    logging_steps: int = 10
+    seed: int = 42
+    sanity_check: bool = False
+    validation_steps: int = 0  # 0 disables; not ported
+    resume_from_checkpoint: Optional[str] = "latest"
+    handle_preemption: bool = False  # not ported
+    async_checkpointing: bool = False  # not ported
+    report_to: str = "tensorboard"
+
+
+_NOT_PORTED = {"use_8bit_adam": False, "quantize_frozen_unet": False, "aggregator_adapter": False,
+               "handle_preemption": False, "async_checkpointing": False, "validation_steps": 0}
+
+
+def _check_ported(cfg: Stage2Config) -> None:
+    for name, off in _NOT_PORTED.items():
+        if getattr(cfg, name) != off:
+            raise NotImplementedError(f"Stage2Config.{name}={getattr(cfg, name)!r} is not ported yet")
+
+
+def stage2_trainable_pred(cfg: Stage2Config) -> common.PathPred:
+    """Path ``(model, *parameter name parts)`` -> trains in stage 2? The
+    Aggregator, plus the adapter (stage 1's leaves) under ``optimize_adapter``."""
+
+    def pred(path: Tuple[str, ...]) -> bool:
+        if path[0] == "aggregator":
+            return True
+        return cfg.optimize_adapter and stage1_trainable_pred(path)
+
+    return pred
+
+
+# The adapter leaves the EMA copy tracks (the Resampler and the ip projections).
+ADAPTER_EMA_PRED = stage1_trainable_pred
+
+
+@dataclasses.dataclass
+class Stage2Draws:
+    """The random draws of one step (the JAX step's ``jax.random.split(key,
+    6)``), any of which may be given: ``timesteps`` int ``[B]``; ``noise``
+    NHWC ``[B, h, w, 4]``, the eps target; ``drop_uniform`` ``[B]`` uniforms
+    in [0, 1) that pick the condition drops; ``cfg_uniform`` ``[B]`` uniforms
+    for the previewer's CFG weight (read when ``cfg_scale > 1``);
+    ``vae_noise_gt`` / ``vae_noise_lq`` NHWC ``[B, h, w, 4]``, the posterior
+    draws of the two encodes."""
+
+    timesteps: Optional[torch.Tensor] = None
+    noise: Optional[torch.Tensor] = None
+    drop_uniform: Optional[torch.Tensor] = None
+    cfg_uniform: Optional[torch.Tensor] = None
+    vae_noise_gt: Optional[torch.Tensor] = None
+    vae_noise_lq: Optional[torch.Tensor] = None
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _module_tensors(ema: Optional[Dict[str, torch.Tensor]], model: str, module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The EMA tensors of ``model`` under the module's own names, each in the
+    dtype of the parameter it stands for (LayerNorm32 keeps fp32 ones in a
+    bf16 model)."""
+    if ema is None:
+        return {}
+    own = dict(module.named_parameters())
+    prefix = model + "."
+    return {n[len(prefix):]: t.to(own[n[len(prefix):]].dtype) for n, t in ema.items() if n.startswith(prefix)}
+
+
+def build_stage2_step(unet, aggregator, resampler, vae, image_encoder, schedule, losses, cfg: Stage2Config) -> Callable:
+    """Returns ``loss_fn(batch, draws, generator, ema_adapter) -> (total,
+    metrics)``, the differentiable part of a step; ``ema_adapter`` is the EMA
+    copy ``{"<model>.<name>": tensor}`` the previewer runs with (None: the
+    live adapter)."""
+    alpha = cfg.lora_alpha
+    iw = torch.from_numpy(importance_sampling_weights(schedule.num_train_timesteps)) if cfg.importance_sampling else None
+
+    def loss_fn(batch: Dict[str, torch.Tensor], draws: Optional[Stage2Draws], generator: Optional[torch.Generator],
+                ema_adapter: Optional[Dict[str, torch.Tensor]]):
+        draws = draws or Stage2Draws()
+        lq, gt = batch["lq"], batch["gt"]  # NHWC in [-1, 1]
+        bsz, dev = gt.shape[0], gt.device
+        factor = vae_scale_factor(vae.config)
+        lat_shape = (bsz, gt.shape[1] // factor, gt.shape[2] // factor, vae.config.latent_channels)
+
+        def normal(given, shape):
+            if given is not None:
+                return given.to(dev)
+            return torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
+
+        def uniform(given):
+            if given is not None:
+                return given.to(dev).reshape(bsz)
+            return torch.rand((bsz,), generator=generator, dtype=torch.float32, device=dev)
+
+        with torch.no_grad():
+            # condition drops from one uniform per sample (reference :1461-1467)
+            r = uniform(draws.drop_uniform)
+            image_rate, text_rate = cfg.image_drop_rate, cfg.text_drop_rate
+            drop_both = (r >= image_rate + text_rate) & (r < image_rate + text_rate + cfg.cond_drop_rate)
+            drop_image = (r < image_rate) | drop_both
+            drop_text = ((r >= image_rate) & (r < image_rate + text_rate)) | drop_both
+
+            tokens_cond = image_encoder(_nchw(preprocess_dinov2((lq + 1.0) / 2.0, size=common.DINO_TRAIN_SIZE)))
+            tokens_uncond = batch["uncond_tokens"].to(tokens_cond.dtype).expand_as(tokens_cond)
+            tokens = torch.where(drop_image.reshape(bsz, 1, 1), tokens_uncond, tokens_cond)
+            text = torch.where(drop_text.reshape(bsz, 1, 1), batch["uncond_prompt_embeds"], batch["prompt_embeds"])
+            pooled = torch.where(drop_text.reshape(bsz, 1), batch["uncond_pooled_embeds"], batch["pooled_embeds"])
+            time_ids = batch["time_ids"]
+
+            gt_latent = scale_latents(vae.config, vae.encode(_nchw(gt.float()),
+                                                             noise=_nchw(normal(draws.vae_noise_gt, lat_shape))))
+            lq_latent = scale_latents(vae.config, vae.encode(_nchw(lq.float()),
+                                                             noise=_nchw(normal(draws.vae_noise_lq, lat_shape))))
+            # uniform t; importance sampling enters as a T·p(t) loss weight
+            t = draws.timesteps
+            if t is None:
+                t = common.sample_timesteps(generator, bsz, schedule.num_train_timesteps, None, device=dev)
+            t = t.to(dev).long()
+            noise = _nchw(normal(draws.noise, lat_shape))
+            noisy = add_noise(schedule, gt_latent, noise, t)
+
+            # the previewer: EMA adapter, LoRA on
+            ema_unet = _module_tensors(ema_adapter, "unet", unet)
+            ema_res = _module_tensors(ema_adapter, "resampler", resampler)
+
+            def previewer_eps(text_in, tokens_in):
+                ip = functional_call(resampler, ema_res, (tokens_in,), {"lora_scale": alpha})
+                return functional_call(unet, ema_unet, (noisy, t, text_in, pooled, time_ids),
+                                       {"ip_hidden_states": ip, "lora_scale": alpha})
+
+            eps = previewer_eps(text, tokens)
+            if cfg.cfg_scale > 1.0:
+                eps_u = previewer_eps(batch["uncond_prompt_embeds"], tokens_uncond)
+                w = 1.0 + uniform(draws.cfg_uniform).reshape(bsz, 1, 1, 1) * (cfg.cfg_scale - 1.0)
+                eps = eps_u + w * (eps - eps_u)
+            preview = lcm_single_step(schedule, eps, t, noisy)
+            preview_err = torch.mean((preview.float() - gt_latent.float()) ** 2)
+
+        down_res, mid_res = aggregator(lq_latent, t, preview, pooled, time_ids)
+        ip_base = resampler(tokens, lora_scale=0.0)
+        eps_pred = unet(noisy, t, text, pooled, time_ids, ip_hidden_states=ip_base,
+                        down_block_additional_residuals=down_res, mid_block_additional_residual=mid_res,
+                        lora_scale=0.0)
+
+        weights = None
+        if iw is not None:
+            weights = schedule.num_train_timesteps * iw.to(dev)[t]
+        total = 0.0
+        metrics = {"preview_error_latent": preview_err}
+        for loss, lw in losses:
+            val = loss(DiffusionLossInputs(predicted=eps_pred, target=noise, timesteps=t, weights=weights))
+            total = total + lw * val
+            metrics[type(loss).__name__] = val.detach()
+        return total, metrics
+
+    return loss_fn
+
+
+class Stage2Trainer(common.Trainer):
+    """Holds the models, the optimiser, the fp32 EMA adapter copy and the step
+    (``common.Trainer``). ``device="cuda"`` (the default) raises without a
+    card; pass ``device="cpu"`` to train on the CPU."""
+
+    def __init__(self, unet, aggregator, resampler, vae, image_encoder, cfg: Stage2Config,
+                 losses_config: Optional[LossesConfig] = None, schedule=None, device="cuda"):
+        _check_ported(cfg)
+        self.unet, self.aggregator, self.resampler = unet, aggregator, resampler
+        self.vae, self.image_encoder = vae, image_encoder
+        models = {"unet": unet, "aggregator": aggregator, "resampler": resampler, "vae": vae,
+                  "image_encoder": image_encoder}
+        super().__init__("stage2", models, cfg, stage2_trainable_pred(cfg), losses_config, schedule, device)
+        self.ema_adapter: Optional[Dict[str, torch.Tensor]] = None
+        if cfg.use_ema_adapter:
+            self.ema_adapter = {n: p.detach().float().clone() for n, p in self.named_parameters().items()
+                                if ADAPTER_EMA_PRED(tuple(n.split(".")))}
+        self._loss_fn = build_stage2_step(unet, aggregator, resampler, vae, image_encoder, self.schedule,
+                                          self.losses, cfg)
+
+    def loss(self, batch, draws: Optional[Stage2Draws] = None, generator: Optional[torch.Generator] = None):
+        """The differentiable forward of a step, the previewer on the EMA
+        adapter: (weighted loss total, metrics)."""
+        return self._loss_fn(batch, draws, generator or self._generator, self.ema_adapter)
+
+    def train_step(self, batch, draws: Optional[Stage2Draws] = None,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """``common.Trainer.train_step``, then the EMA update of the adapter
+        copy on every ``ema_update_steps``-th step when the adapter trains."""
+        metrics = super().train_step(batch, draws, generator)
+        cfg = self.cfg
+        if self.ema_adapter is not None and cfg.optimize_adapter and self.global_step % cfg.ema_update_steps == 0:
+            named = self.named_parameters()
+            common.ema_update(self.ema_adapter, {n: named[n] for n in self.ema_adapter}, cfg.ema_decay)
+        return metrics
+
+    def aggregator_state(self) -> Dict[str, torch.Tensor]:
+        """The reference-format ``aggregator_ckpt.pt`` payload in fp32 on the
+        CPU: the port's Aggregator names are those ``convert.export_aggregator``
+        gives the JAX tree (``train_stage2_aggregator.py:1023-1043``)."""
+        return {k: v.detach().float().cpu() for k, v in self.aggregator.state_dict().items()}
+
+    def export_aggregator(self, path: str) -> None:
+        torch.save(self.aggregator_state(), path)

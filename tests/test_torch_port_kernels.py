@@ -47,8 +47,8 @@ def test_flash_training_kernels_match_references_on_card(s, skv):
     refs = tattn.flash_backward_reference(q, k, v, ref_o, ref_lse, do, block_q=512, block_k=512)
     for got, want in zip(grads, refs):
         assert ((got.float() - want.float()).abs().max() / want.float().abs().max()).item() <= 2e-2
-    with pytest.raises(ValueError):
-        tattn.flash_attention_lse(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="float16"):
+        tattn.flash_attention_lse(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
         tattn.flash_backward_dq(q, k, v, do, ref_lse.double(), ref_lse)
 
@@ -106,5 +106,50 @@ def test_flash_kernel_matches_reference_on_card(s, skv):
     assert tattn.flash_attention_launches == before + 1
     err = (out.float() - tattn.flash_attention_reference(q, k, v).float()).abs().max().item()
     assert err <= 4e-3, err
-    with pytest.raises(ValueError):
-        tattn.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="float16"):
+        tattn.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="one dtype"):
+        tattn.flash_attention(q, k.float(), v)
+
+
+F32_COUNTERS = ("flash_attention_f32_launches", "flash_attention_lse_f32_launches", "flash_backward_dq_f32_launches",
+                "flash_backward_dkv_f32_launches")
+BF16_COUNTERS = ("flash_attention_launches", "flash_attention_lse_launches", "flash_backward_dq_launches",
+                 "flash_backward_dkv_launches")
+
+
+def _f32_errors(got: torch.Tensor, want: torch.Tensor):
+    """(relative L2 error, max abs error over the reference's max abs)."""
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm()).item(), ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,skv", CARD_SHAPES)
+def test_fp32_flash_kernels_match_references_on_card(s, skv):
+    """The fp32 entry points (csrc/flash_f32.cu) against the plain fp32
+    versions on the same card: outputs and gradients within relative L2 1e-5
+    and max abs 1e-4 of the reference's max abs, lse within 1e-5 (a few fp32
+    ulps of values near 10: only the summation order differs)."""
+    _need_card()
+    assert not torch.backends.cuda.matmul.allow_tf32  # the plain version's products in full fp32
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, do = (torch.randn(2, s, 4, 64, generator=g, device="cuda") for _ in range(2))
+    k, v = (torch.randn(2, skv, 4, 64, generator=g, device="cuda") for _ in range(2))
+    before = [getattr(tattn, n) for n in F32_COUNTERS + BF16_COUNTERS]
+    out = tattn.flash_attention(q, k, v)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out_diff = tattn.dot_product_attention(*leaves)  # an input needs a gradient: K2, then K3 and K4
+    grads = torch.autograd.grad(out_diff, leaves, do)
+    torch.cuda.synchronize()
+    after = [getattr(tattn, n) for n in F32_COUNTERS + BF16_COUNTERS]
+    assert after == [n + 1 for n in before[:4]] + before[4:]
+    ref_o, ref_lse = tattn.flash_attention_lse_reference(q, k, v)
+    _, lse = tattn.flash_attention_lse(q, k, v)
+    refs = tattn.flash_backward_reference(q, k, v, ref_o, ref_lse, do, block_q=512, block_k=512)
+    for what, got, want in (("o", out, ref_o), ("o (lse entry point)", out_diff, ref_o), ("dq", grads[0], refs[0]),
+                            ("dk", grads[1], refs[1]), ("dv", grads[2], refs[2])):
+        assert got.dtype == torch.float32, what
+        rel_l2, rel_max = _f32_errors(got, want)
+        assert rel_l2 <= 1e-5 and rel_max <= 1e-4, (what, rel_l2, rel_max)
+    assert (lse - ref_lse).abs().max().item() <= 1e-5

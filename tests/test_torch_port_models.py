@@ -30,7 +30,7 @@ from instantir_tpu.models.vae import tiny_vae_config as j_vae_cfg
 from instantir_tpu_torch import convert
 from instantir_tpu_torch.models.aggregator import Aggregator
 from instantir_tpu_torch.models.attention import Attention
-from instantir_tpu_torch.models.dinov2 import DINOv2Model, preprocess_dinov2, tiny_dinov2_config
+from instantir_tpu_torch.models.dinov2 import DINOv2Model, _keys_cubic, _resize_matrix, preprocess_dinov2, tiny_dinov2_config
 from instantir_tpu_torch.models.resampler import Resampler, tiny_resampler_config
 from instantir_tpu_torch.models.unet import UNet2DConditionModel, down_stack_channels, tiny_unet_config
 from instantir_tpu_torch.models.vae import AutoencoderKL, tiny_vae_config
@@ -214,6 +214,33 @@ def test_dinov2_and_preprocess():
         got = tm(_nchw(jpix)).numpy()
     assert got.shape == ref.shape == (B, 5, 16)
     assert _max_rel_err(got, ref) <= 1e-5
+
+
+def test_dinov2_fed_224_at_native_28_matches_jax():
+    """The trainers feed 224² pixels whatever the native grid: at the tiny
+    config's own ``image_size`` 28 (a 2x2 grid grown to 16x16) the position
+    embeddings are resized bicubically in both frameworks."""
+    rng = np.random.default_rng(9)
+    cfg = j_dino_cfg()
+    pix = rng.standard_normal((B, 224, 224, 3)).astype(np.float32)
+    jm = JDINO(cfg)
+    params = _init_random(jm, 9, pix[:1, :cfg.image_size, :cfg.image_size])
+    ref = np.asarray(jm.apply(params, pix))
+    tm = DINOv2Model(tiny_dinov2_config())
+    tm.load_state_dict(convert.to_torch(convert.export_dinov2(params, cfg.num_layers)), strict=True)
+    with torch.no_grad():
+        got = tm(_nchw(pix)).numpy()
+    assert got.shape == ref.shape == (B, 257, 16)
+    assert _max_rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("n_in,n_out", [(2, 16), (16, 37), (16, 5), (37, 16), (5, 7), (7, 3)])
+def test_cubic_resize_matrix_matches_jax_image_resize(n_in, n_out):
+    """The [out, in] weights of ``jax.image.resize(method="cubic")`` along one
+    axis, upsampling and (antialiased) downsampling: the resize of the
+    identity is the weight matrix."""
+    want = np.asarray(jax.image.resize(np.eye(n_in, dtype=np.float32), (n_out, n_in), method="cubic"))
+    np.testing.assert_allclose(_resize_matrix(n_in, n_out, _keys_cubic), want, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("lora_scale", [0.0, 0.5])

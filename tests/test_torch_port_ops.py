@@ -436,6 +436,42 @@ def test_group_norm_dispatch_skips_the_function_without_grad(monkeypatch):
     assert tgn.group_norm_launches == before
 
 
+
+def test_only_the_vae_group_norms_skip_the_dispatch(monkeypatch):
+    """Every ``GroupNorm32`` of the UNet and the Aggregator goes through the
+    dispatch (on the card: the fused kernel, whatever the dtype -- fp32
+    models included); the VAE's are built with ``use_kernel=False`` and run
+    the plain version whatever ``USE_FUSED`` says."""
+    from instantir_tpu_torch.models.dinov2 import tiny_dinov2_config
+    from instantir_tpu_torch.models.resampler import tiny_resampler_config
+    from instantir_tpu_torch.models.unet import tiny_unet_config
+    from instantir_tpu_torch.models.vae import tiny_vae_config
+    from instantir_tpu_torch.pipeline.factory import build_pipeline
+
+    pipe = build_pipeline(tiny_unet_config(with_ip=True, lora_rank=4), tiny_vae_config(),
+                          tiny_resampler_config(output_dim=32, lora_rank=2), tiny_dinov2_config(), device="cpu")
+    norms = {name: [m for m in getattr(pipe, name).modules() if isinstance(m, tlayers.GroupNorm32)]
+             for name in ("unet", "aggregator", "vae")}
+    assert all(norms.values())
+    assert all(m.use_kernel for m in norms["unet"] + norms["aggregator"])
+    assert not any(m.use_kernel for m in norms["vae"])
+
+    monkeypatch.setattr(tgn, "USE_FUSED", True)
+    calls = []
+    real = tlayers.group_norm_silu
+    monkeypatch.setattr(tlayers, "group_norm_silu", lambda *a: calls.append(1) or real(*a))
+    x = torch.randn(1, norms["vae"][0].weight.shape[0], 4, 4, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        y = norms["vae"][0](x)
+    assert not calls
+    m = norms["vae"][0]
+    torch.testing.assert_close(y, tgn.group_norm_silu_nchw(x, m.weight, m.bias, m.num_groups, m.eps, m.fuse_silu),
+                               rtol=0, atol=0)
+    m = norms["unet"][0]
+    with torch.no_grad():
+        m(torch.randn(1, m.weight.shape[0], 4, 4, generator=torch.Generator().manual_seed(1)))
+    assert calls == [1]
+
 def test_timestep_embedding_and_adaln(jlayers):
     rng = np.random.default_rng(6)
     ts = np.array([0, 1, 999, 500])
@@ -625,6 +661,49 @@ def test_entry_points_match_their_sources(name):
     assert source in tkernels.SOURCES
     text = (tkernels.CSRC / f"{source}.cu").read_text()
     assert _c_parameters(text, symbol) == len(argtypes)
+
+
+@pytest.mark.parametrize("dtypes,accepted", [
+    ((torch.bfloat16,) * 3, True), ((torch.float32,) * 3, True), ((torch.float16,) * 3, False),
+    ((torch.float32, torch.bfloat16, torch.float32), False), ((torch.float64,) * 3, False)])
+def test_flash_wrappers_take_bf16_or_fp32_of_one_dtype(dtypes, accepted):
+    """The kernels' dtype rule, checked before the device: bf16 or fp32, one
+    dtype for q, k and v (these CPU tensors then fail the device check)."""
+    q, k, v = (torch.zeros(1, 128, 2, 64, dtype=dt) for dt in dtypes)
+    match = "CUDA device" if accepted else "bfloat16 or float32"
+    with pytest.raises(ValueError, match=match):
+        tattn._check_flash_inputs("flash_attention", q, k, v)
+    if not accepted:
+        with pytest.raises(ValueError, match=str(dtypes[1]).split(".")[-1]):
+            tattn._check_flash_inputs("flash_attention", q, k, v)
+
+
+@pytest.mark.parametrize("name", ["fwd", "fwd_lse", "bwd_dq", "bwd_dkv"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_launch_routes_each_dtype_to_its_entry_point(name, dtype, monkeypatch):
+    """``_launch`` binds the bf16 entry point for bf16 operands and its
+    ``_f32`` twin of ``csrc/flash_f32.cu`` for fp32 ones, and says which ran
+    (the wrappers bump that one's counter)."""
+    bound, launched = [], []
+    monkeypatch.setattr(tkernels, "bind", lambda source, symbol, argtypes: bound.append((source, symbol)) or symbol)
+    monkeypatch.setattr(tkernels, "launch", lambda what, fn, device, args: launched.append((fn, args)))
+    like = torch.zeros(1, 2, 1, 64, dtype=dtype)
+    f32 = tattn._launch("test", name, like, like, 3, 0.5)
+    assert f32 == (dtype == torch.float32)
+    source, symbol = ("flash_f32", f"instantir_flash_{name}_f32_d64") if f32 else tattn._ENTRY_POINTS[name][:2]
+    assert bound == [(source, symbol)] and launched == [(symbol, [like.data_ptr(), 3, 0.5])]
+
+
+def test_fp32_flash_source_holds_simt_kernels():
+    """``flash_f32.cu`` holds the three fp32 kernels (a forward with an lse
+    flag, dQ, dK/dV) behind four entry points, with FFMA products on the CUDA
+    cores: no tensor-core instruction."""
+    text = (tkernels.CSRC / "flash_f32.cu").read_text()
+    assert len(re.findall(r"__global__\s+void", text)) == 3
+    assert len(re.findall(r'extern\s+"C"', text)) == 4
+    assert "fmaf(" in text
+    for needle in ("wgmma", "mma.sync", "ldmatrix", "tf32"):
+        assert needle not in text.split("#include", 1)[1], needle
 
 
 def test_kernel_sources_exist_and_hold_one_forward_kernel():

@@ -8,7 +8,8 @@ compiled once on the JAX side: the same weights go into the port through its
 and loss, every trainable gradient by name, ``grad_norm`` and the parameters
 after two AdamW updates are compared. The port-only tests cover gradient
 checkpointing, gradient accumulation and the config fields that are not
-ported.
+ported. A second step at DINOv2's own ``image_size`` 28 holds the 224² input
+and the bicubic position embeddings to the JAX step.
 """
 
 from __future__ import annotations
@@ -267,6 +268,46 @@ def _named(setup, flat_trainable, fill=None):
                     dst[key] = val
         merge(full[model], tree)
     return convert.export_named(full)
+
+
+def test_stage1_step_at_dino_native_28_matches_jax(setup):
+    """DINOv2 at the tiny config's own ``image_size`` 28: both steps feed it
+    224² pixels (its position embeddings resized bicubically) and 224² uncond
+    tokens. One step, loss and every trainable gradient by name."""
+    unet, res, vae, _ = setup["models"]
+    dcfg = j_dino_cfg()
+    dino = JDINO(dcfg)
+    params = {**setup["params"],
+              "image_encoder": _init_random(dino, 5, np.zeros((1, dcfg.image_size, dcfg.image_size, 3), np.float32))}
+    jcfg = jstage1.Stage1Config(**STEP_CFG)
+    raw_step = jstage1.build_stage1_step(unet, res, vae, dino, j_sdxl_schedule(),
+                                         j_build_losses([JSingle(name="L2Loss")]), jcfg)
+    capture = optax.GradientTransformation(
+        init=lambda p: (),
+        update=lambda g, state, p=None: (jax.tree_util.tree_map(jnp.zeros_like, g), g))
+    juncond = np.asarray(dino.apply(params["image_encoder"], np.zeros((1, 224, 224, 3), np.float32)))
+    jbatch = {"lq": setup["lq"], "gt": setup["gt"], "uncond_tokens": juncond, **setup["cond"]}
+    trainable, frozen = jcommon.partition_params(params, jstage1.stage1_trainable_pred)
+    key = jax.random.PRNGKey(19)
+    _, grads, jmetrics = jax.jit(lambda tr, fr, b, k: raw_step(tr, fr, (), capture, b, k))(trainable, frozen, jbatch, key)
+
+    pipe = build_pipeline(tiny_unet_config(with_ip=True, lora_rank=4), tiny_vae_config(),
+                          tiny_resampler_config(output_dim=32, lora_rank=2), tiny_dinov2_config(), device="cpu")
+    for name, model in (("unet", pipe.unet), ("vae", pipe.vae), ("resampler", pipe.resampler)):
+        model.load_state_dict(convert.to_torch(getattr(convert, f"export_{name}")(params[name])), strict=True)
+    pipe.image_encoder.load_state_dict(
+        convert.to_torch(convert.export_dinov2(params["image_encoder"], dcfg.num_layers)), strict=True)
+    trainer = Stage1Trainer(pipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder, Stage1Config(**STEP_CFG),
+                            device="cpu")
+    batch = trainer.prepare_batch({"lq": _t(setup["lq"]), "gt": _t(setup["gt"])},
+                                  {k: _t(v) for k, v in setup["cond"].items()})
+    assert np.abs(batch["uncond_tokens"].numpy() - juncond).max() <= 1e-5 * np.abs(juncond).max()
+    loss, _, tgrads = trainer.loss_and_grads(batch, _jax_draws(key))
+    assert abs(float(loss) - float(jmetrics["loss"])) <= 1e-5 * abs(float(jmetrics["loss"]))
+    want = _named(setup, grads)
+    for name, got in zip(trainer.trainable_names, tgrads):
+        bound = 1e-5 + 1e-3 * np.abs(want[name]).max()
+        assert np.abs(got.numpy() - want[name]).max() <= bound, name
 
 
 def test_trainable_leaves_match_jax_partition(setup, two_steps):
