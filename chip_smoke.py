@@ -34,11 +34,19 @@ which ends the script with a nonzero exit on failure:
 6. stage-1 training at full SDXL width: three ``Stage1Trainer.train_step``s at
    512² (batch 2) and one at 1024² (batch 1, gradient checkpointing); the same
    checks;
-7. fp32, after the bf16 models are freed: ``build_pipeline`` with its default
+7. previewer (LCM-LoRA distillation) training at full SDXL width: two
+   ``PreviewerTrainer.train_step``s at 512² (batch 2) with the default Huber
+   loss, one with ``[HuberLoss 1, DINOLoss 1e-3, LCMVisualization k=1]`` (the
+   image branch: fp32 VAE decodes, DINOv2 on both images, the strip), one at
+   1024² (batch 1, gradient checkpointing); loss, each loss term and the
+   gradient norm finite, the strip finite of shape (2, 512, 1536, 3), every
+   LoRA leaf moved, no frozen leaf changed, every step's launch counters equal
+   to the counts derived from the config;
+8. fp32, after the bf16 models are freed: ``build_pipeline`` with its default
    dtype restores a 512² image in 4 steps and one fp32 ``Stage1Trainer`` step
    runs at 512², batch 1, both through the fp32 flash entry points and the
    fused GroupNorm with launch counts derived from the config;
-8. summary: one JSON line of kernels, the card line, and the result line.
+9. summary: one JSON line of kernels, the card line, and the result line.
 
 ``--only kernels`` stops after phase 3 (exit 0, no result line): the quick
 check of a kernel edit; ``--only group_norm`` runs phase 3 for K5 alone.
@@ -617,6 +625,26 @@ def expected_stage2_launches(cfg, s2cfg, lat: int, checkpointing: bool) -> dict:
             "group_norm_silu": (previewer + 1) * gn_unet + gn_agg + gn_again}
 
 
+def expected_previewer_launches(cfg, lat: int, checkpointing: bool) -> dict:
+    """Kernel launches of one previewer ``train_step`` (no accumulation). The
+    teacher's cond and uncond passes and the target run under ``no_grad``:
+    three UNet forwards, K1 on every long self-attention. The student runs
+    under gradient, and the LoRA on every self-attention's q, k and v trains,
+    so each of its long self-attentions runs the forward with lse (K2) and,
+    once, dQ (K3) and dK/dV (K4). K5 runs in all four forwards. Gradient
+    checkpointing recomputes every block of the student (each holds LoRA
+    leaves): K2 twice, and K5 again but for ``conv_norm_out``, which lies
+    outside the blocks. The image branch (VAE decodes, DINOv2) adds none: the
+    VAE's GroupNorms run the plain version, and neither model's attention is
+    long enough for the flash kernels."""
+    n_long = sum(flash_calls_per_forward(cfg, lat, lat, with_up=True).values())
+    passes = 2 if checkpointing else 1
+    gn = group_norms_per_forward(cfg)["total"]
+    return {"flash_attention_fwd": 3 * n_long, "flash_attention_fwd_lse": n_long * passes,
+            "flash_attention_bwd_dq": n_long, "flash_attention_bwd_dkv": n_long,
+            "group_norm_silu": 4 * gn + ((gn - 1) if checkpointing else 0)}
+
+
 def heads_by_seq(cfg, lat: int, concat: int = 1) -> dict:
     """Heads (head_dim 64) of each level's self-attention, by its sequence
     length, in a UNet (``concat=1``) or the Aggregator's H-concat (2)."""
@@ -631,19 +659,25 @@ def _add_by_shape(out: dict, cfg, lat: int, batch: int, by_seq: dict, n: int, co
 
 def flash_launches_by_shape(cfg, s2cfg) -> dict:
     """{path: {kernel: {(B, S, H): launches}}} of the bf16 flash kernels on
-    the four training paths as phases 5 and 6 drive them (stage 1: three
-    steps at 512² batch 2, one at 1024² batch 1 checkpointed; stage 2: two
-    and one), split by shape as ``expected_train_launches`` and
-    ``expected_stage2_launches`` count them in all."""
+    the six training paths as phases 5-7 drive them (stage 1: three steps at
+    512² batch 2, one at 1024² batch 1 checkpointed; stage 2: two and one;
+    the previewer: three and one), split by shape as
+    ``expected_train_launches``, ``expected_stage2_launches`` and
+    ``expected_previewer_launches`` count them in all."""
     first_level = next(i for i, kind in enumerate(cfg.down_block_types) if kind == "CrossAttnDownBlock2D")
     out = {}
     for path, stage, res, batch, steps, checkpointing in (
             ("train_512", 1, 512, 2, 3, False), ("train_1024", 1, 1024, 1, 1, True),
-            ("train_stage2_512", 2, 512, 2, 2, False), ("train_stage2_1024", 2, 1024, 1, 1, True)):
+            ("train_stage2_512", 2, 512, 2, 2, False), ("train_stage2_1024", 2, 1024, 1, 1, True),
+            ("train_previewer_512", "previewer", 512, 2, 3, False),
+            ("train_previewer_1024", "previewer", 1024, 1, 1, True)):
         lat, passes = res // 8, 2 if checkpointing else 1
         full = flash_calls_per_forward(cfg, lat, lat, with_up=True)
         kernels = {name: {} for name in COUNTERS if name.startswith("flash_") and not name.endswith("_f32")}
-        if stage == 1:
+        if stage == "previewer":  # teacher cond and uncond, target: K1; the student: K2-K4
+            _add_by_shape(kernels["flash_attention_fwd"], cfg, lat, batch, full, 3 * steps)
+            unet_grad, agg = full, {}
+        elif stage == 1:
             s0 = (lat >> first_level) ** 2
             no_grad = {s0: 1} if s0 >= 512 else {}
             _add_by_shape(kernels["flash_attention_fwd"], cfg, lat, batch, no_grad, steps * passes)
@@ -934,7 +968,7 @@ def run_stage2(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
 
 
 def run_training(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
-    """Phase 5: stage-1 (DCP adapter) training steps at full SDXL width."""
+    """Phase 6: stage-1 (DCP adapter) training steps at full SDXL width."""
     from instantir_tpu_torch.train.stage1_adapter import Stage1Config, Stage1Trainer
 
     cfg = Stage1Config(train_batch_size=2, resolution=512, lr_warmup_steps=0, max_train_steps=1000, output_dir="")
@@ -983,8 +1017,88 @@ def run_training(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     return {"train_512": total, "train_1024": big, "sec_512": secs, "sec_1024": big_sec}
 
 
+def run_previewer(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
+    """Phase 7: previewer (LCM-LoRA distillation) training steps at full SDXL
+    width: two at 512² batch 2 with the default Huber loss, one with the
+    image branch ([HuberLoss 1, DINOLoss 1e-3, LCMVisualization k=1], a
+    second trainer over the same models), one at 1024² batch 1 with gradient
+    checkpointing on the UNet."""
+    from instantir_tpu_torch.losses.loss_config import LossesConfig, SingleLossConfig
+    from instantir_tpu_torch.train.previewer_lora import PreviewerConfig, PreviewerTrainer
+
+    cfg = PreviewerConfig(train_batch_size=2, resolution=512, lr_warmup_steps=0, output_dir="")
+    trainer = PreviewerTrainer(pipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder, cfg, device="cuda")
+    named = trainer.named_parameters()
+    trainable = {n: p for n, p in named.items() if p.requires_grad}
+    frozen = {n: p for n, p in named.items() if not p.requires_grad}
+    if not all(".lora_A." in n or ".lora_B." in n for n in trainable):
+        fail("the previewer trains leaves that are not LoRA")
+    if not any(n.startswith("resampler.") for n in trainable):
+        fail("the previewer does not train the Resampler's LoRA")
+    log(f"  previewer trainer: {sum(p.numel() for p in trainable.values()) / 1e6:.2f} M trainable LoRA parameters in "
+        f"{len(trainable)} leaves, {sum(p.numel() for p in frozen.values()) / 1e9:.3f} B frozen in {len(frozen)}")
+    before_train, before_frozen = _checksums(torch, trainable), _checksums(torch, frozen)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    fused = mods["group_norm"].USE_FUSED
+
+    def expected_for(res: int, checkpointing: bool) -> dict:
+        expected = every_counter(expected_previewer_launches(ucfg, res // 8, checkpointing))
+        if not fused:
+            expected["group_norm_silu"] = 0
+        return expected
+
+    out = {"train_previewer_512": {name: 0 for name in COUNTERS}, "sec_512": []}
+    expected = expected_for(512, False)
+    log(f"  512² batch 2, no checkpointing; expected launches per step {expected}")
+    batch = trainer.prepare_batch(*training_batch(torch, g, 2, 512, torch.bfloat16, uncond=True))
+    for i in range(2):
+        launches, sec, _ = train_step_checked(torch, trainer, batch, g, mods, expected,
+                                              f"previewer train_step {i + 1}/2 at 512² batch 2, Huber", card_line)
+        out["sec_512"].append(sec)
+        for name, n in launches.items():
+            out["train_previewer_512"][name] += n
+    out["peak_gb_512"] = torch.cuda.max_memory_allocated() / 1e9
+
+    losses = LossesConfig(lcm_losses=[
+        SingleLossConfig(name="HuberLoss", weight=1.0, init_params={"huber_c": 0.001}),
+        SingleLossConfig(name="DINOLoss", weight=1e-3),
+        SingleLossConfig(name="LCMVisualization", weight=1.0, visualize_every_k=1)])
+    image_trainer = PreviewerTrainer(pipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder, cfg, losses,
+                                     device="cuda")
+    launches, out["sec_dino"], metrics = train_step_checked(
+        torch, image_trainer, batch, g, mods, expected,
+        "previewer train_step at 512² batch 2, Huber + DINOLoss + LCMVisualization", card_line)
+    out["peak_gb_dino"] = torch.cuda.max_memory_allocated() / 1e9
+    for name, n in launches.items():
+        out["train_previewer_512"][name] += n
+    strip, center = image_trainer.last_vis_strip, image_trainer.dino_center
+    if not {"HuberLoss", "DINOLoss", "LCMVisualization"} <= set(metrics):
+        fail(f"the image-branch step's metrics {sorted(metrics)} lack a loss")
+    if strip is None or tuple(strip.shape) != (2, 512, 1536, 3) or not torch.isfinite(strip).all():
+        fail(f"the visualisation strip is not finite of shape (2, 512, 1536, 3): "
+             f"{None if strip is None else tuple(strip.shape)}")
+    if not (torch.isfinite(center).all() and center.abs().max() > 0):
+        fail("the DINOLoss center did not move to finite values")
+    del image_trainer, strip
+    torch.cuda.empty_cache()
+
+    trainer.unet.gradient_checkpointing = True
+    expected = expected_for(1024, True)
+    log(f"  1024² batch 1, gradient checkpointing on the UNet; expected launches {expected}")
+    batch = trainer.prepare_batch(*training_batch(torch, g, 1, 1024, torch.bfloat16, uncond=True))
+    out["train_previewer_1024"], out["sec_1024"], _ = train_step_checked(
+        torch, trainer, batch, g, mods, expected, "previewer train_step at 1024² batch 1, checkpointing", card_line)
+    out["peak_gb_1024"] = torch.cuda.max_memory_allocated() / 1e9
+    trainer.unet.gradient_checkpointing = False
+    check_leaves(torch, before_train, before_frozen, trainable, frozen, "previewer, 4 steps")
+    log(f"  previewer 512² Huber steps {['%.3f' % x for x in out['sec_512']]} s (the first includes warm-up), peak "
+        f"{out['peak_gb_512']:.2f} GB; DINOLoss step {out['sec_dino']:.3f} s, peak {out['peak_gb_dino']:.2f} GB; "
+        f"1024² step {out['sec_1024']:.3f} s, peak {out['peak_gb_1024']:.2f} GB; on {card_line}")
+    return out
+
+
 def run_fp32(torch, ucfg, mods: dict, card_line: str) -> dict:
-    """Phase 7: the default (fp32) ``build_pipeline`` restores a 512² image in
+    """Phase 8: the default (fp32) ``build_pipeline`` restores a 512² image in
     4 steps, then one fp32 ``Stage1Trainer`` step at 512², batch 1; both
     through the fp32 flash entry points and K5 (fp32 UNet and Aggregator
     GroupNorms), counts derived from the config."""
@@ -1161,21 +1275,29 @@ def main() -> None:
     # 6. stage-1 training
     log("[6] stage-1 training at SDXL width")
     train = run_training(torch, pipe, ucfg, mods, card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. previewer training
+    log("[7] previewer (LCM-LoRA distillation) training at SDXL width")
+    previewer = run_previewer(torch, pipe, ucfg, mods, card_line)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 7. fp32
-    log(f"[7] fp32: default build_pipeline, 512² restore and a stage-1 step ({torch.cuda.memory_allocated() / 1e9:.2f} "
+    # 8. fp32
+    log(f"[8] fp32: default build_pipeline, 512² restore and a stage-1 step ({torch.cuda.memory_allocated() / 1e9:.2f} "
         "GB still allocated)")
     f32 = run_fp32(torch, ucfg, mods, card_line)
 
-    # 8. summary
+    # 9. summary
     def by_path(name):
         return {"restore": restore_launches[name], "restore_fused_group_norm": fused_launches[name],
                 "train_512": train["train_512"][name], "train_1024": train["train_1024"][name],
                 "train_stage2_512": stage2["train_stage2_512"][name],
                 "train_stage2_1024": stage2["train_stage2_1024"][name],
+                "train_previewer_512": previewer["train_previewer_512"][name],
+                "train_previewer_1024": previewer["train_previewer_1024"][name],
                 "fp32": f32["restore"][name] + f32["train"][name]}
 
     src = "instantir_tpu_torch/csrc/"
@@ -1185,7 +1307,7 @@ def main() -> None:
 
     # the bf16 flash kernels' numbers are weighted by their launches at each shape on every main path: the
     # restore's (twice: with the fused GroupNorm off and on) and the training paths', whose split by shape
-    # must add up to the counts read in phases 5 and 6
+    # must add up to the counts read in phases 5-7
     by_shape = flash_launches_by_shape(ucfg, stage2["cfg"])
     for path, kernels_of_path in by_shape.items():
         for name, counts in kernels_of_path.items():
@@ -1238,11 +1360,15 @@ def main() -> None:
     for e in entries:
         if not sum(e["launches_by_path"].values()) > 0:
             fail(f"kernel {e['name']} was launched no time on any main path")
-    log(f"[8] {args.steps}-step restore: {sec:.3f} s/image (fused GroupNorm off {restore_secs[False]:.3f}, on "
+    log(f"[9] {args.steps}-step restore: {sec:.3f} s/image (fused GroupNorm off {restore_secs[False]:.3f}, on "
         f"{restore_secs[True]:.3f}); stage-2 step at 512² batch 2: {min(stage2['sec_512']):.3f} s, peak "
         f"{stage2['peak_gb_512']:.2f} GB; at 1024² batch 1 with checkpointing: {stage2['sec_1024']:.3f} s, peak "
         f"{stage2['peak_gb_1024']:.2f} GB; stage-1 step at 512² batch 2: {min(train['sec_512']):.3f} s; at 1024² "
-        f"batch 1 with checkpointing: {train['sec_1024']:.3f} s; fp32 512² 4-step restore "
+        f"batch 1 with checkpointing: {train['sec_1024']:.3f} s; previewer step at 512² batch 2: "
+        f"{min(previewer['sec_512']):.3f} s, peak {previewer['peak_gb_512']:.2f} GB, with DINOLoss "
+        f"{previewer['sec_dino']:.3f} s, peak {previewer['peak_gb_dino']:.2f} GB; at 1024² batch 1 with "
+        f"checkpointing: {previewer['sec_1024']:.3f} s, peak {previewer['peak_gb_1024']:.2f} GB; "
+        f"fp32 512² 4-step restore "
         f"{min(f32['restore_sec']):.3f} s/image (peak {f32['peak_gb_restore']:.2f} GB), fp32 stage-1 step at 512² "
         f"batch 1 {f32['train_sec']:.3f} s (peak {f32['peak_gb_train']:.2f} GB); on {card_line}")
     log(json.dumps({"kernels": entries}))

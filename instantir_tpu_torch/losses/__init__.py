@@ -3,16 +3,18 @@
 from instantir_tpu_torch.losses.loss_config import LossesConfig, SingleLossConfig, load_losses_config
 from instantir_tpu_torch.losses.losses import (
     LOSS_REGISTRY,
+    DINOLoss,
     DiffusionLossInputs,
     HuberLoss,
     L1Loss,
     L2Loss,
+    LCMVisualization,
     Loss,
     WeightedNoiseLoss,
     build_losses,
 )
 
 __all__ = [
-    "LOSS_REGISTRY", "DiffusionLossInputs", "HuberLoss", "L1Loss", "L2Loss", "Loss", "LossesConfig",
-    "SingleLossConfig", "WeightedNoiseLoss", "build_losses", "load_losses_config",
+    "LOSS_REGISTRY", "DINOLoss", "DiffusionLossInputs", "HuberLoss", "L1Loss", "L2Loss", "LCMVisualization", "Loss",
+    "LossesConfig", "SingleLossConfig", "WeightedNoiseLoss", "build_losses", "load_losses_config",
 ]

@@ -2,17 +2,18 @@
 
 Twin of ``instantir_tpu/losses/losses.py``. Ported: L2 with optional
 per-sample importance weights (the stage-1/2 diffusion objective), L1,
-pseudo-Huber (the previewer's LCM distillation) and WeightedNoise. Every loss
-is computed in fp32 whatever the model dtype. The perceptual and feature
-losses of the JAX package (DINOLoss, LPIPSLoss, CLIPLoss, IDLoss,
-DreamSIMLoss) and ``LCMVisualization`` are not ported yet: ``build_losses``
-raises ``NotImplementedError`` naming them.
+pseudo-Huber (the previewer's LCM distillation), WeightedNoise, DINOLoss
+(teacher-centred softmax cross-entropy over DINOv2 tokens, the features from
+a ``feature_fn`` the trainer supplies) and ``LCMVisualization``. Every loss
+is computed in fp32 whatever the model dtype. The perceptual losses of the
+JAX package (LPIPSLoss, CLIPLoss, IDLoss, DreamSIMLoss) are not ported yet:
+``build_losses`` raises ``NotImplementedError`` naming them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -86,22 +87,88 @@ class WeightedNoiseLoss(L2Loss):
     """L2 with externally supplied per-sample weights."""
 
 
+FeatureFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+class DINOLoss(Loss):
+    """Teacher-centred softmax cross-entropy over DINOv2 tokens: student
+    tokens of ``pred_image`` at temperature ``student_temp``, teacher tokens
+    of ``target_image`` (no gradient) less a running center at
+    ``teacher_temp``. ``feature_fn`` maps [-1, 1] NHWC images to tokens
+    ``[B, N, D]``; the trainer passes its DINOv2."""
+
+    needs_images = True
+
+    def __init__(self, feature_fn: Optional[FeatureFn] = None, student_temp: float = 0.1,
+                 teacher_temp: float = 0.04, center_momentum: float = 0.9, **kwargs):
+        super().__init__(**kwargs)
+        self.feature_fn = feature_fn
+        self.student_temp = student_temp
+        self.teacher_temp = teacher_temp
+        self.center_momentum = center_momentum
+        self.center: Optional[torch.Tensor] = None  # running center, folded by update_center
+
+    def apply_with_center(self, inputs: DiffusionLossInputs, feature_fn: FeatureFn,
+                          center: Union[torch.Tensor, float]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss, the teacher tokens' mean over batch and tokens): the caller
+        folds the mean into its center with ``center_momentum``."""
+        student = feature_fn(inputs.pred_image).float()
+        with torch.no_grad():
+            teacher = feature_fn(inputs.target_image).float()
+        t = torch.softmax((teacher - center) / self.teacher_temp, dim=-1)
+        log_s = torch.log_softmax(student / self.student_temp, dim=-1)
+        loss = -(t * log_s).sum(dim=-1).mean()
+        return loss, teacher.mean(dim=(0, 1))
+
+    def __call__(self, inputs: DiffusionLossInputs) -> torch.Tensor:
+        if self.feature_fn is None:
+            raise ValueError("DINOLoss requires feature_fn (the DINOv2 forward)")
+        loss, self.latest_teacher_mean = self.apply_with_center(
+            inputs, self.feature_fn, 0.0 if self.center is None else self.center)
+        return loss
+
+    def update_center(self) -> None:
+        """Fold the last call's teacher mean into the center (momentum
+        ``center_momentum``; the first fold takes the mean as it is)."""
+        if not hasattr(self, "latest_teacher_mean"):
+            return
+        m, mean = self.center_momentum, self.latest_teacher_mean
+        self.center = mean if self.center is None else self.center * m + mean * (1 - m)
+
+
+class LCMVisualization(Loss):
+    """Contributes 0 to the objective. Its presence asks the previewer
+    trainer for an [lq | gt | one-step prediction] strip every
+    ``visualize_every_k`` steps (and so for the decoded images)."""
+
+    needs_images = True
+
+    def __call__(self, inputs: DiffusionLossInputs) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.float32, device=inputs.predicted.device)
+
+
 LOSS_REGISTRY: Dict[str, Any] = {
+    "LCMVisualization": LCMVisualization,
     "L2Loss": L2Loss,
     "L1Loss": L1Loss,
     "HuberLoss": HuberLoss,
     "WeightedNoiseLoss": WeightedNoiseLoss,
+    "DINOLoss": DINOLoss,
 }
-NOT_PORTED = ("LCMVisualization", "DINOLoss", "LPIPSLoss", "DreamSIMLoss", "CLIPLoss", "IDLoss")
+NOT_PORTED = ("LPIPSLoss", "DreamSIMLoss", "CLIPLoss", "IDLoss")
 
 
-def build_losses(configs: List[SingleLossConfig]) -> List[Tuple[Loss, float]]:
-    """Instantiate (loss, weight) pairs from config."""
+def build_losses(configs: List[SingleLossConfig], **shared_kwargs) -> List[Tuple[Loss, float]]:
+    """Instantiate (loss, weight) pairs from config. A ``feature_fn`` among
+    ``shared_kwargs`` goes to each DINOLoss whose config gives none."""
     out = []
     for c in configs:
         if c.name in NOT_PORTED:
             raise NotImplementedError(f"loss {c.name!r} is not ported yet (ported: {sorted(LOSS_REGISTRY)})")
         if c.name not in LOSS_REGISTRY:
             raise KeyError(f"unknown loss {c.name!r}")
-        out.append((LOSS_REGISTRY[c.name](visualize_every_k=c.visualize_every_k, **c.init_params), c.weight))
+        kwargs = dict(c.init_params)
+        if c.name == "DINOLoss" and "feature_fn" in shared_kwargs:
+            kwargs.setdefault("feature_fn", shared_kwargs["feature_fn"])
+        out.append((LOSS_REGISTRY[c.name](visualize_every_k=c.visualize_every_k, **kwargs), c.weight))
     return out

@@ -194,15 +194,24 @@ def _resize_weights(in_size: int, out_size: int, kernel: Callable[[np.ndarray], 
     return torch.from_numpy(_resize_matrix(in_size, out_size, kernel)).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _mean_std(dtype: torch.dtype, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ImageNet mean and std in ``dtype`` on ``device``, built once per
+    (dtype, device) as ``_resize_weights`` is. Callers do not write to them."""
+    return (torch.tensor(DINOV2_MEAN, dtype=dtype, device=device),
+            torch.tensor(DINOV2_STD, dtype=dtype, device=device))
+
+
 def preprocess_dinov2(images: torch.Tensor, size: int = 224) -> torch.Tensor:
     """[B, H, W, 3] in [0, 1] -> resized to ``size``² (antialiased bilinear,
-    the JAX ``jax.image.resize`` weights) and ImageNet-normalized, [B, H, W, 3]."""
+    the JAX ``jax.image.resize`` weights, summed in fp32) and
+    ImageNet-normalized in the input's dtype, [B, H, W, 3]."""
     b, h, w, c = images.shape
+    dtype = images.dtype
     if (h, w) != (size, size):
         wy = _resize_weights(h, size, _triangle, images.device)
         wx = _resize_weights(w, size, _triangle, images.device)
         images = torch.einsum("oh,bhwc->bowc", wy, images.float())
-        images = torch.einsum("pw,bowc->bopc", wx, images).to(images.dtype)
-    mean = torch.tensor(DINOV2_MEAN, dtype=images.dtype, device=images.device)
-    std = torch.tensor(DINOV2_STD, dtype=images.dtype, device=images.device)
+        images = torch.einsum("pw,bowc->bopc", wx, images).to(dtype)
+    mean, std = _mean_std(dtype, images.device)
     return (images - mean) / std

@@ -35,23 +35,52 @@ class DiffusionSchedule:
         return dataclasses.replace(self, betas=self.betas.to(device), alphas_cumprod=self.alphas_cumprod.to(device))
 
 
+def betas_for_alpha_bar(num_diffusion_timesteps: int, max_beta: float = 0.999) -> np.ndarray:
+    """Glide squaredcos_cap_v2 beta schedule (cosine alpha-bar), float64."""
+
+    def alpha_bar(t):
+        return np.cos((t + 0.008) / 1.008 * np.pi / 2) ** 2
+
+    t = np.arange(num_diffusion_timesteps, dtype=np.float64)
+    betas = 1 - alpha_bar((t + 1) / num_diffusion_timesteps) / alpha_bar(t / num_diffusion_timesteps)
+    return np.minimum(betas, max_beta)
+
+
+def rescale_zero_terminal_snr(betas: np.ndarray) -> np.ndarray:
+    """Rescale betas so the terminal step has zero SNR (arXiv 2305.08891 §3):
+    shift sqrt(alpha-bar) so the last is zero, scale it so the first is kept."""
+    alphas_bar_sqrt = np.sqrt(np.cumprod(1.0 - betas))
+    first, last = alphas_bar_sqrt[0], alphas_bar_sqrt[-1]
+    alphas_bar = ((alphas_bar_sqrt - last) * first / (first - last)) ** 2
+    alphas = np.concatenate([alphas_bar[:1], alphas_bar[1:] / alphas_bar[:-1]])
+    return 1.0 - alphas
+
+
 def make_schedule(
     num_train_timesteps: int = 1000,
     beta_start: float = 0.00085,
     beta_end: float = 0.012,
     beta_schedule: str = "scaled_linear",
+    trained_betas: Optional[np.ndarray] = None,
+    rescale_betas_zero_snr: bool = False,
     set_alpha_to_one: bool = True,
     prediction_type: str = "epsilon",
     timestep_scaling: float = 10.0,
     device=None,
 ) -> DiffusionSchedule:
     """Build the fp32 schedule tables (float64 numpy on the host, then fp32)."""
-    if beta_schedule == "linear":
+    if trained_betas is not None:
+        betas = np.asarray(trained_betas, dtype=np.float64)
+    elif beta_schedule == "linear":
         betas = np.linspace(beta_start, beta_end, num_train_timesteps, dtype=np.float64)
     elif beta_schedule == "scaled_linear":
         betas = np.linspace(beta_start**0.5, beta_end**0.5, num_train_timesteps, dtype=np.float64) ** 2
+    elif beta_schedule == "squaredcos_cap_v2":
+        betas = betas_for_alpha_bar(num_train_timesteps)
     else:
-        raise NotImplementedError(f"beta_schedule {beta_schedule!r} is not ported")
+        raise NotImplementedError(f"unknown beta_schedule: {beta_schedule}")
+    if rescale_betas_zero_snr:
+        betas = rescale_zero_terminal_snr(betas)
     alphas_cumprod = np.cumprod(1.0 - betas)
     final_alpha = 1.0 if set_alpha_to_one else float(alphas_cumprod[0])
     return DiffusionSchedule(
@@ -92,9 +121,20 @@ def add_noise(schedule: DiffusionSchedule, x0: torch.Tensor, noise: torch.Tensor
     return (sa * x0.float() + sb * noise.float()).to(x0.dtype)
 
 
+def get_velocity(schedule: DiffusionSchedule, x0: torch.Tensor, noise: torch.Tensor, t: TimestepLike) -> torch.Tensor:
+    """v = sqrt(abar_t) eps - sqrt(1 - abar_t) x0."""
+    sa, sb = _gather_bar(schedule, t, x0.ndim)
+    return (sa * noise.float() - sb * x0.float()).to(x0.dtype)
+
+
 def pred_x0_from_eps(schedule: DiffusionSchedule, sample: torch.Tensor, eps: torch.Tensor, t: TimestepLike) -> torch.Tensor:
     sa, sb = _gather_bar(schedule, t, sample.ndim)
     return ((sample.float() - sb * eps.float()) / sa).to(sample.dtype)
+
+
+def pred_eps_from_x0(schedule: DiffusionSchedule, sample: torch.Tensor, x0: torch.Tensor, t: TimestepLike) -> torch.Tensor:
+    sa, sb = _gather_bar(schedule, t, sample.ndim)
+    return ((sample.float() - sa * x0.float()) / sb).to(sample.dtype)
 
 
 def pred_x0_from_v(schedule: DiffusionSchedule, sample: torch.Tensor, v: torch.Tensor, t: TimestepLike) -> torch.Tensor:
@@ -161,6 +201,29 @@ def ddpm_step(
     return prev_sample.to(sample.dtype), pred_x0.to(sample.dtype)
 
 
+def ddim_step(
+    schedule: DiffusionSchedule,
+    model_output: torch.Tensor,
+    t: TimestepLike,
+    prev_t: TimestepLike,
+    sample: torch.Tensor,
+    eta: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Deterministic DDIM step (eta 0 only, as in the JAX package); returns
+    (prev_sample, pred_x0). ``prev_t < 0`` selects ``final_alpha_cumprod``."""
+    del eta
+    x = sample.float()
+    table = schedule.alphas_cumprod
+    t = _timesteps(t, table)
+    prev_t = _timesteps(prev_t, table)
+    final = torch.full_like(table[:1], schedule.final_alpha_cumprod)
+    alpha_prod_prev = _expand(torch.where(prev_t >= 0, table[prev_t.clamp(min=0)], final), x.ndim)
+    pred_x0 = _predicted_x0(schedule, model_output.float(), x, t)
+    eps = pred_eps_from_x0(schedule, x, pred_x0, t).float()
+    prev_sample = torch.sqrt(alpha_prod_prev) * pred_x0 + torch.sqrt(1.0 - alpha_prod_prev) * eps
+    return prev_sample.to(sample.dtype), pred_x0.to(sample.dtype)
+
+
 def lcm_boundary_scalings(
     t: TimestepLike, timestep_scaling: float = 10.0, sigma_data: float = 0.5
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -213,6 +276,31 @@ def ddpm_inference_timesteps(
 def ddpm_prev_timesteps(timesteps: np.ndarray, num_train_timesteps: int, num_inference_steps: int) -> np.ndarray:
     """Per-entry previous timestep: t - T//n (may go negative at the end)."""
     return np.asarray(timesteps, dtype=np.int64) - num_train_timesteps // num_inference_steps
+
+
+def lcm_inference_timesteps(
+    num_inference_steps: int,
+    num_train_timesteps: int = 1000,
+    original_inference_steps: int = 50,
+    strength: float = 1.0,
+) -> np.ndarray:
+    """LCM spacing: subsample the k*c-1 training schedule, descending."""
+    c = num_train_timesteps // original_inference_steps
+    lcm_origin = np.arange(1, int(original_inference_steps * strength) + 1) * c - 1
+    skipping_step = len(lcm_origin) // num_inference_steps
+    if skipping_step < 1:
+        raise ValueError(
+            f"num_inference_steps={num_inference_steps} exceeds the {len(lcm_origin)}-entry "
+            f"LCM origin schedule (original_inference_steps={original_inference_steps}, "
+            f"strength={strength}); reduce num_inference_steps"
+        )
+    return lcm_origin[::-skipping_step][:num_inference_steps].astype(np.int64)
+
+
+def ddim_solver_timesteps(num_train_timesteps: int = 1000, ddim_steps: int = 50) -> np.ndarray:
+    """Ascending DDIM solver grid of the LCM distillation: (i+1)*c - 1."""
+    step_ratio = num_train_timesteps // ddim_steps
+    return (np.arange(1, ddim_steps + 1) * step_ratio - 1).astype(np.int64)
 
 
 def importance_sampling_weights(num_train_timesteps: int, alpha: float = 0.5) -> np.ndarray:

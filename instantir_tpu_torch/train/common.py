@@ -1,12 +1,12 @@
 """What the trainers share: parameter selection, LR schedules, AdamW, timestep
 draws, the EMA helpers and the trainer frame.
 
-Twin of the parts of ``instantir_tpu/train/common.py`` that stages 1 and 2 use,
+Twin of the parts of ``instantir_tpu/train/common.py`` that the trainers use,
 in PyTorch idiom: a path predicate sets ``requires_grad`` on named parameters
 (in place of partitioned pytrees), ``torch.optim.AdamW`` with optax's
 global-norm clip and schedule semantics stands in for the optax chain, and
 the EMA helpers work on dicts of name -> tensor. ``Trainer`` holds what the
-JAX ``Stage1Trainer`` and ``Stage2Trainer`` repeat. The mesh/ZeRO helpers,
+JAX ``Stage1Trainer``, ``Stage2Trainer`` and ``PreviewerTrainer`` repeat. The mesh/ZeRO helpers,
 ``quantize_frozen_unet``, 8-bit Adam, the checkpoint manager, the tracker,
 batch pipelining and the preemption handler of the JAX package are not ported
 yet.
@@ -127,6 +127,21 @@ def make_adamw(
     return ClippedAdamW(params, lr, weight_decay, b1, b2, eps, max_grad_norm)
 
 
+def normal_draw(given: Optional[torch.Tensor], shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """``given`` on ``device``, or an fp32 standard-normal draw of ``shape`` from ``generator``."""
+    if given is not None:
+        return given.to(device)
+    return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+
+
+def uniform_draw(given: Optional[torch.Tensor], batch: int, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """``given`` as ``[batch]`` on ``device``, or ``batch`` fp32 uniforms in [0, 1) from ``generator``."""
+    if given is not None:
+        return given.to(device).reshape(batch)
+    return torch.rand((batch,), generator=generator, dtype=torch.float32, device=device)
+
+
 def sample_timesteps(generator: torch.Generator, batch: int, num_train_timesteps: int,
                      importance_weights=None, device=None) -> torch.Tensor:
     """Uniform or importance-weighted t ~ p(t), int64 ``[batch]``."""
@@ -177,10 +192,11 @@ DINO_TRAIN_SIZE = 224
 
 class Trainer:
     """The models on one device, the trainable split from a path predicate,
-    ``ClippedAdamW`` on the trainable leaves, every draw of a step from a
-    seeded ``torch.Generator`` unless given, and gradient accumulation. A
-    subclass sets ``self._loss_fn(batch, draws, generator) -> (total,
-    metrics)``. ``device="cuda"`` (the default) raises without a card; pass
+    the losses ``loss_configs`` picks, ``ClippedAdamW`` on the trainable
+    leaves, every draw of a step from a seeded ``torch.Generator`` unless
+    given, and gradient accumulation. A subclass sets
+    ``self._loss_fn(batch, draws, generator) -> (total, metrics)``.
+    ``device="cuda"`` (the default) raises without a card; pass
     ``device="cpu"`` to train on the CPU."""
 
     def __init__(self, tag: str, models: Dict[str, nn.Module], cfg, pred: PathPred,
@@ -197,8 +213,7 @@ class Trainer:
                 raise ValueError(f"{type(self).__name__}: {name} lies on {sorted(where)}, "
                                  f"the trainer on {self.device.type}")
         self.schedule = (schedule or sdxl_schedule()).to(self.device)
-        self.losses = build_losses(losses_config.diffusion_losses if losses_config
-                                   else [SingleLossConfig(name="L2Loss")])
+        self.losses = build_losses(self.loss_configs(losses_config))
         self.trainable_names = set_trainable(models, pred)
         named = self.named_parameters()
         self.trainable: List[nn.Parameter] = [named[n] for n in self.trainable_names]
@@ -212,6 +227,11 @@ class Trainer:
         self._generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.global_step = 0
         print(f"[{tag}] trainable params: {count_params(self.trainable) / 1e6:.2f}M")
+
+    def loss_configs(self, losses_config: Optional[LossesConfig]) -> List[SingleLossConfig]:
+        """The losses this trainer sums: ``diffusion_losses``, L2 by default
+        (stages 1 and 2; the previewer reads ``lcm_losses``)."""
+        return losses_config.diffusion_losses if losses_config else [SingleLossConfig(name="L2Loss")]
 
     def named_parameters(self) -> Dict[str, nn.Parameter]:
         """Every parameter of the models under ``<model>.<name>``."""

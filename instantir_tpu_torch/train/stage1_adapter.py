@@ -126,18 +126,13 @@ def build_stage1_step(unet, resampler, vae, image_encoder, schedule, losses, cfg
         lat_shape = (bsz, gt.shape[1] // factor, gt.shape[2] // factor, vae.config.latent_channels)
 
         def normal(given, shape):
-            if given is not None:
-                return given.to(dev)
-            return torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
+            return common.normal_draw(given, shape, generator, dev)
 
         with torch.no_grad():  # frozen encoders: DINOv2 tokens of lq, VAE latents of gt
             pixels = preprocess_dinov2((lq + 1.0) / 2.0, size=common.DINO_TRAIN_SIZE)
             tokens_cond = image_encoder(_nchw(pixels))
             tokens_uncond = batch["uncond_tokens"].to(tokens_cond.dtype).expand_as(tokens_cond)
-            u = draws.drop_uniform
-            if u is None:
-                u = torch.rand((bsz,), generator=generator, dtype=torch.float32, device=dev)
-            drop = (u.to(dev).reshape(bsz, 1, 1) < cfg.image_drop_rate)
+            drop = common.uniform_draw(draws.drop_uniform, bsz, generator, dev).reshape(bsz, 1, 1) < cfg.image_drop_rate
             tokens = torch.where(drop, tokens_uncond, tokens_cond)
             z = vae.encode(_nchw(gt.float()), noise=_nchw(normal(draws.vae_noise, lat_shape)))
             latents = scale_latents(vae.config, z)

@@ -164,14 +164,10 @@ def build_stage2_step(unet, aggregator, resampler, vae, image_encoder, schedule,
         lat_shape = (bsz, gt.shape[1] // factor, gt.shape[2] // factor, vae.config.latent_channels)
 
         def normal(given, shape):
-            if given is not None:
-                return given.to(dev)
-            return torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
+            return common.normal_draw(given, shape, generator, dev)
 
         def uniform(given):
-            if given is not None:
-                return given.to(dev).reshape(bsz)
-            return torch.rand((bsz,), generator=generator, dtype=torch.float32, device=dev)
+            return common.uniform_draw(given, bsz, generator, dev)
 
         with torch.no_grad():
             # condition drops from one uniform per sample (reference :1461-1467)
