@@ -17,8 +17,9 @@ which ends the script with a nonzero exit on failure:
    Skv, a kv tail of 72 keys, an odd batch x heads and an odd S; for GroupNorm
    every shape of the restore in bf16, fp16 and fp32, a ragged one, one past a
    cluster's shared memory, and the fp32 paths' shapes in fp32), with time,
-   bound, the plain version's time
-   and a one-call library yardstick; the wrappers' host time per call;
+   bound (fp32: the 3xTF32 rate, the FFMA rate's share beside it), the plain
+   version's time and a one-call library yardstick (SDPA's own fp32 error is
+   logged too); the wrappers' host time per call;
    GroupNorm's device time from a CUDA-graph replay;
 4. restore at full SDXL width with synthetic weights: a UNet forward with the
    flash path against the plain attention path, then ``restore`` with the
@@ -41,7 +42,9 @@ which ends the script with a nonzero exit on failure:
    1024² (batch 1, gradient checkpointing); loss, each loss term and the
    gradient norm finite, the strip finite of shape (2, 512, 1536, 3), every
    LoRA leaf moved, no frozen leaf changed, every step's launch counters equal
-   to the counts derived from the config;
+   to the counts derived from the config. In phases 5-7 each bf16 trainable
+   leaf trains through an fp32 master with fp32 AdamW moments: every master
+   must move and every bf16 leaf must hold its master's rounding;
 8. fp32, after the bf16 models are freed: ``build_pipeline`` with its default
    dtype restores a 512² image in 4 steps and one fp32 ``Stage1Trainer`` step
    runs at 512², batch 1, both through the fp32 flash entry points and the
@@ -56,8 +59,12 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -68,6 +75,10 @@ REPO = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 # H100 SXM fp32 FFMA rate outside the tensor cores: 132 SMs x 128 lanes x 2 operations x 1.98 GHz
 PEAK_FP32_FLOPS = 66.9e12
+# fp32 products at fp32 accuracy on the tensor cores: three TF32 products of split operands (3xTF32, the
+# fp32 backward kernels' route and PyTorch's fp32 SDPA's) at the dense TF32 rate. The fp32 entry points'
+# bound; their share of the FFMA bound is kept beside it.
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 FLASH_TOL = 4e-3  # max abs error, bf16: the band stated for the Pallas kernel vs the XLA path
 LSE_TOL = 1e-3  # max abs error of the fp32 log2-domain logsumexp (values of order 10)
@@ -154,15 +165,41 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
 
 
 def flash_bound_ms(b: int, sq: int, skv: int, h: int, products: int = 2, q_tensors: int = 2, kv_tensors: int = 2,
-                   rows_fp32: int = 0, d: int = 64, f32: bool = False):
+                   rows_fp32: int = 0, d: int = 64, f32: bool = False, peak_f32: float = PEAK_TF32X3_FLOPS):
     """``products`` Sq x Skv x d matrix products (2 flops per multiply-add)
     against ``q_tensors`` [B, Sq, H, d] and ``kv_tensors`` [B, Skv, H, d]
-    operands (bf16, or fp32 at the FFMA rate with ``f32``) and ``rows_fp32``
-    fp32 [B, H, Sq] ones, each read or written once."""
+    operands (bf16, or fp32 at ``peak_f32``, the 3xTF32 rate unless given,
+    with ``f32``) and ``rows_fp32`` fp32 [B, H, Sq] ones, each read or
+    written once."""
     itemsize = 4.0 if f32 else 2.0
     return bound_ms(2.0 * products * b * h * sq * skv * d,
                     (q_tensors * sq + kv_tensors * skv) * b * h * d * itemsize + rows_fp32 * b * h * sq * 4.0,
-                    PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS)
+                    peak_f32 if f32 else PEAK_BF16_FLOPS)
+
+
+def sass_summary(paths: dict) -> None:
+    """Log, for each kernel of each built library, its counts of tensor-core
+    instructions (HGMMA for wgmma, HMMA for mma.sync, with their shape and
+    types), FFMA and local-memory loads and stores (LDL / STL: spills), read
+    with the CUDA toolkit's ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("    cuobjdump not found: no SASS summary")
+        return
+    op = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?((HGMMA|HMMA|FFMA|LDL|STL)[.\w]*)")
+    for name, path in paths.items():
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, check=False).stdout
+        counts = {}
+        for line in sass.splitlines():
+            if "Function :" in line:
+                kernel = re.search(r"\d((?:flash|group_norm)\w*?_kernel)", line)  # after the mangled length
+                key = kernel.group(1) if kernel else line.split("Function :")[1].strip()
+                key += f" #{sum(k.startswith(key) for k in counts) + 1}" if key in counts else ""  # template instances
+                counts[key] = fn = collections.Counter()
+            elif counts and (m := op.search(line)):
+                fn[m.group(1) if m.group(2) in ("HGMMA", "HMMA") else m.group(2)] += 1
+        for kernel, c in counts.items():
+            log(f"    {name} {kernel}: " + (", ".join(f"{k} {n}" for k, n in sorted(c.items())) or "none of them"))
 
 
 def host_us_per_call(torch, fn, calls: int = 200, runs: int = 5) -> float:
@@ -307,10 +344,12 @@ def check_flash_f32(torch, attention) -> dict:
     """Phase 3, the fp32 entry points of K1-K4 (``csrc/flash_f32.cu``) against
     the plain fp32 versions at the fp32 paths' shapes and the extra ones:
     outputs and gradients to ``F32_REL_L2`` / ``F32_REL_MAX``, lse to
-    ``F32_LSE_TOL``. Bound: operations at the FFMA rate; library: SDPA and its
-    backward in fp32 with TF32 off. The plain backward runs with 1024-wide
-    blocks (in fp32 the blocking moves no rounding point, only the order of
-    the sums)."""
+    ``F32_LSE_TOL``. Bound: operations at the 3xTF32 rate, the FFMA rate's
+    beside it (``ffma_bound_ms``); library: SDPA and its backward in fp32
+    with TF32 off, whose own error against the plain version is logged (it
+    takes its products in 3xTF32 too). The plain backward runs with
+    1024-wide blocks (in fp32 the blocking moves no rounding point, only the
+    order of the sums)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -345,6 +384,12 @@ def check_flash_f32(torch, attention) -> dict:
             fail(f"fp32 flash lse disagrees with its plain fp32 version at {where}: {err_lse} > {F32_LSE_TOL}")
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qt, kt, vt)
+        lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
+        lib_errs = [f32_errors(x.transpose(1, 2), want)[0] for x, want in zip((lib_out,) + lib_grads, (ref_o,) + refs)]
+        log(f"  sdpa fp32 at {where}, relative L2 against the plain fp32 version: o {lib_errs[0]:.2e}, dq "
+            f"{lib_errs[1]:.2e}, dk {lib_errs[2]:.2e}, dv {lib_errs[3]:.2e} (the kernels': dq {errs['dq'][0]:.2e}, "
+            f"dk {errs['dk'][0]:.2e}, dv {errs['dv'][0]:.2e})")
+        del lib_grads
         dlib = torch.randn_like(lib_out)
         lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
         lib_bwd = time_ms(
@@ -362,15 +407,20 @@ def check_flash_f32(torch, attention) -> dict:
              dict(products=4, q_tensors=2, kv_tensors=4, rows_fp32=2)),
         ):
             bound, bound_by = flash_bound_ms(b, s, skv, h, f32=True, **bound_args)
+            ffma_bound, _ = flash_bound_ms(b, s, skv, h, f32=True, peak_f32=PEAK_FP32_FLOPS, **bound_args)
             max_abs = max(err[2], err_lse) if name == "fwd_lse" else err[2]
             rows[name].append(dict(**shape, max_abs_err=max_abs, rel_l2_err=err[0], ms=time_ms(torch, fn),
-                                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=library_ms))
+                                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, ffma_bound_ms=ffma_bound,
+                                   library_ms=library_ms))
         r1, r2, r3, r4 = (rows[n][-1] for n in ("fwd", "fwd_lse", "bwd_dq", "bwd_dkv"))
-        log(f"  fp32 {where}: fwd rel L2 {r1['rel_l2_err']:.2e} {r1['ms']:.4f} ms (bound {r1['bound_ms']:.4f}, sdpa "
-            f"{lib_fwd:.4f}) | fwd+lse lse err {err_lse:.2e} {r2['ms']:.4f} ms | dq rel L2 {r3['rel_l2_err']:.2e} "
-            f"{r3['ms']:.4f} ms (bound {r3['bound_ms']:.4f}) | dkv rel L2 {r4['rel_l2_err']:.2e} {r4['ms']:.4f} ms "
-            f"(bound {r4['bound_ms']:.4f}) | plain fwd {plain_fwd:.3f} ms, bwd {plain_bwd_ms:.2f} ms, sdpa bwd "
-            f"{lib_bwd:.4f} ms")
+
+        def share(r):
+            return f"{r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.1%} of 3xTF32, {r['ffma_bound_ms'] / r['ms']:.1%} of FFMA"
+
+        log(f"  fp32 {where}: fwd rel L2 {r1['rel_l2_err']:.2e} {share(r1)} (sdpa {lib_fwd:.4f}) | fwd+lse lse err "
+            f"{err_lse:.2e} {r2['ms']:.4f} ms | dq rel L2 {r3['rel_l2_err']:.2e} {share(r3)} | dkv rel L2 "
+            f"{r4['rel_l2_err']:.2e} {share(r4)} | dq+dkv {r3['ms'] + r4['ms']:.4f} ms, sdpa bwd {lib_bwd:.4f} ms | "
+            f"plain fwd {plain_fwd:.3f} ms, bwd {plain_bwd_ms:.2f} ms")
         del lib_out, refs
     return rows
 
@@ -906,8 +956,35 @@ def train_step_checked(torch, trainer, batch, g, mods: dict, expected: dict, wha
     return launches, sec, values
 
 
+def trainer_masters(torch, trainer, what: str) -> dict:
+    """``{name: master}`` of the trainer's trainable leaves
+    (``ClippedAdamW.masters``): a bf16 leaf trains through an fp32 copy with
+    fp32 moments (the JAX trainers' fp32 parameters), an fp32 leaf is its own."""
+    narrow = [p for p in trainer.trainable if p.dtype != torch.float32]
+    if not narrow:
+        fail(f"{what}: no bf16 trainable leaf")
+    log(f"  {what}: {len(narrow)} bf16 trainable leaves ({sum(p.numel() for p in narrow) / 1e6:.2f} M parameters) "
+        f"train through fp32 masters, {len(trainer.trainable) - len(narrow)} fp32 leaves are their own")
+    return dict(zip(trainer.trainable_names, trainer.optimizer.masters))
+
+
+def check_masters(torch, trainer, what: str) -> None:
+    """After the steps: each bf16 leaf has a separate fp32 master, every
+    master's AdamW moments are fp32, and each bf16 leaf holds its master's
+    bf16 rounding."""
+    opt = trainer.optimizer
+    for n, p, m in zip(trainer.trainable_names, trainer.trainable, opt.masters):
+        state = opt.optimizer.state.get(m, {})
+        moments = {state[k].dtype for k in ("exp_avg", "exp_avg_sq") if k in state}
+        if m.dtype != torch.float32 or (m is p) != (p.dtype == torch.float32) or moments != {torch.float32}:
+            fail(f"{what}: {n} has no fp32 master with fp32 moments of its own")
+        if p is not m and not torch.equal(p.detach(), m.to(p.dtype)):
+            fail(f"{what}: the bf16 leaf {n} is not its fp32 master's rounding")
+    log(f"  {what}: every master and its AdamW moments fp32, every bf16 leaf its master's rounding")
+
+
 def check_leaves(torch, before_train: dict, before_frozen: dict, trainable: dict, frozen: dict, what: str) -> None:
-    """Every trainable leaf moved, no frozen leaf changed (``_checksums``)."""
+    """Every trainable leaf (its fp32 master) moved, no frozen leaf changed (``_checksums``)."""
     after_train, after_frozen = _checksums(torch, trainable), _checksums(torch, frozen)
     stuck = [n for n in trainable if after_train[n] == before_train[n]]
     changed = [n for n in frozen if after_frozen[n] != before_frozen[n]]
@@ -915,7 +992,8 @@ def check_leaves(torch, before_train: dict, before_frozen: dict, trainable: dict
         fail(f"{what}: {len(stuck)} trainable leaves did not move, e.g. {stuck[:5]}")
     if changed:
         fail(f"{what}: {len(changed)} frozen leaves changed, e.g. {changed[:5]}")
-    log(f"  {what}: all {len(trainable)} trainable leaves moved, none of the {len(frozen)} frozen leaves changed")
+    log(f"  {what}: all {len(trainable)} trainable leaves' masters moved, none of the {len(frozen)} frozen leaves "
+        "changed")
 
 
 def run_stage2(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
@@ -933,7 +1011,8 @@ def run_stage2(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     log(f"  stage-2 trainer: {sum(p.numel() for p in trainable.values()) / 1e6:.2f} M trainable parameters in "
         f"{len(trainable)} leaves, {sum(p.numel() for p in frozen.values()) / 1e9:.3f} B frozen in {len(frozen)}; "
         f"fp32 EMA adapter copy of {len(trainer.ema_adapter)} leaves")
-    before_train, before_frozen = _checksums(torch, trainable), _checksums(torch, frozen)
+    masters = trainer_masters(torch, trainer, "stage 2")
+    before_train, before_frozen = _checksums(torch, masters), _checksums(torch, frozen)
     g = torch.Generator(device="cuda").manual_seed(5)
     out = {"train_stage2_512": {name: 0 for name in COUNTERS}, "sec_512": []}
     expected = every_counter(expected_stage2_launches(ucfg, cfg, 512 // 8, checkpointing=False))
@@ -959,7 +1038,8 @@ def run_stage2(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
         torch, trainer, batch, g, mods, expected, "stage-2 train_step at 1024² batch 1, checkpointing", card_line)
     out["peak_gb_1024"] = torch.cuda.max_memory_allocated() / 1e9
     trainer.unet.gradient_checkpointing = trainer.aggregator.gradient_checkpointing = False
-    check_leaves(torch, before_train, before_frozen, trainable, frozen, "stage 2, 3 steps")
+    check_leaves(torch, before_train, before_frozen, masters, frozen, "stage 2, 3 steps")
+    check_masters(torch, trainer, "stage 2")
     out["cfg"] = cfg
     log(f"  stage-2 512² steps {['%.3f' % x for x in out['sec_512']]} s (the first includes warm-up), peak "
         f"{out['peak_gb_512']:.2f} GB; 1024² step {out['sec_1024']:.3f} s, peak {out['peak_gb_1024']:.2f} GB; "
@@ -981,7 +1061,8 @@ def run_training(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     frozen = {n: p for n, p in named.items() if not p.requires_grad}
     log(f"  stage-1 trainer: {sum(p.numel() for p in trainable.values()) / 1e6:.2f} M trainable parameters in "
         f"{len(trainable)} leaves, {sum(p.numel() for p in frozen.values()) / 1e9:.3f} B frozen in {len(frozen)}")
-    before_train, before_frozen = _checksums(torch, trainable), _checksums(torch, frozen)
+    masters = trainer_masters(torch, trainer, "stage 1")
+    before_train, before_frozen = _checksums(torch, masters), _checksums(torch, frozen)
 
     g = torch.Generator(device="cuda").manual_seed(3)
 
@@ -1012,7 +1093,8 @@ def run_training(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     log(f"  1024² batch 1, gradient checkpointing; expected launches {expected_big}")
     big, big_sec, _ = step(make_batch(1, 1024), expected_big, "train_step at 1024² batch 1, checkpointing")
     trainer.unet.gradient_checkpointing = False
-    check_leaves(torch, before_train, before_frozen, trainable, frozen, "stage 1, 4 steps")
+    check_leaves(torch, before_train, before_frozen, masters, frozen, "stage 1, 4 steps")
+    check_masters(torch, trainer, "stage 1")
     log(f"  512² steps {['%.3f' % s for s in secs]} s (the first includes warm-up), 1024² step {big_sec:.3f} s")
     return {"train_512": total, "train_1024": big, "sec_512": secs, "sec_1024": big_sec}
 
@@ -1037,7 +1119,8 @@ def run_previewer(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
         fail("the previewer does not train the Resampler's LoRA")
     log(f"  previewer trainer: {sum(p.numel() for p in trainable.values()) / 1e6:.2f} M trainable LoRA parameters in "
         f"{len(trainable)} leaves, {sum(p.numel() for p in frozen.values()) / 1e9:.3f} B frozen in {len(frozen)}")
-    before_train, before_frozen = _checksums(torch, trainable), _checksums(torch, frozen)
+    masters = trainer_masters(torch, trainer, "previewer")
+    before_train, before_frozen = _checksums(torch, masters), _checksums(torch, frozen)
     g = torch.Generator(device="cuda").manual_seed(8)
     fused = mods["group_norm"].USE_FUSED
 
@@ -1090,7 +1173,8 @@ def run_previewer(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
         torch, trainer, batch, g, mods, expected, "previewer train_step at 1024² batch 1, checkpointing", card_line)
     out["peak_gb_1024"] = torch.cuda.max_memory_allocated() / 1e9
     trainer.unet.gradient_checkpointing = False
-    check_leaves(torch, before_train, before_frozen, trainable, frozen, "previewer, 4 steps")
+    check_leaves(torch, before_train, before_frozen, masters, frozen, "previewer, 4 steps")
+    check_masters(torch, trainer, "previewer")
     log(f"  previewer 512² Huber steps {['%.3f' % x for x in out['sec_512']]} s (the first includes warm-up), peak "
         f"{out['peak_gb_512']:.2f} GB; DINOLoss step {out['sec_dino']:.3f} s, peak {out['peak_gb_dino']:.2f} GB; "
         f"1024² step {out['sec_1024']:.3f} s, peak {out['peak_gb_1024']:.2f} GB; on {card_line}")
@@ -1222,7 +1306,7 @@ def main() -> None:
 
     t0 = time.time()
     try:
-        kernels.build()
+        paths = kernels.build()
     except RuntimeError as e:
         fail(f"kernel build failed: {e}")
     log(f"[2] built {list(kernels.SOURCES)} in {time.time() - t0:.2f} s")
@@ -1230,6 +1314,7 @@ def main() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "arning" in line:
                 log(f"    {name}: {line.strip()}")
+    sass_summary(paths)
 
     # 3. kernel check
     from instantir_tpu_torch.models.unet import sdxl_base_config

@@ -26,9 +26,12 @@ heads, head_dim]`` (BSHD) at every public function, as in the JAX package.
 
 Every wrapper takes bf16 or fp32 (one dtype for all its operands), as the
 Pallas kernels take any float dtype: bf16 launches the ``wgmma`` kernels
-above, fp32 the FFMA kernels of ``csrc/flash_f32.cu`` (the tensor cores take
-fp32 only as TF32, short of the fp32 tolerance). Every entry point has its own
-launch counter, bumped only where it launches.
+above, fp32 those of ``csrc/flash_f32.cu``: an FFMA forward, and a backward
+on the tensor cores in 3xTF32 (one TF32 product keeps 10 mantissa bits, short
+of the fp32 tolerance; three products of the split ``hi + lo`` keep about 21:
+``split_tf32`` and the ``matmul`` hook of ``flash_backward_reference``
+emulate them on the CPU). Every entry point has its own launch counter, bumped
+only where it launches.
 """
 
 from __future__ import annotations
@@ -121,6 +124,23 @@ def flash_attention_reference(
     return flash_attention_lse_reference(q, k, v, scale, block_k)[0]
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, on the bits, as ``cvt.rna.tf32.f32`` rounds a finite
+    value: half a TF32 ulp added to the magnitude, the low 13 bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` with ``hi = tf32(x)`` and ``lo = tf32(x - hi)``: together
+    about 21 of fp32's 24 significant bits. The split of the fp32 backward
+    kernels' 3xTF32 products, ``a·b ≈ lo_a·hi_b + hi_a·lo_b + hi_a·hi_b``
+    (``csrc/flash_f32.cu``)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
 def flash_backward_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -131,6 +151,7 @@ def flash_backward_reference(
     scale: Optional[float] = None,
     block_q: int = 64,
     block_k: int = 64,
+    matmul=torch.matmul,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain-PyTorch version of the two backward kernels: the blocked dQ sweep
     (per q block over K/V blocks) and the blocked dK/dV sweep (per K/V block
@@ -139,7 +160,9 @@ def flash_backward_reference(
     in fp32; P and dS rounded to the input dtype before their products; fp32
     accumulators; ``dq = dtype(acc·scale)``, ``dk = dtype(acc·scale)``,
     ``dv = dtype(acc)``. ``D = rowsum(dO∘O)`` in fp32. q/k/v/o/do: [B, S, H, D];
-    lse: [B, H, Sq] fp32 (log2 domain). Returns (dq, dk, dv) in [B, S, H, D]."""
+    lse: [B, H, Sq] fp32 (log2 domain). Returns (dq, dk, dv) in [B, S, H, D].
+    ``matmul`` takes every block product (fp32 operands); the tests pass an
+    emulation of the fp32 kernels' 3xTF32 products."""
     d = q.shape[-1]
     if scale is None:
         scale = d**-0.5
@@ -161,11 +184,11 @@ def flash_backward_reference(
         i = slice(i0, i0 + block_q)
         for j0 in range(0, skv, block_k):
             j = slice(j0, j0 + block_k)
-            s = torch.matmul(q2[:, :, i], kf32[:, :, j].transpose(-1, -2))
+            s = matmul(q2[:, :, i], kf32[:, :, j].transpose(-1, -2))
             p = torch.exp2(s - lse_c[:, :, i])
-            dp = torch.matmul(dof32[:, :, i], vf32[:, :, j].transpose(-1, -2))
+            dp = matmul(dof32[:, :, i], vf32[:, :, j].transpose(-1, -2))
             ds = (p * (dp - delta[:, :, i])).to(dt).float()
-            dq[:, :, i] += torch.matmul(ds, kf32[:, :, j])
+            dq[:, :, i] += matmul(ds, kf32[:, :, j])
 
     dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
@@ -174,12 +197,12 @@ def flash_backward_reference(
         j = slice(j0, j0 + block_k)
         for i0 in range(0, sq, block_q):
             i = slice(i0, i0 + block_q)
-            s_t = torch.matmul(k2[:, :, j], qf32[:, :, i].transpose(-1, -2))
+            s_t = matmul(k2[:, :, j], qf32[:, :, i].transpose(-1, -2))
             p_t = torch.exp2(s_t - lse_r[:, :, :, i])
-            dv[:, :, j] += torch.matmul(p_t.to(dt).float(), dof32[:, :, i])
-            dp_t = torch.matmul(vf32[:, :, j], dof32[:, :, i].transpose(-1, -2))
+            dv[:, :, j] += matmul(p_t.to(dt).float(), dof32[:, :, i])
+            dp_t = matmul(vf32[:, :, j], dof32[:, :, i].transpose(-1, -2))
             ds_t = (p_t * (dp_t - delta_r[:, :, :, i])).to(dt).float()
-            dk[:, :, j] += torch.matmul(ds_t, qf32[:, :, i])
+            dk[:, :, j] += matmul(ds_t, qf32[:, :, i])
 
     def unfold(x):
         return x.permute(0, 2, 1, 3)

@@ -45,6 +45,11 @@ def set_trainable(models: Dict[str, nn.Module], pred: PathPred) -> List[str]:
     return trainable
 
 
+def fp32_cpu(t: torch.Tensor) -> torch.Tensor:
+    """An fp32 copy on the CPU (an export's leaf)."""
+    return t.detach().to("cpu", torch.float32, copy=True)
+
+
 def count_params(params: Iterable[torch.Tensor]) -> int:
     return int(sum(p.numel() for p in params))
 
@@ -84,30 +89,42 @@ class ClippedAdamW:
     learning-rate schedule: ``step(grads)`` scales the gradients by
     ``max_norm / max(norm, max_norm)``, applies AdamW (decoupled decay, eps
     outside the root, bias correction) with the schedule evaluated at the
-    number of updates made so far, and returns the norm before clipping."""
+    number of updates made so far, and returns the norm before clipping.
+
+    A leaf narrower than fp32 (a bf16 model's) trains through an fp32 master
+    copy, as the JAX trainers train fp32 parameters under bf16 compute: the
+    norm, the clip and the AdamW update (fp32 moments) are taken in fp32 on
+    the master, whose rounding is then written back into the leaf -- the value
+    the JAX modules cast their fp32 parameters to at each use. ``masters[i]``
+    is ``params[i]`` itself for an fp32 leaf."""
 
     def __init__(self, params: List[nn.Parameter], lr: Union[Callable[[int], float], float], weight_decay: float,
                  b1: float, b2: float, eps: float, max_grad_norm: Optional[float]):
         self.params = list(params)
+        self.masters = [p if p.dtype == torch.float32 else p.detach().float().clone() for p in self.params]
         self.schedule = lr if callable(lr) else (lambda step: float(lr))
         self.max_grad_norm = max_grad_norm
         self.count = 0
-        self.optimizer = torch.optim.AdamW(self.params, lr=self.schedule(0), betas=(b1, b2), eps=eps,
+        self.optimizer = torch.optim.AdamW(self.masters, lr=self.schedule(0), betas=(b1, b2), eps=eps,
                                            weight_decay=weight_decay)
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> torch.Tensor:
         norm = global_norm(grads)
+        factor = None
         if self.max_grad_norm is not None:
             factor = self.max_grad_norm / torch.clamp(norm, min=self.max_grad_norm)
-            grads = [g * factor.to(g.dtype) for g in grads]
-        for p, g in zip(self.params, grads):
-            p.grad = g
+        for m, g in zip(self.masters, grads):  # one fp32 gradient at a time: no second copy of them all
+            g = g.float()
+            m.grad = g if factor is None else g * factor
         lr = self.schedule(self.count)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+        for p, m in zip(self.params, self.masters):
+            if m is not p:
+                p.copy_(m)
         self.count += 1
         return norm
 
@@ -237,6 +254,19 @@ class Trainer:
         """Every parameter of the models under ``<model>.<name>``."""
         return named_parameters(self.models)
 
+    def master_parameters(self) -> Dict[str, torch.Tensor]:
+        """``named_parameters`` with each trainable leaf as its fp32 master
+        (``ClippedAdamW.masters``): the values the JAX trainers hold."""
+        named: Dict[str, torch.Tensor] = dict(self.named_parameters())
+        named.update(zip(self.trainable_names, self.optimizer.masters))
+        return named
+
+    def master_state(self, model: str) -> Dict[str, torch.Tensor]:
+        """``models[model].state_dict()`` with each trainable leaf read from
+        its fp32 master: what the exports are made of."""
+        named = self.master_parameters()
+        return {k: named.get(f"{model}.{k}", v) for k, v in self.models[model].state_dict().items()}
+
     @torch.no_grad()
     def _uncond_image_tokens(self) -> torch.Tensor:
         """DINOv2 tokens of the zero (preprocessed) 224² image: constant while
@@ -285,7 +315,7 @@ class Trainer:
                     a += g
             self._micro_steps += 1
             if self._micro_steps == k:
-                self.optimizer.step([(a / k).to(p.dtype) for a, p in zip(self._accumulated, self.trainable)])
+                self.optimizer.step([a / k for a in self._accumulated])  # the fp32 mean
                 self._accumulated, self._micro_steps = None, 0
         else:
             self.optimizer.step(grads)

@@ -290,10 +290,10 @@ class PreviewerTrainer(common.Trainer):
 
     def lora_state(self) -> Dict[str, torch.Tensor]:
         """The diffusers-format previewer LoRA (``unet.<path>.lora_A/B.weight``),
-        fp32 copies on the CPU: the UNet's LoRA leaves under the reference's names.
-        The Resampler's LoRA is left out, as in the JAX export."""
-        return {f"unet.{k}": v.detach().to("cpu", torch.float32, copy=True)
-                for k, v in self.unet.state_dict().items() if "lora_" in k}
+        fp32 copies of their masters on the CPU: the UNet's LoRA leaves under
+        the reference's names. The Resampler's LoRA is left out, as in the JAX
+        export."""
+        return {f"unet.{k}": common.fp32_cpu(v) for k, v in self.master_state("unet").items() if "lora_" in k}
 
     def export_lora(self, path: str) -> None:
         """Write ``lora_state`` to ``path``: the payload of ``previewer_lora_weights.bin``."""

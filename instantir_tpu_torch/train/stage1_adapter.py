@@ -179,13 +179,12 @@ class Stage1Trainer(common.Trainer):
 
     def adapter_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The reference-format ``adapter_ckpt.pt`` payload ``{image_proj,
-        ip_adapter}`` (``convert.export_adapter``), on the CPU."""
+        ip_adapter}`` (``convert.export_adapter``) in fp32 on the CPU, the
+        trained leaves from their fp32 masters."""
         from instantir_tpu_torch.convert import export_adapter
 
-        def cpu(model):
-            return {k: v.detach().cpu() for k, v in model.state_dict().items()}
-
-        return export_adapter(cpu(self.unet), cpu(self.resampler))
+        payload = export_adapter(self.master_state("unet"), self.master_state("resampler"))
+        return {part: {k: common.fp32_cpu(v) for k, v in tensors.items()} for part, tensors in payload.items()}
 
     def export_adapter(self, path: str) -> None:
         torch.save(self.adapter_state(), path)

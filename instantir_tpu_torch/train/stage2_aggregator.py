@@ -265,15 +265,16 @@ class Stage2Trainer(common.Trainer):
         metrics = super().train_step(batch, draws, generator)
         cfg = self.cfg
         if self.ema_adapter is not None and cfg.optimize_adapter and self.global_step % cfg.ema_update_steps == 0:
-            named = self.named_parameters()
-            common.ema_update(self.ema_adapter, {n: named[n] for n in self.ema_adapter}, cfg.ema_decay)
+            masters = self.master_parameters()
+            common.ema_update(self.ema_adapter, {n: masters[n] for n in self.ema_adapter}, cfg.ema_decay)
         return metrics
 
     def aggregator_state(self) -> Dict[str, torch.Tensor]:
         """The reference-format ``aggregator_ckpt.pt`` payload in fp32 on the
-        CPU: the port's Aggregator names are those ``convert.export_aggregator``
-        gives the JAX tree (``train_stage2_aggregator.py:1023-1043``)."""
-        return {k: v.detach().float().cpu() for k, v in self.aggregator.state_dict().items()}
+        CPU, the trained leaves from their fp32 masters: the port's Aggregator
+        names are those ``convert.export_aggregator`` gives the JAX tree
+        (``train_stage2_aggregator.py:1023-1043``)."""
+        return {k: common.fp32_cpu(v) for k, v in self.master_state("aggregator").items()}
 
     def export_aggregator(self, path: str) -> None:
         torch.save(self.aggregator_state(), path)

@@ -619,6 +619,52 @@ def test_flash_backward_reference_ragged_matches_attention_xla_autograd():
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=5e-5, rtol=1e-3)
 
 
+def _tf32x3(a, b):
+    """A block product as the fp32 backward kernels take it: three TF32
+    products of the split operands, small terms first."""
+    (ah, al), (bh, bl) = tattn.split_tf32(a), tattn.split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tf32x1(a, b):
+    return tattn.tf32_round(a) @ tattn.tf32_round(b)
+
+
+def test_tf32_round_and_split_on_the_bits():
+    """Round to nearest, ties away from zero (``cvt.rna.tf32.f32``); hi + lo
+    keeps x to about 2^-21 of its magnitude."""
+    x = torch.tensor([1.0, 1.0 + 2**-11, 1.0 + 3 * 2**-11, -1.0 - 2**-11, 1.0 + 2**-12, 0.0, -0.0, 3.0e-39])
+    want = [1.0, 1.0 + 2**-10, 1.0 + 2**-9, -1.0 - 2**-10, 1.0, 0.0, -0.0]
+    got = tattn.tf32_round(x)
+    assert got[:7].tolist() == want and (got.view(torch.int32) & 0x1FFF == 0).all()
+    y = torch.from_numpy(np.random.default_rng(15).standard_normal(10_000).astype(np.float32))
+    hi, lo = tattn.split_tf32(y)
+    assert torch.equal(tattn.tf32_round(hi), hi) and torch.equal(tattn.tf32_round(lo), lo)
+    assert ((hi.double() + lo.double() - y.double()).abs() <= y.double().abs() * 2.0**-21).all()
+
+
+@pytest.mark.parametrize("sq", [256, 200])
+def test_3xtf32_backward_meets_the_fp32_tolerance(sq):
+    """The numerics of the fp32 backward kernels (``csrc/flash_f32.cu``),
+    emulated on the CPU: the blocked dQ and dK/dV sweeps with every product
+    taken as three TF32 products of split operands come within the card
+    check's relative L2 of 1e-5 of an fp64 reference; with one TF32 product
+    they miss it. (S = 200 is ragged: its last 64-wide block is shorter.)"""
+    rng = np.random.default_rng(16)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, sq, 2, 64)).astype(np.float32)) for _ in range(4))
+    leaves = [x.double().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(tattn.attention_xla(*leaves), leaves, do.double())
+    o, lse = tattn.flash_attention_lse_reference(q, k, v)
+
+    def rel_l2(matmul):
+        got = tattn.flash_backward_reference(q, k, v, o, lse, do, matmul=matmul)
+        return [((a.double() - b).norm() / b.norm()).item() for a, b in zip(got, want)]
+
+    three, one = rel_l2(_tf32x3), rel_l2(_tf32x1)
+    assert max(three) <= 1e-5, three
+    assert min(one) > 1e-5, one
+
+
 @pytest.mark.parametrize("sq,skv", [(256, 256), (200, 328)])
 def test_flash_attention_diff_gradients_match_attention_xla(sq, skv):
     """The attention autograd Function (plain versions on the CPU; the kernels
@@ -696,14 +742,20 @@ def test_launch_routes_each_dtype_to_its_entry_point(name, dtype, monkeypatch):
 
 def test_fp32_flash_source_holds_simt_kernels():
     """``flash_f32.cu`` holds the three fp32 kernels (a forward with an lse
-    flag, dQ, dK/dV) behind four entry points, with FFMA products on the CUDA
-    cores: no tensor-core instruction."""
+    flag, dQ, dK/dV) behind four entry points: the forward with FFMA products
+    on the CUDA cores, the two backward kernels with 3xTF32 products on
+    ``mma.sync`` m16n8k8 (no ``wgmma``, no ``ldmatrix``: their operands come
+    from shared memory by plain loads and are split in registers)."""
     text = (tkernels.CSRC / "flash_f32.cu").read_text()
     assert len(re.findall(r"__global__\s+void", text)) == 3
     assert len(re.findall(r'extern\s+"C"', text)) == 4
-    assert "fmaf(" in text
-    for needle in ("wgmma", "mma.sync", "ldmatrix", "tf32"):
-        assert needle not in text.split("#include", 1)[1], needle
+    body = text.split("#include", 1)[1]
+    forward = body[:body.index("constexpr int kBwdRows")]  # the forward's helpers and kernel come first
+    assert "fmaf(" in forward and "asm(" not in forward
+    assert body.count("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32") == 1  # one wrapper, three calls a product
+    assert re.search(r"mma_tf32\(d, a\.lo, b\.hi\);\s*mma_tf32\(d, a\.hi, b\.lo\);\s*mma_tf32\(d, a\.hi, b\.hi\);", body)
+    for needle in ("wgmma", "ldmatrix"):
+        assert needle not in body, needle
 
 
 def test_kernel_sources_exist_and_hold_one_forward_kernel():

@@ -97,24 +97,62 @@ def test_lr_schedule_matches_optax(name, warmup):
         assert got(0) == 0.0  # the first update of a warmed-up schedule changes nothing
 
 
-@pytest.mark.parametrize("warmup,max_norm", [(0, 1.0), (2, 1.0), (0, None)])
-def test_adamw_matches_optax_over_three_updates(warmup, max_norm):
+@pytest.mark.parametrize("warmup,max_norm,dtype", [
+    pytest.param(0, 1.0, torch.float32, id="0-1.0"), pytest.param(2, 1.0, torch.float32, id="2-1.0"),
+    pytest.param(0, None, torch.float32, id="0-None"), pytest.param(0, 1.0, torch.bfloat16, id="bf16-masters")])
+def test_adamw_matches_optax_over_three_updates(warmup, max_norm, dtype):
+    """fp32 leaves against optax step by step. bf16 leaves (a bf16 model's) at
+    the trainers' learning rate 1e-4 and magnitudes near 0.05, where half a
+    bf16 ulp (1.2e-4 above 1/32) swallows a single update: optax updates the
+    fp32 parameters the JAX trainers keep, fed the same bf16-valued gradients;
+    the port's fp32 masters must match them and each bf16 leaf must be its
+    master's rounding."""
     rng = np.random.default_rng(31)
     p0 = [rng.standard_normal((5, 3)).astype(np.float32), rng.standard_normal((4,)).astype(np.float32)]
     grads = [[(s * rng.standard_normal(p.shape)).astype(np.float32) for p in p0] for s in (3.0, 0.1, 1.0)]
-    tx = jcommon.make_adamw(jcommon.lr_schedule("cosine", 1e-2, warmup, 10), weight_decay=0.1, max_grad_norm=max_norm)
+    lr = ("cosine", 1e-2, warmup, 10)
+    if dtype == torch.bfloat16:
+        def bf16(x):  # the bf16 values, in fp32
+            return _t(x).bfloat16().float().numpy()
+
+        p0 = [bf16(0.05 * p) for p in p0]
+        grads = [[bf16(g) for g in gs] for gs in grads]
+        lr = ("constant", 1e-4, 0, 10)
+    tx = jcommon.make_adamw(jcommon.lr_schedule(*lr), weight_decay=0.1, max_grad_norm=max_norm)
     jp = [jnp.asarray(p) for p in p0]
     state = tx.init(jp)
-    tp = [torch.nn.Parameter(_t(p)) for p in p0]
-    opt = tcommon.make_adamw(tp, tcommon.lr_schedule("cosine", 1e-2, warmup, 10), weight_decay=0.1,
-                             max_grad_norm=max_norm)
+    tp = [torch.nn.Parameter(_t(p).to(dtype)) for p in p0]
+    opt = tcommon.make_adamw(tp, tcommon.lr_schedule(*lr), weight_decay=0.1, max_grad_norm=max_norm)
     for i, g in enumerate(grads):
         updates, state = tx.update([jnp.asarray(x) for x in g], state, jp)
         jp = optax.apply_updates(jp, updates)
-        norm = opt.step([_t(x) for x in g])
+        norm = opt.step([_t(x).to(dtype) for x in g])
         assert abs(float(norm) - float(optax.global_norm([jnp.asarray(x) for x in g]))) <= 1e-5  # before clipping
-        for a, b in zip(tp, jp):
-            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=0, atol=1e-6, err_msg=f"update {i}")
+        if dtype == torch.float32:
+            for a, b in zip(tp, jp):
+                np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=0, atol=1e-6, err_msg=f"update {i}")
+            continue
+        for a, m, b in zip(tp, opt.masters, jp):
+            assert m.dtype == torch.float32 and a.dtype == torch.bfloat16
+            np.testing.assert_allclose(m.numpy(), np.asarray(b), rtol=1e-6, atol=0, err_msg=f"update {i}")
+            assert torch.equal(a.detach(), m.bfloat16()), f"update {i}"
+            moments = opt.optimizer.state[m]
+            assert moments["exp_avg"].dtype == moments["exp_avg_sq"].dtype == torch.float32
+    if dtype == torch.bfloat16:
+        moved = [(m - _t(p)).abs().max().item() for m, p in zip(opt.masters, p0)]
+        assert all(0 < x < 1e-3 for x in moved), moved
+        # the fault the masters repair: AdamW on the bf16 leaves themselves (bf16 moments, clipping in bf16)
+        # rounds the small early updates away and misses optax by at least half of what it moves
+        naive = [torch.nn.Parameter(_t(p).bfloat16()) for p in p0]
+        plain = torch.optim.AdamW(naive, lr=1e-4, weight_decay=0.1)
+        for g in grads:
+            gb = [_t(x).bfloat16() for x in g]
+            factor = max_norm / torch.clamp(tcommon.global_norm(gb), min=max_norm)
+            for p, x in zip(naive, gb):
+                p.grad = x * factor.to(x.dtype)
+            plain.step()
+        miss = max((n.detach().float() - _t(b)).abs().max().item() for n, b in zip(naive, jp))
+        assert miss >= 0.5 * max(moved), (miss, moved)
     if warmup:
         assert opt.count == 3
     with pytest.raises(NotImplementedError):
@@ -470,6 +508,59 @@ def test_raw_batches_and_missing_card_raise(port_inputs):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Stage1Trainer(trainer.unet, trainer.resampler, trainer.vae, trainer.image_encoder, Stage1Config(**STEP_CFG))
+
+
+@pytest.mark.parametrize("kind", ["stage1", "stage2", "previewer"])
+def test_bf16_trainer_exports_its_fp32_masters(kind):
+    """A trainer over bf16 models (the card's dtype) at the tiny configs: its
+    optimiser holds fp32 masters for the bf16 trainable leaves, each leaf is
+    its master's bf16 rounding after two updates, and the export
+    (``adapter_state``, ``aggregator_state``, ``lora_state``) is fp32 and
+    equal to the masters, as the JAX trainers export their fp32 parameters.
+    The updates are synthetic gradients at the trainers' learning rate."""
+    from instantir_tpu_torch.train.previewer_lora import PreviewerConfig, PreviewerTrainer
+    from instantir_tpu_torch.train.stage2_aggregator import Stage2Config, Stage2Trainer
+
+    pipe = build_pipeline(tiny_unet_config(with_ip=True, lora_rank=4), tiny_vae_config(),
+                          tiny_resampler_config(output_dim=32, lora_rank=2), tiny_dinov2_config(),
+                          dtype=torch.bfloat16, device="cpu")
+    cfg = dict(train_batch_size=BATCH, resolution=RES, learning_rate=1e-4, lr_warmup_steps=0, output_dir="")
+    if kind == "stage1":
+        trainer = Stage1Trainer(pipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder, Stage1Config(**cfg),
+                                device="cpu")
+    elif kind == "stage2":
+        trainer = Stage2Trainer(pipe.unet, pipe.aggregator, pipe.resampler, pipe.vae, pipe.image_encoder,
+                                Stage2Config(**cfg), device="cpu")
+    else:
+        trainer = PreviewerTrainer(pipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder, PreviewerConfig(**cfg),
+                                   device="cpu")
+    opt = trainer.optimizer
+    assert torch.bfloat16 in {p.dtype for p in trainer.trainable}  # LayerNorm32 keeps its fp32 leaves
+    for m, p in zip(opt.masters, trainer.trainable):
+        assert m.dtype == torch.float32 and (m is p) == (p.dtype == torch.float32)
+    g = torch.Generator().manual_seed(17)
+    for _ in range(2):
+        opt.step([torch.randn(p.shape, generator=g).bfloat16() for p in trainer.trainable])
+    for p, m in zip(trainer.trainable, opt.masters):
+        assert torch.equal(p.detach(), m.to(p.dtype))
+    assert any(not torch.equal(p.detach().float(), m) for p, m in zip(trainer.trainable, opt.masters))
+    masters = trainer.master_parameters()
+    if kind == "stage1":
+        payload = trainer.adapter_state()
+        want = {"image_proj": {k: v for k, v in trainer.master_state("resampler").items() if "lora_" not in k},
+                "ip_adapter": convert.export_ip_adapter(trainer.master_state("unet"))}
+        exported = [(f"{part}.{k}", v, want[part][k]) for part, tensors in payload.items() for k, v in tensors.items()]
+        assert {k for k, _, _ in exported} == {f"{part}.{k}" for part, tensors in want.items() for k in tensors}
+    elif kind == "stage2":
+        exported = [(k, v, masters[f"aggregator.{k}"]) for k, v in trainer.aggregator_state().items()]
+    else:
+        exported = [(k, v, masters[k]) for k, v in trainer.lora_state().items()]
+    assert exported
+    for name, got, master in exported:
+        assert got.dtype == torch.float32 and got.device.type == "cpu", name
+        assert torch.equal(got, master.float()), name
+    trained = {id(m) for m in opt.masters}
+    assert any(id(master) in trained for _, _, master in exported)
 
 
 def test_jax_and_port_configs_have_the_same_fields():
