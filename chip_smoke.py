@@ -9,7 +9,9 @@ which ends the script with a nonzero exit on failure:
 1. environment: the card (``nvidia-smi`` name and power limit), torch/CUDA
    versions, TF32 switched off for matmuls and cuDNN convolutions;
 2. build: every kernel under ``instantir_tpu_torch/csrc`` from the checkout's
-   sources, one ``nvcc`` per source, all started together;
+   sources, one ``nvcc`` per source, all started together; ptxas's register
+   report and each kernel's SASS counts (HGMMA / HMMA with their types, FFMA,
+   LDL / STL); a ``flash_f32`` kernel that spills fails;
 3. kernel check: each of the five kernels (flash forward, flash forward with
    lse, flash dQ, flash dK/dV, fused GroupNorm+SiLU) and the four fp32 entry
    points of the flash kernels against their plain PyTorch versions on the
@@ -52,7 +54,8 @@ which ends the script with a nonzero exit on failure:
 9. summary: one JSON line of kernels, the card line, and the result line.
 
 ``--only kernels`` stops after phase 3 (exit 0, no result line): the quick
-check of a kernel edit; ``--only group_norm`` runs phase 3 for K5 alone.
+check of a kernel edit; ``--only group_norm`` runs phase 3 for K5 alone,
+``--only flash_f32`` for the four fp32 flash entry points alone.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -177,15 +180,17 @@ def flash_bound_ms(b: int, sq: int, skv: int, h: int, products: int = 2, q_tenso
                     peak_f32 if f32 else PEAK_BF16_FLOPS)
 
 
-def sass_summary(paths: dict) -> None:
+def sass_summary(paths: dict) -> dict:
     """Log, for each kernel of each built library, its counts of tensor-core
     instructions (HGMMA for wgmma, HMMA for mma.sync, with their shape and
     types), FFMA and local-memory loads and stores (LDL / STL: spills), read
-    with the CUDA toolkit's ``cuobjdump -sass``."""
+    with the CUDA toolkit's ``cuobjdump -sass``; return them by library and
+    kernel (empty without ``cuobjdump``)."""
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         log("    cuobjdump not found: no SASS summary")
-        return
+        return {}
+    by_lib = {}
     op = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?((HGMMA|HMMA|FFMA|LDL|STL)[.\w]*)")
     for name, path in paths.items():
         sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, check=False).stdout
@@ -200,6 +205,8 @@ def sass_summary(paths: dict) -> None:
                 fn[m.group(1) if m.group(2) in ("HGMMA", "HMMA") else m.group(2)] += 1
         for kernel, c in counts.items():
             log(f"    {name} {kernel}: " + (", ".join(f"{k} {n}" for k, n in sorted(c.items())) or "none of them"))
+        by_lib[name] = counts
+    return by_lib
 
 
 def host_us_per_call(torch, fn, calls: int = 200, runs: int = 5) -> float:
@@ -1277,8 +1284,9 @@ def kernel_entry(name, route, source, replaces, rows, weights, launches, by_path
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4, help="denoise steps of the full-width restore (30 = config #4)")
-    ap.add_argument("--only", choices=["kernels", "group_norm"], default=None,
-                    help="'kernels': stop after the kernel check (no result line); 'group_norm': check K5 alone")
+    ap.add_argument("--only", choices=["kernels", "group_norm", "flash_f32"], default=None,
+                    help="'kernels': stop after the kernel check (no result line); 'group_norm': check K5 alone; "
+                         "'flash_f32': check the fp32 flash entry points alone")
     args = ap.parse_args()
 
     if not (REPO / "instantir_tpu_torch" / "csrc").is_dir():
@@ -1314,7 +1322,9 @@ def main() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "arning" in line:
                 log(f"    {name}: {line.strip()}")
-    sass_summary(paths)
+    for kernel, c in sass_summary(paths).get("flash_f32", {}).items():
+        if c["LDL"] or c["STL"]:
+            fail(f"flash_f32 {kernel} spills: {c['LDL']} LDL, {c['STL']} STL in its SASS")
 
     # 3. kernel check
     from instantir_tpu_torch.models.unet import sdxl_base_config
@@ -1340,11 +1350,13 @@ def main() -> None:
                 + [(1, shape, (fp32,)) for shape in gn_shapes(F32_RES, aggregator=False)]
                 + [(1, shape, (bf16,)) for shape in gn_shapes(1024)])
     log("[3] kernel check against the plain versions")
-    if args.only != "group_norm":
+    if args.only not in ("group_norm", "flash_f32"):
         k1_rows = check_flash(torch, attention)
         train_rows = check_flash_training(torch, attention)
+    if args.only != "group_norm":
         f32_rows = check_flash_f32(torch, attention)
-    gn_rows = check_group_norm(torch, group_norm, gn_by_shape, gn_cases)
+    if args.only != "flash_f32":
+        gn_rows = check_group_norm(torch, group_norm, gn_by_shape, gn_cases)
     if args.only:
         log(f"kernel check passed (--only {args.only}: no restore, no training, no result line)")
         return

@@ -17,33 +17,69 @@
 //
 // What bounds them on the H100: operations. At head_dim 64 a (q row, key)
 // pair costs 256 (K1/K2), 384 (K3) or 512 (K4) flops against a few bytes of
-// operands, far above the memory ridge.
-//   * The forward is FFMA on the CUDA cores: 132 SMs x 128 lanes x 2
-//     operations per clock, ~66.9 TFLOP/s at 1.98 GHz.
-//   * The backward runs on the tensor cores in 3xTF32. One TF32 product keeps
-//     10 mantissa bits and misses the fp32 tolerance of the plain version
-//     (relative L2 1e-5). The split product keeps about 21:
-//       hi = tf32(x), lo = tf32(x - hi),  a*b ~ lo_a*hi_b + hi_a*lo_b + hi_a*hi_b,
-//     three TF32 products (495 TFLOP/s dense), an effective 165 TFLOP/s, 2.5x
-//     the FFMA rate. PyTorch's fp32 memory-efficient attention takes the same
-//     route (CUTLASS's OpMultiplyAddFastF32 on mma 16x8x8).
+// operands, far above the memory ridge. All four run on the tensor cores in
+// 3xTF32. One TF32 product keeps 10 mantissa bits and misses the fp32
+// tolerance of the plain version (relative L2 1e-5). The split product keeps
+// about 21:
+//   hi = tf32(x), lo = tf32(x - hi),  a*b ~ lo_a*hi_b + hi_a*lo_b + hi_a*hi_b,
+// three TF32 products (495 TFLOP/s dense), an effective 165 TFLOP/s, 2.5x the
+// FFMA rate of the CUDA cores. PyTorch's fp32 memory-efficient attention takes
+// the same route (CUTLASS's OpMultiplyAddFastF32 on mma 16x8x8). Splits round
+// to nearest with ties away, as cvt.rna.tf32.f32 does, in four integer and
+// float instructions; each product is three calls into one accumulator, small
+// terms first (lo*hi, hi*lo, hi*hi), as CUTLASS's FastF32 orders them. The
+// tensor cores' fp32 accumulation truncates, a bias that grows with the
+// number of sums: every streamed tile's accumulating product (P v; dS k,
+// P^T dO, dS^T q) starts from zero and is added to the running sum on the
+// CUDA cores. exp2f/log2f and the division acc / l are the accurate library
+// forms, not ex2.approx: the fp32 tolerance leaves no room for them.
 //
-// Design of the forward: a simple tiled SIMT kernel.
-//   * One CTA of 128 threads owns 64 q rows of one (batch, head). Two
-//     neighbouring lanes share a row, each holding 32 of its 64 columns in
-//     registers as 8 float4 chunks (chunk c of lane `half` covers columns
-//     8c + 4*half .. +3, so a pair reads two adjacent 16-byte words of a
-//     shared-memory row: one broadcast, no bank conflict); a dot product is
-//     each lane's 32 FFMA plus one __shfl_xor_sync.
-//   * K and V stream through static shared memory in tiles of 32 rows, loaded
-//     by all threads as float4 between two __syncthreads; rows past the
-//     sequence are zero-filled and get score -inf.
+// Design of the forward (wgmma in tf32).
+//   * One CTA of two consumer warpgroups (256 threads) owns 128 q rows of one
+//     (batch, head), 64 a warpgroup, for the whole sweep over the keys in
+//     tiles of 32; both warpgroups read the same K/V tiles.
+//   * Products: S = q2 K^T is 8 steps over the head dimension of three
+//     wgmma m64n32k8 each, A (q2 hi / lo) from registers (split once, when
+//     the CTA starts), B (K hi / lo) from shared memory; O_tile = P V is 4
+//     steps over the tile's keys of three wgmma m64n64k8 each, A (P hi / lo)
+//     from registers, B (V^T hi / lo) from shared memory. tf32 wgmma takes
+//     K-major operands only: K [key][d] is K-major for S as it is; V is
+//     stored transposed, V^T [d][key]. q2 in registers rather than shared
+//     memory measured 17-20% faster on the H100 (S reads no A operand from
+//     shared memory; PERF.md §6).
+//   * wgmma reads B from shared memory, so K and V are split once per CTA
+//     into hi and lo planes there, not per warp as the backward's mma.sync
+//     does. Each tile comes from global memory into registers (key = lane, 8
+//     head columns a warp: 32-byte pieces) a tile ahead, and all 256 threads
+//     split it into the four planes of its ring stage while the tensor cores
+//     run the current tile's products; a warp's V^T stores write one 128-byte
+//     row, 32 words, no bank conflict. Two warpgroups halve each thread's
+//     share of that work: one warpgroup per CTA (two CTAs per SM) measured
+//     0.400 ms at B=2, S=2048, H=10 against 0.284.
+//   * The layout of P: the fp32 accumulator gives lane (g, t) keys 2t and
+//     2t + 1 of each 8-key step, the tf32 A fragment wants k = t and t + 4.
+//     The reduction index is permuted instead of shuffling: k = t is key 2t,
+//     k = t + 4 is key 2t + 1, and keys are written to the V^T planes in that
+//     order (position of key r: (r & ~7) | (r & 1) << 2 | (r >> 1) & 3).
+//   * Each turn: barrier (tile j's planes are in; every warp is done with
+//     tile j - 2) -> S of tile j and P V of tile j - 1 (into a zeroed
+//     accumulator) -> under them, split and store tile j + 1, then start the
+//     loads of tile j + 2 -> wait for S -> softmax (max over the 4 lanes of a
+//     row, exp2f) while P V runs -> wait -> acc = (acc + P V) * alpha -> P
+//     split into A fragments. P V of tile j - 1 still reads its stage while
+//     tile j + 1 is written: the ring has three stages. Without this overlap
+//     (P V after the softmax, two stages) the kernel measured 5-14% slower.
+//   * Resources: 237 registers (ptxas), so one CTA of 256 threads per SM
+//     (60,672 of 65,536 registers): two warpgroups per SM. Shared memory:
+//     planes of 128-byte rows in the 128-byte swizzle, a stage holding K hi,
+//     K lo (32 keys x 64, two column blocks of 32: 8 KB each) and V^T hi,
+//     V^T lo (64 x 32 keys: 8 KB each), 32 KB; three stages + 1 KB alignment
+//     slack = 99,328 bytes of the 232,448 an SM gives its CTAs.
+//   * Ragged tails: keys at or past skv are zero-filled and get score -inf;
+//     q rows at or past sq are zero and store nothing.
 //
 // Design of the backward (dQ and dK/dV, one deterministic kernel each).
-//   * Products: mma.sync m16n8k8 .tf32 with fp32 accumulators, each as three
-//     mma's into one accumulator, small terms first (lo*hi, hi*lo, hi*hi), as
-//     CUTLASS's FastF32 orders them. Splits round to nearest with ties away,
-//     as cvt.rna.tf32.f32 does, in four integer and float instructions.
+//   * Products: mma.sync m16n8k8 .tf32 with fp32 accumulators, split as above.
 //   * One CTA of 4 warps owns 64 rows (q rows for dQ, keys for dK/dV), 16 a
 //     warp, for the whole sweep over the other side. Its own two operands
 //     (q2 and dO; k2 and V) are staged once into shared memory, scaled in
@@ -63,16 +99,12 @@
 //     (g, t) finds all its A and B values of a row in the four 16-byte chunks
 //     4t .. 4t + 3: one LDS.128 feeds two k-chunks.
 //   * Accumulating products (dQ += dS K; dV += P^T dO, dK += dS^T Q): P and
-//     dS leave the mma in the accumulator layout, where lane (g, t) holds
-//     columns 2t and 2t + 1 of each 8-column tile; the A fragment wants
-//     columns t and t + 4. No shuffle: the reduction index is permuted
-//     instead (k = t is key or q row 2t of the chunk, k = t + 4 is 2t + 1),
-//     and the B operand is read from the same two rows. Its output column n of
-//     8-column tile j is head column 8n + j, so a lane's B values of a row are
-//     two 16-byte chunks and its outputs 16 consecutive columns of a row.
-//   * The tensor cores' fp32 accumulation truncates, a bias that grows with
-//     the number of sums: each tile's accumulating product starts from zero
-//     and is added to the running dQ / dK / dV on the CUDA cores.
+//     dS leave the mma in the accumulator layout; the reduction index is
+//     permuted as in the forward (k = t is key or q row 2t of the chunk, k =
+//     t + 4 is 2t + 1), and the B operand is read from the same two rows. Its
+//     output column n of 8-column tile j is head column 8n + j, so a lane's B
+//     values of a row are two 16-byte chunks and its outputs 16 consecutive
+//     columns of a row.
 //   * Shared-memory layout: rows of 256 bytes; 16-byte chunk c of row r sits
 //     at chunk c ^ s(r, c), s mixing r's bits 0-2 and c's bit 3, so both read
 //     patterns above and the copies are free of bank conflicts.
@@ -80,8 +112,6 @@
 //     dS is 0 (dQ); q rows at or past sq are zero-filled with zero lse and D,
 //     and their P and dS are set to 0 (dK/dV); rows past the end of a ragged
 //     owned block compute on a copy of the last row and store nothing.
-//   * exp2f/log2f and the division acc / l are the accurate library forms, not
-//     ex2.approx: the fp32 tolerance leaves no room for them.
 //
 // Layout: q/o/dO [B, Sq, H, 64], k/v/dk/dv [B, Skv, H, 64], all fp32,
 // contiguous and 16-byte aligned; lse and D fp32 [B, H, Sq].
@@ -94,131 +124,7 @@
 
 namespace {
 
-constexpr int kD = 64;               // head_dim
-constexpr int kRows = 64;            // rows a CTA owns
-constexpr int kThreads = 2 * kRows;  // two lanes per row
-constexpr int kTile = 32;            // rows of a shared-memory tile
-constexpr int kVec = kD / 4;         // float4 per row
-constexpr int kChunks = kVec / 2;    // float4 per lane
-
-struct Row {
-  float4 c[kChunks];
-};
-
-__device__ __forceinline__ void load_row(Row& r, const float* row, int half, float mul) {
-  const float4* p = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    float4 x = p[2 * c + half];
-    r.c[c] = make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
-  }
-}
-
-__device__ __forceinline__ void zero_row(Row& r) {
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) r.c[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// The full 64-wide dot product of a register row with shared-memory row `t`:
-// this lane's 32 products, then the pair's sum through one shuffle.
-__device__ __forceinline__ float pair_dot(const Row& r, const float4 (*tile)[kVec], int t, int half) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const float4 x = tile[t][2 * c + half];
-    s = fmaf(r.c[c].x, x.x, s);
-    s = fmaf(r.c[c].y, x.y, s);
-    s = fmaf(r.c[c].z, x.z, s);
-    s = fmaf(r.c[c].w, x.w, s);
-  }
-  return s + __shfl_xor_sync(0xffffffffu, s, 1);
-}
-
-// r += a * (shared-memory row t), on this lane's columns.
-__device__ __forceinline__ void axpy(Row& r, float a, const float4 (*tile)[kVec], int t, int half) {
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const float4 x = tile[t][2 * c + half];
-    r.c[c].x = fmaf(a, x.x, r.c[c].x);
-    r.c[c].y = fmaf(a, x.y, r.c[c].y);
-    r.c[c].z = fmaf(a, x.z, r.c[c].z);
-    r.c[c].w = fmaf(a, x.w, r.c[c].w);
-  }
-}
-
-// Rows [r0, r0 + kTile) of a [S, H, 64] operand at `base` (its (b, h) row 0)
-// into `tile`, zeros past `s_len`.
-__device__ __forceinline__ void load_tile(float4 (*tile)[kVec], const float* base, int r0, int s_len,
-                                          long long stride) {
-  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
-    const int t = i / kVec, v = i % kVec;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + t < s_len) x = reinterpret_cast<const float4*>(base + (long long)(r0 + t) * stride)[v];
-    tile[t][v] = x;
-  }
-}
-
-template <bool kWriteLse>
-__global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const float* __restrict__ q,
-                                                                  const float* __restrict__ k,
-                                                                  const float* __restrict__ v, float* __restrict__ o,
-                                                                  float* __restrict__ lse, int heads, int sq, int skv,
-                                                                  float qscale) {
-  __shared__ float4 ks[kTile][kVec];
-  __shared__ float4 vs[kTile][kVec];
-  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
-  const int half = threadIdx.x & 1;
-  const int row = blockIdx.x * kRows + (threadIdx.x >> 1);
-  const long long stride = (long long)heads * kD;
-  const float* kb = k + ((long long)b * skv * heads + h) * kD;
-  const float* vb = v + ((long long)b * skv * heads + h) * kD;
-  const long long q_off = ((long long)b * sq * heads + h) * kD;
-
-  Row q2, acc;
-  load_row(q2, q + q_off + (long long)min(row, sq - 1) * stride, half, qscale);
-  zero_row(acc);
-  float m = -INFINITY, l = 0.f;
-
-  for (int j0 = 0; j0 < skv; j0 += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile(ks, kb, j0, skv, stride);
-    load_tile(vs, vb, j0, skv, stride);
-    __syncthreads();
-    const int n = min(kTile, skv - j0);
-    float s[kTile];
-    float m_new = m;
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      const float x = pair_dot(q2, ks, t, half);
-      s[t] = t < n ? x : -INFINITY;
-      m_new = fmaxf(m_new, s[t]);
-    }
-    const float alpha = exp2f(m - m_new);  // 0 on the first tile (m = -inf, m_new finite)
-    float p_sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      s[t] = exp2f(s[t] - m_new);
-      p_sum += s[t];
-    }
-    l = l * alpha + p_sum;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      acc.c[c].x *= alpha;
-      acc.c[c].y *= alpha;
-      acc.c[c].z *= alpha;
-      acc.c[c].w *= alpha;
-    }
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) axpy(acc, s[t], vs, t, half);
-    m = m_new;
-  }
-  if (row >= sq) return;
-  float4* out = reinterpret_cast<float4*>(o + q_off + (long long)row * stride);
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-    out[2 * c + half] = make_float4(acc.c[c].x / l, acc.c[c].y / l, acc.c[c].z / l, acc.c[c].w / l);
-  if (kWriteLse && half == 0) lse[(long long)bh * sq + row] = m + log2f(l);
-}
+constexpr int kD = 64;  // head_dim
 
 // ---------------------------------------------------------------------------
 // The backward: 3xTF32 on mma.sync m16n8k8
@@ -572,7 +478,298 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
 }
 
-dim3 grid_of(int batch, int heads, int rows) { return dim3((rows + kRows - 1) / kRows, batch * heads); }
+// ---------------------------------------------------------------------------
+// The forward: 3xTF32 on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdWarpgroups = 2;                     // consumer warpgroups a CTA, 64 q rows each
+constexpr int kFwdRows = 64 * kFwdWarpgroups;         // q rows a CTA owns
+constexpr int kFwdThreads = 128 * kFwdWarpgroups;
+constexpr int kFwdKeys = 32;                          // keys of a streamed tile
+constexpr int kKPlane = kFwdKeys * kD * 4;            // K hi or lo: 8,192
+constexpr int kVPlane = kD * kFwdKeys * 4;            // V^T hi or lo: 8,192
+constexpr int kFwdStage = 2 * kKPlane + 2 * kVPlane;  // 32,768
+constexpr int kFwdStages = 3;                         // ring stages
+constexpr int kFwdSmemBytes = kFwdStages * kFwdStage + 1024;  // + alignment slack: 99,328
+
+// Byte offset of column `col` (a head column, or a key's position in V^T) of
+// row `row` in a plane of `rows` rows: column blocks of 32 fp32, 128-byte
+// rows, 16-byte chunk c of row r at chunk c ^ (r % 8).
+__device__ __forceinline__ uint32_t plane_off(int row, int col, int rows) {
+  return (col >> 5) * rows * 128 + row * 128 + ((((col >> 2) & 7) ^ (row & 7)) << 4) + ((col & 3) << 2);
+}
+
+// The split of four consecutive values into the hi and lo planes.
+__device__ __forceinline__ void store_split4(uint8_t* hi_plane, uint8_t* lo_plane, uint32_t off, float4 x) {
+  uint4 hi, lo;
+  split(x.x, hi.x, lo.x);
+  split(x.y, hi.y, lo.y);
+  split(x.z, hi.z, lo.z);
+  split(x.w, hi.w, lo.w);
+  *reinterpret_cast<uint4*>(hi_plane + off) = hi;
+  *reinterpret_cast<uint4*>(lo_plane + off) = lo;
+}
+
+// d (+)= a b over 8 head columns in 3xTF32, small terms first: S = q2 K^T.
+__device__ __forceinline__ void wgmma3_rs(float (&d)[16], const FragA& a, uint64_t b_hi, uint64_t b_lo,
+                                          int scale_d) {
+  wgmma_m64n32k8_tf32_rs(d, a.lo, b_hi, scale_d);
+  wgmma_m64n32k8_tf32_rs(d, a.hi, b_lo, 1);
+  wgmma_m64n32k8_tf32_rs(d, a.hi, b_hi, 1);
+}
+
+// d (+)= a b over 8 keys in 3xTF32, small terms first: O_tile = P V.
+__device__ __forceinline__ void wgmma3_rs(float (&d)[32], const FragA& a, uint64_t b_hi, uint64_t b_lo,
+                                          int scale_d) {
+  wgmma_m64n64k8_tf32_rs(d, a.lo, b_hi, scale_d);
+  wgmma_m64n64k8_tf32_rs(d, a.hi, b_lo, 1);
+  wgmma_m64n64k8_tf32_rs(d, a.hi, b_hi, 1);
+}
+
+template <bool kWriteLse>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     float* __restrict__ o, float* __restrict__ lse, int heads, int sq, int skv, float qscale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_u32(smem_raw);
+  const uint32_t base = (raw_addr + 1023u) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - raw_addr);  // stages of [K hi][K lo][V^T hi][V^T lo]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads, q0 = blockIdx.x * kFwdRows;
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
+  const long long stride = (long long)heads * kD;
+  const float* qb = q + ((long long)b * sq * heads + h) * kD;
+  const float* kb = k + ((long long)b * skv * heads + h) * kD;
+  const float* vb = v + ((long long)b * skv * heads + h) * kD;
+  const int n_tiles = (skv + kFwdKeys - 1) / kFwdKeys;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // q2 = q * qscale in fp32, split, as the A fragments of S's 8 steps: step ks holds head columns 8 ks + t
+  // and 8 ks + t + 4 of this thread's two rows. Rows past sq are zero.
+  FragA qf[8];
+  {
+    const float* p0 = qb + (long long)min(row0, sq - 1) * stride;
+    const float* p1 = qb + (long long)min(row0 + 8, sq - 1) * stride;
+    const float s0 = row0 < sq ? qscale : 0.f, s1 = row0 + 8 < sq ? qscale : 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      qf[ks] = split_a(p0[8 * ks + t] * s0, p1[8 * ks + t] * s1, p0[8 * ks + t + 4] * s0, p1[8 * ks + t + 4] * s1);
+  }
+
+  // This thread's share of a K/V tile: key `lane`, head columns 8 * warp .. + 7, zero past skv.
+  constexpr int kChunks = kD / 4 / (kFwdThreads / 32);  // float4 of a K (and a V) row a warp takes
+  float4 kr[kChunks], vr[kChunks];
+  auto load_tile = [&](int tile) {
+    const int key = tile * kFwdKeys + lane;
+    const bool ok = key < skv;
+    const float4* ks = reinterpret_cast<const float4*>(kb + (long long)(ok ? key : 0) * stride) + kChunks * warp;
+    const float4* vs = reinterpret_cast<const float4*>(vb + (long long)(ok ? key : 0) * stride) + kChunks * warp;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      kr[c] = ok ? ks[c] : zero4;
+      vr[c] = ok ? vs[c] : zero4;
+    }
+  };
+  // ... split into the planes of ring stage `stage`: K at row `lane`, V transposed at the key's permuted
+  // position in rows 8 * warp .. + 7.
+  const int vpos = (lane & ~7) | ((lane & 1) << 2) | ((lane >> 1) & 3);
+  auto store_tile = [&](int stage) {
+    uint8_t* const st = smem + stage * kFwdStage;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int col = 4 * kChunks * warp + 4 * c;
+      store_split4(st, st + kKPlane, plane_off(lane, col, kFwdKeys), kr[c]);
+      const float x[4] = {vr[c].x, vr[c].y, vr[c].z, vr[c].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t off = plane_off(col + e, vpos, kD);
+        uint32_t hi, lo;
+        split(x[e], hi, lo);
+        *reinterpret_cast<uint32_t*>(st + 2 * kKPlane + off) = hi;
+        *reinterpret_cast<uint32_t*>(st + 2 * kKPlane + kVPlane + off) = lo;
+      }
+    }
+  };
+
+  load_tile(0);
+  store_tile(0);
+  if (n_tiles > 1) load_tile(1);
+  fence_proxy_async();  // the stage-0 planes, for the async proxy (wgmma)
+
+  const uint64_t desc_ring = make_desc(base);
+  constexpr uint64_t kKLo = kKPlane >> 4, kVHi = 2 * kKPlane >> 4, kVLo = kVHi + (kVPlane >> 4);
+  auto stage_desc = [&](int tile) { return desc_ring + (uint64_t)((tile % kFwdStages) * (kFwdStage >> 4)); };
+
+  float sacc[16];   // scores of the current tile (64 rows x 32 keys), then exp2(s - m)
+  float pv[32];     // P V of the previous tile
+  float oacc[32];   // running output
+  FragA pa[4];      // P of the previous tile as A fragments, one per 8-key step
+#pragma unroll
+  for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
+  // Online-softmax state of this thread's two rows (g and g + 8 of its warp's 16): running max, and this
+  // thread's partial running sum.
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float alpha0, alpha1;
+
+  auto start_scores = [&](int tile) {
+    const uint64_t st = stage_desc(tile);
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {  // head columns 8 ks .. + 7: column block ks / 4, 32 bytes a step
+      const uint64_t ko = (ks >> 2) * (kKPlane >> 5) + (ks & 3) * 2;
+      wgmma3_rs(sacc, qf[ks], st + ko, st + kKLo + ko, ks > 0);
+    }
+  };
+  auto start_pv = [&](int tile) {  // from zero: the tile's sum is added on the CUDA cores
+    const uint64_t st = stage_desc(tile);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma3_rs(pv, pa[kk], st + kVHi + 2 * kk, st + kVLo + 2 * kk, kk > 0);
+  };
+  // Under the products: tile + 1 into its stage, then the loads of tile + 2.
+  auto stream = [&](int tile) {
+    if (tile + 1 < n_tiles) {
+      store_tile((tile + 1) % kFwdStages);
+      fence_proxy_async();
+      if (tile + 2 < n_tiles) load_tile(tile + 2);
+    }
+  };
+  // sacc <- exp2(sacc - m_new); updates m and l; leaves the rescale factors in alpha0/1.
+  auto softmax = [&](int tile) {
+    if ((tile + 1) * kFwdKeys > skv) {  // ragged kv tail
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (tile * kFwdKeys + 8 * (i >> 2) + 2 * t + (i & 1) >= skv) sacc[i] = -INFINITY;
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      mx0 = fmaxf(mx0, fmaxf(sacc[4 * kk], sacc[4 * kk + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sacc[4 * kk + 2], sacc[4 * kk + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    alpha0 = exp2f(m0 - mx0);  // 0 on the first tile
+    alpha1 = exp2f(m1 - mx1);
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      sacc[4 * kk] = exp2f(sacc[4 * kk] - mx0);
+      sacc[4 * kk + 1] = exp2f(sacc[4 * kk + 1] - mx0);
+      sacc[4 * kk + 2] = exp2f(sacc[4 * kk + 2] - mx1);
+      sacc[4 * kk + 3] = exp2f(sacc[4 * kk + 3] - mx1);
+      rs0 += sacc[4 * kk] + sacc[4 * kk + 1];
+      rs1 += sacc[4 * kk + 2] + sacc[4 * kk + 3];
+    }
+    l0 = l0 * alpha0 + rs0;
+    l1 = l1 * alpha1 + rs1;
+    m0 = mx0;
+    m1 = mx1;
+  };
+  auto split_p = [&]() {  // k = t: key 2t of the step, k = t + 4: key 2t + 1
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      pa[kk] = split_a(sacc[4 * kk], sacc[4 * kk + 2], sacc[4 * kk + 1], sacc[4 * kk + 3]);
+  };
+
+  // Tile 0: S, softmax; its P V joins the next turn's products.
+  __syncthreads();
+  wgmma_fence();
+  start_scores(0);
+  wgmma_commit();
+  stream(0);
+  wgmma_wait<0>();
+  reg_fence(sacc);
+  softmax(0);
+  split_p();
+
+  for (int j = 1; j < n_tiles; ++j) {
+    __syncthreads();  // tile j's planes are in; every warp is done with tile j - 2's stage
+    reg_fence(sacc);
+    reg_fence(pv);
+    wgmma_fence();
+    start_scores(j);
+    wgmma_commit();
+    start_pv(j - 1);
+    wgmma_commit();
+    stream(j);
+    wgmma_wait<1>();  // S of tile j is there; P V of tile j - 1 may run on
+    reg_fence(sacc);
+    softmax(j);
+    reg_fence(sacc);
+    wgmma_wait<0>();
+    reg_fence(pv);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      reg_fence(pa[kk].hi);
+      reg_fence(pa[kk].lo);
+    }
+    // acc held O(j - 2) * alpha(j - 1): plus P V of tile j - 1 is O(j - 1), then rescaled for tile j
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      oacc[4 * jj] = (oacc[4 * jj] + pv[4 * jj]) * alpha0;
+      oacc[4 * jj + 1] = (oacc[4 * jj + 1] + pv[4 * jj + 1]) * alpha0;
+      oacc[4 * jj + 2] = (oacc[4 * jj + 2] + pv[4 * jj + 2]) * alpha1;
+      oacc[4 * jj + 3] = (oacc[4 * jj + 3] + pv[4 * jj + 3]) * alpha1;
+    }
+    split_p();
+  }
+
+  reg_fence(pv);
+  wgmma_fence();
+  start_pv(n_tiles - 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(pv);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    reg_fence(pa[kk].hi);
+    reg_fence(pa[kk].lo);
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) oacc[i] += pv[i];
+
+  // The row sums over the 4 threads that share a row.
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+
+  // O = acc / l; rows past sq are not stored.
+  const int s_lo = row0, s_hi = row0 + 8;
+  float* ob = o + ((long long)b * sq * heads + h) * kD;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int col = 8 * jj + 2 * t;
+    if (s_lo < sq)
+      *reinterpret_cast<float2*>(ob + (long long)s_lo * stride + col) =
+          make_float2(oacc[4 * jj] / l0, oacc[4 * jj + 1] / l0);
+    if (s_hi < sq)
+      *reinterpret_cast<float2*>(ob + (long long)s_hi * stride + col) =
+          make_float2(oacc[4 * jj + 2] / l1, oacc[4 * jj + 3] / l1);
+  }
+  if (kWriteLse && t == 0) {  // one thread of each group of 4 writes the row's lse
+    float* lb = lse + (long long)bh * sq;
+    if (s_lo < sq) lb[s_lo] = m0 + log2f(l0);
+    if (s_hi < sq) lb[s_hi] = m1 + log2f(l1);
+  }
+}
+
+template <bool kWriteLse>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int heads, int sq,
+               int skv, float qscale, void* stream) {
+  if (bad_shape(batch, heads, sq, skv)) return (int)cudaErrorInvalidValue;
+  static bool configured[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(flash_fwd_f32_kernel<kWriteLse>, kFwdSmemBytes, configured);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((sq + kFwdRows - 1) / kFwdRows, batch * heads);
+  flash_fwd_f32_kernel<kWriteLse><<<grid, kFwdThreads, kFwdSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), heads, sq, skv, qscale);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -580,21 +777,14 @@ dim3 grid_of(int batch, int heads, int rows) { return dim3((rows + kRows - 1) / 
 
 extern "C" int instantir_flash_fwd_f32_d64(const void* q, const void* k, const void* v, void* o, int batch,
                                            int heads, int sq, int skv, float qscale, void* stream) {
-  if (bad_shape(batch, heads, sq, skv)) return (int)cudaErrorInvalidValue;
-  flash_fwd_f32_kernel<false><<<grid_of(batch, heads, sq), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), nullptr, heads, sq, skv, qscale);
-  return (int)cudaGetLastError();
+  return launch_fwd<false>(q, k, v, o, nullptr, batch, heads, sq, skv, qscale, stream);
 }
 
 // The training forward: also writes lse[B, H, Sq] (fp32, log2 domain).
 extern "C" int instantir_flash_fwd_lse_f32_d64(const void* q, const void* k, const void* v, void* o, void* lse,
                                                int batch, int heads, int sq, int skv, float qscale, void* stream) {
-  if (lse == nullptr || bad_shape(batch, heads, sq, skv)) return (int)cudaErrorInvalidValue;
-  flash_fwd_f32_kernel<true><<<grid_of(batch, heads, sq), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), heads, sq, skv, qscale);
-  return (int)cudaGetLastError();
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_fwd<true>(q, k, v, o, lse, batch, heads, sq, skv, qscale, stream);
 }
 
 extern "C" int instantir_flash_bwd_dq_f32_d64(const void* q, const void* k, const void* v, const void* d_o,

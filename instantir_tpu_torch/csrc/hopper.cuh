@@ -1,13 +1,16 @@
-// PTX wrappers for the Hopper (sm_90a) kernels of flash_fwd.cu and flash_bwd.cu:
-// shared-memory addresses, bf16 packing, exp2, cp.async copies and the proxy
-// fence, the wgmma fence / commit / wait and register fences, the 128-byte
-// swizzle descriptor, and the two wgmma m64n64k16 forms both sources use; and
-// the host checks their entry points share (shape, shared-memory opt-in), of
-// which the fp32 kernels of flash_f32.cu use the shape check.
+// PTX wrappers for the Hopper (sm_90a) kernels of flash_fwd.cu, flash_bwd.cu
+// and flash_f32.cu: shared-memory addresses, bf16 packing, exp2, cp.async
+// copies and the proxy fence, the wgmma fence / commit / wait and register
+// fences, the 128-byte swizzle descriptor, the two bf16 wgmma m64n64k16 forms
+// the bf16 sources use and the two tf32 forms of the fp32 forward (m64n32k8
+// and m64n64k8, A from registers); and the host checks their entry points
+// share (shape, shared-memory opt-in).
 //
-// Tile layout every descriptor here assumes: 64 rows of 128 bytes (64 bf16),
-// 16-byte chunk c of row r at chunk c ^ (r % 8), 1024 bytes between 8-row
-// groups, the tile's base aligned to 1024 bytes.
+// Tile layout every descriptor here assumes: rows of 128 bytes (64 bf16 or 32
+// fp32), 16-byte chunk c of row r at chunk c ^ (r % 8), 1024 bytes between
+// 8-row groups, the tile's base aligned to 1024 bytes. A wgmma step reads 32
+// bytes of each row (k16 in bf16, k8 in tf32): its descriptor's start moves by
+// 32 bytes a step. tf32 operands are K-major only (no transpose flag).
 
 #pragma once
 
@@ -102,6 +105,33 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_bt(float (&d)[32], uint32_t a
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : ACC32(d)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+#define ACC16(d)                                                                                               \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define ACC16_REGS "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64x32 fp32) = a (64x8 tf32, registers, as below) * b (8x32 tf32, shared, K-major: [n][k]) + (scale_d ? d : 0).
+// The tensor cores read the top 19 bits of each fp32 word (the low 13 are ignored).
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " ACC16_REGS ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64x64 fp32) = a (64x8 tf32, registers: (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of each
+// warp's 16 rows) * b (8x64 tf32, shared, K-major: [n][k]) + (scale_d ? d : 0)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " ACC32_REGS ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // Shapes every entry point refuses (ops/attention.py raises on the same): an

@@ -10,7 +10,7 @@ at import: the first call that needs a kernel builds it.
 The target is ``sm_90a``, not plain ``sm_90``: the flash sources use ``wgmma``
 (through the PTX wrappers of ``csrc/hopper.cuh``, whose bytes are part of every
 build's key), which exists only there; ``flash_f32.cu`` holds their fp32
-counterparts (an FFMA forward, a backward in 3xTF32 on ``mma.sync``); ``group_norm.cu`` uses
+counterparts (in 3xTF32: the forward on ``wgmma`` tf32, the backward on ``mma.sync``); ``group_norm.cu`` uses
 thread-block clusters and 1-D bulk copies. They need nothing beyond the CUDA toolkit's own
 headers and runtime (no ``-lcuda``, no extra include path): their copies are
 ``cp.async`` and ``cp.async.bulk`` without a tensor map, and the cluster

@@ -26,12 +26,13 @@ heads, head_dim]`` (BSHD) at every public function, as in the JAX package.
 
 Every wrapper takes bf16 or fp32 (one dtype for all its operands), as the
 Pallas kernels take any float dtype: bf16 launches the ``wgmma`` kernels
-above, fp32 those of ``csrc/flash_f32.cu``: an FFMA forward, and a backward
-on the tensor cores in 3xTF32 (one TF32 product keeps 10 mantissa bits, short
-of the fp32 tolerance; three products of the split ``hi + lo`` keep about 21:
-``split_tf32`` and the ``matmul`` hook of ``flash_backward_reference``
-emulate them on the CPU). Every entry point has its own launch counter, bumped
-only where it launches.
+above, fp32 those of ``csrc/flash_f32.cu``: a forward on ``wgmma`` and a
+backward on ``mma.sync``, both on the tensor cores in 3xTF32 (one TF32 product
+keeps 10 mantissa bits, short of the fp32 tolerance; three products of the
+split ``hi + lo`` keep about 21: ``split_tf32`` and the ``matmul`` hooks of
+``flash_attention_lse_reference`` and ``flash_backward_reference`` emulate
+them on the CPU). Every entry point has its own launch counter, bumped only
+where it launches.
 """
 
 from __future__ import annotations
@@ -81,6 +82,7 @@ def flash_attention_lse_reference(
     v: torch.Tensor,
     scale: Optional[float] = None,
     block_k: int = 64,
+    matmul=torch.matmul,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-PyTorch version of the flash forward kernels: the same blocked
     online softmax with the same rounding points (q pre-scaled by scale·log2e
@@ -88,7 +90,9 @@ def flash_attention_lse_reference(
     rounded to the V dtype before P·V; fp32 accumulation; O = acc / l in the
     input dtype). A ragged last K/V block is simply shorter. q/k/v:
     [B, S, H, D]. Returns ``(o, lse2)`` with ``lse2 = m + log2 l`` (the
-    logsumexp of the log2-domain scores), fp32 ``[B, H, Sq]``."""
+    logsumexp of the log2-domain scores), fp32 ``[B, H, Sq]``. ``matmul``
+    takes both block products (fp32 operands); the tests pass an emulation
+    of the fp32 kernel's 3xTF32 products (with ``block_k`` its 32-key tile)."""
     d = q.shape[-1]
     if scale is None:
         scale = d**-0.5
@@ -103,12 +107,12 @@ def flash_attention_lse_reference(
     for j0 in range(0, kf.shape[2], block_k):
         kb = kf[:, :, j0 : j0 + block_k].float()
         vb = vf[:, :, j0 : j0 + block_k]
-        s = torch.matmul(qf, kb.transpose(-1, -2))
+        s = matmul(qf, kb.transpose(-1, -2))
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp2(s - m_new)
         alpha = torch.exp2(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), vb.float())
+        acc = acc * alpha + matmul(p.to(v.dtype).float(), vb.float())
         m = m_new
     return (acc / l).to(q.dtype).permute(0, 2, 1, 3), (m + torch.log2(l)).squeeze(-1)
 
@@ -134,8 +138,8 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(hi, lo)`` with ``hi = tf32(x)`` and ``lo = tf32(x - hi)``: together
-    about 21 of fp32's 24 significant bits. The split of the fp32 backward
-    kernels' 3xTF32 products, ``a·b ≈ lo_a·hi_b + hi_a·lo_b + hi_a·hi_b``
+    about 21 of fp32's 24 significant bits. The split of the fp32 kernels'
+    3xTF32 products, ``a·b ≈ lo_a·hi_b + hi_a·lo_b + hi_a·hi_b``
     (``csrc/flash_f32.cu``)."""
     hi = tf32_round(x)
     return hi, tf32_round(x - hi)

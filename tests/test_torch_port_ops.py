@@ -529,7 +529,10 @@ def _pallas_flash_forward(bf16: bool, sq: int, skv: int):
 # 4e-3: the band docs/perf.md states for the Pallas kernel vs the XLA path --
 # the blocking changes which running max each P is rounded against. skv = 592
 # leaves a tail of 16 keys under 64-key blocks and of 80 under 128-key ones.
-@pytest.mark.parametrize("block_k", [64, 128])
+# "tf32x3": the fp32 forward kernel's numerics, 32-key tiles and every block
+# product in 3xTF32 (``_tf32x3``); bf16 operands, q2 and P are exact in TF32,
+# so for bf16 only the blocking differs.
+@pytest.mark.parametrize("block_k", [64, 128, "tf32x3"])
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), ("bfloat16", 4e-3)])
 @pytest.mark.parametrize("sq,skv", [(256, 640), (200, 520), (200, 592)])
 def test_flash_reference_matches_pallas_interpret(dtype, tol, sq, skv, block_k):
@@ -538,6 +541,9 @@ def test_flash_reference_matches_pallas_interpret(dtype, tol, sq, skv, block_k):
     before = tattn.flash_attention_launches
     if block_k == 64:  # the wrapper's own choice on the CPU: the kernel's key tile
         got = tattn.flash_attention(_t(q).to(tdt), _t(k).to(tdt), _t(v).to(tdt))
+    elif block_k == "tf32x3":
+        got, _ = tattn.flash_attention_lse_reference(_t(q).to(tdt), _t(k).to(tdt), _t(v).to(tdt), block_k=32,
+                                                     matmul=_tf32x3)
     else:
         got = tattn.flash_attention_reference(_t(q).to(tdt), _t(k).to(tdt), _t(v).to(tdt), block_k=block_k)
     assert tattn.flash_attention_launches == before  # the CPU path launches nothing
@@ -666,6 +672,32 @@ def test_3xtf32_backward_meets_the_fp32_tolerance(sq):
 
 
 @pytest.mark.parametrize("sq,skv", [(256, 256), (200, 328)])
+def test_3xtf32_forward_meets_the_fp32_tolerance(sq, skv):
+    """The numerics of the fp32 forward kernel (``csrc/flash_f32.cu``),
+    emulated on the CPU: the blocked online softmax over 32-key tiles with
+    both block products (q2·Kᵀ and P·V) taken as three TF32 products of split
+    operands comes within the card check's relative L2 of 1e-5 of an fp64
+    reference, and its log2-domain lse within 1e-5; with one TF32 product the
+    output misses. (200 x 328 is ragged on both sides: the last key tile
+    holds 8 keys.)"""
+    rng = np.random.default_rng(17)
+    q = torch.from_numpy(rng.standard_normal((1, sq, 2, 64)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, skv, 2, 64)).astype(np.float32)) for _ in range(2))
+    want = tattn.attention_xla(q.double(), k.double(), v.double())
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * 64**-0.5
+    want_lse = torch.logsumexp(logits, dim=-1) * tattn.LOG2E
+
+    def errors(matmul):
+        o, lse = tattn.flash_attention_lse_reference(q, k, v, block_k=32, matmul=matmul)
+        assert o.dtype == torch.float32 and lse.shape == (1, 2, sq)
+        return ((o.double() - want).norm() / want.norm()).item(), (lse.double() - want_lse).abs().max().item()
+
+    (o3, lse3), (o1, _) = errors(_tf32x3), errors(_tf32x1)
+    assert o3 <= 1e-5 and lse3 <= 1e-5, (o3, lse3)
+    assert o1 > 1e-5, o1
+
+
+@pytest.mark.parametrize("sq,skv", [(256, 256), (200, 328)])
 def test_flash_attention_diff_gradients_match_attention_xla(sq, skv):
     """The attention autograd Function (plain versions on the CPU; the kernels
     have no fp64 path, so no gradcheck): its saving and returning of tensors,
@@ -742,20 +774,33 @@ def test_launch_routes_each_dtype_to_its_entry_point(name, dtype, monkeypatch):
 
 def test_fp32_flash_source_holds_simt_kernels():
     """``flash_f32.cu`` holds the three fp32 kernels (a forward with an lse
-    flag, dQ, dK/dV) behind four entry points: the forward with FFMA products
-    on the CUDA cores, the two backward kernels with 3xTF32 products on
-    ``mma.sync`` m16n8k8 (no ``wgmma``, no ``ldmatrix``: their operands come
-    from shared memory by plain loads and are split in registers)."""
+    flag, dQ, dK/dV) behind four entry points, every product on the tensor
+    cores in 3xTF32, each as three calls into one accumulator, small terms
+    first: the forward on ``wgmma`` tf32 (S = q2·Kᵀ as m64n32k8, P·V as
+    m64n64k8, A from registers, B from shared memory; the wrappers in
+    ``hopper.cuh``), with no FFMA dot product (``fmaf``) and no ``mma.sync``
+    left in it; the two backward kernels on ``mma.sync`` m16n8k8 (no
+    ``ldmatrix``: their operands come from shared memory by plain loads and
+    are split in registers)."""
     text = (tkernels.CSRC / "flash_f32.cu").read_text()
+    header = (tkernels.CSRC / "hopper.cuh").read_text()
     assert len(re.findall(r"__global__\s+void", text)) == 3
     assert len(re.findall(r'extern\s+"C"', text)) == 4
     body = text.split("#include", 1)[1]
-    forward = body[:body.index("constexpr int kBwdRows")]  # the forward's helpers and kernel come first
-    assert "fmaf(" in forward and "asm(" not in forward
+    backward, forward = body.split("// The forward: 3xTF32 on wgmma", 1)  # the backward's helpers and kernels first
+    assert "flash_fwd_f32_kernel" in forward and "flash_fwd_f32_kernel" not in backward
+    assert "fmaf(" not in forward and "mma_tf32(" not in forward and "mma.sync" not in forward
+    # tf32 takes no transpose flags: only the two scale immediates follow the predicate
+    assert 'wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " ACC16_REGS ", {%16, %17, %18, %19}, %20, p, 1, 1;' in header
+    assert 'wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " ACC32_REGS ", {%32, %33, %34, %35}, %36, p, 1, 1;' in header
+    for shape in ("m64n32k8", "m64n64k8"):
+        assert re.search(rf"wgmma_{shape}_tf32_rs\(d, a\.lo, b_hi, scale_d\);\s*wgmma_{shape}_tf32_rs\(d, a\.hi, b_lo, "
+                         rf"1\);\s*wgmma_{shape}_tf32_rs\(d, a\.hi, b_hi, 1\);", forward), shape
+    kernel = forward.split("flash_fwd_f32_kernel(", 1)[1]
+    assert "wgmma3_rs(sacc, qf[ks]," in kernel and "wgmma3_rs(pv, pa[kk]," in kernel
     assert body.count("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32") == 1  # one wrapper, three calls a product
-    assert re.search(r"mma_tf32\(d, a\.lo, b\.hi\);\s*mma_tf32\(d, a\.hi, b\.lo\);\s*mma_tf32\(d, a\.hi, b\.hi\);", body)
-    for needle in ("wgmma", "ldmatrix"):
-        assert needle not in body, needle
+    assert re.search(r"mma_tf32\(d, a\.lo, b\.hi\);\s*mma_tf32\(d, a\.hi, b\.lo\);\s*mma_tf32\(d, a\.hi, b\.hi\);", backward)
+    assert "wgmma" not in backward and "ldmatrix" not in body
 
 
 def test_kernel_sources_exist_and_hold_one_forward_kernel():
