@@ -28,6 +28,18 @@ which ends the script with a nonzero exit on failure:
    fused GroupNorm off and on, every launch counter set to 0 just before each
    and read just after; the counts must match the schedule, the images must be
    finite, 1024² RGB and close to each other (``RESTORE_TOL``);
+4b. the restore options on phase 4's models at 1024², 4 steps: ``fused`` (the
+   whole restore as one CUDA graph) against the staged restore on the same
+   noise (image within 1e-3 of its scale, 0 expected; staged and graph
+   s/image over 3 calls each after the recording, in turns; the recording's
+   time; both peaks), ``fuse_previewer_lora`` and ``freeze_previewer`` (on a
+   copy of the UNet) close to the dynamic LoRA branch, DeepCache (interval
+   2, depth 1: a stale step launches no K1), ``multistep_restore``, the bf16
+   decode against the fp32 one and its time, VAE tiling against the untiled
+   decode and restore, and VAE slicing at 512², batch 2, against the
+   unsliced encode, decode and restore; every count derived from the config
+   (``expected_restore_launches``). With ``--steps 30`` also config #4 staged
+   and as a graph, with the dynamic and the merged LoRA, in turns;
 5. stage-2 (Aggregator) training at full SDXL width: two
    ``Stage2Trainer.train_step``s at 512² (batch 2) and one at 1024² (batch 1,
    gradient checkpointing on the UNet and the Aggregator); loss,
@@ -63,6 +75,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import copy
+import dataclasses
 import gc
 import json
 import os
@@ -855,14 +869,11 @@ def run_restore(torch, steps: int, mods: dict, ucfg):
     unet_calls = flash_calls_per_forward(ucfg, lat_hw, lat_hw, with_up=True)
     agg_calls = flash_calls_per_forward(ucfg, lat_hw, lat_hw, with_up=False, concat=2)
     by_seq = flash_launches_by_seq(phases, unet_calls, agg_calls)
-    n_unet, n_agg = forwards_per_restore(phases)
-    expected = {"flash_attention_fwd": sum(by_seq.values()),
-                "group_norm_silu": n_unet * group_norms_per_forward(ucfg)["total"]
-                + n_agg * group_norms_per_forward(ucfg, with_up=False)["total"]}
+    expected = expected_restore_launches(ucfg, cfg, phases, lat_hw)
     by_shape = sum(group_norm_launches_by_shape(ucfg, phases, lat_hw).values())
-    if by_shape != expected["group_norm_silu"]:
-        fail(f"GroupNorm launches derived by shape ({by_shape}) differ from those derived by block "
-             f"({expected['group_norm_silu']})")
+    if (by_shape, sum(by_seq.values())) != (expected["group_norm_silu"], expected["flash_attention_fwd"]):
+        fail(f"launches derived by shape (K5 {by_shape}) and by sequence (K1 {sum(by_seq.values())}) differ from "
+             f"those derived by block ({expected})")
     log(f"  phases {[(p['mode'], len(p['t'])) for p in phases]}; flash launches per UNet forward {unet_calls}, "
         f"per Aggregator forward {agg_calls}; expected per restore: {expected}")
 
@@ -915,6 +926,250 @@ def run_restore(torch, steps: int, mods: dict, ucfg):
     chosen = runs[default_fused]
     return (pipe, chosen["launches"], chosen["sec"], by_seq, {f: runs[f]["sec"] for f in runs},
             runs[True]["launches"])
+
+
+def stale_step_launches(cfg, lat: int, depth: int) -> dict:
+    """K1 and K5 launches of one shallow UNet forward (a DeepCache stale
+    step: the first ``depth`` down blocks, the last ``depth`` up blocks and
+    ``conv_norm_out``; the previewer and the Aggregator do not run). In SDXL
+    at depth 1 those are ``DownBlock2D`` and ``UpBlock2D``: no attention, so
+    no K1, and 4 + 6 + 1 GroupNorms."""
+    n = len(cfg.block_out_channels)
+    k1, gn = 0, 1  # conv_norm_out
+    for i in range(depth):
+        cross = cfg.down_block_types[i] == "CrossAttnDownBlock2D"
+        gn += cfg.layers_per_block * (3 if cross else 2)
+        if cross and (lat >> i) ** 2 >= 512:
+            k1 += cfg.layers_per_block * cfg.transformer_layers_per_block[i]
+    for i in range(n - depth, n):
+        level, cross = n - 1 - i, cfg.up_block_types[i] == "CrossAttnUpBlock2D"
+        gn += (cfg.layers_per_block + 1) * (3 if cross else 2)
+        if cross and (lat >> level) ** 2 >= 512:
+            k1 += (cfg.layers_per_block + 1) * cfg.transformer_layers_per_block[level]
+    return {"flash_attention_fwd": k1, "group_norm_silu": gn}
+
+
+def expected_restore_launches(cfg, rcfg, phases, lat: int) -> dict:
+    """K1 and K5 launches of one bf16 restore with the fused GroupNorm on, by
+    step: a fresh step of mode A runs the Aggregator and the main UNet, B adds
+    the previewer UNet, C runs the main UNet; a DeepCache stale step runs the
+    shallow UNet alone (``stale_step_launches``). The Heun lookahead, the
+    merged LoRA and the VAE options change no count."""
+    unet = {"flash_attention_fwd": sum(flash_calls_per_forward(cfg, lat, lat, with_up=True).values()),
+            "group_norm_silu": group_norms_per_forward(cfg)["total"]}
+    agg = {"flash_attention_fwd": sum(flash_calls_per_forward(cfg, lat, lat, with_up=False, concat=2).values()),
+           "group_norm_silu": group_norms_per_forward(cfg, with_up=False)["total"]}
+    stale = stale_step_launches(cfg, lat, rcfg.deepcache_depth)
+    out = {"flash_attention_fwd": 0, "group_norm_silu": 0}
+    for p in phases:
+        n_unet, n_agg = {"A": (1, 1), "B": (2, 1), "C": (1, 0)}[p["mode"]]
+        for refresh in p["refresh"]:
+            for name in out:
+                if refresh or rcfg.deepcache_interval <= 1:
+                    out[name] += n_unet * unet[name] + n_agg * agg[name]
+                else:
+                    out[name] += stale[name]
+    return out
+
+
+def run_restore_options(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> dict:
+    """Phase 4b: the restore options on phase 4's bf16 models, at 1024² and 4
+    steps (slicing at 512², batch 2), each restore's launch counters set to 0
+    just before it and read just after, each image finite RGB: the whole
+    restore as one CUDA graph (``fused``) against the staged restore on the
+    same noise (s/image over 3 calls each after the recording, in turns; the
+    recording's time; both peaks), the merged previewer LoRA
+    (``fuse_previewer_lora``) and ``freeze_previewer`` on a copy of the UNet,
+    DeepCache (interval 2, depth 1), the Heun lookahead, the bf16 decode, VAE
+    tiling (96-latent tiles over 128 latents: 2 x 2 tiles) and slicing. With
+    ``steps`` other than 4, config #4 at ``steps`` staged and as a graph, with
+    the dynamic and the merged LoRA, in turns."""
+    from instantir_tpu_torch.pipeline.instantir import InstantIRPipeline, RestoreNoise, build_step_phases
+
+    group_norm = mods["group_norm"]
+    if not group_norm.USE_FUSED:
+        fail("phase 4b derives its counts with the fused GroupNorm on")
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def inputs(res: int, batch: int, n_steps: int):
+        lq = torch.rand(batch, res, res, 3, generator=g, device="cuda") * 2.0 - 1.0
+        pe = (torch.randn(batch, 77, 2048, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        pooled = (torch.randn(batch, 1280, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        lat = (batch, res // 8, res // 8, 4)
+        noise = RestoreNoise(*(torch.randn(lat, generator=g, device="cuda") for _ in range(2)),
+                             [torch.randn(lat, generator=g, device="cuda") for _ in range(n_steps)])
+        return lq, pe, pooled, noise
+
+    out = {"launches": {}}
+
+    def restore(what: str, p, cfg, args, expected: dict, output_type: str = "pt"):
+        """One restore between counter reads and two synchronizes; fails on a
+        count other than ``expected`` or an image that is not finite RGB. The
+        counts read are kept under ``out["launches"][what]``."""
+        lq, pe, pooled, noise = args
+        zero_counters(mods)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        image, previews = p.restore(lq, pe, pooled, cfg=cfg, noise=noise, output_type=output_type)
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        launches = out["launches"][what] = read_counters(mods)
+        if launches != every_counter(expected):
+            fail(f"{what}: kernel launches {launches} differ from the counts derived from the config "
+                 f"{every_counter(expected)}")
+        if output_type == "pt":
+            want = (lq.shape[0], lq.shape[1], lq.shape[2], 3)
+            if tuple(image.shape) != want or not torch.isfinite(image).all():
+                fail(f"{what}: the image is not finite RGB of shape {want}: {tuple(image.shape)}")
+        return image, sec, torch.cuda.max_memory_allocated() / 1e9
+
+    def rel_l2(a, b) -> float:
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def close(what: str, got, want, tol: float = RESTORE_TOL) -> float:
+        rel = rel_l2(got, want)
+        log(f"  {what}: relative L2 difference {rel:.3e}, max abs {(got.float() - want.float()).abs().max().item():.3e}")
+        if not rel <= tol:
+            fail(f"{what}: relative L2 {rel} > {tol}")
+        return rel
+
+    res, lat = 1024, 1024 // 8
+    base = restore_config(4)
+    expected = expected_restore_launches(ucfg, base, build_step_phases(base), lat)
+    args = inputs(res, 1, 4)
+    fused_cfg = dataclasses.replace(base, fused=True)
+
+    # 1. the staged restore and the graph on the same noise, in turns after the recording
+    staged_img, _, staged_peak = restore("staged restore", pipe, base, args, expected)
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved() / 1e9
+    graph_img, record_sec, record_peak = restore("graph recording", pipe, fused_cfg, args,
+                                                 {k: 2 * n for k, n in expected.items()})
+    torch.cuda.empty_cache()  # what stays reserved is the graph's private pool (and its output)
+    pool = torch.cuda.memory_reserved() / 1e9 - reserved0
+    secs = {"staged": [], "graph": []}
+    for kind in ("staged", "graph", "graph", "staged", "staged", "graph"):
+        img, sec, peak = restore(f"{kind} restore", pipe, base if kind == "staged" else fused_cfg, args,
+                                 expected if kind == "staged" else {})
+        secs[kind].append(sec)
+        if kind == "graph":
+            graph_img = img
+    diff = (graph_img.float() - staged_img.float()).abs().max().item()
+    scale = max(1.0, staged_img.float().abs().max().item())
+    log(f"  fused (one CUDA graph) vs staged, 1024² 4 steps: {min(secs['graph']):.3f} vs {min(secs['staged']):.3f} "
+        f"s/image (runs {['%.3f' % x for x in secs['graph']]} vs {['%.3f' % x for x in secs['staged']]}); the "
+        f"recording call (warm-up, capture, replay) {record_sec:.3f} s; peak memory staged {staged_peak:.2f} GB, "
+        f"recording {record_peak:.2f} GB, the graph's pool {pool:.2f} GB; image max abs difference "
+        f"{diff:.3e} (scale {scale:.3f}) on {card_line}")
+    if not diff <= 1e-3 * scale:
+        fail(f"the graph-replayed image differs from the staged one by {diff} > 1e-3 x {scale}")
+    out.update(staged_sec=min(secs["staged"]), graph_sec=min(secs["graph"]), record_sec=record_sec,
+               staged_peak=staged_peak, record_peak=record_peak, pool_gb=pool, graph_diff=diff)
+
+    # 2. the merged previewer LoRA, per restore and frozen (on a copy of the UNet)
+    merged_cfg = dataclasses.replace(base, fuse_previewer_lora=True)
+    merged_secs = []
+    for _ in range(2):
+        merged_img, sec, _ = restore("fuse_previewer_lora restore", pipe, merged_cfg, args, expected)
+        merged_secs.append(sec)
+    close("fuse_previewer_lora vs the dynamic LoRA branch, image", merged_img, staged_img)
+    unet_copy = copy.deepcopy(pipe.unet)
+    frozen = InstantIRPipeline(unet_copy, pipe.aggregator, pipe.vae, pipe.resampler, pipe.image_encoder,
+                               pipe.schedule, device="cuda").freeze_previewer(base.lora_alpha)
+    frozen_secs = []
+    for _ in range(2):
+        frozen_img, sec, frozen_peak = restore("freeze_previewer restore", frozen, base, args, expected)
+        frozen_secs.append(sec)
+    close("freeze_previewer vs the dynamic LoRA branch, image", frozen_img, staged_img)
+    del frozen, unet_copy
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  fuse_previewer_lora {['%.3f' % x for x in merged_secs]} s/image, freeze_previewer "
+        f"{['%.3f' % x for x in frozen_secs]} (peak {frozen_peak:.2f} GB with the merged copy)")
+    out.update(merged_sec=min(merged_secs), frozen_sec=min(frozen_secs))
+
+    # 3. DeepCache, interval 2, depth 1: a stale step runs the shallow UNet alone
+    dc_cfg = dataclasses.replace(base, deepcache_interval=2, deepcache_depth=1)
+    dc_phases = build_step_phases(dc_cfg)
+    dc_expected = expected_restore_launches(ucfg, dc_cfg, dc_phases, lat)
+    stale = stale_step_launches(ucfg, lat, 1)
+    log(f"  DeepCache interval 2 depth 1: refresh {[(p['mode'], p['refresh']) for p in dc_phases]}; a stale step "
+        f"launches {stale}; expected per restore {dc_expected}")
+    if stale["flash_attention_fwd"] != 0:
+        fail(f"a DeepCache stale step at depth 1 was derived to launch K1 {stale['flash_attention_fwd']} times")
+    dc_img, dc_sec, _ = restore("DeepCache restore", pipe, dc_cfg, args, dc_expected)
+    log(f"  DeepCache restore {dc_sec:.3f} s/image; image against the exact restore: relative L2 "
+        f"{rel_l2(dc_img, staged_img):.3e}")
+
+    # 4. the Heun lookahead
+    heun_img, heun_sec, _ = restore("multistep_restore", pipe, dataclasses.replace(base, multistep_restore=True),
+                                    args, expected)
+    log(f"  multistep_restore {heun_sec:.3f} s/image; image against the default: relative L2 "
+        f"{rel_l2(heun_img, staged_img):.3e}")
+
+    # 5. the bf16 decode: against the fp32 decode of the same latents, and its time
+    latents, _, _ = restore("latent restore", pipe, base, args, expected, output_type="latent")
+    z = latents.permute(0, 3, 1, 2)
+    with torch.no_grad():
+        dec32 = pipe.decode_latents(z)
+        dec16 = pipe.decode_latents(z, torch.bfloat16)
+        ms32 = time_ms(torch, lambda: pipe.decode_latents(z), iters=3, warmup=1)
+        ms16 = time_ms(torch, lambda: pipe.decode_latents(z, torch.bfloat16), iters=3, warmup=1)
+    close("bf16 decode vs fp32 decode", dec16, dec32)
+    bf16_img, bf16_sec, _ = restore("decode_dtype=bfloat16 restore", pipe,
+                                    dataclasses.replace(base, decode_dtype="bfloat16"), args, expected)
+    log(f"  decode 1024²: fp32 {ms32:.2f} ms, bf16 {ms16:.2f} ms; decode_dtype=bfloat16 restore {bf16_sec:.3f} s/image")
+    out.update(decode_ms_f32=ms32, decode_ms_bf16=ms16, bf16_sec=bf16_sec)
+
+    # 6. VAE tiling: 96-latent tiles over 128 latents (2 x 2 tiles to encode and to decode)
+    with torch.no_grad():
+        tiled_dec = pipe.decode_latents(z, tiling=(96, 0.25))
+    close("tiled vs untiled decode of the same latents", tiled_dec, dec32)
+    tiled_img, tiled_sec, tiled_peak = restore("vae_tiling restore", pipe, dataclasses.replace(base, vae_tiling=True),
+                                               args, expected)
+    close("vae_tiling restore vs the untiled one", tiled_img, staged_img)
+    log(f"  vae_tiling restore {tiled_sec:.3f} s/image, peak {tiled_peak:.2f} GB (untiled {staged_peak:.2f})")
+
+    # 7. VAE slicing at 512², batch 2: the fp32 encode and decode against the unsliced ones (only the
+    # convolutions' batch differs), then the restore against the unsliced one fed the same per-sample draws
+    small = inputs(512, 2, 4)
+    with torch.no_grad():
+        z_whole = pipe.encode_vae_image(small[0], small[3].vae)
+        close("sliced vs unsliced fp32 encode, batch 2 at 512²", pipe.encode_vae_image(small[0], small[3].vae,
+                                                                                      slicing=True), z_whole, 1e-4)
+        close("sliced vs unsliced fp32 decode, batch 2 at 512²", pipe.decode_latents(z_whole, slicing=True),
+              pipe.decode_latents(z_whole), 1e-4)
+    exp512 = expected_restore_launches(ucfg, base, build_step_phases(base), 512 // 8)
+    sliced_img, sliced_sec, sliced_peak = restore("vae_slicing restore", pipe,
+                                                  dataclasses.replace(base, vae_slicing=True), small, exp512)
+    whole_img, whole_sec, whole_peak = restore("unsliced batch-2 restore", pipe, base, small, exp512)
+    close("vae_slicing vs unsliced, batch 2 at 512²", sliced_img, whole_img)
+    log(f"  512² batch 2: sliced {sliced_sec:.3f} s, peak {sliced_peak:.2f} GB; unsliced {whole_sec:.3f} s, peak "
+        f"{whole_peak:.2f} GB")
+    out["expected"] = expected
+
+    # 8. config #4 at the steps asked for: staged and graph, dynamic and merged LoRA, in turns
+    if steps != 4:
+        c4 = restore_config(steps)
+        c4_expected = expected_restore_launches(ucfg, c4, build_step_phases(c4), lat)
+        c4_args = inputs(res, 1, steps)
+        runs = {}
+        for merged in (False, True):
+            cfg = dataclasses.replace(c4, fuse_previewer_lora=merged)
+            _, rec_sec, rec_peak = restore(f"{steps}-step graph recording", pipe, dataclasses.replace(cfg, fused=True),
+                                           c4_args, {k: 2 * n for k, n in c4_expected.items()})
+            log(f"  config #4, {steps} steps, {'merged' if merged else 'dynamic'} LoRA: the graph's recording call "
+                f"{rec_sec:.3f} s, peak {rec_peak:.2f} GB")
+            for kind in ("staged", "graph", "graph", "staged"):
+                _, sec, _ = restore(f"{steps}-step {kind} restore", pipe, dataclasses.replace(cfg, fused=kind == "graph"),
+                                    c4_args, c4_expected if kind == "staged" else {})
+                runs.setdefault((kind, merged), []).append(sec)
+        for (kind, merged), secs in runs.items():
+            log(f"  config #4, {steps} steps, {kind}, {'merged' if merged else 'dynamic'} LoRA: "
+                f"{['%.3f' % x for x in secs]} s/image on {card_line}")
+        out["config4"] = {f"{kind}_{'merged' if merged else 'dynamic'}": min(v) for (kind, merged), v in runs.items()}
+    return out
 
 
 def _checksums(torch, params: dict) -> dict:
@@ -1365,6 +1620,10 @@ def main() -> None:
     log(f"[4] restore at SDXL width, {args.steps} steps, fused GroupNorm off and on")
     pipe, restore_launches, sec, by_seq, restore_secs, fused_launches = run_restore(torch, args.steps, mods, ucfg)
 
+    # 4b. the restore options
+    log("[4b] restore options at SDXL width: one CUDA graph, merged LoRA, DeepCache, Heun, bf16 decode, tiling, slicing")
+    options = run_restore_options(torch, pipe, args.steps, mods, ucfg, card_line)
+
     # 5. stage-2 training (before stage 1, which frees the Aggregator)
     log("[5] stage-2 (Aggregator) training at SDXL width")
     stage2 = run_stage2(torch, pipe, ucfg, mods, card_line)
@@ -1390,6 +1649,8 @@ def main() -> None:
     # 9. summary
     def by_path(name):
         return {"restore": restore_launches[name], "restore_fused_group_norm": fused_launches[name],
+                "restore_graph_recording": options["launches"]["graph recording"][name],
+                "restore_deepcache": options["launches"]["DeepCache restore"][name],
                 "train_512": train["train_512"][name], "train_1024": train["train_1024"][name],
                 "train_stage2_512": stage2["train_stage2_512"][name],
                 "train_stage2_1024": stage2["train_stage2_1024"][name],
@@ -1458,7 +1719,11 @@ def main() -> None:
         if not sum(e["launches_by_path"].values()) > 0:
             fail(f"kernel {e['name']} was launched no time on any main path")
     log(f"[9] {args.steps}-step restore: {sec:.3f} s/image (fused GroupNorm off {restore_secs[False]:.3f}, on "
-        f"{restore_secs[True]:.3f}); stage-2 step at 512² batch 2: {min(stage2['sec_512']):.3f} s, peak "
+        f"{restore_secs[True]:.3f}); at 4 steps staged {options['staged_sec']:.3f}, one CUDA graph "
+        f"{options['graph_sec']:.3f} (recording {options['record_sec']:.3f} s; peaks {options['staged_peak']:.2f} / "
+        f"{options['record_peak']:.2f} GB, pool {options['pool_gb']:.2f} GB), merged LoRA {options['merged_sec']:.3f}, frozen {options['frozen_sec']:.3f}, "
+        f"bf16 decode {options['bf16_sec']:.3f} (decode {options['decode_ms_f32']:.1f} -> {options['decode_ms_bf16']:.1f} "
+        f"ms){'; config #4 ' + json.dumps(options['config4']) if 'config4' in options else ''}; stage-2 step at 512² batch 2: {min(stage2['sec_512']):.3f} s, peak "
         f"{stage2['peak_gb_512']:.2f} GB; at 1024² batch 1 with checkpointing: {stage2['sec_1024']:.3f} s, peak "
         f"{stage2['peak_gb_1024']:.2f} GB; stage-1 step at 512² batch 2: {min(train['sec_512']):.3f} s; at 1024² "
         f"batch 1 with checkpointing: {train['sec_1024']:.3f} s; previewer step at 512² batch 2: "

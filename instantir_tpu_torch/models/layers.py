@@ -7,13 +7,15 @@ previewer-on and previewer-off UNet passes share one set of weights). The
 branch is skipped when ``lora_scale`` is 0. Parameter names are the
 diffusers/PEFT state-dict names (``weight``, ``bias``, ``lora_A.weight``,
 ``lora_B.weight``). Normalisation parameters are fp32 whatever the model dtype.
-The int8 ``Quantizable*`` branches of the JAX package are not ported yet.
+``merge_lora`` folds the branch into merged weights for a model run with
+``lora_scale=0``. The int8 ``Quantizable*`` branches of the JAX package are
+not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -65,6 +67,28 @@ class LoRAConv2d(nn.Conv2d):
         if self.lora_rank > 0 and lora_scale != 0.0:
             y = y + (lora_scale * self.lora_alpha / self.lora_rank) * self.lora_B(self.lora_A(x))
         return y
+
+
+def merge_lora(model: nn.Module, lora_scale: float) -> Dict[str, torch.Tensor]:
+    """Fold every LoRA branch of ``model`` into its base weight, twin of
+    ``instantir_tpu/models/layers.py::merge_lora_tree``: ``W + s·(α/r)·B·A``
+    for a ``LoRALinear``, and for a ``LoRAConv2d`` the 1×1 ``B`` folded into
+    ``A``'s k×k kernel, computed in the weight's own dtype (the coefficient
+    rounded to it first, as the JAX version does). Returns ``{parameter
+    name: merged weight}`` for the LoRA-bearing layers only: run the model on
+    them with ``lora_scale=0`` through ``torch.func.functional_call``, and
+    every other parameter is the model's own, by reference."""
+    merged = {}
+    for name, m in model.named_modules():
+        if isinstance(m, (LoRALinear, LoRAConv2d)) and m.lora_rank > 0:
+            a, b, w = m.lora_A.weight, m.lora_B.weight, m.weight
+            if isinstance(m, LoRALinear):  # b [out, r] @ a [r, in]
+                delta = b @ a
+            else:  # b [out, r, 1, 1], a [r, in, kh, kw]
+                delta = torch.einsum("or,rihw->oihw", b[:, :, 0, 0], a)
+            coef = torch.tensor(lora_scale * m.lora_alpha / m.lora_rank, dtype=w.dtype).item()
+            merged[f"{name}.weight" if name else "weight"] = w + coef * delta
+    return merged
 
 
 class GroupNorm32(nn.Module):

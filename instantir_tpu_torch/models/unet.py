@@ -7,7 +7,7 @@ cross-attention dim 2048, text_time added embeddings (2816 = 1280 pooled +
 6 x 256 time ids). The previewer LoRA is a forward argument (``lora_scale``),
 the image-prompt tokens an explicit input, and the time-aware IP AdaLN reads
 the UNet's own time embedding. Parameter names are the diffusers names.
-DeepCache's ``return_deep``/``cached_deep`` are not ported yet.
+``forward`` also takes DeepCache's split (``return_deep`` / ``cached_deep``).
 """
 
 from __future__ import annotations
@@ -199,9 +199,33 @@ class UNet2DConditionModel(nn.Module):
         mid_block_additional_residual: Optional[torch.Tensor] = None,
         lora_scale: float = 0.0,
         ip_scale: Optional[float] = None,
-    ) -> torch.Tensor:
+        cached_deep: Optional[torch.Tensor] = None,
+        return_deep: bool = False,
+        cache_depth: int = 1,
+    ):
+        """DeepCache split execution (twin of the JAX UNet's):
+
+        * ``return_deep=True`` -- the full forward, which also returns the
+          feature entering up block ``n_up - cache_depth`` (the deep trunk's
+          output): ``(out, deep)``.
+        * ``cached_deep=<that feature>`` -- the shallow forward: only the first
+          ``cache_depth`` down blocks (for fresh skip connections) and the last
+          ``cache_depth`` up blocks, on top of the cached trunk.
+
+        ``shallow(x, cached_deep=deep(x)) == full(x)`` bit for bit; the split
+        approximates only when the trunk is reused across timesteps. In
+        shallow mode ``down_block_additional_residuals`` must be the shallow
+        skip slice (the first ``3·cache_depth`` entries at layers_per_block 2)
+        and ``mid_block_additional_residual`` is unused. The port fuses
+        residuals by addition only (the JAX package's ``residual_fusion='add'``,
+        which ``cached_deep`` requires there).
+        """
         cfg = self.config
         b = sample.shape[0]
+        shallow = cached_deep is not None
+        n_blocks = len(cfg.down_block_types)
+        if (shallow or return_deep) and not 1 <= cache_depth < n_blocks:
+            raise ValueError(f"cache_depth must be in [1, {n_blocks - 1}], got {cache_depth}")
         timesteps = torch.as_tensor(timesteps, device=sample.device).reshape(-1).expand(b)
         emb = time_and_added_embedding(cfg, self.time_embedding, self.add_embedding, timesteps,
                                        added_text_embeds, added_time_ids, timestep_cond)
@@ -215,21 +239,39 @@ class UNet2DConditionModel(nn.Module):
 
         sample = self.conv_in(sample.to(self.dtype))
         down_res = (sample,)
-        for block in self.down_blocks:
+        for i, block in enumerate(self.down_blocks):
+            if shallow and i >= cache_depth:
+                break
             if isinstance(block, CrossAttnDownBlock2D):
                 sample, res = run(block, sample, emb, **attn_kw)
             else:
                 sample, res = run(block, sample, emb, lora_scale)
             down_res = down_res + res
 
+        if shallow:
+            # the boundary level's downsample output feeds a deep up block that
+            # does not run: the list keeps exactly the skips the shallow up blocks pop
+            down_res = down_res[:-1]
+            if down_block_additional_residuals is not None and len(down_block_additional_residuals) != len(down_res):
+                raise ValueError(f"shallow mode expects {len(down_res)} residuals (the shallow skip slice), "
+                                 f"got {len(down_block_additional_residuals)}")
         if down_block_additional_residuals is not None:
             down_res = tuple(s + r.to(s.dtype) for s, r in zip(down_res, down_block_additional_residuals))
 
-        sample = run(self.mid_block, sample, emb, **attn_kw)
-        if mid_block_additional_residual is not None:
-            sample = sample + mid_block_additional_residual.to(sample.dtype)
+        if shallow:  # the mid block lives in the cached trunk
+            sample = cached_deep.to(self.dtype)
+        else:
+            sample = run(self.mid_block, sample, emb, **attn_kw)
+            if mid_block_additional_residual is not None:
+                sample = sample + mid_block_additional_residual.to(sample.dtype)
 
-        for block in self.up_blocks:
+        deep = None
+        n_up = len(self.up_blocks)
+        for i, block in enumerate(self.up_blocks):
+            if shallow and i < n_up - cache_depth:
+                continue
+            if return_deep and i == n_up - cache_depth:
+                deep = sample
             num_res = len(block.resnets)
             res, down_res = down_res[-num_res:], down_res[:-num_res]
             if isinstance(block, CrossAttnUpBlock2D):
@@ -237,4 +279,5 @@ class UNet2DConditionModel(nn.Module):
             else:
                 sample = run(block, sample, res, emb, lora_scale)
 
-        return self.conv_out(self.conv_norm_out(sample))
+        out = self.conv_out(self.conv_norm_out(sample))
+        return (out, deep) if return_deep else out

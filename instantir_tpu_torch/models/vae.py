@@ -5,16 +5,21 @@ InstantIR pipeline uses it (blocks [128, 256, 512, 512], 2 layers per block,
 latent 4 channels, scaling_factor 0.13025, single-head mid-block attention
 with biased QKV and a residual). The encoder downsamples with the asymmetric
 (0,1)x(0,1) padding diffusers uses. ``encode`` takes the posterior noise as an
-argument. Tiling and slicing are not ported yet. Its GroupNorms run the
-plain version (``use_kernel=False``) on every device: the fused kernel is
-built and checked for the UNet's and the Aggregator's slabs, and at 1024² a
-VAE slab (up to 16 MB a group in fp32) is far past a cluster's shared memory.
+argument. ``decode(z, dtype=torch.bfloat16)`` runs the decoder in bf16 from
+the fp32 weights, as the JAX package's bf16 ``AutoencoderKL`` applies the fp32
+tree. ``tiled_decode`` / ``tiled_encode_moments`` / ``tiled_encode`` are the
+constant-memory tiled VAE (uniform tiles, the last one shifted inward,
+weight-normalised tent blending). Its GroupNorms run the plain version
+(``use_kernel=False``) on every device: the fused kernel is built and checked
+for the UNet's and the Aggregator's slabs, and at 1024² a VAE slab (up to 16
+MB a group in fp32) is far past a cluster's shared memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -177,6 +182,19 @@ class Decoder(nn.Module):
         return self.conv_out(self.conv_norm_out(x))
 
 
+class _DecodePath(nn.Module):
+    """``post_quant_conv`` then the decoder, under AutoencoderKL's parameter
+    names: the module ``AutoencoderKL.decode`` applies in another dtype."""
+
+    def __init__(self, config: VAEConfig, dtype, device):
+        super().__init__()
+        self.decoder = Decoder(config, dtype=dtype, device=device)
+        self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1, dtype=dtype, device=device)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.post_quant_conv(z.to(self.post_quant_conv.weight.dtype)))
+
+
 class AutoencoderKL(nn.Module):
     def __init__(self, config: VAEConfig, dtype=torch.float32, device=None):
         super().__init__()
@@ -187,6 +205,7 @@ class AutoencoderKL(nn.Module):
         self.decoder = Decoder(config, **common)
         self.quant_conv = nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1, **common)
         self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1, **common)
+        self._decode_paths: Dict[torch.dtype, _DecodePath] = {}  # per other dtype, on the meta device
 
     def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(mean, logvar) of the diagonal Gaussian posterior, NCHW."""
@@ -201,16 +220,138 @@ class AutoencoderKL(nn.Module):
             return mean
         return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.decoder(self.post_quant_conv(z.to(self.dtype)))
+    def decode(self, z: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Latents (unscaled) -> image, NCHW. ``dtype`` other than the
+        module's runs ``post_quant_conv`` and the decoder in that dtype from
+        this module's weights, cast on every call so that they never go stale
+        (GroupNorm weights and statistics stay fp32), through a weightless
+        copy of the modules on the meta device."""
+        if dtype is None or dtype == self.dtype:
+            return self.decoder(self.post_quant_conv(z.to(self.dtype)))
+        path = self._decode_paths.get(dtype)
+        if path is None:
+            path = self._decode_paths[dtype] = _DecodePath(self.config, dtype, "meta")
+        own = dict(self.named_parameters())
+        weights = {name: own[name].to(p.dtype) for name, p in path.named_parameters()}
+        return torch.func.functional_call(path, weights, (z,))
+
+
+# ---------------------------------------------------------------------------
+# Tiled encode/decode: constant-memory VAE at large resolutions. Every tile has
+# the same shape (the last row and column of tiles are shifted inward, not
+# shrunk); the outputs are blended with separable tent weights normalised by
+# their sum, one tile at a time on a canvas.
+# ---------------------------------------------------------------------------
+
+
+def _tile_starts(size: int, tile: int, stride: int) -> Tuple[int, ...]:
+    """Tile origins covering [0, size) with a final inward-shifted tile."""
+    if size <= tile:
+        return (0,)
+    starts = []
+    pos = 0
+    while pos + tile < size:
+        starts.append(pos)
+        pos += stride
+    starts.append(size - tile)
+    return tuple(starts)
+
+
+def _tent_weights(length: int, blend: int, device) -> torch.Tensor:
+    """1D weight profile: a linear ramp over ``blend`` samples at both ends."""
+    i = torch.arange(length, dtype=torch.float32, device=device)
+    up = (i + 1.0) / (blend + 1.0)
+    down = (length - i) / (blend + 1.0)
+    return torch.clamp(torch.minimum(up, down), max=1.0)
+
+
+def _tiled_accumulate(tile_fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor, tile_in: int,
+                      stride_in: int, out_scale_num: int, out_scale_den: int, out_channels: int,
+                      overlap: float) -> torch.Tensor:
+    """Run ``tile_fn`` on uniform NCHW tiles of ``x`` and blend its outputs on
+    a weight-normalised fp32 canvas. ``out_scale_num / out_scale_den`` maps
+    input to output coordinates (8/1 for decode, 1/8 for encode at SDXL)."""
+    b, _, h, w = x.shape
+
+    def to_out(v: int) -> int:
+        return v * out_scale_num // out_scale_den
+
+    t_out = to_out(tile_in)
+    blend = max(1, to_out(max(out_scale_den, int(round(tile_in * overlap)))))
+    w1d = _tent_weights(t_out, blend, x.device)
+    mask = (w1d[:, None] * w1d[None, :])[None, None]
+    canvas = torch.zeros((b, out_channels, to_out(h), to_out(w)), dtype=torch.float32, device=x.device)
+    wsum = torch.zeros((1, 1, to_out(h), to_out(w)), dtype=torch.float32, device=x.device)
+    for y in _tile_starts(h, tile_in, stride_in):
+        for x0 in _tile_starts(w, tile_in, stride_in):
+            out = tile_fn(x[:, :, y:y + tile_in, x0:x0 + tile_in]).float()
+            oy, ox = to_out(y), to_out(x0)
+            canvas[:, :, oy:oy + t_out, ox:ox + t_out] += out * mask
+            wsum[:, :, oy:oy + t_out, ox:ox + t_out] += mask
+    return canvas / wsum
+
+
+def tiled_decode(vae: AutoencoderKL, z: torch.Tensor, *, tile_latent: int = 96, overlap: float = 0.25,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``vae.decode(z, dtype)`` tile by tile with blended overlaps (NCHW); the
+    plain decode when the latent fits one tile. The output is in the
+    decode's dtype."""
+    _, _, h, w = z.shape
+    if h <= tile_latent and w <= tile_latent:
+        return vae.decode(z, dtype)
+    tile = min(tile_latent, h, w)
+    stride = max(1, int(tile * (1.0 - overlap)))
+    out = _tiled_accumulate(lambda zt: vae.decode(zt, dtype), z, tile, stride, vae_scale_factor(vae.config), 1,
+                            vae.config.out_channels, overlap)
+    return out.to(dtype or vae.dtype)
+
+
+def tiled_encode_moments(vae: AutoencoderKL, x: torch.Tensor, *, tile_sample: int = 768,
+                         overlap: float = 0.25) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tiled posterior moments (NCHW): per-tile ``encode_moments`` blended in
+    latent space. Tile origins and strides stay multiples of the downsample
+    factor so that latent offsets are whole."""
+    scale = vae_scale_factor(vae.config)
+    _, _, h, w = x.shape
+    if h <= tile_sample and w <= tile_sample:
+        return vae.encode_moments(x)
+    tile = min(tile_sample, h, w)
+    tile -= tile % scale
+    stride = max(scale, int(tile * (1.0 - overlap)))
+    stride -= stride % scale
+    if h % scale or w % scale:
+        raise ValueError(f"tiled encode needs /{scale}-aligned input, got {h}x{w}")
+    moments = _tiled_accumulate(lambda xt: torch.cat(vae.encode_moments(xt), dim=1), x, tile, stride, 1, scale,
+                                2 * vae.config.latent_channels, overlap)
+    mean, logvar = moments.to(vae.dtype).chunk(2, dim=1)
+    return mean, logvar.clamp(-30.0, 20.0)
+
+
+def tiled_encode(vae: AutoencoderKL, x: torch.Tensor, noise: Optional[torch.Tensor] = None, *,
+                 tile_sample: int = 768, overlap: float = 0.25) -> torch.Tensor:
+    """Tiled counterpart of ``AutoencoderKL.encode``: ``mean + std * noise``
+    (the mode when ``noise`` is None)."""
+    mean, logvar = tiled_encode_moments(vae, x, tile_sample=tile_sample, overlap=overlap)
+    if noise is None:
+        return mean
+    return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _latent_stats(cfg: VAEConfig, dtype: torch.dtype, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``latents_mean`` and ``latents_std`` as [1, C, 1, 1] tensors on
+    ``device``, built once per (config, dtype, device): a copy from host
+    memory stalls the stream and cannot be recorded in a CUDA graph. Callers
+    do not write to them."""
+    shape = (1, -1, 1, 1)
+    return (torch.tensor(cfg.latents_mean, dtype=dtype, device=device).reshape(shape),
+            torch.tensor(cfg.latents_std, dtype=dtype, device=device).reshape(shape))
 
 
 def scale_latents(cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
     """Raw posterior latents -> model space (x scaling_factor, mean/std norm); NCHW."""
     if cfg.latents_mean is not None and cfg.latents_std is not None:
-        shape = (1, -1, 1, 1)
-        mean = torch.tensor(cfg.latents_mean, dtype=z.dtype, device=z.device).reshape(shape)
-        std = torch.tensor(cfg.latents_std, dtype=z.dtype, device=z.device).reshape(shape)
+        mean, std = _latent_stats(cfg, z.dtype, z.device)
         return (z - mean) * cfg.scaling_factor / std
     return z * cfg.scaling_factor
 
@@ -218,8 +359,6 @@ def scale_latents(cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
 def unscale_latents(cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
     """Model-space latents -> decoder input; NCHW."""
     if cfg.latents_mean is not None and cfg.latents_std is not None:
-        shape = (1, -1, 1, 1)
-        mean = torch.tensor(cfg.latents_mean, dtype=z.dtype, device=z.device).reshape(shape)
-        std = torch.tensor(cfg.latents_std, dtype=z.dtype, device=z.device).reshape(shape)
+        mean, std = _latent_stats(cfg, z.dtype, z.device)
         return z * std / cfg.scaling_factor + mean
     return z / cfg.scaling_factor

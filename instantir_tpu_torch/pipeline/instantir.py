@@ -1,4 +1,4 @@
-"""InstantIR restoration pipeline (staged restore, eager PyTorch).
+"""InstantIR restoration pipeline (eager PyTorch, or the whole restore as one CUDA graph).
 
 Twin of ``instantir_tpu/pipeline/instantir.py``. Per step, a one-step LCM
 previewer (the UNet with its previewer LoRA on) produces a clean reference
@@ -7,9 +7,15 @@ residuals, and the main UNet (LoRA off, time-aware IP attention) predicts the
 noise that a stochastic DDPM step consumes. The step schedule is split into at
 most three phases by ``build_step_phases``:
 
-  A. controlnet on, previewer off  -> preview latent := LQ latent
+  A. controlnet on, previewer off  -> preview latent := LQ latent (or the
+     caller's ``reference_latents``)
   B. controlnet on, previewer on   -> previewer UNet + LCM step
   C. controlnet off                -> plain UNet step
+
+The step loop is Python: where the JAX sampler has ``lax.cond`` (a DeepCache
+refresh or stale step, the Heun lookahead's last step) the port branches on
+the host. ``RestoreConfig.fused`` records the whole restore, VAE encode to
+decode, as one CUDA graph and replays it (``InstantIRPipeline.restore``).
 
 Public tensors keep the JAX layout (NHWC images and latents); the models run
 NCHW inside. Every random draw is injectable (``RestoreNoise``) so a run can be
@@ -20,6 +26,7 @@ from a ``torch.Generator`` on the pipeline's device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -27,9 +34,18 @@ import torch
 
 from instantir_tpu_torch.models.aggregator import Aggregator
 from instantir_tpu_torch.models.dinov2 import DINOv2Model, preprocess_dinov2
+from instantir_tpu_torch.models.layers import LoRAConv2d, LoRALinear, merge_lora
 from instantir_tpu_torch.models.resampler import Resampler
 from instantir_tpu_torch.models.unet import UNet2DConditionModel
-from instantir_tpu_torch.models.vae import AutoencoderKL, scale_latents, unscale_latents, vae_scale_factor
+from instantir_tpu_torch.models.vae import (
+    AutoencoderKL,
+    scale_latents,
+    tiled_decode,
+    tiled_encode,
+    unscale_latents,
+    vae_scale_factor,
+)
+from instantir_tpu_torch.ops import group_norm
 from instantir_tpu_torch.schedulers.diffusion import (
     DiffusionSchedule,
     add_noise,
@@ -64,36 +80,40 @@ class RestoreConfig:
     control_guidance_end: float = 1.0
     controlnet_conditioning_scale: float = 1.0
     lora_alpha: float = 1.0  # previewer LoRA strength when enabled
-    fuse_previewer_lora: bool = False  # not ported
+    # merge the previewer LoRA into the weights once per restore and run the
+    # previewer on them with the adapter branch skipped
+    fuse_previewer_lora: bool = False
     # CFG single-pass control branch (opt-in approximations of the JAX package)
     preview_cfg: bool = True
     controlnet_cfg: bool = True
-    deepcache_interval: int = 1  # not ported
-    deepcache_depth: int = 1  # not ported
-    multistep_restore: bool = False  # not ported
+    # DeepCache: every deepcache_interval-th step (and each phase's first)
+    # refreshes the main UNet's deep trunk and the Aggregator's shallow skips;
+    # the steps between run only the shallowest deepcache_depth levels
+    deepcache_interval: int = 1
+    deepcache_depth: int = 1
+    multistep_restore: bool = False  # the Heun lookahead on previewing steps
     adastep_restore: bool = False
     sequence_parallel: bool = False  # not ported
     sp_min_seq: int = 8192  # not ported
-    save_preview_row: bool = False  # not ported
-    vae_tiling: bool = False  # not ported
-    vae_tile_latent: int = 96  # not ported
-    vae_tile_overlap: float = 0.25  # not ported
-    vae_slicing: bool = False  # not ported
-    decode_dtype: str = "float32"  # only "float32" is ported
+    save_preview_row: bool = False
+    vae_tiling: bool = False
+    vae_tile_latent: int = 96  # latent-space tile edge
+    vae_tile_overlap: float = 0.25
+    vae_slicing: bool = False  # encode and decode one sample at a time
+    decode_dtype: str = "float32"  # or "bfloat16"
     num_train_timesteps: int = 1000
     timestep_spacing: str = "leading"
     steps_offset: int = 1
     timesteps: Optional[Tuple[int, ...]] = None  # custom descending sequence
-    fused: bool = False  # not ported (one XLA program in the JAX package)
+    fused: bool = False  # the whole restore as one CUDA graph
 
     @property
     def do_cfg(self) -> bool:
         return self.guidance_scale > 1.0
 
 
-_NOT_PORTED = ("fuse_previewer_lora", "deepcache_interval", "deepcache_depth", "multistep_restore",
-               "sequence_parallel", "sp_min_seq", "save_preview_row", "vae_tiling", "vae_tile_latent",
-               "vae_tile_overlap", "vae_slicing", "fused")
+_NOT_PORTED = ("sequence_parallel", "sp_min_seq")
+_DECODE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _check_ported(cfg: RestoreConfig) -> None:
@@ -101,8 +121,9 @@ def _check_ported(cfg: RestoreConfig) -> None:
     for name in _NOT_PORTED:
         if getattr(cfg, name) != getattr(default, name):
             raise NotImplementedError(f"RestoreConfig.{name}={getattr(cfg, name)!r} is not ported yet")
-    if cfg.decode_dtype != "float32":
-        raise NotImplementedError(f"RestoreConfig.decode_dtype={cfg.decode_dtype!r} is not ported yet")
+    if cfg.decode_dtype not in _DECODE_DTYPES:
+        raise ValueError(f"RestoreConfig.decode_dtype must be one of {sorted(_DECODE_DTYPES)}, "
+                         f"got {cfg.decode_dtype!r}")
 
 
 def inference_timesteps(cfg: RestoreConfig) -> np.ndarray:
@@ -114,7 +135,11 @@ def inference_timesteps(cfg: RestoreConfig) -> np.ndarray:
 
 def build_step_phases(cfg: RestoreConfig, timesteps: Optional[np.ndarray] = None) -> List[Dict[str, Any]]:
     """Split the step sequence into contiguous runs of equal mode
-    ("A"/"B"/"C"), each with its ``t`` and ``prev_t`` lists."""
+    ("A"/"B"/"C"), each with per-step lists: ``t``, ``prev_t``, the Heun
+    lookahead's target ``next_t`` (the next entry of the sequence) and
+    ``has_next`` (0.0 on the last step), and DeepCache's ``refresh`` (1.0
+    every ``deepcache_interval``-th step and on each phase's first, so that a
+    cache never crosses a mode boundary)."""
     if timesteps is None:
         timesteps = inference_timesteps(cfg)
     timesteps = np.asarray(timesteps, np.int64)
@@ -124,20 +149,27 @@ def build_step_phases(cfg: RestoreConfig, timesteps: Optional[np.ndarray] = None
     for i in range(n):
         keep = not (i / n < cfg.control_guidance_start or (i + 1) / n > cfg.control_guidance_end)
         previewing = not (i / n < cfg.preview_start or (i + 1) / n > cfg.preview_end)
-        mode = ("B" if previewing and keep else "A") if keep else "C"
+        previewing = previewing and keep  # a preview is unused with the controlnet off
+        mode = ("B" if previewing else "A") if keep else "C"
+        next_t = int(timesteps[i + 1]) if i + 1 < n else int(timesteps[i])
+        has_next = 1.0 if i + 1 < n else 0.0
+        refresh = 1.0 if i % max(cfg.deepcache_interval, 1) == 0 else 0.0
         if phases and phases[-1]["mode"] == mode:
-            phases[-1]["t"].append(int(timesteps[i]))
-            phases[-1]["prev_t"].append(int(prev_ts[i]))
+            for k, v in (("t", int(timesteps[i])), ("prev_t", int(prev_ts[i])), ("next_t", next_t),
+                         ("has_next", has_next), ("refresh", refresh)):
+                phases[-1][k].append(v)
         else:
-            phases.append({"mode": mode, "t": [int(timesteps[i])], "prev_t": [int(prev_ts[i])]})
+            phases.append({"mode": mode, "t": [int(timesteps[i])], "prev_t": [int(prev_ts[i])], "next_t": [next_t],
+                           "has_next": [has_next], "refresh": [1.0]})
     return phases
 
 
 @dataclasses.dataclass
 class RestoreNoise:
     """Every random draw of one restore, NHWC fp32 like the JAX draws:
-    ``vae`` the VAE posterior draw, ``init`` the draw that noises the LQ latent
-    at the first timestep, ``steps[i]`` the DDPM noise of step i."""
+    ``vae`` the VAE posterior draw (row i is sample i's: the JAX package's
+    sliced encode draws one key per sample), ``init`` the draw that noises
+    the LQ latent at the first timestep, ``steps[i]`` the DDPM noise of step i."""
 
     vae: torch.Tensor
     init: torch.Tensor
@@ -150,6 +182,14 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _time_ids(h: int, w: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """SDXL's micro-conditioning row ``[h, w, 0, 0, h, w]`` on ``device``,
+    built once per (size, dtype, device): a copy from host memory cannot be
+    recorded in a CUDA graph. Callers do not write to it."""
+    return torch.tensor([[h, w, 0, 0, h, w]], dtype=dtype, device=device)
 
 
 class InstantIRPipeline:
@@ -166,49 +206,143 @@ class InstantIRPipeline:
         self.resampler = resampler
         self.image_encoder = image_encoder
         self.schedule = schedule.to(self.device)
+        self._frozen: Optional[Dict[str, torch.Tensor]] = None  # freeze_previewer's merged weights
+        self._frozen_alpha: Optional[float] = None
+        self._uncond: Optional[Tuple[Any, torch.Tensor]] = None  # (key, DINOv2 tokens of the zero image)
+        self._graphs: Dict[Any, Tuple[torch.cuda.CUDAGraph, List[Optional[torch.Tensor]], Any]] = {}
+
+    def freeze_previewer(self, alpha: float = 1.0) -> "InstantIRPipeline":
+        """Inference only: merge the UNet's previewer LoRA at strength
+        ``alpha`` into a dedicated set of weights once (``W + alpha·(α/r)·B·A``,
+        ``models.layers.merge_lora``) and free the LoRA A/B pairs. Previewing
+        steps then run the UNet on the merged weights with the adapter branch
+        skipped. Afterwards ``restore`` requires ``cfg.lora_alpha == alpha``
+        (or 0). Recorded CUDA graphs are dropped."""
+        if self._frozen is not None:
+            raise ValueError(f"the previewer is already frozen at lora_alpha={self._frozen_alpha}")
+        with torch.no_grad():
+            merged = merge_lora(self.unet, alpha)
+        for m in self.unet.modules():
+            if isinstance(m, (LoRALinear, LoRAConv2d)) and m.lora_rank > 0:
+                del m.lora_A, m.lora_B
+                m.lora_rank = 0
+        self._frozen, self._frozen_alpha = merged, float(alpha)
+        self._graphs.clear()
+        return self
 
     # ------------------------------------------------------------------
     # Encoders (run once per call, outside the denoise loop)
     # ------------------------------------------------------------------
 
-    def encode_image_embeds(self, images01: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """DINOv2 tokens for (cond, uncond). The uncond tokens come from
-        DINOv2 on a zero tensor in *preprocessed* pixel space."""
-        size = self.image_encoder.config.image_size
-        pixels = preprocess_dinov2(images01, size=size)
-        cond = self.image_encoder(_nchw(pixels))
-        uncond = self.image_encoder(torch.zeros((1, 3, size, size), dtype=pixels.dtype, device=pixels.device))
+    def _uncond_tokens(self, size: int, dtype: torch.dtype) -> torch.Tensor:
+        """DINOv2 tokens of the zero image (in *preprocessed* pixel space),
+        which depend on the encoder's weights alone: computed once per (image
+        size, dtype, weights). The weights are known by every parameter's
+        ``data_ptr`` and version counter, which ``load_state_dict`` and any
+        other in-place edit advance."""
+        enc = self.image_encoder
+        key = (size, dtype, tuple((t.data_ptr(), t._version) for t in (*enc.parameters(), *enc.buffers())))
+        if self._uncond is None or self._uncond[0] != key:
+            zeros = torch.zeros((1, 3, size, size), dtype=dtype, device=self.device)
+            self._uncond = (key, enc(zeros))
+        return self._uncond[1]
+
+    def encode_image_embeds(self, images01: torch.Tensor, uncond: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """DINOv2 tokens for (cond, uncond): ``uncond`` is ``_uncond_tokens``,
+        those of a zero tensor in preprocessed pixel space, broadcast."""
+        cond = self.image_encoder(_nchw(preprocess_dinov2(images01, size=self.image_encoder.config.image_size)))
         return cond, uncond.expand_as(cond)
 
-    def encode_vae_image(self, images: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        """[-1, 1] NHWC images -> scaled NCHW latents (sampled posterior)."""
-        return scale_latents(self.vae.config, self.vae.encode(_nchw(images), noise=_nchw(noise)))
+    def encode_vae_image(self, images: torch.Tensor, noise: torch.Tensor,
+                         tiling: Optional[Tuple[int, float]] = None, slicing: bool = False) -> torch.Tensor:
+        """[-1, 1] NHWC images -> scaled NCHW latents (sampled posterior).
+        ``tiling=(tile_latent, overlap)`` encodes tile by tile (no change when
+        the image fits one tile); ``slicing`` encodes one sample at a time
+        (exact), sample i with ``noise[i]``."""
+        if slicing and images.shape[0] > 1:
+            return torch.cat([self.encode_vae_image(images[i:i + 1], noise[i:i + 1], tiling)
+                              for i in range(images.shape[0])])
+        x, eps = _nchw(images), _nchw(noise)
+        if tiling is not None:
+            z = tiled_encode(self.vae, x, eps, tile_sample=tiling[0] * vae_scale_factor(self.vae.config),
+                             overlap=tiling[1])
+        else:
+            z = self.vae.encode(x, noise=eps)
+        return scale_latents(self.vae.config, z)
 
-    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
-        """Model-space NCHW latents -> NHWC images in [-1, 1] (fp32 decode)."""
-        return _nhwc(self.vae.decode(unscale_latents(self.vae.config, latents.float())))
+    def decode_latents(self, latents: torch.Tensor, dtype: torch.dtype = torch.float32,
+                       tiling: Optional[Tuple[int, float]] = None, slicing: bool = False) -> torch.Tensor:
+        """Model-space NCHW latents -> NHWC images in [-1, 1], decoded in
+        ``dtype`` (fp32: the reference's force_upcast; bf16 from the fp32
+        weights, GroupNorm statistics fp32), tile by tile with ``tiling``, one
+        sample at a time with ``slicing`` (exact)."""
+        if slicing and latents.shape[0] > 1:
+            return torch.cat([self.decode_latents(latents[i:i + 1], dtype, tiling) for i in range(latents.shape[0])])
+        z = unscale_latents(self.vae.config, latents.to(dtype))
+        if tiling is not None:
+            return _nhwc(tiled_decode(self.vae, z, tile_latent=tiling[0], overlap=tiling[1], dtype=dtype))
+        return _nhwc(self.vae.decode(z, dtype))
 
     # ------------------------------------------------------------------
     # The denoise loop
     # ------------------------------------------------------------------
 
+    def _deepcache_zeros(self, cfg: RestoreConfig, latents: torch.Tensor) -> Dict[str, Any]:
+        """DeepCache's zero-initialised cache (NCHW, the latents' dtype): the
+        deep trunk's output, the Aggregator's shallow skip residuals and the
+        preview. Every phase starts with a refresh, so no zero feeds a model."""
+        ucfg = self.unet.config
+        depth = cfg.deepcache_depth
+        bsz2 = latents.shape[0] * (2 if cfg.do_cfg else 1)
+        h, w = latents.shape[2], latents.shape[3]
+        res_shapes = [(bsz2, ucfg.block_out_channels[0], h, w)]
+        for lvl in range(depth):
+            c = ucfg.block_out_channels[lvl]
+            res_shapes += [(bsz2, c, h >> lvl, w >> lvl)] * ucfg.layers_per_block
+            if lvl < depth - 1:
+                res_shapes.append((bsz2, c, h >> (lvl + 1), w >> (lvl + 1)))
+
+        def zeros(shape):
+            return torch.zeros(shape, dtype=latents.dtype, device=latents.device)
+
+        return {"deep": zeros((bsz2, ucfg.block_out_channels[depth], h >> (depth - 1), w >> (depth - 1))),
+                "res": tuple(zeros(s) for s in res_shapes), "preview": zeros(latents.shape)}
+
     def _sample(self, cfg: RestoreConfig, latents: torch.Tensor, cond: Dict[str, torch.Tensor],
                 image_latent: torch.Tensor, ip_base: torch.Tensor, ip_lora: torch.Tensor,
-                step_noise: List[torch.Tensor]) -> torch.Tensor:
+                step_noise: List[torch.Tensor], reference_latents: Optional[torch.Tensor] = None,
+                prev_weights: Optional[Dict[str, torch.Tensor]] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The step loop (JAX ``_build_sample``). ``prev_weights``: merged
+        previewer weights from ``freeze_previewer``. Returns the final latents
+        and, with ``save_preview_row``, the previews of the mode-B steps
+        stacked ``[n, B, C, h, w]`` (else None)."""
         schedule = self.schedule
+        phases = build_step_phases(cfg)
         do_cfg = cfg.do_cfg
         gs = cfg.guidance_scale
         bsz = latents.shape[0]
+        dev = latents.device
         share_preview = do_cfg and not cfg.preview_cfg
         share_cnet = do_cfg and not cfg.controlnet_cfg
+        deepcache = cfg.deepcache_interval > 1
+        depth = cfg.deepcache_depth
+        if deepcache and cfg.multistep_restore:
+            raise ValueError("deepcache_interval > 1 is incompatible with multistep_restore "
+                             "(the Heun lookahead needs a fresh preview every step)")
+        if (prev_weights is None and cfg.fuse_previewer_lora and cfg.lora_alpha
+                and any(p["mode"] == "B" for p in phases)):
+            prev_weights = merge_lora(self.unet, cfg.lora_alpha)
 
         def double(x):
             return torch.cat([x, x], dim=0) if do_cfg else x
 
-        def unet(lat, tb, cnd, lora_scale, ip_tokens, residuals=None, mid_residual=None):
-            return self.unet(lat, tb, cnd["prompt_embeds"], cnd["pooled_embeds"], cnd["time_ids"],
-                             ip_hidden_states=ip_tokens, down_block_additional_residuals=residuals,
-                             mid_block_additional_residual=mid_residual, lora_scale=lora_scale)
+        def unet(lat, tb, cnd, lora_scale, ip_tokens, residuals=None, mid_residual=None, weights=None, **deepcache_kw):
+            args = (lat, tb, cnd["prompt_embeds"], cnd["pooled_embeds"], cnd["time_ids"])
+            kwargs = dict(ip_hidden_states=ip_tokens, down_block_additional_residuals=residuals,
+                          mid_block_additional_residual=mid_residual, lora_scale=lora_scale, **deepcache_kw)
+            if weights is not None:
+                return torch.func.functional_call(self.unet, weights, args, kwargs)
+            return self.unet(*args, **kwargs)
 
         def cfg_combine(noise_pred):
             if not do_cfg:
@@ -219,62 +353,208 @@ class InstantIRPipeline:
                 pred = rescale_noise_cfg(pred, text, cfg.guidance_rescale)
             return pred
 
-        preview_factor = torch.ones((bsz, 1, 1, 1), dtype=torch.float32, device=latents.device)
-        prev_preview = torch.zeros(latents.shape, dtype=torch.float32, device=latents.device)
+        def compute_preview(mode, latents, latent_in, tb):
+            """(preview latent of the CFG batch, the previewer's noise or None)."""
+            if mode != "B":
+                return (image_latent if reference_latents is None else reference_latents), None
+            if share_preview:
+                p_lat, p_tb, p_ip = latents, tb[:bsz], ip_lora[-bsz:]
+                p_cond = {k: v[-bsz:] for k, v in cond.items()}
+            else:
+                p_lat, p_tb, p_cond, p_ip = latent_in, tb, cond, ip_lora
+            if prev_weights is not None:  # merged LoRA, adapter branch skipped
+                preview_noise = unet(p_lat, p_tb, p_cond, 0.0, p_ip, weights=prev_weights)
+            else:
+                preview_noise = unet(p_lat, p_tb, p_cond, cfg.lora_alpha, p_ip)
+            preview = lcm_single_step(schedule, preview_noise, p_tb, p_lat)
+            return (double(preview) if share_preview else preview), preview_noise
+
+        def run_aggregator(preview_latent, tb, dtype):
+            if share_cnet:
+                down_res, mid_res = self.aggregator(
+                    image_latent[-bsz:], tb[:bsz], preview_latent[-bsz:].to(dtype),
+                    cond["pooled_embeds"][-bsz:], cond["time_ids"][-bsz:])
+                return tuple(double(r) for r in down_res), double(mid_res)
+            return self.aggregator(image_latent, tb, preview_latent.to(dtype), cond["pooled_embeds"], cond["time_ids"])
+
+        preview_factor = torch.ones((bsz, 1, 1, 1), dtype=torch.float32, device=dev)
+        prev_preview = torch.zeros(latents.shape, dtype=torch.float32, device=dev)
+        cache = self._deepcache_zeros(cfg, latents) if deepcache else None
+        previews = []
         step = 0
-        for phase in build_step_phases(cfg):
+        for phase in phases:
             mode = phase["mode"]
-            for t, prev_t in zip(phase["t"], phase["prev_t"]):
-                tb = torch.full((bsz * (2 if do_cfg else 1),), t, dtype=torch.long, device=latents.device)
+            for t, prev_t, next_t, has_next, refresh in zip(phase["t"], phase["prev_t"], phase["next_t"],
+                                                            phase["has_next"], phase["refresh"]):
+                tb = torch.full((bsz * (2 if do_cfg else 1),), t, dtype=torch.long, device=dev)
                 tb1 = tb[:bsz]
-                prev_tb1 = torch.full((bsz,), prev_t, dtype=torch.long, device=latents.device)
+                prev_tb1 = torch.full((bsz,), prev_t, dtype=torch.long, device=dev)
                 latent_in = double(latents)
+                fresh = refresh > 0
 
                 if mode == "C":
-                    noise_pred = cfg_combine(unet(latent_in, tb, cond, 0.0, ip_base))
-                    latents, _ = ddpm_step(schedule, noise_pred, tb1, prev_tb1, latents, step_noise[step])
+                    if deepcache and fresh:
+                        noise_raw, deep = unet(latent_in, tb, cond, 0.0, ip_base, return_deep=True, cache_depth=depth)
+                        cache["deep"] = deep.to(cache["deep"].dtype)
+                    elif deepcache:
+                        noise_raw = unet(latent_in, tb, cond, 0.0, ip_base, cached_deep=cache["deep"],
+                                         cache_depth=depth)
+                    else:
+                        noise_raw = unet(latent_in, tb, cond, 0.0, ip_base)
+                    latents, _ = ddpm_step(schedule, cfg_combine(noise_raw), tb1, prev_tb1, latents, step_noise[step])
                     step += 1
                     continue
 
-                if mode == "B":
-                    if share_preview:
-                        p_cond = {k: v[-bsz:] for k, v in cond.items()}
-                        preview_noise = unet(latents, tb1, p_cond, cfg.lora_alpha, ip_lora[-bsz:])
-                        preview_latent = double(lcm_single_step(schedule, preview_noise, tb1, latents))
-                    else:
-                        preview_noise = unet(latent_in, tb, cond, cfg.lora_alpha, ip_lora)
-                        preview_latent = lcm_single_step(schedule, preview_noise, tb, latent_in)
-                else:
-                    preview_latent = image_latent
-
-                if share_cnet:
-                    down_res, mid_res = self.aggregator(
-                        image_latent[-bsz:], tb1, preview_latent[-bsz:].to(latents.dtype),
-                        cond["pooled_embeds"][-bsz:], cond["time_ids"][-bsz:])
-                    down_res = tuple(double(r) for r in down_res)
-                    mid_res = double(mid_res)
-                else:
-                    down_res, mid_res = self.aggregator(
-                        image_latent, tb, preview_latent.to(latents.dtype), cond["pooled_embeds"], cond["time_ids"])
-
-                # adaptive restoration scaling
+                # A/B: controlnet on; adaptive restoration scaling of the residuals
                 cond_scale = double(preview_factor.clamp(0.0, cfg.controlnet_conditioning_scale))
-                down_res = tuple(r * cond_scale.to(r.dtype) for r in down_res)
-                mid_res = mid_res * cond_scale.to(mid_res.dtype)
-                noise_pred = cfg_combine(unet(latent_in, tb, cond, 0.0, ip_base, down_res, mid_res))
-                preview_text = preview_latent[-bsz:]
 
-                latents_next, pred_x0 = ddpm_step(schedule, noise_pred, tb1, prev_tb1, latents, step_noise[step])
+                def scaled(res):
+                    return tuple(r * cond_scale.to(r.dtype) for r in res)
+
+                if deepcache and fresh:
+                    # the full previewer -> Aggregator -> main UNet, caching the deep
+                    # trunk, the shallow skip residuals (unscaled) and the preview
+                    preview_latent, _ = compute_preview(mode, latents, latent_in, tb)
+                    down_res, mid_res = run_aggregator(preview_latent, tb, latents.dtype)
+                    cache["res"] = tuple(r.to(c.dtype) for r, c in zip(down_res, cache["res"]))
+                    cache["preview"] = preview_latent[-bsz:].to(cache["preview"].dtype)
+                    noise_raw, deep = unet(latent_in, tb, cond, 0.0, ip_base, scaled(down_res),
+                                           mid_res * cond_scale.to(mid_res.dtype), return_deep=True,
+                                           cache_depth=depth)
+                    cache["deep"] = deep.to(cache["deep"].dtype)
+                    preview_text = cache["preview"]
+                elif deepcache:
+                    # stale: the shallow UNet over the cached trunk; the previewer
+                    # and the Aggregator are skipped (their outputs are cached)
+                    noise_raw = unet(latent_in, tb, cond, 0.0, ip_base, scaled(cache["res"]), None,
+                                     cached_deep=cache["deep"], cache_depth=depth)
+                    preview_text = cache["preview"]
+                else:
+                    preview_latent, preview_noise = compute_preview(mode, latents, latent_in, tb)
+                    latent_eval, tb_eval = latent_in, tb
+                    if cfg.multistep_restore and mode == "B" and has_next:
+                        # Heun lookahead: a deterministic DDPM step with the previewer's
+                        # text-cond noise predicts x at next_t, where the Aggregator and
+                        # the main UNet are evaluated; the update still steps from (x_t, t)
+                        first_prev, _ = ddpm_step(schedule, preview_noise[-bsz:], tb1, prev_tb1, latents, noise=None)
+                        latent_eval = double(first_prev.to(latents.dtype))
+                        tb_eval = torch.full_like(tb, next_t)
+                    down_res, mid_res = run_aggregator(preview_latent, tb_eval, latents.dtype)
+                    noise_raw = unet(latent_eval, tb_eval, cond, 0.0, ip_base, scaled(down_res),
+                                     mid_res * cond_scale.to(mid_res.dtype))
+                    preview_text = preview_latent[-bsz:]  # the text-cond half under CFG
+
+                latents_next, pred_x0 = ddpm_step(schedule, cfg_combine(noise_raw), tb1, prev_tb1, latents,
+                                                  step_noise[step])
                 step += 1
-                if cfg.adastep_restore:
-                    # preview_factor <- |preview - x0|^2 / |preview - prev_preview|^2
+                if cfg.adastep_restore and (fresh or not deepcache):
+                    # preview_factor <- |preview - x0|^2 / |preview - prev_preview|^2, on
+                    # fresh previews only (a stale step carries the cached one)
                     pt = preview_text.float()
                     d_pred = ((pt - pred_x0.float()) ** 2).sum(dim=(1, 2, 3))
                     d_prev = ((pt - prev_preview) ** 2).sum(dim=(1, 2, 3))
                     preview_factor = (d_pred / d_prev.clamp(min=1e-12)).reshape(-1, 1, 1, 1)
                     prev_preview = pt
+                if cfg.save_preview_row and mode == "B":  # stale steps emit the cached preview
+                    previews.append(preview_text)
                 latents = latents_next
-        return latents
+        return latents, (torch.stack(previews) if previews else None)
+
+    def _restore_body(self, cfg: RestoreConfig, lq_images, prompt_embeds, pooled_embeds, neg_pe, neg_pp,
+                      reference_latents, uncond, noise_vae, noise_init, noise_steps, prev_weights, decode: bool):
+        """Everything from the VAE encode to the decode, on device tensors and
+        with no copy from host memory, so that it can be recorded in a CUDA
+        graph. Returns ``(latents, preview row, image, previews)`` (NCHW
+        latents, NHWC images; the last two None unless ``decode``)."""
+        b, h, w, _ = lq_images.shape
+        tiling = (cfg.vae_tile_latent, cfg.vae_tile_overlap) if cfg.vae_tiling else None
+
+        # 1. LQ -> latent (fp32 VAE encode), used as both init and condition
+        image_latent = self.encode_vae_image(lq_images.float(), noise_vae, tiling=tiling, slicing=cfg.vae_slicing)
+        image_latent = image_latent.to(prompt_embeds.dtype)
+
+        # 2. image-prompt tokens (cond + uncond), both LoRA modes
+        dino_cond, dino_uncond = self.encode_image_embeds((lq_images + 1.0) / 2.0, uncond)
+        dino_tokens = torch.cat([dino_uncond, dino_cond], dim=0) if cfg.do_cfg else dino_cond
+        ip_base = self.resampler(dino_tokens, lora_scale=0.0)
+        ip_lora = self.resampler(dino_tokens, lora_scale=cfg.lora_alpha)
+
+        # 3. prompt conditioning (+ CFG doubling; negatives default to zeros)
+        if cfg.do_cfg:
+            neg_pe = torch.zeros_like(prompt_embeds) if neg_pe is None else neg_pe
+            neg_pp = torch.zeros_like(pooled_embeds) if neg_pp is None else neg_pp
+            prompt_embeds = torch.cat([neg_pe, prompt_embeds], dim=0)
+            pooled_embeds = torch.cat([neg_pp, pooled_embeds], dim=0)
+        time_ids = _time_ids(h, w, prompt_embeds.dtype, prompt_embeds.device).repeat(prompt_embeds.shape[0], 1)
+        cond = {"prompt_embeds": prompt_embeds, "pooled_embeds": pooled_embeds, "time_ids": time_ids}
+
+        # 4. init latents from the noised LQ latent
+        t0 = torch.full((b,), int(inference_timesteps(cfg)[0]), dtype=torch.long, device=lq_images.device)
+        latents = add_noise(self.schedule, image_latent, _nchw(noise_init), t0)
+
+        # 5. the loop
+        cond_image_latent = torch.cat([image_latent] * 2, dim=0) if cfg.do_cfg else image_latent
+        ref = None
+        if reference_latents is not None:
+            ref = _nchw(reference_latents)
+            ref = torch.cat([ref, ref], dim=0) if cfg.do_cfg else ref
+        latents, row = self._sample(cfg, latents, cond, cond_image_latent, ip_base, ip_lora,
+                                    [_nchw(s) for s in noise_steps], ref, prev_weights)
+        if not decode:
+            return latents, row, None, None
+
+        # 6. decode the image and the previews alike
+        dtype = _DECODE_DTYPES[cfg.decode_dtype]
+        image = self.decode_latents(latents, dtype, tiling, cfg.vae_slicing)
+        previews = None if row is None else [self.decode_latents(p, dtype, tiling, cfg.vae_slicing) for p in row]
+        return latents, row, image, previews
+
+    def _graph_replay(self, cfg: RestoreConfig, tensors: List[Optional[torch.Tensor]], n_steps: int,
+                      prev_weights) -> Tuple[torch.Tensor, Optional[List[torch.Tensor]]]:
+        """``cfg.fused``: the restore as one CUDA graph, recorded once per
+        (config, shapes and dtypes of the inputs, which optional inputs are
+        given, ``ops.group_norm.USE_FUSED``) and replayed: the inputs are
+        copied into the graph's static buffers, the graph replays, and its
+        image and previews are cloned out.
+
+        The first call warms up (one restore on a side stream: kernels set
+        their shared-memory attributes and plans, per-device constants are
+        built), records, then replays; the kernels' launch counters, which
+        count Python calls, count one restore at the warm-up and one at the
+        recording, and stand still on a replay. The graph reads the weights
+        where they lie when it replays: in-place changes (``load_state_dict``)
+        are seen; ``freeze_previewer`` drops the graphs. Each recorded graph
+        keeps a private memory pool of the restore's peak."""
+        if self.device.type != "cuda":
+            raise RuntimeError(f"RestoreConfig.fused=True records the restore as one CUDA graph and needs a CUDA "
+                               f"device; this pipeline is on {self.device}")
+        key = (cfg, group_norm.USE_FUSED,
+               tuple(None if t is None else (tuple(t.shape), t.dtype) for t in tensors))
+        entry = self._graphs.get(key)
+        if entry is None:
+            static = [None if t is None else t.clone() for t in tensors]
+
+            def run():
+                return self._restore_body(cfg, *static[:7], static[7], static[8], static[9:9 + n_steps],
+                                          prev_weights, decode=True)[2:]
+
+            stream = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                run()
+            stream.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = run()
+            entry = self._graphs[key] = (graph, static, out)
+        else:
+            for buf, t in zip(entry[1], tensors):
+                if buf is not None:
+                    buf.copy_(t)
+        graph, _, (image, previews) = entry
+        graph.replay()
+        return image.clone(), None if previews is None else [p.clone() for p in previews]
 
     @torch.no_grad()
     def restore(
@@ -287,25 +567,34 @@ class InstantIRPipeline:
         cfg: RestoreConfig = RestoreConfig(),
         generator: Optional[torch.Generator] = None,
         noise: Optional[RestoreNoise] = None,
+        reference_latents: Optional[torch.Tensor] = None,  # [B, H/8, W/8, 4] model-space, mode A's preview
         output_type: str = "np",
     ):
-        """End-to-end restoration. Returns ``(image, None)`` -- NHWC in
-        [-1, 1] as numpy (``"np"``) or a tensor (``"pt"``) -- or
-        ``(latents, None)`` in NHWC for ``output_type="latent"``; the second
-        item stands where the JAX twin returns its preview row."""
+        """End-to-end restoration. Returns ``(image, previews)`` -- the image
+        NHWC in [-1, 1], fp32, as numpy (``"np"``) or a tensor (``"pt"``), and
+        with ``save_preview_row`` the list of decoded mode-B previews (else
+        None) -- or ``(latents, preview row)`` in NHWC for
+        ``output_type="latent"`` (the row stacked ``[n, B, h, w, 4]``).
+        ``cfg.fused`` replays the whole restore as one CUDA graph
+        (``_graph_replay``); ``output_type="latent"`` takes the staged path
+        then, as in the JAX package. Without ``noise`` the draws come from
+        ``generator`` in the same order on both paths."""
         _check_ported(cfg)
         dev = self.device
-        lq_images = lq_images.to(dev)
-        prompt_embeds = prompt_embeds.to(dev)
-        pooled_embeds = pooled_embeds.to(dev)
         b, h, w, _ = lq_images.shape
-        timesteps = inference_timesteps(cfg)
-        n_steps = len(timesteps)
-        f = vae_scale_factor(self.vae.config)
-        lat_shape = (b, h // f, w // f, self.vae.config.latent_channels)
+        n_steps = len(inference_timesteps(cfg))
+        prev_weights = None
+        if self._frozen is not None and cfg.lora_alpha:
+            if cfg.lora_alpha != self._frozen_alpha:
+                raise ValueError(f"previewer frozen at lora_alpha={self._frozen_alpha} (the LoRA pairs were freed); "
+                                 f"restore with lora_alpha={cfg.lora_alpha} is impossible: rebuild the pipeline or "
+                                 f"freeze at the strength wanted")
+            prev_weights = self._frozen
         if noise is None:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
+            f = vae_scale_factor(self.vae.config)
+            lat_shape = (b, h // f, w // f, self.vae.config.latent_channels)
 
             def draw():
                 return torch.randn(lat_shape, generator=generator, dtype=torch.float32, device=dev)
@@ -314,38 +603,19 @@ class InstantIRPipeline:
         if len(noise.steps) != n_steps:
             raise ValueError(f"noise.steps holds {len(noise.steps)} draws for {n_steps} steps")
 
-        # 1. LQ -> latent (fp32 VAE encode), used as both init and condition
-        image_latent = self.encode_vae_image(lq_images.float(), noise.vae.to(dev))
-        image_latent = image_latent.to(prompt_embeds.dtype)
-
-        # 2. image-prompt tokens (cond + uncond), both LoRA modes
-        dino_cond, dino_uncond = self.encode_image_embeds((lq_images + 1.0) / 2.0)
-        dino_tokens = torch.cat([dino_uncond, dino_cond], dim=0) if cfg.do_cfg else dino_cond
-        ip_base = self.resampler(dino_tokens, lora_scale=0.0)
-        ip_lora = self.resampler(dino_tokens, lora_scale=cfg.lora_alpha)
-
-        # 3. prompt conditioning (+ CFG doubling; negatives default to zeros)
-        if cfg.do_cfg:
-            neg_pe = torch.zeros_like(prompt_embeds) if negative_prompt_embeds is None else negative_prompt_embeds.to(dev)
-            neg_pp = torch.zeros_like(pooled_embeds) if negative_pooled_embeds is None else negative_pooled_embeds.to(dev)
-            prompt_embeds = torch.cat([neg_pe, prompt_embeds], dim=0)
-            pooled_embeds = torch.cat([neg_pp, pooled_embeds], dim=0)
-        time_ids = torch.tensor([[h, w, 0, 0, h, w]], dtype=prompt_embeds.dtype, device=dev)
-        time_ids = time_ids.repeat(prompt_embeds.shape[0], 1)
-        cond = {"prompt_embeds": prompt_embeds, "pooled_embeds": pooled_embeds, "time_ids": time_ids}
-
-        # 4. init latents from the noised LQ latent
-        t0 = torch.full((b,), int(timesteps[0]), dtype=torch.long, device=dev)
-        latents = add_noise(self.schedule, image_latent, _nchw(noise.init.to(dev)), t0)
-
-        # 5. the loop
-        cond_image_latent = torch.cat([image_latent] * 2, dim=0) if cfg.do_cfg else image_latent
-        step_noise = [_nchw(s.to(dev)) for s in noise.steps]
-        latents = self._sample(cfg, latents, cond, cond_image_latent, ip_base, ip_lora, step_noise)
-
-        if output_type == "latent":
-            return _nhwc(latents), None
-        image = self.decode_latents(latents).float()
+        inputs = [None if t is None else t.to(dev) for t in (
+            lq_images, prompt_embeds, pooled_embeds, negative_prompt_embeds, negative_pooled_embeds, reference_latents)]
+        uncond = self._uncond_tokens(self.image_encoder.config.image_size, lq_images.dtype)
+        draws = [noise.vae.to(dev), noise.init.to(dev), *(s.to(dev) for s in noise.steps)]
+        if cfg.fused and output_type != "latent":
+            image, previews = self._graph_replay(cfg, [*inputs, uncond, *draws], n_steps, prev_weights)
+        else:
+            latents, row, image, previews = self._restore_body(cfg, *inputs, uncond, draws[0], draws[1], draws[2:],
+                                                               prev_weights, decode=output_type != "latent")
+            if output_type == "latent":
+                return _nhwc(latents), None if row is None else row.permute(0, 1, 3, 4, 2)
+        image = image.float()
+        previews = None if previews is None else [p.float() for p in previews]
         if output_type == "np":
-            return image.cpu().numpy(), None
-        return image, None
+            return image.cpu().numpy(), None if previews is None else [p.cpu().numpy() for p in previews]
+        return image, previews

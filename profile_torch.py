@@ -2,8 +2,9 @@
 """Where the time of one restore, or of one stage-1 training step, of the
 PyTorch/CUDA port goes, on one NVIDIA GPU.
 
-Run from the root of a checkout: ``python3 profile_torch.py [--steps 4]`` or
-``python3 profile_torch.py --train [--resolution 512 --batch 2]``.
+Run from the root of a checkout: ``python3 profile_torch.py [--steps 4]
+[--fused] [--fuse-lora]`` or ``python3 profile_torch.py --train [--resolution
+512 --batch 2]``.
 It builds the models ``chip_smoke.py`` drives (SDXL width, synthetic weights,
 bf16 models and an fp32 VAE), warms up, then reports
 
@@ -14,6 +15,11 @@ bf16 models and an fp32 VAE), warms up, then reports
    inside it);
 2. a ``torch.profiler`` trace of one more restore or step: device kernel time
    by kernel name (top 25) and the device busy share (kernel time / wall time).
+
+``--fused`` profiles the restore as one CUDA graph (``RestoreConfig.fused``),
+recorded during the warm-up: a replay runs no Python, so part 1 (module hooks)
+is skipped and part 2 traces a replay. ``--fuse-lora`` sets
+``fuse_previewer_lora``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -37,6 +43,8 @@ def main() -> None:
     ap.add_argument("--resolution", type=int, default=512, help="--train: image size")
     ap.add_argument("--batch", type=int, default=2, help="--train: batch size")
     ap.add_argument("--checkpointing", action="store_true", help="--train: gradient checkpointing in the UNet")
+    ap.add_argument("--fused", action="store_true", help="restore: replay it as one CUDA graph (part 2 only)")
+    ap.add_argument("--fuse-lora", action="store_true", help="restore: merge the previewer LoRA (fuse_previewer_lora)")
     args = ap.parse_args()
 
     import torch
@@ -66,7 +74,7 @@ def main() -> None:
     pe = (torch.randn(1, 77, 2048, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
     pooled = (torch.randn(1, 1280, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
     cfg = RestoreConfig(num_inference_steps=args.steps, guidance_scale=7.0, preview_start=0.1,
-                        control_guidance_end=0.7)
+                        control_guidance_end=0.7, fused=args.fused, fuse_previewer_lora=args.fuse_lora)
 
     events = []
 
@@ -104,7 +112,8 @@ def main() -> None:
         stages = {"vae encoder": pipe.vae.encoder, "dinov2": pipe.image_encoder, "resampler": pipe.resampler,
                   "unet forward": pipe.unet, "backward": None, "optimiser": None}
     else:
-        what = f"{args.steps}-step restore"
+        what = f"{args.steps}-step restore" + (", one CUDA graph" if args.fused else "") + (
+            ", merged LoRA" if args.fuse_lora else "")
 
         def restore():
             pipe.restore(lq, pe, pooled, cfg=cfg, output_type="pt")
@@ -116,11 +125,20 @@ def main() -> None:
             "resampler": pipe.resampler,
         }
 
-    restore()  # warm-up
+    restore()  # warm-up (with --fused: warm-up, recording and a replay)
     restore()
     events.clear()
+    if args.fused:
+        t0 = time.time()
+        restore()
+        print(f"\n{what}: {time.time() - t0:.3f} s host wall time (a replay)", flush=True)
+    else:
+        profile_stages(torch, restore, stages, events, what, args.train, pipe)
+    profile_kernels(torch, restore, what)
 
-    # 1. per-stage device time
+
+def profile_stages(torch, restore, stages: dict, events: list, what: str, train: bool, pipe) -> None:
+    """Part 1: device time per stage, from CUDA events around every model call."""
     handles = []
 
     def hooks(label_of):
@@ -142,7 +160,7 @@ def main() -> None:
             pre, post = hooks(lambda kw, label=label: label)
             handles.append(module.register_forward_pre_hook(pre, with_kwargs=True))
             handles.append(module.register_forward_hook(post, with_kwargs=True))
-    if not args.train:
+    if not train:
         pre, post = hooks(lambda kw: "unet (previewer, LoRA on)" if kw.get("lora_scale", 0.0) else "unet (main)")
         handles.append(pipe.unet.register_forward_pre_hook(pre, with_kwargs=True))
         handles.append(pipe.unet.register_forward_hook(post, with_kwargs=True))
@@ -165,7 +183,9 @@ def main() -> None:
     rest = wall * 1e3 - sum(per_stage.values())
     print(f"{'outside the stages':<28}{'':>6}{rest:>12.1f}{'':>10}{rest / (wall * 1e3):>8.1%}", flush=True)
 
-    # 2. profiler trace
+
+def profile_kernels(torch, restore, what: str) -> None:
+    """Part 2: a ``torch.profiler`` trace: device time by kernel and the busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -153,3 +153,45 @@ def test_fp32_flash_kernels_match_references_on_card(s, skv):
         rel_l2, rel_max = _f32_errors(got, want)
         assert rel_l2 <= 1e-5 and rel_max <= 1e-4, (what, rel_l2, rel_max)
     assert (lse - ref_lse).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_fused_restore_replays_the_staged_restore_on_card():
+    """``RestoreConfig.fused`` at the tiny configs with one head a level
+    (head_dim 64, as the flash kernels take; fp32, 128² images, so the fp32
+    flash entry points and the fused GroupNorm run): three calls with new
+    inputs and draws each, the graph's image and previews equal to the staged
+    restore's; the second and third calls replay (no launch counted)."""
+    _need_card()
+    import dataclasses
+
+    from instantir_tpu_torch.models.dinov2 import tiny_dinov2_config
+    from instantir_tpu_torch.models.resampler import tiny_resampler_config
+    from instantir_tpu_torch.models.unet import tiny_unet_config
+    from instantir_tpu_torch.models.vae import tiny_vae_config
+    from instantir_tpu_torch.pipeline.factory import build_pipeline
+    from instantir_tpu_torch.pipeline.instantir import RestoreConfig
+
+    pipe = build_pipeline(tiny_unet_config(with_ip=True, lora_rank=4, num_attention_heads=(1, 1, 1)), tiny_vae_config(),
+                          tiny_resampler_config(output_dim=32, lora_rank=2), tiny_dinov2_config(), device="cuda")
+    cfg = RestoreConfig(num_inference_steps=3, preview_start=0.3, lora_alpha=0.7, fuse_previewer_lora=True,
+                        save_preview_row=True)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for call in range(3):
+        lq = torch.rand(1, 128, 128, 3, generator=g, device="cuda") * 2.0 - 1.0
+        pe, pooled = torch.randn(1, 7, 32, generator=g, device="cuda"), torch.randn(1, 16, generator=g, device="cuda")
+
+        def restore(c):
+            return pipe.restore(lq, pe, pooled, cfg=c, generator=torch.Generator(device="cuda").manual_seed(call),
+                                output_type="pt")
+
+        staged, staged_previews = restore(cfg)
+        before = (tattn.flash_attention_f32_launches, tgn.group_norm_launches)
+        graph, graph_previews = restore(dataclasses.replace(cfg, fused=True))
+        torch.cuda.synchronize()
+        after = (tattn.flash_attention_f32_launches, tgn.group_norm_launches)
+        assert (after == before) == (call > 0) and before[0] > 0
+        torch.testing.assert_close(graph, staged, rtol=0, atol=1e-6)
+        assert len(graph_previews) == len(staged_previews) == 2
+        for a, b in zip(graph_previews, staged_previews):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
