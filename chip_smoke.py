@@ -40,6 +40,20 @@ which ends the script with a nonzero exit on failure:
    unsliced encode, decode and restore; every count derived from the config
    (``expected_restore_launches``). With ``--steps 30`` also config #4 staged
    and as a graph, with the dynamic and the merged LoRA, in turns;
+4c. phase 4's models written as a checkpoint tree in the released layout
+   (diffusers SDXL folder with two synthetic full-width CLIP towers and
+   tokenizers, ``adapter.pt``, ``previewer_lora_weights.bin``,
+   ``aggregator.pt``, DINOv2) under a temporary directory, loaded back with
+   ``load_instantir_pipeline`` and ``load_text_encoders`` (every parameter
+   equal to its twin; read and copy times), the loaded pipeline's 1024²
+   4-step restore staged and as a graph equal to the in-memory one's on the
+   same noise, text encoding per prompt pair (the bf16 towers finite and
+   within ``TEXT_TOL`` of fp32), then ``cli.infer.main --fused`` over three
+   PNGs of three sizes and two of them again (first calls and replays; each
+   image written at its size; ``memory_reserved`` within ``MAX_GRAPHS``
+   pools of one size), and ``main`` with its own load on one PNG, its output
+   equal to ``restore`` of the same pixels; with ``--steps 30`` config #4
+   through the CLI too; launch counts derived from each size;
 5. stage-2 (Aggregator) training at full SDXL width: two
    ``Stage2Trainer.train_step``s at 512² (batch 2) and one at 1024² (batch 1,
    gradient checkpointing on the UNet and the Aggregator); loss,
@@ -87,6 +101,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 REPO = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -113,6 +128,7 @@ FORWARD_TOL = 5e-2  # relative L2 of one UNet forward through a kernel against t
 # amplify a one-ulp bf16 difference a few thousand-fold (5.2e-2 measured for the
 # fused GroupNorm on vs off, whose single forward differs by 2e-2)
 RESTORE_TOL = 1e-1
+TEXT_TOL = 5e-2  # relative L2 of the bf16 CLIP towers' prompt embeddings against the same weights run in fp32
 # (B, S, H) of the flash kernel on the restore path: UNet S=4096/1024, Aggregator
 # H-concat S=8192/2048, CFG batch 2
 RESTORE_SHAPES = [(2, 4096, 10), (2, 1024, 20), (2, 8192, 10), (2, 2048, 20)]
@@ -928,38 +944,41 @@ def run_restore(torch, steps: int, mods: dict, ucfg):
             runs[True]["launches"])
 
 
-def stale_step_launches(cfg, lat: int, depth: int) -> dict:
+def stale_step_launches(cfg, lat: int, depth: int, lat_w: Optional[int] = None) -> dict:
     """K1 and K5 launches of one shallow UNet forward (a DeepCache stale
     step: the first ``depth`` down blocks, the last ``depth`` up blocks and
     ``conv_norm_out``; the previewer and the Aggregator do not run). In SDXL
     at depth 1 those are ``DownBlock2D`` and ``UpBlock2D``: no attention, so
     no K1, and 4 + 6 + 1 GroupNorms."""
     n = len(cfg.block_out_channels)
+    lat_w = lat if lat_w is None else lat_w
     k1, gn = 0, 1  # conv_norm_out
     for i in range(depth):
         cross = cfg.down_block_types[i] == "CrossAttnDownBlock2D"
         gn += cfg.layers_per_block * (3 if cross else 2)
-        if cross and (lat >> i) ** 2 >= 512:
+        if cross and (lat >> i) * (lat_w >> i) >= 512:
             k1 += cfg.layers_per_block * cfg.transformer_layers_per_block[i]
     for i in range(n - depth, n):
         level, cross = n - 1 - i, cfg.up_block_types[i] == "CrossAttnUpBlock2D"
         gn += (cfg.layers_per_block + 1) * (3 if cross else 2)
-        if cross and (lat >> level) ** 2 >= 512:
+        if cross and (lat >> level) * (lat_w >> level) >= 512:
             k1 += (cfg.layers_per_block + 1) * cfg.transformer_layers_per_block[level]
     return {"flash_attention_fwd": k1, "group_norm_silu": gn}
 
 
-def expected_restore_launches(cfg, rcfg, phases, lat: int) -> dict:
+def expected_restore_launches(cfg, rcfg, phases, lat: int, lat_w: Optional[int] = None) -> dict:
     """K1 and K5 launches of one bf16 restore with the fused GroupNorm on, by
     step: a fresh step of mode A runs the Aggregator and the main UNet, B adds
     the previewer UNet, C runs the main UNet; a DeepCache stale step runs the
     shallow UNet alone (``stale_step_launches``). The Heun lookahead, the
-    merged LoRA and the VAE options change no count."""
-    unet = {"flash_attention_fwd": sum(flash_calls_per_forward(cfg, lat, lat, with_up=True).values()),
+    merged LoRA and the VAE options change no count. ``lat`` x ``lat_w`` is
+    the latent's height x width (square when ``lat_w`` is None)."""
+    lat_w = lat if lat_w is None else lat_w
+    unet = {"flash_attention_fwd": sum(flash_calls_per_forward(cfg, lat, lat_w, with_up=True).values()),
             "group_norm_silu": group_norms_per_forward(cfg)["total"]}
-    agg = {"flash_attention_fwd": sum(flash_calls_per_forward(cfg, lat, lat, with_up=False, concat=2).values()),
+    agg = {"flash_attention_fwd": sum(flash_calls_per_forward(cfg, lat, lat_w, with_up=False, concat=2).values()),
            "group_norm_silu": group_norms_per_forward(cfg, with_up=False)["total"]}
-    stale = stale_step_launches(cfg, lat, rcfg.deepcache_depth)
+    stale = stale_step_launches(cfg, lat, rcfg.deepcache_depth, lat_w)
     out = {"flash_attention_fwd": 0, "group_norm_silu": 0}
     for p in phases:
         n_unet, n_agg = {"A": (1, 1), "B": (2, 1), "C": (1, 0)}[p["mode"]]
@@ -1169,6 +1188,402 @@ def run_restore_options(torch, pipe, steps: int, mods: dict, ucfg, card_line: st
             log(f"  config #4, {steps} steps, {kind}, {'merged' if merged else 'dynamic'} LoRA: "
                 f"{['%.3f' % x for x in secs]} s/image on {card_line}")
         out["config4"] = {f"{kind}_{'merged' if merged else 'dynamic'}": min(v) for (kind, merged), v in runs.items()}
+    return out
+
+
+def write_png(path, rgb) -> None:
+    """An 8-bit RGB PNG from a ``[H, W, 3]`` uint8 array (zlib, no filter)."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[i].tobytes() for i in range(h))
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def png_size(path):
+    """(width, height) from a PNG's IHDR."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(24)
+    return struct.unpack(">II", head[16:24])
+
+
+def write_tokenizer(folder: str, pad_token: Optional[str] = None) -> None:
+    """A tokenizer folder with a small synthetic vocabulary: CLIP's 256 byte
+    characters with and without ``</w>`` at ids 0-511, no merges, the special
+    tokens at CLIP's ids 49406/49407; ``pad_token`` (SDXL's ``tokenizer_2``
+    pads with ``!``, id 0) when given."""
+    from instantir_tpu_torch.utils.tokenizer import bytes_to_unicode
+
+    os.makedirs(folder, exist_ok=True)
+    chars = list(bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(chars)}
+    vocab.update({c + "</w>": 256 + i for i, c in enumerate(chars)})
+    vocab.update({"<|startoftext|>": 49406, "<|endoftext|>": 49407})
+    with open(os.path.join(folder, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(folder, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    settings = {"model_max_length": 77, "tokenizer_class": "CLIPTokenizer"}
+    if pad_token is not None:
+        settings["pad_token"] = pad_token
+    with open(os.path.join(folder, "tokenizer_config.json"), "w") as f:
+        json.dump(settings, f)
+
+
+def write_checkpoint_tree(torch, pipe, encoders, root: str) -> dict:
+    """Phase 4c, step 1: ``pipe``'s models and the two text towers written in
+    the released layout under ``root``: the diffusers SDXL folder (UNet, VAE
+    and towers as ``.safetensors`` with ``config.json``s, two tokenizer
+    folders), ``adapter.pt`` (``convert.export_adapter``),
+    ``previewer_lora_weights.bin`` (``convert.export_previewer_lora``: the
+    UNet's LoRA under ``PreviewerTrainer.lora_state``'s names and the
+    Resampler's), ``aggregator.pt`` and a DINOv2 folder; each tensor in its
+    model's dtype (bf16, norms and the VAE fp32), so that loading gives the
+    same values back. Fails first if the disk cannot hold it."""
+    from instantir_tpu_torch import convert
+
+    models = {"unet": pipe.unet, "aggregator": pipe.aggregator, "vae": pipe.vae, "resampler": pipe.resampler,
+              "image_encoder": pipe.image_encoder, "text_encoder": encoders[0], "text_encoder_2": encoders[1]}
+    need = sum(t.numel() * t.element_size() for m in models.values() for t in m.state_dict().values())
+    free = shutil.disk_usage(root).free
+    if free < need * 1.1 + 2e9:
+        fail(f"phase 4c: the checkpoint tree takes {need / 1e9:.2f} GB, {root} has {free / 1e9:.2f} GB free")
+    sdxl, inst, dino = (os.path.join(root, d) for d in ("sdxl", "instantir", "dinov2"))
+    for d in ("unet", "vae", "text_encoder", "text_encoder_2"):
+        os.makedirs(os.path.join(sdxl, d))
+    os.makedirs(inst)
+    os.makedirs(dino)
+
+    def cpu_state(m):
+        return {k: v.detach().cpu() for k, v in m.state_dict().items()}
+
+    def dump(path, obj):
+        with open(path, "w") as f:
+            json.dump(obj, f)
+
+    ucfg, vcfg = pipe.unet.config, pipe.vae.config
+    unet_sd = cpu_state(pipe.unet)
+    convert.write_safetensors(os.path.join(sdxl, "unet", "diffusion_pytorch_model.safetensors"),
+                              {k: v for k, v in unet_sd.items() if "lora_" not in k and ".processor." not in k})
+    dump(os.path.join(sdxl, "unet", "config.json"), {
+        "sample_size": ucfg.sample_size, "in_channels": ucfg.in_channels, "out_channels": ucfg.out_channels,
+        "down_block_types": list(ucfg.down_block_types), "up_block_types": list(ucfg.up_block_types),
+        "block_out_channels": list(ucfg.block_out_channels), "layers_per_block": ucfg.layers_per_block,
+        "transformer_layers_per_block": list(ucfg.transformer_layers_per_block),
+        "attention_head_dim": list(ucfg.num_attention_heads), "num_attention_heads": None,
+        "cross_attention_dim": ucfg.cross_attention_dim, "addition_time_embed_dim": ucfg.addition_time_embed_dim,
+        "projection_class_embeddings_input_dim": ucfg.projection_class_embeddings_input_dim,
+        "norm_num_groups": ucfg.norm_num_groups})
+    convert.write_safetensors(os.path.join(sdxl, "vae", "diffusion_pytorch_model.safetensors"), cpu_state(pipe.vae))
+    dump(os.path.join(sdxl, "vae", "config.json"), {
+        "block_out_channels": list(vcfg.block_out_channels), "layers_per_block": vcfg.layers_per_block,
+        "latent_channels": vcfg.latent_channels, "norm_num_groups": vcfg.norm_num_groups,
+        "scaling_factor": vcfg.scaling_factor})
+    for sub, enc in zip(("text_encoder", "text_encoder_2"), encoders):
+        c = enc.config
+        convert.write_safetensors(os.path.join(sdxl, sub, "model.safetensors"), cpu_state(enc))
+        dump(os.path.join(sdxl, sub, "config.json"), {
+            "architectures": ["CLIPTextModelWithProjection" if c.projection_dim else "CLIPTextModel"],
+            "vocab_size": c.vocab_size, "hidden_size": c.hidden_size, "num_hidden_layers": c.num_layers,
+            "num_attention_heads": c.num_heads, "intermediate_size": c.intermediate_size,
+            "max_position_embeddings": c.max_length, "hidden_act": c.hidden_act,
+            "projection_dim": c.projection_dim or 768, "eos_token_id": c.eos_token_id})
+    write_tokenizer(os.path.join(sdxl, "tokenizer"))
+    write_tokenizer(os.path.join(sdxl, "tokenizer_2"), pad_token="!")
+    res_sd = cpu_state(pipe.resampler)
+    torch.save(convert.export_adapter(unet_sd, res_sd), os.path.join(inst, "adapter.pt"))
+    torch.save(convert.export_previewer_lora(unet_sd, res_sd), os.path.join(inst, "previewer_lora_weights.bin"))
+    del unet_sd
+    torch.save(cpu_state(pipe.aggregator), os.path.join(inst, "aggregator.pt"))
+    dump(os.path.join(inst, "instantir_config.json"),
+         {"lora_rank": ucfg.lora_rank, "resampler": dataclasses.asdict(pipe.resampler.config)})
+    dcfg = pipe.image_encoder.config
+    convert.write_safetensors(os.path.join(dino, "model.safetensors"), cpu_state(pipe.image_encoder))
+    dump(os.path.join(dino, "config.json"), {
+        "hidden_size": dcfg.hidden_size, "num_hidden_layers": dcfg.num_layers, "num_attention_heads": dcfg.num_heads,
+        "mlp_ratio": dcfg.mlp_ratio, "patch_size": dcfg.patch_size, "image_size": dcfg.image_size})
+    return {"sdxl": sdxl, "instantir": inst, "dinov2": dino, "gb": need / 1e9}
+
+
+def run_load_and_cli(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> dict:
+    """Phase 4c: phase 4's bf16 models written as a checkpoint tree in the
+    released layout (with two synthetic full-width CLIP towers), loaded back
+    with ``load_instantir_pipeline`` / ``load_text_encoders`` (every parameter
+    equal to its twin), restored at 1024² in 4 steps staged and as a graph
+    against the in-memory pipeline on the same noise (images equal), then the
+    inference CLI (``cli.infer.main``, ``--fused``, 4 steps) over three PNGs
+    of three sizes, and over two of them again (replays): every image
+    written at its size, the launch counts derived from the config, and
+    ``torch.cuda.memory_reserved`` within ``MAX_GRAPHS`` pools of the
+    one-size figure; then ``main`` as a user runs it, its PNG equal to the
+    loaded pipeline's restore of the same pixels. The bf16 text towers'
+    outputs are held to the same weights in fp32. With ``steps`` other than
+    4, config #4 through the CLI (a recording and a replay). The tree is
+    deleted at the end."""
+    import tempfile
+
+    import numpy as np
+
+    from instantir_tpu_torch.cli import infer
+    from instantir_tpu_torch.models.clip_text import CLIPTextModel, clip_vit_l_text_config, open_clip_bigg_text_config
+    from instantir_tpu_torch.pipeline.factory import synthesize_weights
+    from instantir_tpu_torch.pipeline.instantir import MAX_GRAPHS, RestoreNoise, build_step_phases
+    from instantir_tpu_torch.pipeline.load import load_instantir_pipeline, load_text_encoders
+
+    bf16 = torch.bfloat16
+    pipe._graphs.clear()  # phase 4b's recordings: their pools are not needed here
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    towers = [synthesize_weights(CLIPTextModel(c, dtype=bf16, device="cuda").requires_grad_(False).eval(), g)
+              for c in (clip_vit_l_text_config(), open_clip_bigg_text_config())]
+    root = tempfile.mkdtemp(prefix="instantir_ckpt_")
+    out = {}
+    try:
+        # 1. the tree, 2. loaded back
+        t0 = time.perf_counter()
+        paths = write_checkpoint_tree(torch, pipe, towers, root)
+        write_sec = time.perf_counter() - t0
+        timings, text_timings = {}, {}
+        lp = load_instantir_pipeline(paths["sdxl"], paths["instantir"], vision_encoder_path=paths["dinov2"],
+                                     dtype=bf16, device="cuda", timings=timings)
+        encoders = load_text_encoders(paths["sdxl"], dtype=bf16, device="cuda", timings=text_timings)
+        log(f"  wrote a {paths['gb']:.2f} GB checkpoint tree in {write_sec:.1f} s; load_instantir_pipeline read "
+            f"{timings['read_s']:.2f} s, copied to the card {timings['to_device_s']:.2f} s; load_text_encoders "
+            f"read {text_timings['read_s']:.2f} s, copied {text_timings['to_device_s']:.2f} s on {card_line}")
+        pairs = [(name, getattr(lp, name), getattr(pipe, name))
+                 for name in ("unet", "aggregator", "vae", "resampler", "image_encoder")]
+        pairs += [(f"text_encoder{s}", enc, twin) for s, (enc, _), twin in zip(("", "_2"), encoders, towers)]
+        n_leaves = 0
+        for name, loaded, twin in pairs:
+            want = dict(twin.named_parameters())
+            got = dict(loaded.named_parameters())
+            if set(got) != set(want):
+                fail(f"phase 4c: the loaded {name} has other parameters than its twin: "
+                     f"{sorted(set(got) ^ set(want))[:5]}")
+            for k, p in got.items():
+                n_leaves += 1
+                if p.dtype != want[k].dtype or not torch.equal(p, want[k]):
+                    fail(f"phase 4c: the loaded {name}.{k} differs from its twin "
+                         f"({p.dtype} vs {want[k].dtype})")
+        log(f"  every loaded parameter ({n_leaves} leaves) equals its twin (max abs difference 0)")
+
+        # 3. the loaded and the in-memory pipeline on the same noise, staged and as a graph
+        res, lat = 1024, 1024 // 8
+        cfg = restore_config(4)
+        expected = expected_restore_launches(ucfg, cfg, build_step_phases(cfg), lat)
+        lq = torch.rand(1, res, res, 3, generator=g, device="cuda") * 2.0 - 1.0
+        pe = (torch.randn(1, 77, 2048, generator=g, device="cuda") * 0.1).to(bf16)
+        pooled = (torch.randn(1, 1280, generator=g, device="cuda") * 0.1).to(bf16)
+        shape = (1, lat, lat, 4)
+        noise = RestoreNoise(*(torch.randn(shape, generator=g, device="cuda") for _ in range(2)),
+                             [torch.randn(shape, generator=g, device="cuda") for _ in range(4)])
+        for fused in (False, True):
+            c = dataclasses.replace(cfg, fused=fused)
+            images = []
+            for what, p in (("loaded", lp), ("in-memory", pipe)):
+                zero_counters(mods)
+                image, _ = p.restore(lq, pe, pooled, cfg=c, noise=noise, output_type="pt")
+                torch.cuda.synchronize()
+                launches = read_counters(mods)
+                if what == "loaded" and launches != every_counter({k: (2 if fused else 1) * n
+                                                                    for k, n in expected.items()}):
+                    fail(f"phase 4c: the loaded pipeline's {'graph recording' if fused else 'staged restore'} "
+                         f"launched {launches}, derived {expected}")
+                images.append(image.float())
+            diff = (images[0] - images[1]).abs().max().item()
+            log(f"  1024² 4 steps {'as one CUDA graph' if fused else 'staged'}: loaded vs in-memory image max abs "
+                f"difference {diff:.3e}")
+            if not (diff == 0 and torch.isfinite(images[0]).all()):
+                fail(f"phase 4c: the loaded pipeline's image differs from the in-memory one's by {diff}")
+        lp._graphs.clear()
+        pipe._graphs.clear()
+        del images, image
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # text encoding, per prompt pair (the prompt and the negative prompt)
+        def encode_pair():
+            infer.encode_prompts(encoders, [infer.DEFAULT_PROMPT], "cuda")
+            infer.encode_prompts(encoders, [infer.DEFAULT_NEG_PROMPT], "cuda")
+            torch.cuda.synchronize()
+
+        encode_pair()
+        text_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            encode_pair()
+            text_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  text encoding, both towers, per prompt pair: {min(text_ms):.2f} ms "
+            f"(runs {['%.2f' % x for x in text_ms]}) on {card_line}")
+        prompts = [infer.DEFAULT_PROMPT, infer.DEFAULT_NEG_PROMPT]
+        got = infer.encode_prompts(encoders, prompts, "cuda")
+        f32 = []
+        for enc, tok in encoders:
+            twin = CLIPTextModel(enc.config, dtype=torch.float32, device="cuda").requires_grad_(False).eval()
+            twin.load_state_dict({k: v.float() for k, v in enc.state_dict().items()})
+            f32.append((twin, tok))
+        want = infer.encode_prompts(f32, prompts, "cuda")
+        del f32
+        for what, a, b in zip(("prompt embeddings", "pooled embeddings"), got, want):
+            rel = ((a.float() - b).norm() / b.norm()).item()
+            log(f"  bf16 towers' {what} {tuple(a.shape)} against the same weights in fp32: relative L2 {rel:.3e}")
+            if not (torch.isfinite(a).all() and rel <= TEXT_TOL):
+                fail(f"phase 4c: the bf16 towers' {what} are not finite or {rel} from fp32 (tolerance {TEXT_TOL})")
+
+        # 4. the CLI over three sizes (recordings), then over two of them again (replays)
+        rng = torch.Generator().manual_seed(7)
+        sizes = {"a.png": (1024, 1024), "b.png": (1280, 960), "c.png": (960, 1280)}
+        folders = {"first": os.path.join(root, "lq"), "again": os.path.join(root, "lq_again")}
+        for folder in folders.values():
+            os.makedirs(folder)
+        pixels = {}
+        for name, (w, h) in sizes.items():
+            rgb = pixels[name] = (torch.rand(h, w, 3, generator=rng) * 255).to(torch.uint8).numpy()
+            write_png(os.path.join(folders["first"], name), rgb)
+            if name != "a.png":
+                write_png(os.path.join(folders["again"], name), rgb)
+        models = (lp, encoders)
+
+        def argv(folder, out_dir, n_steps, extra=()):
+            return ["--sdxl_path", paths["sdxl"], "--instantir_path", paths["instantir"],
+                    "--vision_encoder_path", paths["dinov2"], "--test_path", folder, "--out_path", out_dir,
+                    "--fused", "--num_inference_steps", str(n_steps), "--batch_size", "1", *extra]
+
+        def cli_run(what, args, recordings: bool):
+            """One ``main`` between counter reads; the launches derived from each
+            group's size (a recording counts the warm-up and the capture, a
+            replay nothing)."""
+            cli_cfg = infer.restore_config(infer.build_parser().parse_args(args))
+            phases = build_step_phases(cli_cfg)
+            zero_counters(mods)
+            torch.cuda.reset_peak_memory_stats()
+            records = infer.main(args, models=models)
+            launches = read_counters(mods)
+            want = {}
+            for r in records:
+                w, h = r["size"]
+                per = expected_restore_launches(ucfg, cli_cfg, phases, h // 8, w // 8)
+                if recordings:
+                    for k, n in per.items():
+                        want[k] = want.get(k, 0) + 2 * n
+            if launches != every_counter(want):
+                fail(f"phase 4c, {what}: the CLI launched {launches}, derived {every_counter(want)}")
+            out_dir = args[args.index("--out_path") + 1]
+            for r in records:
+                for f in r["files"]:
+                    if png_size(os.path.join(out_dir, f)) != sizes[f]:
+                        fail(f"phase 4c, {what}: {f} written at {png_size(os.path.join(out_dir, f))}, "
+                             f"not {sizes[f]}")
+            for r in records:
+                log(f"  CLI {what}: {r['files'][0]} at {r['size'][0]}x{r['size'][1]}: {r['seconds']:.3f} s/image "
+                    f"PNG read to PNG written ({r['restore_seconds']:.3f} in restore_arrays), {r['graphs']} recorded "
+                    f"graph(s) held, memory_reserved {r['reserved_gb']:.2f} GB")
+            return records, launches, torch.cuda.max_memory_allocated() / 1e9
+
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved() / 1e9
+        first, launches, peak = cli_run("first call", argv(folders["first"], os.path.join(root, "out"), 4), True)
+        again, _, peak_again = cli_run("replay", argv(folders["again"], os.path.join(root, "out_again"), 4), False)
+        one = first[0]["reserved_gb"] - base
+        bound = base + MAX_GRAPHS * one * 1.05
+        worst = max(r["reserved_gb"] for r in first + again)
+        log(f"  memory_reserved before the CLI {base:.2f} GB; one 1024² graph {one:.2f} GB; highest after a size "
+            f"{worst:.2f} GB, bound {bound:.2f} GB ({MAX_GRAPHS} pools); graphs held at most "
+            f"{max(r['graphs'] for r in first + again)}; peak allocated {max(peak, peak_again):.2f} GB on {card_line}")
+        if worst > bound or max(r["graphs"] for r in first + again) > MAX_GRAPHS:
+            fail(f"phase 4c: memory_reserved reached {worst:.2f} GB, past {MAX_GRAPHS} pools of one size ({bound:.2f})")
+        out.update(load=timings, text_load=text_timings, text_ms=min(text_ms), launches=launches,
+                   cli_first={r["files"][0]: r["seconds"] for r in first},
+                   cli_replay={r["files"][0]: r["seconds"] for r in again},
+                   reserved=[r["reserved_gb"] for r in first + again], base_gb=base, one_graph_gb=one,
+                   peak_gb=max(peak, peak_again))
+
+        # the CLI as a user runs it (its own load from the tree's folders), one 1024² image whose resizes
+        # are the identity: the PNG it writes against the loaded pipeline's restore of the same pixels with
+        # the same prompt embeddings, the same seeded generator and the same uint8 mapping, exactly. The
+        # pixels go in as ``arr[None]``, whose batch stride is 0 where the CLI's ``np.stack`` has H*W*3:
+        # equal values must give the same image whatever the input's strides
+        lp._graphs.clear()
+        torch.cuda.empty_cache()
+        user_in, user_out = os.path.join(root, "lq_user"), os.path.join(root, "out_user")
+        os.makedirs(user_in)
+        shutil.copy(os.path.join(folders["first"], "a.png"), user_in)
+        user_args = argv(user_in, user_out, 4)
+        user_parsed = infer.build_parser().parse_args(user_args)
+        cli_cfg = infer.restore_config(user_parsed)
+        per = expected_restore_launches(ucfg, cli_cfg, build_step_phases(cli_cfg), lat)
+        zero_counters(mods)
+        t0 = time.perf_counter()
+        records = infer.main(user_args)
+        user_sec = time.perf_counter() - t0
+        launches = read_counters(mods)
+        if launches != every_counter({k: 2 * n for k, n in per.items()}):
+            fail(f"phase 4c, the CLI with its own load: launched {launches}, derived 2 x {per}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        got = np.asarray(infer.read_image(os.path.join(user_out, "a.png")))
+        arr = pixels["a.png"].astype(np.float32) / 127.5 - 1.0
+        pe, pooled = infer.encode_prompts(encoders, [infer.DEFAULT_PROMPT], "cuda")
+        npe, npooled = infer.encode_prompts(encoders, [infer.DEFAULT_NEG_PROMPT], "cuda")
+        image, _ = lp.restore(torch.from_numpy(arr[None]).cuda(), pe, pooled, negative_prompt_embeds=npe,
+                              negative_pooled_embeds=npooled, cfg=cli_cfg,
+                              generator=torch.Generator(device="cuda").manual_seed(user_parsed.seed))
+        want = (((np.clip(image[0], -1.0, 1.0) + 1.0) / 2.0) * 255.0).astype(np.uint8)
+        diff = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max()) if got.shape == want.shape else -1
+        log(f"  CLI with its own load, 1024², 4 steps: {user_sec:.3f} s from main() to its return (load, warm-up, "
+            f"capture, replay; the image {records[0]['seconds']:.3f} s PNG read to PNG written); its PNG "
+            f"{got.shape} against the loaded pipeline's restore of the same pixels: max abs difference {diff} "
+            f"(uint8), {len(np.unique(got))} distinct values on {card_line}")
+        if diff != 0 or len(np.unique(got)) < 2:
+            fail(f"phase 4c: the PNG the CLI wrote differs from the restore of its input (max abs difference {diff})")
+        lp._graphs.clear()
+        del image
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(user_sec=user_sec, cli_first_restore={r["files"][0]: r["restore_seconds"] for r in first},
+                   cli_replay_restore={r["files"][0]: r["restore_seconds"] for r in again})
+
+        # 5. config #4 through the CLI: a recording and a replay
+        if steps != 4:
+            c4 = os.path.join(root, "lq_c4")
+            os.makedirs(c4)
+            for name in ("x.png", "y.png"):
+                sizes[name] = (1024, 1024)
+                write_png(os.path.join(c4, name), (torch.rand(1024, 1024, 3, generator=rng) * 255).to(torch.uint8).numpy())
+            lp._graphs.clear()
+            torch.cuda.empty_cache()
+            c4_args = argv(c4, os.path.join(root, "out_c4"), steps,
+                           ("--preview_start", "0.1", "--creative_start", "0.7"))
+            cli_cfg = infer.restore_config(infer.build_parser().parse_args(c4_args))
+            per = expected_restore_launches(ucfg, cli_cfg, build_step_phases(cli_cfg), lat)
+            zero_counters(mods)
+            torch.cuda.reset_peak_memory_stats()
+            records = infer.main(c4_args, models=models)
+            launches = read_counters(mods)
+            if launches != every_counter({k: 2 * n for k, n in per.items()}):
+                fail(f"phase 4c, config #4: the CLI launched {launches}, derived 2 x {per}")
+            log(f"  CLI config #4 ({steps} steps, 1024², --fused): first call {records[0]['seconds']:.3f} s/image "
+                f"({records[0]['restore_seconds']:.3f} in restore_arrays), replay {records[1]['seconds']:.3f} s/image "
+                f"({records[1]['restore_seconds']:.3f} in restore_arrays), PNG read to PNG written; peak allocated "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {card_line}")
+            out["config4"] = {"first": records[0]["seconds"], "replay": records[1]["seconds"],
+                              "first_restore": records[0]["restore_seconds"],
+                              "replay_restore": records[1]["restore_seconds"]}
+        del lp, encoders, models
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del towers
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1624,6 +2039,10 @@ def main() -> None:
     log("[4b] restore options at SDXL width: one CUDA graph, merged LoRA, DeepCache, Heun, bf16 decode, tiling, slicing")
     options = run_restore_options(torch, pipe, args.steps, mods, ucfg, card_line)
 
+    # 4c. a checkpoint tree in the released layout, loaded back, and the inference CLI
+    log("[4c] load a checkpoint tree in the released layout and restore through the inference CLI at SDXL width")
+    cli = run_load_and_cli(torch, pipe, args.steps, mods, ucfg, card_line)
+
     # 5. stage-2 training (before stage 1, which frees the Aggregator)
     log("[5] stage-2 (Aggregator) training at SDXL width")
     stage2 = run_stage2(torch, pipe, ucfg, mods, card_line)
@@ -1651,6 +2070,7 @@ def main() -> None:
         return {"restore": restore_launches[name], "restore_fused_group_norm": fused_launches[name],
                 "restore_graph_recording": options["launches"]["graph recording"][name],
                 "restore_deepcache": options["launches"]["DeepCache restore"][name],
+                "restore_cli": cli["launches"][name],
                 "train_512": train["train_512"][name], "train_1024": train["train_1024"][name],
                 "train_stage2_512": stage2["train_stage2_512"][name],
                 "train_stage2_1024": stage2["train_stage2_1024"][name],
@@ -1723,7 +2143,14 @@ def main() -> None:
         f"{options['graph_sec']:.3f} (recording {options['record_sec']:.3f} s; peaks {options['staged_peak']:.2f} / "
         f"{options['record_peak']:.2f} GB, pool {options['pool_gb']:.2f} GB), merged LoRA {options['merged_sec']:.3f}, frozen {options['frozen_sec']:.3f}, "
         f"bf16 decode {options['bf16_sec']:.3f} (decode {options['decode_ms_f32']:.1f} -> {options['decode_ms_bf16']:.1f} "
-        f"ms){'; config #4 ' + json.dumps(options['config4']) if 'config4' in options else ''}; stage-2 step at 512² batch 2: {min(stage2['sec_512']):.3f} s, peak "
+        f"ms){'; config #4 ' + json.dumps(options['config4']) if 'config4' in options else ''}; load "
+        f"{cli['load']['read_s']:.2f} s read + {cli['load']['to_device_s']:.2f} s to the card, text towers "
+        f"{cli['text_load']['read_s']:.2f} + {cli['text_load']['to_device_s']:.2f} s, text encoding "
+        f"{cli['text_ms']:.2f} ms per prompt pair, CLI (--fused, 4 steps) s/image first call "
+        f"{json.dumps({k: round(v, 3) for k, v in cli['cli_first'].items()})}, replay "
+        f"{json.dumps({k: round(v, 3) for k, v in cli['cli_replay'].items()})} (PNG read to PNG written), "
+        f"with its own load {cli['user_sec']:.3f} s to the first image"
+        f"{'; CLI config #4 ' + json.dumps(cli['config4']) if 'config4' in cli else ''}; stage-2 step at 512² batch 2: {min(stage2['sec_512']):.3f} s, peak "
         f"{stage2['peak_gb_512']:.2f} GB; at 1024² batch 1 with checkpointing: {stage2['sec_1024']:.3f} s, peak "
         f"{stage2['peak_gb_1024']:.2f} GB; stage-1 step at 512² batch 2: {min(train['sec_512']):.3f} s; at 1024² "
         f"batch 1 with checkpointing: {train['sec_1024']:.3f} s; previewer step at 512² batch 2: "

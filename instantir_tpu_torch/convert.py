@@ -16,10 +16,18 @@ exporters and returns ``{"<model>.<parameter name>": array}``, the names of
 ``train.common.named_parameters``, so gradients and updated parameters compare
 name by name. ``export_ip_adapter`` and ``export_adapter`` lay the stage-1
 result out as the reference's ``adapter.pt`` payload.
+
+The other way, for ``pipeline/load.py``: ``load_torch_state_dict`` reads a
+checkpoint file (its own ``.safetensors`` reader: the port needs no
+``safetensors`` package), ``import_ip_adapter`` and
+``import_previewer_lora`` rename ``adapter.pt``'s ip projections and the
+previewer LoRA file's keys to the port's names.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
 from typing import Any, Dict
 
@@ -282,20 +290,12 @@ def export_ip_adapter(unet_state: Dict[str, Any]) -> Dict[str, Any]:
     """The port's UNet state dict -> ``adapter.pt["ip_adapter"]``: the ip
     projections of every cross-attention under ``{2n+1}.to_k_ip.weight``-style
     names, n counting the cross-attentions in the reference's processor order
-    (down, then up, then mid; attn1 takes the even numbers). LoRA leaves are
-    left out."""
-    group_order = {"down_blocks": 0, "up_blocks": 1, "mid_block": 2}
-    found: Dict[tuple, Dict[str, Any]] = {}
-    for key, value in unet_state.items():
-        m = _PROCESSOR.match(key)
-        if m is None or "lora_" in m.group(3):
-            continue
-        order = (group_order[m.group(1)], tuple(int(x) for x in re.findall(r"\d+", m.group(2))))
-        found.setdefault(order, {})[m.group(3)] = value
+    (``cross_attention_processors``). LoRA leaves are left out."""
     out: Dict[str, Any] = {}
-    for n, order in enumerate(sorted(found)):
-        for leaf, value in found[order].items():
-            out[f"{2 * n + 1}.{leaf}"] = value
+    for n, prefix in enumerate(cross_attention_processors(unet_state)):
+        for key, value in unet_state.items():
+            if key.startswith(prefix + ".") and "lora_" not in key:
+                out[f"{2 * n + 1}.{key[len(prefix) + 1:]}"] = value
     return out
 
 
@@ -305,3 +305,170 @@ def export_adapter(unet_state: Dict[str, Any], resampler_state: Dict[str, Any]) 
     ``image_proj`` strictly, so no LoRA leaf may leak in."""
     return {"image_proj": {k: v for k, v in resampler_state.items() if "lora_" not in k},
             "ip_adapter": export_ip_adapter(unet_state)}
+
+
+# ---------------------------------------------------------------------------
+# checkpoint files -> the port's parameter names
+# ---------------------------------------------------------------------------
+
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool,
+}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file -> ``{name: CPU tensor}`` in the file's dtypes:
+    an 8-byte little-endian header length, the JSON header (``dtype``,
+    ``shape``, ``data_offsets`` into the byte buffer that follows), then the
+    buffer, read once; the tensors are views of it."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = bytearray(os.fstat(f.fileno()).st_size - 8 - n)
+        f.readinto(data)
+    out: Dict[str, torch.Tensor] = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']}, which this reader does not take")
+        begin, end = info["data_offsets"]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if end - begin != itemsize * int(np.prod(info["shape"], dtype=np.int64)):
+            raise ValueError(f"{path}: tensor {name!r} spans {end - begin} bytes for shape {info['shape']}")
+        flat = torch.frombuffer(data, dtype=dtype, count=(end - begin) // itemsize, offset=begin) \
+            if end > begin else torch.empty(0, dtype=dtype)
+        out[name] = flat.reshape(info["shape"])
+    return out
+
+
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """``{name: tensor}`` -> a ``.safetensors`` file (the layout
+    ``read_safetensors`` reads; the header padded with spaces to 8 bytes),
+    one tensor at a time through host memory."""
+    names = {v: k for k, v in _SAFETENSORS_DTYPES.items()}
+    header: Dict[str, Any] = {}
+    offset = 0
+    for name, t in tensors.items():
+        size = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + size]}
+        offset += size
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            if t.numel():
+                f.write(t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """Twin of ``instantir_tpu/convert/torch_to_flax.py::load_torch_state_dict``:
+    a ``.safetensors``, ``.bin`` or ``.pt`` file -> one flat ``{name: CPU
+    tensor}``. A ``state_dict`` wrapper is unwrapped and nested payloads (the
+    ``{image_proj, ip_adapter}`` of ``adapter.pt``) flatten with dotted
+    prefixes. Tensors keep the file's dtype: the loader casts them once."""
+    if str(path).endswith(".safetensors"):
+        return read_safetensors(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+
+    def flatten(d: Dict[str, Any], prefix: str, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        for k, v in d.items():
+            if isinstance(v, dict):
+                flatten(v, f"{prefix}{k}.", out)
+            else:
+                out[f"{prefix}{k}"] = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+        return out
+
+    return flatten(sd, "", {})
+
+
+def cross_attention_processors(unet_names) -> list:
+    """The ``<...>.attn2.processor`` prefixes of a UNet's parameter names in
+    the reference's processor order (down, then up, then mid blocks; within
+    each by block, attention and transformer-block index): the n-th holds
+    processor ``2n + 1`` of ``adapter.pt["ip_adapter"]``."""
+    group_order = {"down_blocks": 0, "up_blocks": 1, "mid_block": 2}
+    found = {}
+    for key in unet_names:
+        m = _PROCESSOR.match(key)
+        if m is not None:
+            order = (group_order[m.group(1)], tuple(int(x) for x in re.findall(r"\d+", m.group(2))))
+            found[order] = f"{m.group(1)}.{m.group(2)}.processor"
+    return [found[k] for k in sorted(found)]
+
+
+def import_ip_adapter(ip_sd: Dict[str, Any], unet_names, strict: bool = True) -> Dict[str, Any]:
+    """Inverse of ``export_ip_adapter`` (twin of ``torch_to_flax.py::merge_ip_adapter``):
+    ``adapter.pt["ip_adapter"]`` -> the UNet's ``<...>.attn2.processor.*``
+    names. Every cross-attention needs its ``to_k_ip`` / ``to_v_ip`` weights
+    (``KeyError`` otherwise); the AdaLN linears come along when present. A
+    tensor that maps to no cross-attention raises under ``strict``."""
+    consumed = set()
+    out: Dict[str, Any] = {}
+
+    def take(src: str, dst: str):
+        consumed.add(src)
+        out[dst] = ip_sd[src]
+
+    for n, prefix in enumerate(cross_attention_processors(unet_names)):
+        idx = 2 * n + 1
+        take(f"{idx}.to_k_ip.weight", f"{prefix}.to_k_ip.weight")
+        take(f"{idx}.to_v_ip.weight", f"{prefix}.to_v_ip.weight")
+        if f"{idx}.ln_k_ip.linear.weight" in ip_sd:
+            for ln in ("ln_k_ip", "ln_v_ip"):
+                for leaf in ("weight", "bias"):
+                    take(f"{idx}.{ln}.linear.{leaf}", f"{prefix}.{ln}.linear.{leaf}")
+    leftover = sorted(set(ip_sd) - consumed)
+    if leftover and strict:
+        raise ValueError(f"{len(leftover)} ip-adapter tensors map to no attention module "
+                         f"(first: {leftover[:5]}) -- pass strict=False to allow a partial load")
+    return out
+
+
+_LORA_KEY = re.compile(r"^(unet\.)?(.+)\.lora_([AB])\.weight$")
+_RESAMPLER_LORA_KEY = re.compile(
+    r"^unet\.encoder_hid_proj\.image_projection_layers\.0\.(layers\.\d+\.0\.(?:to_q|to_kv|to_out)\.lora_[AB]\.weight)$")
+
+
+def import_previewer_lora(lora_sd: Dict[str, Any], unet_names, resampler_names):
+    """A diffusers-format ``previewer_lora_weights.bin`` -> ``(UNet tensors,
+    Resampler tensors, unmatched names)`` under the port's names (twin of
+    ``torch_to_flax.py::merge_previewer_lora`` and ``merge_resampler_lora``):
+    ``unet.<path>.lora_A.weight`` is the UNet's ``<path>.lora_A.weight``; the
+    Resampler's LoRA lives at ``unet.encoder_hid_proj.image_projection_layers.0``
+    in the reference's module tree. Names that are no LoRA tensor are passed
+    over; a LoRA tensor that lands nowhere is returned as unmatched."""
+    unet_names, resampler_names = set(unet_names), set(resampler_names)
+    unet_out: Dict[str, Any] = {}
+    res_out: Dict[str, Any] = {}
+    unmatched = []
+    for key, value in lora_sd.items():
+        m = _LORA_KEY.match(key)
+        if m is None:
+            continue
+        name = f"{m.group(2)}.lora_{m.group(3)}.weight"
+        r = _RESAMPLER_LORA_KEY.match(key)
+        if name in unet_names:
+            unet_out[name] = value
+        elif r is not None and r.group(1) in resampler_names:
+            res_out[r.group(1)] = value
+        else:
+            unmatched.append(key)
+    return unet_out, res_out, unmatched
+
+
+def export_previewer_lora(unet_state: Dict[str, Any], resampler_state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's state dicts -> the payload of ``previewer_lora_weights.bin``:
+    the UNet's LoRA tensors under ``unet.<name>`` (``PreviewerTrainer.lora_state``'s
+    naming) and the Resampler's under ``unet.encoder_hid_proj.image_projection_layers.0.<name>``."""
+    out = {f"unet.{k}": v for k, v in unet_state.items() if "lora_" in k}
+    out.update({f"unet.encoder_hid_proj.image_projection_layers.0.{k}": v
+                for k, v in resampler_state.items() if "lora_" in k})
+    return out

@@ -6,10 +6,14 @@ reference's force_upcast). Every parameter is drawn on the device from a
 ``torch.Generator`` seeded with ``seed``: weights vary (all-equal weights
 drive GroupNorm to NaN), norm scales are 1 and biases 0, and the LoRA-B and
 zero-conv weights are nonzero so those paths do real work. Real weights go in
-afterwards with ``load_state_dict``.
+afterwards with ``load_state_dict``; ``pipeline.load`` builds the models
+from checkpoint files instead, with ``init_aggregator_from_unet`` when no
+Aggregator checkpoint is given.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 from torch import nn
@@ -71,3 +75,29 @@ def build_pipeline(
         synthesize_weights(model.requires_grad_(False).eval(), generator)
     unet, aggregator, vae, resampler, dino = models
     return InstantIRPipeline(unet, aggregator, vae, resampler, dino, sdxl_schedule(), device=device)
+
+
+_FROM_UNET = ("down_blocks", "mid_block", "time_embedding", "add_embedding", "conv_in")
+
+
+def init_aggregator_from_unet(unet_state: Dict[str, torch.Tensor],
+                              agg_state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Twin of ``instantir_tpu/pipeline/factory.py::init_aggregator_from_unet``
+    (the reference's ``Aggregator.from_unet``): the Aggregator's ``conv_in``
+    (also into ``ref_conv_in``), time and added embeddings, down blocks and
+    mid block take the UNet's tensor of the same name and shape. Its blocks
+    have no ``attn2``/``norm2`` and no LoRA, and its SFT heads no UNet
+    counterpart: those keep ``agg_state``'s. Returns a new dict."""
+    out = dict(agg_state)
+    for name, value in agg_state.items():
+        top, _, rest = name.partition(".")
+        if top == "ref_conv_in":
+            src = f"conv_in.{rest}"
+        elif top in _FROM_UNET:
+            src = name
+        else:
+            continue
+        s = unet_state.get(src)
+        if s is not None and tuple(s.shape) == tuple(value.shape):
+            out[name] = s
+    return out

@@ -25,8 +25,10 @@ from a ``torch.Generator`` on the pipeline's device.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -113,6 +115,12 @@ class RestoreConfig:
 
 
 _NOT_PORTED = ("sequence_parallel", "sp_min_seq")
+# Recorded restores (``RestoreConfig.fused``) kept at once. Each holds a private
+# memory pool of its restore's peak (9.86 GB at 1024² on an H100), and the CLI
+# records one per image size: two keep a size and the one before it (a folder
+# that alternates two aspect ratios replays both) without letting a folder of
+# many sizes fill the card.
+MAX_GRAPHS = 2
 _DECODE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -184,6 +192,14 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def _dense(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device`` with the row-major strides of its shape. Equal
+    values must give equal images, but a size-1 dimension's stride (``x[None]``
+    of a numpy array has 0) decides whether cuDNN runs the VAE's convolutions
+    channels-last, and with it their rounding."""
+    return t.to(device).clone(memory_format=torch.contiguous_format)
+
+
 @functools.lru_cache(maxsize=None)
 def _time_ids(h: int, w: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """SDXL's micro-conditioning row ``[h, w, 0, 0, h, w]`` on ``device``,
@@ -209,7 +225,9 @@ class InstantIRPipeline:
         self._frozen: Optional[Dict[str, torch.Tensor]] = None  # freeze_previewer's merged weights
         self._frozen_alpha: Optional[float] = None
         self._uncond: Optional[Tuple[Any, torch.Tensor]] = None  # (key, DINOv2 tokens of the zero image)
-        self._graphs: Dict[Any, Tuple[torch.cuda.CUDAGraph, List[Optional[torch.Tensor]], Any]] = {}
+        # recorded restores, least recently replayed first (``_graph_replay``)
+        self._graphs: "collections.OrderedDict[Any, Tuple[torch.cuda.CUDAGraph, List[Optional[torch.Tensor]], Any]]" = \
+            collections.OrderedDict()
 
     def freeze_previewer(self, alpha: float = 1.0) -> "InstantIRPipeline":
         """Inference only: merge the UNet's previewer LoRA at strength
@@ -229,6 +247,33 @@ class InstantIRPipeline:
         self._frozen, self._frozen_alpha = merged, float(alpha)
         self._graphs.clear()
         return self
+
+    # ------------------------------------------------------------------
+    # Checkpointing: the five models' state dicts in one file
+    # ------------------------------------------------------------------
+
+    _MODELS = ("unet", "aggregator", "vae", "resampler", "image_encoder")
+
+    def save_params(self, path: str) -> str:
+        """Write the five models' state dicts (on the CPU, each tensor in its
+        own dtype) to ``<path>/params.pt``, the port's counterpart of the JAX
+        package's orbax checkpoint; returns the file's path."""
+        os.makedirs(path, exist_ok=True)
+        file = os.path.join(path, "params.pt")
+        torch.save({name: {k: v.detach().cpu() for k, v in getattr(self, name).state_dict().items()}
+                    for name in self._MODELS}, file)
+        return file
+
+    def load_params(self, path: str) -> None:
+        """Load ``<path>/params.pt`` into the models in place (strict), so
+        recorded CUDA graphs replay on the new weights. A frozen previewer's
+        merged weights are not in the file: load before ``freeze_previewer``."""
+        if self._frozen is not None:
+            raise ValueError("load_params after freeze_previewer would leave the merged previewer weights stale")
+        state = torch.load(os.path.join(path, "params.pt"), map_location="cpu", weights_only=True)
+        with torch.no_grad():
+            for name in self._MODELS:
+                getattr(self, name).load_state_dict(state[name], strict=True)
 
     # ------------------------------------------------------------------
     # Encoders (run once per call, outside the denoise loop)
@@ -524,7 +569,11 @@ class InstantIRPipeline:
         recording, and stand still on a replay. The graph reads the weights
         where they lie when it replays: in-place changes (``load_state_dict``)
         are seen; ``freeze_previewer`` drops the graphs. Each recorded graph
-        keeps a private memory pool of the restore's peak."""
+        keeps a private memory pool of the restore's peak, so at most
+        ``MAX_GRAPHS`` are kept: recording another drops the least recently
+        replayed one (its graph, static inputs and outputs) and hands its
+        pool back to the card (``torch.cuda.empty_cache``), as a recording
+        does with the warm-up's memory."""
         if self.device.type != "cuda":
             raise RuntimeError(f"RestoreConfig.fused=True records the restore as one CUDA graph and needs a CUDA "
                                f"device; this pipeline is on {self.device}")
@@ -532,6 +581,9 @@ class InstantIRPipeline:
                tuple(None if t is None else (tuple(t.shape), t.dtype) for t in tensors))
         entry = self._graphs.get(key)
         if entry is None:
+            while len(self._graphs) >= MAX_GRAPHS:
+                self._graphs.popitem(last=False)
+                torch.cuda.empty_cache()
             static = [None if t is None else t.clone() for t in tensors]
 
             def run():
@@ -548,7 +600,9 @@ class InstantIRPipeline:
             with torch.cuda.graph(graph):
                 out = run()
             entry = self._graphs[key] = (graph, static, out)
+            torch.cuda.empty_cache()  # the warm-up's blocks: only the graph's pool stays reserved
         else:
+            self._graphs.move_to_end(key)
             for buf, t in zip(entry[1], tensors):
                 if buf is not None:
                     buf.copy_(t)
@@ -603,7 +657,7 @@ class InstantIRPipeline:
         if len(noise.steps) != n_steps:
             raise ValueError(f"noise.steps holds {len(noise.steps)} draws for {n_steps} steps")
 
-        inputs = [None if t is None else t.to(dev) for t in (
+        inputs = [None if t is None else _dense(t, dev) for t in (
             lq_images, prompt_embeds, pooled_embeds, negative_prompt_embeds, negative_pooled_embeds, reference_latents)]
         uncond = self._uncond_tokens(self.image_encoder.config.image_size, lq_images.dtype)
         draws = [noise.vae.to(dev), noise.init.to(dev), *(s.to(dev) for s in noise.steps)]

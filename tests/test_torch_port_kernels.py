@@ -195,3 +195,42 @@ def test_fused_restore_replays_the_staged_restore_on_card():
         assert len(graph_previews) == len(staged_previews) == 2
         for a, b in zip(graph_previews, staged_previews):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_recorded_restores_are_bounded_on_card():
+    """At most ``MAX_GRAPHS`` recorded restores are kept: three image sizes
+    in turn record three graphs, the third drops the first (least recently
+    replayed) and its pool, and a size still held replays (no launch)."""
+    _need_card()
+    import dataclasses
+
+    from instantir_tpu_torch.models.dinov2 import tiny_dinov2_config
+    from instantir_tpu_torch.models.resampler import tiny_resampler_config
+    from instantir_tpu_torch.models.unet import tiny_unet_config
+    from instantir_tpu_torch.models.vae import tiny_vae_config
+    from instantir_tpu_torch.pipeline.factory import build_pipeline
+    from instantir_tpu_torch.pipeline.instantir import MAX_GRAPHS, RestoreConfig
+
+    pipe = build_pipeline(tiny_unet_config(with_ip=True, lora_rank=4, num_attention_heads=(1, 1, 1)), tiny_vae_config(),
+                          tiny_resampler_config(output_dim=32, lora_rank=2), tiny_dinov2_config(), device="cuda")
+    cfg = RestoreConfig(num_inference_steps=2, fused=True)
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def restore(h, w):
+        lq = torch.rand(1, h, w, 3, generator=g, device="cuda") * 2.0 - 1.0
+        pe, pooled = torch.randn(1, 7, 32, generator=g, device="cuda"), torch.randn(1, 16, generator=g, device="cuda")
+        before = tgn.group_norm_launches
+        pipe.restore(lq, pe, pooled, cfg=cfg, output_type="pt")
+        torch.cuda.synchronize()
+        return tgn.group_norm_launches > before  # True: recorded
+
+    assert MAX_GRAPHS == 2
+    sizes = [(128, 128), (128, 192), (192, 128)]
+    assert all(restore(*hw) for hw in sizes)
+    assert len(pipe._graphs) == MAX_GRAPHS
+    held = [tuple(k[2][0][0][1:3]) for k in pipe._graphs]
+    assert held == [(128, 192), (192, 128)]
+    assert not restore(128, 192) and not restore(192, 128)  # replays
+    assert restore(128, 128)  # dropped: recorded again, dropping (128, 192)
+    assert [tuple(k[2][0][0][1:3]) for k in pipe._graphs] == [(192, 128), (128, 128)]
