@@ -54,6 +54,20 @@ which ends the script with a nonzero exit on failure:
    pools of one size), and ``main`` with its own load on one PNG, its output
    equal to ``restore`` of the same pixels; with ``--steps 30`` config #4
    through the CLI too; launch counts derived from each size;
+4d. serving on phase 4's models (synthetic text embeddings): ``RestoreServer``
+   over buckets 512² / 1024² at batch 2 / 1 as CUDA graphs (the warmup's
+   launches derived per bucket, each bucket's budget row within 1x-1.5x of
+   the larger of its measured peak increment and the pool its recording
+   holds, six concurrent requests of four sizes
+   replayed without a launch, a lone 1024² request equal to ``restore`` of
+   its bucket pixels with the server's generator state), the demo app's
+   ``set_adapter`` followed by the replayed graph (equal to the staged
+   restore under each adapter), ``SlotSampler`` at 1024² (one slot against a
+   staged restore's latents on the same draws, launches derived per step
+   variant) and at 512² (two slots: a mid-flight admission leaves both
+   bitwise equal to each alone), ``ContinuousRestoreServer`` over the same
+   buckets (five concurrent requests); with ``--steps 30`` config #4 through
+   both servers, three requests each, in turns;
 5. stage-2 (Aggregator) training at full SDXL width: two
    ``Stage2Trainer.train_step``s at 512² (batch 2) and one at 1024² (batch 1,
    gradient checkpointing on the UNet and the Aggregator); loss,
@@ -966,6 +980,17 @@ def stale_step_launches(cfg, lat: int, depth: int, lat_w: Optional[int] = None) 
     return {"flash_attention_fwd": k1, "group_norm_silu": gn}
 
 
+def forward_launches(cfg, lat: int, lat_w: Optional[int] = None):
+    """K1 and K5 launches of one bf16 UNet forward and of one Aggregator
+    forward (its H-concat) at ``lat`` x ``lat_w`` latents, fused GroupNorm on."""
+    lat_w = lat if lat_w is None else lat_w
+    unet = {"flash_attention_fwd": sum(flash_calls_per_forward(cfg, lat, lat_w, with_up=True).values()),
+            "group_norm_silu": group_norms_per_forward(cfg)["total"]}
+    agg = {"flash_attention_fwd": sum(flash_calls_per_forward(cfg, lat, lat_w, with_up=False, concat=2).values()),
+           "group_norm_silu": group_norms_per_forward(cfg, with_up=False)["total"]}
+    return unet, agg
+
+
 def expected_restore_launches(cfg, rcfg, phases, lat: int, lat_w: Optional[int] = None) -> dict:
     """K1 and K5 launches of one bf16 restore with the fused GroupNorm on, by
     step: a fresh step of mode A runs the Aggregator and the main UNet, B adds
@@ -974,10 +999,7 @@ def expected_restore_launches(cfg, rcfg, phases, lat: int, lat_w: Optional[int] 
     merged LoRA and the VAE options change no count. ``lat`` x ``lat_w`` is
     the latent's height x width (square when ``lat_w`` is None)."""
     lat_w = lat if lat_w is None else lat_w
-    unet = {"flash_attention_fwd": sum(flash_calls_per_forward(cfg, lat, lat_w, with_up=True).values()),
-            "group_norm_silu": group_norms_per_forward(cfg)["total"]}
-    agg = {"flash_attention_fwd": sum(flash_calls_per_forward(cfg, lat, lat_w, with_up=False, concat=2).values()),
-           "group_norm_silu": group_norms_per_forward(cfg, with_up=False)["total"]}
+    unet, agg = forward_launches(cfg, lat, lat_w)
     stale = stale_step_launches(cfg, lat, rcfg.deepcache_depth, lat_w)
     out = {"flash_attention_fwd": 0, "group_norm_silu": 0}
     for p in phases:
@@ -1587,6 +1609,334 @@ def run_load_and_cli(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) 
     return out
 
 
+def slot_step_launches(cfg, lat: int) -> dict:
+    """K1 and K5 launches of one slot step by variant (``pipeline/slots.py``):
+    ``previewer`` runs two UNet forwards and the Aggregator (a mode-B step),
+    ``aggregator`` one of each (mode A), ``plain`` the UNet (mode C)."""
+    unet, agg = forward_launches(cfg, lat)
+    return {variant: {k: n_unet * unet[k] + n_agg * agg[k] for k in unet}
+            for variant, (n_unet, n_agg) in {"previewer": (2, 1), "aggregator": (1, 1), "plain": (1, 0)}.items()}
+
+
+def recorded_slot_launches(cfg, lat: int, variants) -> dict:
+    """Launches of slot steps that run ``variants`` in turn on one state: a
+    variant's first step records it (warm-up and capture: twice its
+    launches), a later one replays it (none)."""
+    per = slot_step_launches(cfg, lat)
+    out = {"flash_attention_fwd": 0, "group_norm_silu": 0}
+    for variant in dict.fromkeys(variants):
+        for k in out:
+            out[k] += 2 * per[variant][k]
+    return out
+
+
+def run_serving(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> dict:
+    """Phase 4d: serving on phase 4's bf16 models (synthetic text
+    embeddings, one seeded draw per prompt). (a) ``RestoreServer`` over
+    buckets 512² / 1024² at batch 2 / 1 with ``fused``: the warmup records
+    one graph per bucket (launches 2x each bucket's derived counts), each
+    bucket's budget row covers its measured peak increment and the pool its
+    recording holds, within 1.5x of the larger, six
+    concurrent requests of four sizes come back as uint8 at their sizes
+    without a launch (replays), and a lone 1024² request equals ``restore``
+    of its bucket pixels with a generator cloned from the server's (0).
+    (d) ``InstantIRApp.set_adapter`` to a synthetic "lcm" variant and back:
+    the replayed graph equals the staged restore under each adapter. (b)
+    ``SlotSampler`` at 1024², one slot, on a staged ``restore``'s draws
+    (relative L2 of the final latents within 1e-3), launches derived per
+    variant; at 512², two slots, a request admitted three steps into
+    another leaves both bitwise equal to each alone. (c)
+    ``ContinuousRestoreServer`` over the same buckets with (2, 1) slots and
+    ``tick_steps`` 2: five concurrent requests finish at their sizes, the
+    traffic replays only. With ``steps`` other than 4, (e) config #4 through
+    both servers at 1024², three requests each, in turns."""
+    import threading
+    import zlib
+
+    import numpy as np
+
+    from instantir_tpu_torch.cli.app import InstantIRApp, extract_unet_lora
+    from instantir_tpu_torch.cli.infer import DEFAULT_NEG_PROMPT
+    from instantir_tpu_torch.cli.serve import (ContinuousRestoreServer, RestoreServer, ServeConfig,
+                                               estimate_hbm_budget, to_uint8)
+    from instantir_tpu_torch.pipeline.instantir import build_step_phases
+    from instantir_tpu_torch.pipeline.slots import SlotSampler
+
+    bf16 = torch.bfloat16
+    pipe._graphs.clear()  # phase 4c's recordings
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"launches": {}}
+
+    def encode(prompts):
+        """Synthetic text embeddings: one seeded draw per prompt (phase 4c freed the towers)."""
+        pe, pooled = [], []
+        for p in prompts:
+            g = torch.Generator(device="cuda").manual_seed(zlib.crc32(p.encode()))
+            pe.append(torch.randn(77, 2048, generator=g, device="cuda") * 0.1)
+            pooled.append(torch.randn(1280, generator=g, device="cuda") * 0.1)
+        return torch.stack(pe).to(bf16), torch.stack(pooled).to(bf16)
+
+    rng = torch.Generator().manual_seed(3)
+
+    def png_pixels(w: int, h: int):
+        return (torch.rand(h, w, 3, generator=rng) * 255).to(torch.uint8).numpy()
+
+    def counted(what: str, fn, want: dict):
+        """``fn()`` between counter reads (synchronized); fails on other counts."""
+        zero_counters(mods)
+        result = fn()
+        torch.cuda.synchronize()
+        launches = out["launches"][what] = read_counters(mods)
+        if launches != every_counter(want):
+            fail(f"phase 4d, {what}: kernel launches {launches}, derived {every_counter(want)}")
+        return result
+
+    def concurrent(server, images, what: str):
+        """Submit ``images`` from one thread each; every result uint8 at its input's size."""
+        results, errors = {}, []
+
+        def client(i):
+            try:
+                results[i] = server.submit(images[i], prompt=f"p{i % 2}", timeout=900)
+            except Exception as e:  # noqa: BLE001 -- reported below
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(images))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        sec = time.perf_counter() - t0
+        if errors or len(results) != len(images):
+            fail(f"phase 4d, {what}: {len(results)} of {len(images)} requests served, errors {errors[:2]}")
+        for i, img in enumerate(images):
+            got = results[i]
+            if got.shape != img.shape or got.dtype != np.uint8 or np.ptp(got) == 0:
+                fail(f"phase 4d, {what}: request {i} came back {got.shape} {got.dtype}, sent {img.shape}")
+        return sec
+
+    buckets, batches = (512, 1024), (2, 1)
+    cfg = restore_config(4)
+    phases = build_step_phases(cfg)
+    per_bucket = {r: expected_restore_launches(ucfg, cfg, phases, r // 8) for r in buckets}
+    base = dict(num_inference_steps=4, resolutions=buckets, batch_sizes=batches)
+
+    # (a) the whole-request server
+    server = RestoreServer(pipe, encode, ServeConfig(batch_wait_ms=100.0, **base))
+    if server.restore_cfg != dataclasses.replace(cfg, fused=True):
+        fail(f"phase 4d: the server's restore config {server.restore_cfg} is not config #4 at 4 steps, fused")
+    counted("serve warmup", lambda: server.start(warmup=True),
+            {k: 2 * sum(per_bucket[r][k] for r in buckets) for k in per_bucket[1024]})
+    if len(pipe._graphs) != len(buckets) or pipe.max_graphs != len(buckets):
+        fail(f"phase 4d: {len(pipe._graphs)} recorded restores held, bound {pipe.max_graphs}, buckets {buckets}")
+    budget = estimate_hbm_budget(pipe, server.buckets, server._bucket_batch)
+    log(f"  budget {json.dumps(budget)} on {card_line}")
+    # a bucket's budget row covers what its warmup left on the card (its graph's pool) and its peak allocation
+    for row, rep in zip(budget["rows"], server.warmup_report):
+        mpix = rep["bucket"] ** 2 / 1e6 * rep["batch"]
+        need = max(rep["peak_gb"], rep["held_gb"])
+        log(f"  bucket {rep['bucket']}² batch {rep['batch']}: warmup (record and replay) {rep['seconds']:.3f} s, "
+            f"peak increment {rep['peak_gb']:.3f} GB ({rep['peak_gb'] / mpix:.3f} GB per megapixel and image), held "
+            f"(the graph's pool) {rep['held_gb']:.3f} GB ({rep['held_gb'] / mpix:.3f} per megapixel and image), budget "
+            f"row {row['act_gb']:.3f} GB ({row['act_gb'] / need:.3f}x), reserved after {rep['reserved_gb']:.2f} GB")
+        if not need <= row["act_gb"] <= 1.5 * need:
+            fail(f"phase 4d: bucket {rep['bucket']}'s budget row {row['act_gb']} GB does not cover its measured "
+                 f"peak increment and pool {need:.3f} GB within 1.5x")
+    out["warmup"] = server.warmup_report
+    sizes = [(512, 512), (480, 512), (512, 512), (1024, 1024), (1024, 768), (1024, 1024)]
+    images = [png_pixels(w, h) for w, h in sizes]
+    sec = counted("serve traffic", lambda: concurrent(server, images, "six concurrent requests"), {})
+    log(f"  six concurrent requests {sizes} (w, h): {sec:.3f} s, no launch (graph replays); stats "
+        f"{json.dumps(server.stats())}")
+    lone = png_pixels(1024, 1024)
+    pixels, _, _ = server._to_bucket(lone)
+    gen = torch.Generator(device="cuda").set_state(server._generator.get_state())
+    got = server.submit(lone, prompt="lone", timeout=900)
+    pe, pooled = server._embeds(["lone"])
+    npe, npooled = server._embeds([DEFAULT_NEG_PROMPT])
+    want, _ = counted("direct restore", lambda: pipe.restore(
+        torch.from_numpy(pixels[None]), pe, pooled, negative_prompt_embeds=npe, negative_pooled_embeds=npooled,
+        cfg=server.restore_cfg, generator=gen), {})
+    diff = int(np.abs(got.astype(np.int16) - to_uint8(want[0]).astype(np.int16)).max())
+    log(f"  a lone 1024² request against restore of its bucket pixels with the server's generator state: max abs "
+        f"difference {diff} (uint8), {len(np.unique(got))} distinct values")
+    if diff != 0:
+        fail(f"phase 4d: the served 1024² image differs from restore of its pixels by {diff}")
+
+    # (d) the demo app's adapter swap, on the server's 1024² recording
+    # a synthetic "lcm" variant: each LoRA-B doubled (negating A and B alike would leave B·A as it was)
+    app = InstantIRApp(pipe, encode, {"lcm": {k: 2.0 * v if ".lora_B." in k else v
+                                              for k, v in extract_unet_lora(pipe.unet).items()}})
+    g = torch.Generator(device="cuda").manual_seed(8)
+    lq = torch.rand(1, 1024, 1024, 3, generator=g, device="cuda") * 2.0 - 1.0
+    noise = pipe.draw_noise(cfg, 1, 1024, 1024, g)
+    pe, pooled = server._embeds(["app"])
+    swapped = {}
+    for adapter in ("lcm", "previewer"):
+        app.set_adapter(adapter)
+        kw = dict(negative_prompt_embeds=npe, negative_pooled_embeds=npooled, noise=noise, output_type="pt")
+        graph = counted(f"app {adapter} replay", lambda: pipe.restore(lq, pe, pooled, cfg=server.restore_cfg, **kw)[0],
+                        {})
+        staged = pipe.restore(lq, pe, pooled, cfg=cfg, **kw)[0]
+        diff = (graph - staged).abs().max().item()
+        log(f"  InstantIRApp adapter {adapter!r}: the replayed graph against the staged restore, max abs difference "
+            f"{diff:.3e}")
+        if diff != 0 or not torch.isfinite(graph).all():
+            fail(f"phase 4d: under adapter {adapter!r} the replayed graph differs from the staged restore by {diff}")
+        swapped[adapter] = graph
+    moved = (swapped["lcm"] - swapped["previewer"]).abs().max().item()
+    back = all(torch.equal(p, app.lora_variants["previewer"][n]) for n, p in pipe.unet.named_parameters()
+               if n in app.lora_variants["previewer"])
+    log(f"  the lcm and previewer images differ by {moved:.3e} (max abs); LoRA restored exactly: {back}")
+    if not (moved > 0 and back):
+        fail("phase 4d: set_adapter did not reach the recorded graph, or did not restore the previewer's LoRA")
+    server.stop()
+    del server, app, swapped, graph, staged
+    pipe._graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the slot sampler: one 1024² slot on a staged restore's draws
+    g = torch.Generator(device="cuda").manual_seed(21)
+    lq = torch.rand(1, 1024, 1024, 3, generator=g, device="cuda") * 2.0 - 1.0
+    pe, pooled = encode(["slot"])
+    npe, npooled = encode([DEFAULT_NEG_PROMPT])
+    noise = pipe.draw_noise(cfg, 1, 1024, 1024, g)
+    staged, _ = pipe.restore(lq, pe, pooled, negative_prompt_embeds=npe, negative_pooled_embeds=npooled, cfg=cfg,
+                             noise=noise, output_type="latent")
+    sampler = SlotSampler(pipe, cfg, 1024, 1)
+    variants = [sampler.variant([i]) for i in range(sampler.n_steps)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload = sampler.prelude(lq, pe, pooled, npe, npooled, noise_vae=noise.vae, noise_init=noise.init)
+    torch.cuda.synchronize()
+    prelude_sec = time.perf_counter() - t0
+    state = sampler.insert(sampler.empty_state(payload), payload, 0)
+
+    def run_steps():
+        for draw in noise.steps:
+            sampler.step(state, noise=draw.permute(0, 3, 1, 2))
+
+    counted("slot steps 1024", run_steps, recorded_slot_launches(ucfg, 128, variants))
+    rel = ((state.latents.permute(0, 2, 3, 1).float() - staged.float()).norm() / staged.float().norm()).item()
+    t0 = time.perf_counter()
+    image = sampler.extract_decode(state, 0)
+    torch.cuda.synchronize()
+    decode_sec = time.perf_counter() - t0
+    sampler.insert(state, payload, 0)
+    step_sec = {}
+    for draw, variant in zip(noise.steps, variants):
+        t0 = time.perf_counter()
+        sampler.step(state, noise=draw.permute(0, 3, 1, 2))
+        torch.cuda.synchronize()
+        step_sec.setdefault(variant, []).append(time.perf_counter() - t0)
+    log(f"  SlotSampler 1024², one slot, variants {variants}: final latents against the staged restore's, relative "
+        f"L2 {rel:.3e}; prelude {prelude_sec:.3f} s, decode {decode_sec:.3f} s, replayed steps "
+        f"{json.dumps({k: [round(x, 4) for x in v] for k, v in step_sec.items()})} s on {card_line}")
+    if not (rel <= 1e-3 and torch.isfinite(image).all() and tuple(image.shape) == (1, 1024, 1024, 3)):
+        fail(f"phase 4d: the slot's final latents are {rel} (relative L2) from the staged restore's")
+    out.update(slot_rel=rel, prelude_sec=prelude_sec, decode_sec=decode_sec, step_sec=step_sec)
+    del sampler, state, payload, image, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) two 512² slots: a request admitted three steps into another changes neither
+    sampler = SlotSampler(pipe, cfg, 512, 2)
+
+    def payload_of(seed: int):
+        cpu = torch.Generator().manual_seed(seed)
+        lq = (torch.rand(1, 512, 512, 3, generator=cpu) * 2.0 - 1.0).cuda()
+        return sampler.prelude(lq, pe, pooled, npe, npooled, generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    state = sampler.empty_state(payload_of(1))
+
+    def alone():
+        lat = []
+        for slot, seed in ((0, 1), (1, 2)):
+            sampler.insert(state, payload_of(seed), slot)
+            for _ in range(sampler.n_steps):
+                sampler.step(state)
+            lat.append(state.latents[slot].clone())
+        return lat
+
+    alone_a, alone_b = counted("slot steps 512", alone, recorded_slot_launches(ucfg, 64, variants))
+
+    def mixed():
+        sampler.insert(state, payload_of(1), 0)
+        for _ in range(3):
+            sampler.step(state)
+        sampler.insert(state, payload_of(2), 1)
+        mixed_variants = []
+        for _ in range(sampler.n_steps):
+            mixed_variants.append(sampler.variant(state.host_idx))
+            sampler.step(state)
+        return mixed_variants
+
+    mixed_variants = counted("slot steps 512 mixed", mixed, {})
+    same_a, same_b = torch.equal(state.latents[0], alone_a), torch.equal(state.latents[1], alone_b)
+    log(f"  SlotSampler 512², two slots, B admitted three steps into A (variants {mixed_variants}): A bitwise equal "
+        f"to A alone {same_a}, B to B alone {same_b}")
+    if not (same_a and same_b):
+        fail("phase 4d: a mid-flight admission changed a slot's latents")
+    del sampler, state, alone_a, alone_b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the continuous server
+    cont = ContinuousRestoreServer(pipe, encode, ServeConfig(continuous=True, tick_steps=2, **base))
+    counted("serve continuous warmup", lambda: cont.start(warmup=True),
+            {k: sum(recorded_slot_launches(ucfg, r // 8, variants)[k] for r in buckets)
+             for k in ("flash_attention_fwd", "group_norm_silu")})
+    for rep in cont.warmup_report:
+        log(f"  continuous bucket {rep['bucket']}² {rep['batch']} slot(s): warmup {rep['seconds']:.3f} s, peak "
+            f"increment {rep['peak_gb']:.3f} GB, held {rep['held_gb']:.3f} GB, reserved after "
+            f"{rep['reserved_gb']:.2f} GB")
+    out["continuous_warmup"] = cont.warmup_report
+    sizes = [(512, 512), (400, 512), (1024, 1024), (1024, 768), (512, 512)]
+    images = [png_pixels(w, h) for w, h in sizes]
+    sec = counted("serve continuous traffic", lambda: concurrent(cont, images, "five concurrent requests"), {})
+    log(f"  continuous server, five concurrent requests {sizes}: {sec:.3f} s, no launch (replays); stats "
+        f"{json.dumps(cont.stats())} on {card_line}")
+    cont.stop()
+    del cont
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) config #4 through both servers at 1024², in turns
+    if steps != 4:
+        c4 = dict(num_inference_steps=steps, resolutions=(1024,), batch_sizes=(1,))
+        servers = {"whole-request": RestoreServer(pipe, encode, ServeConfig(**c4)).start(),
+                   "continuous": ContinuousRestoreServer(pipe, encode, ServeConfig(continuous=True, **c4)).start()}
+        secs = {k: [] for k in servers}
+        for _ in range(3):
+            for name, srv in servers.items():
+                t0 = time.perf_counter()
+                got = srv.submit(png_pixels(1024, 1024), prompt="config 4", timeout=900)
+                secs[name].append(time.perf_counter() - t0)
+                if got.shape != (1024, 1024, 3):
+                    fail(f"phase 4d, config #4: the {name} server returned {got.shape}")
+        out["config4"] = {}
+        for name, srv in servers.items():
+            st = srv.stats()
+            out["config4"][name] = {"request_seconds": secs[name], "batch_seconds_p50": st["batch_seconds"]["0.5"],
+                                    "request_latency_p50": st["request_latency_seconds"]["0.5"],
+                                    "warmup_seconds": srv.warmup_report[0]["seconds"]}
+            log(f"  config #4 ({steps} steps, 1024²) through the {name} server: request seconds "
+                f"{['%.3f' % x for x in secs[name]]}, batch_seconds p50 {st['batch_seconds']['0.5']:.3f} "
+                f"(a tick of {srv.cfg.tick_steps} steps for the continuous one), request latency p50 "
+                f"{st['request_latency_seconds']['0.5']:.3f} s (the graph alone: phase 4b's config #4 line); warmup "
+                f"{srv.warmup_report[0]['seconds']:.3f} s, peak increment {srv.warmup_report[0]['peak_gb']:.3f} GB "
+                f"on {card_line}")
+            srv.stop()
+        del servers
+        pipe._graphs.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def _checksums(torch, params: dict) -> dict:
     """Per-leaf (sum, sum of squares) in fp64: changes with any element."""
     out = {}
@@ -2043,6 +2393,11 @@ def main() -> None:
     log("[4c] load a checkpoint tree in the released layout and restore through the inference CLI at SDXL width")
     cli = run_load_and_cli(torch, pipe, args.steps, mods, ucfg, card_line)
 
+    # 4d. serving
+    log("[4d] serving at SDXL width: the whole-request server, the demo app's adapter swap, the slot sampler, "
+        "the continuous server")
+    serving = run_serving(torch, pipe, args.steps, mods, ucfg, card_line)
+
     # 5. stage-2 training (before stage 1, which frees the Aggregator)
     log("[5] stage-2 (Aggregator) training at SDXL width")
     stage2 = run_stage2(torch, pipe, ucfg, mods, card_line)
@@ -2071,6 +2426,11 @@ def main() -> None:
                 "restore_graph_recording": options["launches"]["graph recording"][name],
                 "restore_deepcache": options["launches"]["DeepCache restore"][name],
                 "restore_cli": cli["launches"][name],
+                "serve_warmup": serving["launches"]["serve warmup"][name],
+                "serve_traffic": serving["launches"]["serve traffic"][name],
+                "slot_steps": serving["launches"]["slot steps 1024"][name],
+                "serve_continuous_warmup": serving["launches"]["serve continuous warmup"][name],
+                "serve_continuous_traffic": serving["launches"]["serve continuous traffic"][name],
                 "train_512": train["train_512"][name], "train_1024": train["train_1024"][name],
                 "train_stage2_512": stage2["train_stage2_512"][name],
                 "train_stage2_1024": stage2["train_stage2_1024"][name],
@@ -2150,7 +2510,10 @@ def main() -> None:
         f"{json.dumps({k: round(v, 3) for k, v in cli['cli_first'].items()})}, replay "
         f"{json.dumps({k: round(v, 3) for k, v in cli['cli_replay'].items()})} (PNG read to PNG written), "
         f"with its own load {cli['user_sec']:.3f} s to the first image"
-        f"{'; CLI config #4 ' + json.dumps(cli['config4']) if 'config4' in cli else ''}; stage-2 step at 512² batch 2: {min(stage2['sec_512']):.3f} s, peak "
+        f"{'; CLI config #4 ' + json.dumps(cli['config4']) if 'config4' in cli else ''}; serving (4 steps): warmup "
+        f"{json.dumps([(r['bucket'], round(r['seconds'], 3), round(r['peak_gb'], 3)) for r in serving['warmup']])} "
+        f"(bucket, s, peak GB), slot prelude {serving['prelude_sec']:.3f} s, decode {serving['decode_sec']:.3f} s"
+        f"{'; serving config #4 ' + json.dumps(serving['config4']) if 'config4' in serving else ''}; stage-2 step at 512² batch 2: {min(stage2['sec_512']):.3f} s, peak "
         f"{stage2['peak_gb_512']:.2f} GB; at 1024² batch 1 with checkpointing: {stage2['sec_1024']:.3f} s, peak "
         f"{stage2['peak_gb_1024']:.2f} GB; stage-1 step at 512² batch 2: {min(train['sec_512']):.3f} s; at 1024² "
         f"batch 1 with checkpointing: {train['sec_1024']:.3f} s; previewer step at 512² batch 2: "

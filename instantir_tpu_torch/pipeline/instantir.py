@@ -115,11 +115,12 @@ class RestoreConfig:
 
 
 _NOT_PORTED = ("sequence_parallel", "sp_min_seq")
-# Recorded restores (``RestoreConfig.fused``) kept at once. Each holds a private
-# memory pool of its restore's peak (9.86 GB at 1024² on an H100), and the CLI
-# records one per image size: two keep a size and the one before it (a folder
-# that alternates two aspect ratios replays both) without letting a folder of
-# many sizes fill the card.
+# Recorded restores (``RestoreConfig.fused``) kept at once by default
+# (``InstantIRPipeline.max_graphs``). Each holds a private memory pool of its
+# restore's peak (9.86 GB at 1024² on an H100), and the CLI records one per
+# image size: two keep a size and the one before it (a folder that alternates
+# two aspect ratios replays both) without letting a folder of many sizes fill
+# the card. A server raises the bound to its bucket count (``cli/serve.py``).
 MAX_GRAPHS = 2
 _DECODE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -228,6 +229,7 @@ class InstantIRPipeline:
         # recorded restores, least recently replayed first (``_graph_replay``)
         self._graphs: "collections.OrderedDict[Any, Tuple[torch.cuda.CUDAGraph, List[Optional[torch.Tensor]], Any]]" = \
             collections.OrderedDict()
+        self.max_graphs = MAX_GRAPHS  # recordings kept at once (``_graph_replay``)
 
     def freeze_previewer(self, alpha: float = 1.0) -> "InstantIRPipeline":
         """Inference only: merge the UNet's previewer LoRA at strength
@@ -570,7 +572,7 @@ class InstantIRPipeline:
         where they lie when it replays: in-place changes (``load_state_dict``)
         are seen; ``freeze_previewer`` drops the graphs. Each recorded graph
         keeps a private memory pool of the restore's peak, so at most
-        ``MAX_GRAPHS`` are kept: recording another drops the least recently
+        ``self.max_graphs`` are kept: recording another drops the least recently
         replayed one (its graph, static inputs and outputs) and hands its
         pool back to the card (``torch.cuda.empty_cache``), as a recording
         does with the warm-up's memory."""
@@ -581,7 +583,7 @@ class InstantIRPipeline:
                tuple(None if t is None else (tuple(t.shape), t.dtype) for t in tensors))
         entry = self._graphs.get(key)
         if entry is None:
-            while len(self._graphs) >= MAX_GRAPHS:
+            while len(self._graphs) >= self.max_graphs:
                 self._graphs.popitem(last=False)
                 torch.cuda.empty_cache()
             static = [None if t is None else t.clone() for t in tensors]
@@ -609,6 +611,19 @@ class InstantIRPipeline:
         graph, _, (image, previews) = entry
         graph.replay()
         return image.clone(), None if previews is None else [p.clone() for p in previews]
+
+    def draw_noise(self, cfg: RestoreConfig, batch: int, height: int, width: int,
+                   generator: torch.Generator) -> RestoreNoise:
+        """Every draw of one restore of ``batch`` images of ``height`` x
+        ``width`` pixels from ``generator``, in ``restore``'s order: the VAE
+        posterior's, the init noise's, then each step's (NHWC fp32 latents)."""
+        f = vae_scale_factor(self.vae.config)
+        lat_shape = (batch, height // f, width // f, self.vae.config.latent_channels)
+
+        def draw():
+            return torch.randn(lat_shape, generator=generator, dtype=torch.float32, device=self.device)
+
+        return RestoreNoise(vae=draw(), init=draw(), steps=[draw() for _ in range(len(inference_timesteps(cfg)))])
 
     @torch.no_grad()
     def restore(
@@ -647,13 +662,7 @@ class InstantIRPipeline:
         if noise is None:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
-            f = vae_scale_factor(self.vae.config)
-            lat_shape = (b, h // f, w // f, self.vae.config.latent_channels)
-
-            def draw():
-                return torch.randn(lat_shape, generator=generator, dtype=torch.float32, device=dev)
-
-            noise = RestoreNoise(vae=draw(), init=draw(), steps=[draw() for _ in range(n_steps)])
+            noise = self.draw_noise(cfg, b, h, w, generator)
         if len(noise.steps) != n_steps:
             raise ValueError(f"noise.steps holds {len(noise.steps)} draws for {n_steps} steps")
 
