@@ -87,6 +87,23 @@ which ends the script with a nonzero exit on failure:
    to the counts derived from the config. In phases 5-7 each bf16 trainable
    leaf trains through an fp32 master with fp32 AdamW moments: every master
    must move and every bf16 leaf must hold its master's rounding;
+7b. training from raw images on the same models, under cuDNN's TF32 default
+   (on): the traced and the eager RealESRGAN degradation at 512² batch 2 and
+   1024² batch 1 against the same call on the CPU (the first JPEG's input
+   within CHAIN_TOL, the JPEG flips counted by block; ms per call; no K1-K5
+   launch); stage 1 through ``cli.train.main`` (``--synthetic_data``, 2
+   steps, a checkpoint every 2, a limit of 1, prefetch 2), resumed to 4
+   steps (the restored state bitwise that of ``checkpoint-2``; only
+   ``checkpoint-4`` left; ``adapter_ckpt.pt`` maps strictly onto the
+   models), stage 1 from eight PNGs of mixed sizes with captions and a data
+   config, the previewer (``config_files/losses.yaml``) and stage 2 on a
+   fresh Aggregator with one async checkpoint and the EMA adapter, 2 steps
+   each (checkpoint bytes and seconds; each read back bitwise, every tensor
+   of the state, with its read and put-back seconds); stage 1's s/step of
+   ``run`` with ``prefetch_batches`` 0 and 2 in turns from one state beside
+   the bare ``train_step`` (the masters after every turn bitwise equal);
+   every launch count derived, every trainable master moved, no frozen
+   leaf changed;
 8. fp32, after the bf16 models are freed: ``build_pipeline`` with its default
    dtype restores a 512² image in 4 steps and one fp32 ``Stage1Trainer`` step
    runs at 512², batch 1, both through the fp32 flash entry points and the
@@ -1938,12 +1955,15 @@ def run_serving(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> di
 
 
 def _checksums(torch, params: dict) -> dict:
-    """Per-leaf (sum, sum of squares) in fp64: changes with any element."""
-    out = {}
-    for name, p in params.items():
+    """Per-leaf (sum, sum of squares) in fp64: changes with any element. One
+    copy to the host for all leaves."""
+    sums = []
+    for p in params.values():
         x = p.detach().double()
-        out[name] = (x.sum().item(), (x * x).sum().item())
-    return out
+        sums.append(torch.stack([x.sum(), (x * x).sum()]))
+    if not sums:
+        return {}
+    return dict(zip(params, map(tuple, torch.stack(sums).cpu().tolist())))
 
 
 def training_batch(torch, g, bsz: int, res: int, dtype, uncond: bool = False):
@@ -2208,6 +2228,516 @@ def run_previewer(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     return out
 
 
+# the degraded pair on the card against the same port function on the CPU, same choices and Gaussian draws. Fed the
+# CPU run's Poisson counts, the first JPEG's input must agree within CHAIN_TOL ([-1, 1] scale; the ops' own
+# difference is ~1e-6) everywhere, and the pair may differ further only by JPEG flips: a DCT coefficient at a
+# rounding edge rounds the other way under another summation order and moves its whole 8x8 block (16x16 pixels for
+# a chroma block) by up to a quantisation step; the bicubic resize back spreads a flipped lq block over ~36² gt
+# pixels. With its own Poisson draws the card draws from rates ~1e-7 away from the CPU's: torch.poisson's rejection
+# sampler takes a data-dependent number of uniforms, so a rate that crosses an acceptance edge changes its count and
+# every later count of the stream. Measured on an H100 80GB HBM3 (700 W), the traced chain at 1024² (Poisson in both
+# noise stages) alone differs past CHAIN_TOL: with its own draws 1.19% of the pixels, max 0.06; fed the counts 0.24%,
+# max 0.0036, each JPEG flipping one 8x8 block (the first of an input 6e-8 away). The limits: about three times (own
+# draws) and four to six times (fed) those readings.
+CHAIN_TOL = 1e-4
+CHAIN_FLIP_SHARE, CHAIN_FLIP_MAX = 0.04, 0.2  # own Poisson draws
+CHAIN_FED_SHARE, CHAIN_FED_MAX = 0.01, 0.02  # the CPU's Poisson counts
+# two JPEG round trips of one input on [0, 1] agree within JPEG_SAME_TOL but for flipped blocks; the least move of
+# a flipped coefficient is ~0.0095 q / 255 >= 3.7e-5
+JPEG_SAME_TOL = 1e-5
+
+
+def jpeg_blocks_flipped(torch, got, want):
+    """(flipped 8x8 blocks, blocks, share of the pixels past
+    ``JPEG_SAME_TOL`` inside the flipped blocks) of two JPEG round trips of
+    one input, NHWC: a rounding flip moves a whole block (four of them for a
+    chroma block)."""
+    diff = (got - want).abs().amax(dim=-1)  # [B, H, W]
+    b, h, w = diff.shape
+    blocks = (diff > JPEG_SAME_TOL).reshape(b, h // 8, 8, w // 8, 8).permute(0, 1, 3, 2, 4).reshape(b, -1, 64)
+    flipped = blocks.any(dim=-1)
+    inside = float(blocks[flipped].float().mean()) if bool(flipped.any()) else None
+    return int(flipped.sum()), flipped.numel(), inside
+
+
+def chain_recorder(torch, tdeg, call):
+    """``recorded(images, kernels, counts=None)``: ``call(images, kernels,
+    where)`` with every JPEG round trip's input, quality and output kept
+    (on the host) and every Poisson stage's counts drawn in the chain's own
+    order (the image's, then its channel mean's) and kept with the state
+    they leave the generator in, or, with ``counts``, taken from that list
+    instead (the generator then set to the kept state). Returns (the pair,
+    the JPEG records, the counts)."""
+    real_jpeg, real_poisson = tdeg.jpeg_compress, tdeg.add_poisson_noise
+
+    def recorded(images, kernels, counts=None, where="cpu"):
+        jpegs, drawn = [], []
+        fed = iter(counts) if counts is not None else None
+
+        def jpeg_spy(img, quality):
+            result = real_jpeg(img, quality)
+            jpegs.append((img.cpu(), quality.cpu(), result.cpu()))
+            return result
+
+        def poisson_spy(img, scale, gray_mask, counts=None, gray_counts=None, generator=None, vals=256.0):
+            if fed is not None:
+                counts, gray_counts, after = next(fed)
+                counts, gray_counts = counts.to(img.device), gray_counts.to(img.device)
+                generator.set_state(after)  # where the CPU run's draws left the generator
+            else:
+                def rate(x):
+                    return (torch.clamp(x, 0.0, 1.0) * vals).to(generator.device)
+
+                counts = torch.poisson(rate(img), generator=generator)
+                gray_counts = torch.poisson(rate(img.mean(dim=-1, keepdim=True)), generator=generator)
+                drawn.append((counts.cpu(), gray_counts.cpu(), generator.get_state()))
+            return real_poisson(img, scale, gray_mask, counts, gray_counts, generator, vals)
+
+        tdeg.jpeg_compress, tdeg.add_poisson_noise = jpeg_spy, poisson_spy
+        try:
+            return call(images, kernels, where), jpegs, drawn
+        finally:
+            tdeg.jpeg_compress, tdeg.add_poisson_noise = real_jpeg, real_poisson
+
+    return recorded
+
+
+def pair_errors(torch, got, want, shape, what: str, limits) -> dict:
+    """Share of the pixels past CHAIN_TOL and max abs difference of the lq
+    and the gt of ``got`` (on the card) against ``want`` (the CPU's); fails
+    past ``limits`` (share, max), on another shape or a value that is not
+    finite."""
+    max_share, max_err = limits
+    errs = {}
+    for name, g, w in zip(("lq", "gt"), got, want):
+        diff = (g.cpu() - w).abs()
+        share, peak = float((diff > CHAIN_TOL).float().mean()), float(diff.max())
+        errs[name] = (share, peak)
+        if tuple(g.shape) != shape or not bool(torch.isfinite(g).all()) or share > max_share or peak > max_err:
+            fail(f"phase 7b: {what}'s {name} on the card: shape {tuple(g.shape)}, {share:.2%} of pixels past "
+                 f"{CHAIN_TOL} from the CPU's (allowed {max_share:.0%}), max {peak:.3g} (allowed {max_err})")
+    return errs
+
+
+def check_degradation(torch, mods: dict, card_line: str) -> dict:
+    """Phase 7b, step 1: the traced and the eager degradation at 512² batch 2
+    and 1024² batch 1 on the card against the same call on the CPU (the
+    choices from the same seeds, the Gaussian noise from the same CPU
+    generator): with the card's own Poisson draws, and fed the CPU's Poisson
+    counts (the first JPEG's input then within CHAIN_TOL everywhere); each
+    JPEG round trip fed the CPU's own input on the card, its flipped 8x8
+    blocks counted. Then ms per call as training runs it (the noise from a
+    generator on the card) over 10 calls between CUDA events, the host's
+    time beside; no K1-K5 launch."""
+    import numpy as np
+
+    from instantir_tpu_torch.data import degradation as tdeg
+    from instantir_tpu_torch.data.dataset import SyntheticImageDataset
+
+    out = {}
+    for res, bsz in ((512, 2), (1024, 1)):
+        deg = tdeg.RealESRGANDegradation(resolution=res)
+        host = next(SyntheticImageDataset(seed=res).batches(bsz, res))
+        cpu = (torch.from_numpy(host["images"]), tuple(torch.from_numpy(host[k]) for k in
+                                                       ("kernel", "kernel2", "sinc_kernel")))
+        card = (cpu[0].cuda(), tuple(k.cuda() for k in cpu[1]))
+        final = (res // deg.degrade_opt["sf"],) * 2
+        for chain in ("traced", "eager"):
+            def call(images, kernels, where="cpu", seed=res + 1):
+                noise = torch.Generator(device=where).manual_seed(seed)
+                if chain == "traced":
+                    draws = deg.draw_choices(bsz, final, torch.Generator().manual_seed(seed + 1))
+                    return deg.traced_call(images, kernels, draws=draws, device_generator=noise)
+                return deg(images, kernels, host_rng=np.random.default_rng(seed), generator=noise)
+
+            recorded = chain_recorder(torch, tdeg, call)
+            what = f"the {chain} chain at {res}²"
+            want, want_jpeg, counts = recorded(*cpu)
+            zero_counters(mods)
+            own = pair_errors(torch, call(*card), want, (bsz, res, res, 3), what + " (its own Poisson draws)",
+                              (CHAIN_FLIP_SHARE, CHAIN_FLIP_MAX))
+            got, got_jpeg, _ = recorded(*card, counts=counts)
+            fed = pair_errors(torch, got, want, (bsz, res, res, 3), what + " (the CPU's Poisson counts)",
+                              (CHAIN_FED_SHARE, CHAIN_FED_MAX))
+            # fed: each JPEG's input against the CPU's, and the 8x8 blocks its output flipped
+            fed_jpegs = [(float((g[0] - w[0]).abs().max()), jpeg_blocks_flipped(torch, g[2], w[2])[0])
+                         for g, w in zip(got_jpeg, want_jpeg)]
+            torch.cuda.synchronize()
+            first_in = float((got_jpeg[0][0] - want_jpeg[0][0]).abs().max())
+            if first_in > CHAIN_TOL:
+                fail(f"phase 7b: {what}, fed the CPU's Poisson counts: the first JPEG's input differs from the "
+                     f"CPU's by {first_in:.3g} (allowed {CHAIN_TOL} everywhere)")
+            flips = []
+            for img, quality, result in want_jpeg:
+                again = tdeg.jpeg_compress(img.cuda(), quality.cuda()).cpu()
+                n, total, inside = jpeg_blocks_flipped(torch, again, result)
+                flips.append({"flipped": n, "blocks": total, "inside": inside,
+                              "max": float((again - result).abs().max())})
+            if any(f["max"] > CHAIN_FLIP_MAX / 2 for f in flips):
+                fail(f"phase 7b: {what}: a JPEG round trip of the CPU's input on the card moves a pixel further "
+                     f"than a quantisation step allows ({flips})")
+            ms = time_ms(torch, lambda: call(*card, where="cuda"), iters=10, warmup=2, groups=1)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                call(*card, where="cuda")
+            host_ms = (time.perf_counter() - t0) * 100.0
+            torch.cuda.synchronize()
+            launches = read_counters(mods)
+            if any(launches.values()):
+                fail(f"phase 7b: the degradation launched {launches}")
+            out[f"{chain}_{res}"] = {"ms": ms, "host_ms": host_ms, "max_abs_err": own["lq"][1], "own_draws": own,
+                                     "fed_counts": fed, "fed_jpegs": fed_jpegs, "poisson_stages": len(counts),
+                                     "first_jpeg_input_err": first_in, "jpeg_flips": flips}
+
+            def fmt(errs):
+                return ", ".join(f"{k} {v[0]:.4%} past {CHAIN_TOL}, max {v[1]:.3g}" for k, v in errs.items())
+
+            log(f"  {chain} degradation {res}² batch {bsz}: {ms:.2f} ms per call (10 calls between CUDA events), "
+                f"{host_ms:.2f} ms of host time per call; {len(counts)} Poisson stage(s); against the CPU with "
+                f"its own Poisson draws: {fmt(own)}; fed the CPU's counts: {fmt(fed)}, each JPEG's input max and "
+                f"its output's flipped 8x8 blocks {[(float('%.3g' % e), n) for e, n in fed_jpegs]}; the JPEG round trips fed the CPU's input: flipped 8x8 blocks "
+                f"{[(f['flipped'], f['blocks']) for f in flips]} ({[f['inside'] and round(f['inside'], 3) for f in flips]}"
+                f" of their pixels past {JPEG_SAME_TOL}, max {[round(f['max'], 4) for f in flips]}); no K1-K5 "
+                f"launch; on {card_line}")
+    return out
+
+
+def cli_train(torch, argv: list, pipe, mods: dict, per_step: dict, steps: int, pred, what: str, card_line: str,
+              before_train: Optional[dict] = None) -> dict:
+    """``cli.train.main(argv, pipe=pipe)`` with every counter set to 0 just
+    before and read just after: the launches must be ``steps`` x
+    ``per_step``, every trainable master (the stage's ``pred``) must move
+    from ``before_train`` (default: the leaves' values before the run, a
+    fresh trainer's masters) and no frozen leaf may change."""
+    import contextlib
+    import io
+
+    from instantir_tpu_torch.cli import train as cli
+    from instantir_tpu_torch.train.common import named_parameters
+
+    models = {"unet": pipe.unet, "resampler": pipe.resampler, "vae": pipe.vae, "image_encoder": pipe.image_encoder}
+    if argv[0] == "stage2":
+        models["aggregator"] = pipe.aggregator
+    named = named_parameters(models)
+    trainable = {n: p for n, p in named.items() if pred(tuple(n.split(".")))}
+    frozen = {n: p for n, p in named.items() if n not in trainable}
+    if before_train is None:
+        before_train = _checksums(torch, {n: p.float() for n, p in trainable.items()})
+    before_frozen = _checksums(torch, frozen)
+    text = io.StringIO()
+    zero_counters(mods)
+    t0 = time.time()
+    with contextlib.redirect_stdout(text):
+        result = cli.main(argv, pipe=pipe)
+    torch.cuda.synchronize()
+    sec = time.time() - t0
+    launches = read_counters(mods)
+    for line in text.getvalue().rstrip().splitlines():
+        log(f"    | {line}")
+    want = every_counter({k: n * steps for k, n in per_step.items()})
+    if launches != want:
+        fail(f"phase 7b, {what}: kernel launches {launches}, derived {steps} x {per_step}")
+    trainer = result["trainer"]
+    if trainer.global_step != int(argv[argv.index("--max_train_steps") + 1]):
+        fail(f"phase 7b, {what}: the run ended at step {trainer.global_step}")
+    check_leaves(torch, before_train, before_frozen, dict(zip(trainer.trainable_names, trainer.optimizer.masters)),
+                 frozen, what)
+    saves = [{k: (round(v, 3) if isinstance(v, float) else v) for k, v in s.items()} for s in trainer.ckpt.saves]
+    log(f"  {what}: {sec:.2f} s for the run and its export, launches {launches}, checkpoint writes {saves}; on "
+        f"{card_line}")
+    return {"result": result, "text": text.getvalue(), "sec": sec, "launches": launches, "saves": saves}
+
+
+def tree_differences(torch, live, saved, path: str = "") -> list:
+    """The paths at which ``saved`` (a checkpoint read back, CPU tensors)
+    differs from ``live`` (the trainer's ``checkpoint_state``): keys, types,
+    dtypes, shapes or any bit of a tensor."""
+    if isinstance(live, dict):
+        if not isinstance(saved, dict) or set(live) != set(saved):
+            return [f"{path}: keys"]
+        return [d for k in live for d in tree_differences(torch, live[k], saved[k], f"{path}/{k}")]
+    if isinstance(live, torch.Tensor):
+        same = (isinstance(saved, torch.Tensor) and saved.dtype == live.dtype and saved.shape == live.shape
+                and torch.equal(saved.to(live.device), live))
+        return [] if same else [path]
+    return [] if live == saved else [path]
+
+
+def restore_checked(torch, trainer, step: int, what: str, card_line: str) -> dict:
+    """``checkpoint-{step}`` read back into the run's own trainer: every
+    entry of its state (the masters, the AdamW count and moments, the step,
+    stage 2's EMA adapter) must equal the trainer's ``checkpoint_state``
+    bitwise; seconds to read the file and to put the state back on the card."""
+    live = trainer.checkpoint_state()
+    t0 = time.time()
+    state = trainer.ckpt.restore(step)
+    read = time.time() - t0
+    bad = tree_differences(torch, live, state)
+    if bad:
+        fail(f"phase 7b, {what}: checkpoint-{step} differs from the trainer's state at {bad[:5]}")
+    t0 = time.time()
+    trainer.load_checkpoint_state(state)
+    torch.cuda.synchronize()
+    put = time.time() - t0
+    log(f"  {what}: checkpoint-{step} read in {read:.2f} s and put back in {put:.2f} s; its "
+        f"{sorted(state)} equal the trainer's state bitwise ({len(state['trainable'])} masters, "
+        f"{len(state['opt_state']['adamw'])} moment pairs"
+        f"{', %d EMA tensors' % len(state['ema_adapter']) if 'ema_adapter' in state else ''}); on {card_line}")
+    return {"read_seconds": read, "put_back_seconds": put}
+
+
+def write_image_folder(root: str) -> str:
+    """Eight PNGs of mixed sizes under ``root/photos`` (captions in
+    ``metadata.jsonl`` for five, ``.txt`` sidecars for two, none for one) and
+    a data config naming the folder; returns the config's path."""
+    import numpy as np
+
+    folder = os.path.join(root, "photos")
+    os.makedirs(folder)
+    rng = np.random.default_rng(11)
+    sizes = [(512, 512), (600, 520), (768, 512), (520, 700), (1024, 640), (530, 530), (640, 960), (700, 560)]
+    meta = []
+    for i, (w, h) in enumerate(sizes):
+        low = rng.uniform(size=(h // 32 + 1, w // 32 + 1, 3))
+        img = np.kron(low, np.ones((32, 32, 1)))[:h, :w]
+        write_png(os.path.join(folder, f"p{i}.png"), (img * 255).astype(np.uint8))
+        if i < 5:
+            meta.append({"file_name": f"p{i}.png", "text": f"photo number {i}"})
+        elif i < 7:
+            with open(os.path.join(folder, f"p{i}.txt"), "w") as f:
+                f.write(f"sidecar caption {i}\n")
+    with open(os.path.join(folder, "metadata.jsonl"), "w") as f:
+        f.write("\n".join(json.dumps(m) for m in meta) + "\n")
+    config = os.path.join(root, "data.yaml")
+    with open(config, "w") as f:
+        f.write("# one folder of photographs\ndatasets:\n  - dataset_folder: 'photos'\n    dataset_weight: 1.0\n")
+    return config
+
+
+def run_train_cli(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
+    """Phase 7b: training from raw images on phase 4's bf16 models, with
+    cuDNN's TF32 switch at its default (on) as a user's run has it: the
+    degradation on the card (``check_degradation``), stage 1 through
+    ``cli.train.main`` (2 steps with a checkpoint every 2 and a limit of 1,
+    resumed to 4; the restored state equals the saved one bitwise;
+    ``adapter_ckpt.pt`` maps strictly onto the models), stage 1 from a
+    folder of PNGs, the previewer (``config_files/losses.yaml``) and stage 2
+    (a fresh Aggregator; one async checkpoint; the EMA adapter), then stage
+    1's s/step of ``run`` with ``prefetch_batches`` 0 and 2 in turns beside
+    the bare ``train_step``. Every launch count derived; checkpoints under a
+    temporary directory, deleted at the end."""
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return train_cli_phases(torch, pipe, ucfg, mods, card_line)
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+
+
+def train_cli_phases(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
+    """The body of ``run_train_cli``."""
+    import tempfile
+
+    from instantir_tpu_torch import convert
+    from instantir_tpu_torch.models.aggregator import Aggregator
+    from instantir_tpu_torch.pipeline.factory import synthesize_weights
+    from instantir_tpu_torch.train.previewer_lora import lora_trainable_pred
+    from instantir_tpu_torch.train.stage1_adapter import Stage1Config, Stage1Trainer, stage1_trainable_pred
+    from instantir_tpu_torch.train.stage2_aggregator import Stage2Config, stage2_trainable_pred
+
+    out = {"chain": check_degradation(torch, mods, card_line)}
+    fused = mods["group_norm"].USE_FUSED
+
+    def derived(counts: dict) -> dict:
+        counts = every_counter(counts)
+        if not fused:
+            counts["group_norm_silu"] = 0
+        return counts
+
+    s1_step = derived(expected_train_launches(ucfg, 512 // 8, checkpointing=False))
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    free = shutil.disk_usage(root).free
+    if free < 40e9:
+        fail(f"phase 7b: the checkpoints need 40 GB, {root} has {free / 1e9:.2f} GB free")
+    losses = str(REPO / "config_files" / "losses.yaml")
+    common_flags = ["--resolution", "512", "--train_batch_size", "2", "--lr_warmup_steps", "0", "--losses_config",
+                    losses]
+    try:
+        s1_dir = os.path.join(root, "stage1")
+        flags = ["stage1", "--synthetic_data", *common_flags, "--checkpointing_steps", "2",
+                 "--checkpoints_total_limit", "1", "--prefetch_batches", "2", "--output_dir", s1_dir]
+        run = cli_train(torch, flags + ["--max_train_steps", "2"], pipe, mods, s1_step, 2, stage1_trainable_pred,
+                        "stage-1 CLI, 2 steps", card_line)
+        out["launches_stage1"] = dict(run["launches"])
+        out["stage1_saves"] = run["saves"]
+        first = run["result"]["trainer"]
+        del run
+        if sorted(d for d in os.listdir(s1_dir) if d.startswith("checkpoint-")) != ["checkpoint-2"]:
+            fail(f"phase 7b: the stage-1 run left {sorted(os.listdir(s1_dir))}, not checkpoint-2 alone")
+
+        # the resume on a trainer of its own: its state bitwise the one the first run saved
+        cfg = Stage1Config(output_dir=s1_dir, train_batch_size=2, resolution=512, lr_warmup_steps=0)
+        trainer = Stage1Trainer(pipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder, cfg, device="cuda")
+        t0 = time.time()
+        step = trainer.resume()
+        torch.cuda.synchronize()
+        out["resume_sec"] = time.time() - t0
+        bad = tree_differences(torch, first.checkpoint_state(), trainer.checkpoint_state())
+        if bad or step != 2:
+            fail(f"phase 7b: resumed at step {step}; the resumed state differs from the saved one at {bad[:5]}")
+        before = _checksums(torch, dict(zip(trainer.trainable_names, trainer.optimizer.masters)))
+        log(f"  resume: checkpoint-2 ({out['stage1_saves'][-1]['bytes'] / 1e9:.2f} GB of masters and moments) read "
+            f"and put back in {out['resume_sec']:.2f} s; the {len(trainer.trainable_names)} masters, their moments, "
+            "the count and the step equal the ones the first run saved, bitwise")
+        del trainer, first
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = cli_train(torch, flags + ["--max_train_steps", "4"], pipe, mods, s1_step, 2, stage1_trainable_pred,
+                        "stage-1 CLI resumed to 4 steps", card_line, before_train=before)
+        if "resumed from checkpoint-2" not in run["text"]:
+            fail("phase 7b: the second stage-1 run did not resume from checkpoint-2")
+        if sorted(d for d in os.listdir(s1_dir) if d.startswith("checkpoint-")) != ["checkpoint-4"]:
+            fail(f"phase 7b: the resumed stage-1 run left {sorted(os.listdir(s1_dir))}, not checkpoint-4 alone")
+        out["launches_stage1"] = {k: n + run["launches"][k] for k, n in out["launches_stage1"].items()}
+        out["stage1_saves"] += run["saves"]
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        payload = torch.load(os.path.join(s1_dir, "adapter_ckpt.pt"), map_location="cpu", weights_only=True)
+        mapped = convert.import_ip_adapter(payload["ip_adapter"], [n for n, _ in pipe.unet.named_parameters()],
+                                           strict=True)
+        res_names = {n for n in pipe.resampler.state_dict() if "lora_" not in n}
+        if set(payload["image_proj"]) != res_names or not mapped:
+            fail("phase 7b: adapter_ckpt.pt does not map strictly onto the Resampler and the UNet")
+        log(f"  adapter_ckpt.pt maps strictly: {len(payload['image_proj'])} Resampler and {len(mapped)} UNet tensors")
+        del payload, mapped
+        shutil.rmtree(s1_dir)
+
+        # stage 1 from a folder of PNGs (Pillow decode, captions, the port's YAML reader)
+        config = write_image_folder(root)
+        run = cli_train(torch, ["stage1", "--data_config", config, "--data_dir", root, *common_flags,
+                                "--max_train_steps", "2", "--output_dir", os.path.join(root, "folder")],
+                        pipe, mods, s1_step, 2, stage1_trainable_pred, "stage-1 CLI from 8 PNGs, 2 steps", card_line)
+        out["launches_stage1"] = {k: n + run["launches"][k] for k, n in out["launches_stage1"].items()}
+        del run
+        shutil.rmtree(os.path.join(root, "folder"))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the previewer, its losses from config_files/losses.yaml
+        pv_dir = os.path.join(root, "previewer")
+        run = cli_train(torch, ["previewer", "--synthetic_data", *common_flags, "--max_train_steps", "2",
+                                "--output_dir", pv_dir],
+                        pipe, mods, derived(expected_previewer_launches(ucfg, 512 // 8, False)), 2,
+                        lora_trainable_pred, "previewer CLI, 2 steps", card_line)
+        lora = torch.load(os.path.join(pv_dir, "previewer_lora_weights.bin"), map_location="cpu", weights_only=True)
+        if set(lora) != set(run["result"]["trainer"].lora_state()):
+            fail("phase 7b: previewer_lora_weights.bin holds other tensors than the trainer's LoRA")
+        out["previewer_restore"] = restore_checked(torch, run["result"]["trainer"], 2, "previewer", card_line)
+        out["launches_previewer"], out["previewer_saves"] = run["launches"], run["saves"]
+        del run, lora
+        shutil.rmtree(pv_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # stage 2 on a fresh Aggregator (phase 6 freed the first), checkpoints written from a thread
+        pipe.aggregator = synthesize_weights(Aggregator(ucfg, dtype=torch.bfloat16, device="cuda").requires_grad_(False)
+                                             .eval(), torch.Generator(device="cuda").manual_seed(13))
+        s2_dir = os.path.join(root, "stage2")
+        s2_flags = ["stage2", "--synthetic_data", *common_flags, "--max_train_steps", "2", "--checkpointing_steps",
+                    "2", "--checkpoints_total_limit", "1", "--async_checkpointing", "--use_ema_adapter",
+                    "--output_dir", s2_dir]
+        s2cfg = Stage2Config(optimize_adapter=False, cfg_scale=1.0)
+        run = cli_train(torch, s2_flags, pipe, mods, derived(expected_stage2_launches(ucfg, s2cfg, 512 // 8, False)),
+                        2, stage2_trainable_pred(s2cfg), "stage-2 CLI, 2 steps, async checkpoints", card_line)
+        for name in ("aggregator.pt", "instantir_config.json", "checkpoint-2"):
+            if not os.path.exists(os.path.join(s2_dir, name)):
+                fail(f"phase 7b: the stage-2 run wrote no {name}")
+        out["stage2_restore"] = restore_checked(torch, run["result"]["trainer"], 2, "stage 2", card_line)
+        out["launches_stage2"], out["stage2_saves"] = run["launches"], run["saves"]
+        del run
+        shutil.rmtree(s2_dir)
+        del pipe.aggregator
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        out.update(run_turns(torch, pipe, mods, s1_step, card_line))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def clone_tree(torch, tree):
+    """A copy of ``tree`` (dicts of tensors and scalars), each tensor cloned where it lies."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(torch, v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def run_turns(torch, pipe, mods: dict, s1_step: dict, card_line: str, steps: int = 3) -> dict:
+    """Phase 7b, step 6: stage-1 s/step of ``run`` (logging every step, so
+    each step ends on the host reading its metrics) with
+    ``prefetch_batches`` 0 and 2 in turns (0, 2, 2, 0), beside the bare
+    ``train_step`` on an already degraded batch (first and last); no
+    checkpoints (no output directory). The first step of each turn fills the
+    pipeline and is left out. Every turn starts from the same state (masters,
+    moments, step, the step's generator) and the same data, under the
+    caller's cuDNN TF32 setting (the card's default, on, in phase 7b): its
+    masters after the turn must equal the first turn's bitwise, so the
+    prefetch changes nothing that a step computes."""
+    from instantir_tpu_torch.cli import train as cli
+    from instantir_tpu_torch.data.dataset import SyntheticImageDataset
+    from instantir_tpu_torch.train.stage1_adapter import Stage1Config, Stage1Trainer
+
+    cfg = Stage1Config(output_dir="", train_batch_size=2, resolution=512, lr_warmup_steps=0, logging_steps=1,
+                       max_train_steps=0)
+    trainer = Stage1Trainer(pipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder, cfg, device="cuda")
+    cond = cli._conditioning(cli.build_parser().parse_args(["stage1", "--resolution", "512"]), pipe, 2)
+    batch = trainer.prepare_batch(next(SyntheticImageDataset(seed=21).batches(2, 512)), cond)
+    bare, turns = [], {0: [], 2: []}
+
+    def bare_steps():
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(batch)
+            float(metrics["loss"])
+            bare.append(time.perf_counter() - t0)
+
+    zero_counters(mods)
+    bare_steps()
+    start, start_rng = clone_tree(torch, trainer.checkpoint_state()), trainer._generator.get_state()
+    first = None
+    for depth in (0, 2, 2, 0):
+        trainer.load_checkpoint_state(start)
+        trainer._generator.set_state(start_rng)
+        cfg.prefetch_batches = depth
+        cfg.max_train_steps = trainer.global_step + steps
+        records = trainer.run(SyntheticImageDataset(seed=22).batches(2, 512), cond)
+        turns[depth].append([1.0 / r["steps_per_sec"] for r in records[1:]])
+        if first is None:
+            first = [m.clone() for m in trainer.optimizer.masters]
+            continue
+        moved = [n for n, a, b in zip(trainer.trainable_names, first, trainer.optimizer.masters) if not torch.equal(a, b)]
+        if moved:
+            fail(f"phase 7b, s/step turns: after the turn with prefetch {depth} {len(moved)} masters differ from the "
+                 f"first turn's (prefetch 0), e.g. {moved[:3]}")
+    bare_steps()
+    launches = read_counters(mods)
+    want = every_counter({k: n * steps * 6 for k, n in s1_step.items()})
+    if launches != want:
+        fail(f"phase 7b, s/step turns: kernel launches {launches}, derived {steps * 6} x {s1_step}")
+    med = {name: statistics.median(v) for name, v in (("bare", bare[1:steps] + bare[steps + 1:]),
+                                                      ("prefetch_0", sum(turns[0], [])),
+                                                      ("prefetch_2", sum(turns[2], [])))}
+    log(f"  stage-1 s/step at 512² batch 2, medians: bare train_step {med['bare']:.4f}, run with prefetch 0 "
+        f"{med['prefetch_0']:.4f}, with prefetch 2 {med['prefetch_2']:.4f} (turns 0, 2, 2, 0: "
+        f"{[[round(x, 4) for x in t] for t in turns[0][:1] + turns[2] + turns[0][1:]]}; bare "
+        f"{[round(x, 4) for x in bare]}); every turn from the same state: the masters after each equal the first "
+        f"turn's bitwise (cuDNN TF32 {torch.backends.cudnn.allow_tf32}); launches {launches}; on {card_line}")
+    del trainer, batch, start, first
+    return {"turns": med, "launches_turns": launches}
+
+
 def run_fp32(torch, ucfg, mods: dict, card_line: str) -> dict:
     """Phase 8: the default (fp32) ``build_pipeline`` restores a 512² image in
     4 steps, then one fp32 ``Stage1Trainer`` step at 512², batch 1; both
@@ -2411,6 +2941,13 @@ def main() -> None:
     # 7. previewer training
     log("[7] previewer (LCM-LoRA distillation) training at SDXL width")
     previewer = run_previewer(torch, pipe, ucfg, mods, card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7b. training from raw images: the degradation, the training CLI, checkpoints and resume
+    log("[7b] training from raw images at SDXL width: the degradation on the card, the training CLI (stage 1 with "
+        "checkpoints and resume, stage 1 from PNGs, the previewer, stage 2 with async checkpoints), s/step of run")
+    train_cli = run_train_cli(torch, pipe, ucfg, mods, card_line)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -2436,6 +2973,10 @@ def main() -> None:
                 "train_stage2_1024": stage2["train_stage2_1024"][name],
                 "train_previewer_512": previewer["train_previewer_512"][name],
                 "train_previewer_1024": previewer["train_previewer_1024"][name],
+                "train_cli_stage1": train_cli["launches_stage1"][name],
+                "train_cli_previewer": train_cli["launches_previewer"][name],
+                "train_cli_stage2": train_cli["launches_stage2"][name],
+                "train_run_turns": train_cli["launches_turns"][name],
                 "fp32": f32["restore"][name] + f32["train"][name]}
 
     src = "instantir_tpu_torch/csrc/"
@@ -2520,6 +3061,13 @@ def main() -> None:
         f"{min(previewer['sec_512']):.3f} s, peak {previewer['peak_gb_512']:.2f} GB, with DINOLoss "
         f"{previewer['sec_dino']:.3f} s, peak {previewer['peak_gb_dino']:.2f} GB; at 1024² batch 1 with "
         f"checkpointing: {previewer['sec_1024']:.3f} s, peak {previewer['peak_gb_1024']:.2f} GB; "
+        f"degradation ms per call {json.dumps({k: round(v['ms'], 3) for k, v in train_cli['chain'].items()})}; "
+        f"stage-1 s/step of run {json.dumps({k: round(v, 4) for k, v in train_cli['turns'].items()})}; "
+        f"checkpoint writes stage 1 {json.dumps(train_cli['stage1_saves'])}, previewer "
+        f"{json.dumps(train_cli['previewer_saves'])}, stage 2 {json.dumps(train_cli['stage2_saves'])}; stage-1 "
+        f"resume {train_cli['resume_sec']:.2f} s; restores: previewer "
+        f"{json.dumps({k: round(v, 3) for k, v in train_cli['previewer_restore'].items()})}, stage 2 "
+        f"{json.dumps({k: round(v, 3) for k, v in train_cli['stage2_restore'].items()})}; "
         f"fp32 512² 4-step restore "
         f"{min(f32['restore_sec']):.3f} s/image (peak {f32['peak_gb_restore']:.2f} GB), fp32 stage-1 step at 512² "
         f"batch 1 {f32['train_sec']:.3f} s (peak {f32['peak_gb_train']:.2f} GB); on {card_line}")

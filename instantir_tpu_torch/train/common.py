@@ -1,25 +1,39 @@
 """What the trainers share: parameter selection, LR schedules, AdamW, timestep
-draws, the EMA helpers and the trainer frame.
+draws, the EMA helpers, the degradation dispatch, batch prefetching,
+preemption, checkpoints, the tracker and the trainer frame with its host loop.
 
-Twin of the parts of ``instantir_tpu/train/common.py`` that the trainers use,
-in PyTorch idiom: a path predicate sets ``requires_grad`` on named parameters
-(in place of partitioned pytrees), ``torch.optim.AdamW`` with optax's
-global-norm clip and schedule semantics stands in for the optax chain, and
-the EMA helpers work on dicts of name -> tensor. ``Trainer`` holds what the
-JAX ``Stage1Trainer``, ``Stage2Trainer`` and ``PreviewerTrainer`` repeat. The mesh/ZeRO helpers,
-``quantize_frozen_unet``, 8-bit Adam, the checkpoint manager, the tracker,
-batch pipelining and the preemption handler of the JAX package are not ported
-yet.
+Twin of ``instantir_tpu/train/common.py`` in PyTorch idiom: a path predicate
+sets ``requires_grad`` on named parameters (in place of partitioned pytrees),
+``torch.optim.AdamW`` with optax's global-norm clip and schedule semantics
+stands in for the optax chain, and the EMA helpers work on dicts of name ->
+tensor. Orbax is replaced by ``CheckpointManager`` (one ``torch.save`` of
+CPU tensors per ``checkpoint-{step}/``), tensorboardX by ``EventWriter``
+(TensorBoard event files written by hand: TFRecord framing, masked CRC-32C,
+the ``Event`` protobuf encoded here). ``Trainer`` holds what the JAX
+``Stage1Trainer``, ``Stage2Trainer`` and ``PreviewerTrainer`` repeat,
+``run`` and ``resume`` included. The mesh/ZeRO helpers,
+``quantize_frozen_unet`` and 8-bit Adam of the JAX package are not ported.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
+import os
+import queue
+import re
+import shutil
+import signal
+import socket
+import struct
+import threading
+import time
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
+from instantir_tpu_torch.data.degradation import RealESRGANDegradation
 from instantir_tpu_torch.losses import build_losses
 from instantir_tpu_torch.losses.loss_config import LossesConfig, SingleLossConfig
 from instantir_tpu_torch.schedulers.diffusion import sdxl_schedule
@@ -128,6 +142,34 @@ class ClippedAdamW:
         self.count += 1
         return norm
 
+    def state_by_name(self, names: List[str]) -> Dict[str, Any]:
+        """The optimiser's state under the leaves' ``names``: the update
+        count and each master's AdamW state (``step``, ``exp_avg``,
+        ``exp_avg_sq``; absent before its first update)."""
+        state = self.optimizer.state
+        return {"count": self.count, "adamw": {n: dict(state[m]) for n, m in zip(names, self.masters) if m in state}}
+
+    @torch.no_grad()
+    def load_state_by_name(self, names: List[str], state: Dict[str, Any]) -> None:
+        """Put back a copy of ``state_by_name``'s result; the moments move to
+        each master's device, ``step`` stays where ``torch.optim`` keeps it."""
+        self.count = int(state["count"])
+        for n, m in zip(names, self.masters):
+            s = state["adamw"].get(n)
+            if s is None:
+                self.optimizer.state.pop(m, None)
+            else:
+                self.optimizer.state[m] = {k: (v.clone() if k == "step" else v.to(m.device, copy=True))
+                                           for k, v in s.items()}
+
+    @torch.no_grad()
+    def load_masters(self, masters: List[torch.Tensor]) -> None:
+        """Copy ``masters`` into the fp32 masters and write each one's rounding back into its leaf."""
+        for p, m, v in zip(self.params, self.masters, masters):
+            m.copy_(v)
+            if m is not p:
+                p.copy_(m)
+
 
 def make_adamw(
     params: List[nn.Parameter],
@@ -199,6 +241,456 @@ def swap_masked(params: Dict[str, torch.Tensor], donor: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
+# the degradation and host-side batch pipelining
+# ---------------------------------------------------------------------------
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """``x`` (an array or a tensor) on ``device``; a host array bound for a
+    card goes through pinned memory without a wait for the device."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _host_f32(x):
+    """``x`` as fp32: an array cast on the host, a tensor by ``float()`` (no copy when it is fp32 already)."""
+    return x.float() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+def degradation_generators(seed: int, step: int, device) -> Tuple[torch.Generator, torch.Generator]:
+    """(CPU generator of the chain's per-call choices, generator of its pixel
+    noise on ``device``) for ``step``: both seeded from ``seed·7919 + step``,
+    the seed of the JAX trainers' ``host_rng``, so a step's degradation does
+    not depend on which thread prepares it or on what ran before."""
+    base = seed * 7919 + step
+    return (torch.Generator().manual_seed(base),
+            torch.Generator(device=torch.device(device)).manual_seed(base + (1 << 32)))
+
+
+def takes_traced_chain(degradation: RealESRGANDegradation, images_shape, jit_mode: bool) -> bool:
+    """Whether ``run_degradation`` takes the traced chain for images of
+    ``images_shape`` (``[B, H, W, C]``): ``jit_mode`` and H, W multiples of 16·sf."""
+    mult = 16 * degradation.degrade_opt["sf"]
+    return jit_mode and images_shape[1] % mult == 0 and images_shape[2] % mult == 0
+
+
+def run_degradation(degradation: RealESRGANDegradation, images: torch.Tensor, kernels, *, jit_mode: bool,
+                    host_rng: np.random.Generator, draws=None, noise=None, generator: Optional[torch.Generator] = None,
+                    device_generator: Optional[torch.Generator] = None):
+    """Degrade a batch with the traced chain (``jit_mode``, every trainer's
+    default) when H and W are multiples of 16·sf, else with the eager chain
+    and its numpy ``host_rng`` (the JAX ``run_degradation``). ``draws`` (a
+    ``ChainDraws``) feeds the traced chain, ``noise`` (a pair of
+    ``NoiseDraws``) the eager one."""
+    if takes_traced_chain(degradation, images.shape, jit_mode):
+        return degradation.traced_call(images, kernels, draws=draws, generator=generator,
+                                       device_generator=device_generator)
+    noise1, noise2 = noise if noise is not None else (None, None)
+    return degradation(images, kernels=kernels, host_rng=host_rng, noise1=noise1, noise2=noise2,
+                       generator=device_generator)
+
+
+def pipelined_batches(trainer, data_iter: Iterator, cond, max_steps: int, depth: int) -> Iterator[Dict]:
+    """Batches staged by a worker thread up to ``depth`` steps ahead and
+    finished by the consumer. The worker does the host work of a step:
+    ``next(data_iter)`` (the dataset, the image decode, the kernel triples)
+    and ``trainer.stage_batch(..., step=step)`` (the pinned upload, the
+    traced chain's choices). The consumer runs the device work,
+    ``trainer.finish_batch`` (the caption conditioning, ``cond`` when it is
+    callable, and the degradation), on its own thread between two steps, so
+    the chain's precision switches (``full_fp32``) are never open while a
+    step runs. A step's draws depend on its index alone
+    (``degradation_generators``), so the batches equal the sequential
+    loop's. A worker error is raised in the consumer; data exhaustion ends
+    the stream. When the consumer leaves early (``close``), the worker stops
+    at its next bounded ``put`` and is joined; up to ``depth`` staged
+    batches are dropped."""
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+    stop = threading.Event()
+    start_step = trainer.global_step
+
+    def put_checked(item) -> None:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return
+            except queue.Full:
+                continue
+
+    def work() -> None:
+        step = start_step
+        try:
+            while step < max_steps and not stop.is_set():
+                host_batch = next(data_iter)
+                put_checked((host_batch, trainer.stage_batch(host_batch, step=step)))
+                step += 1
+            put_checked(None)
+        except StopIteration:
+            put_checked(None)
+        except BaseException as e:  # surfaced in the consumer
+            put_checked(e)
+
+    worker = threading.Thread(target=work, daemon=True, name="batch-prefetch")
+    worker.start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            host_batch, staged = item
+            yield trainer.finish_batch(staged, cond(host_batch) if callable(cond) else cond)
+    finally:
+        stop.set()
+        worker.join(timeout=60.0)
+
+
+# ---------------------------------------------------------------------------
+# preemption
+# ---------------------------------------------------------------------------
+
+_PREEMPT = {"requested": False}
+
+
+def install_preemption_handler() -> bool:
+    """SIGTERM -> request a stop at the next step boundary; the run loops read
+    ``preemption_requested`` after every step and save a checkpoint before
+    they leave (resume with ``resume_from_checkpoint="latest"``). A new
+    handler starts with no request pending. Returns False, and installs
+    nothing, off the main thread, where Python allows no signal handler."""
+    if threading.current_thread() is not threading.main_thread():
+        return False
+
+    def _handler(signum, frame):
+        _PREEMPT["requested"] = True
+
+    _PREEMPT["requested"] = False
+    signal.signal(signal.SIGTERM, _handler)
+    return True
+
+
+def preemption_requested() -> bool:
+    return _PREEMPT["requested"]
+
+
+# ---------------------------------------------------------------------------
+# checkpoints: checkpoint-{step}/state.pt, total-limit GC, resume-latest
+# ---------------------------------------------------------------------------
+
+STATE_FILE = "state.pt"
+
+
+def _to_host(tree):
+    """A copy of ``tree`` (dicts, lists, tensors, scalars) with every tensor detached on the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors in ``tree``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return 0
+
+
+class CheckpointManager:
+    """``checkpoint-{step}/`` directories under ``output_dir``, each one
+    ``torch.save`` of the state's tensors on the CPU (the port's counterpart
+    of the JAX orbax checkpoint, holding the same state), with total-limit GC
+    before each write and resume-latest. A write goes to
+    ``checkpoint-{step}.tmp/`` and is renamed when complete, so a directory
+    that ``latest_step`` reports is whole.
+
+    ``async_save``: ``save`` returns once every tensor is copied to host
+    memory and the file is written by a thread; the next ``save``,
+    ``restore`` or ``wait`` blocks until it is done, so at most one write is
+    in flight and GC never races it. Before a write the state's bytes are
+    held against the free disk. ``saves`` records each write's step, bytes,
+    seconds waiting for the previous write (and the GC), seconds to copy to
+    the host and seconds to write (``last_save`` the newest). An empty
+    ``output_dir`` turns checkpoints off (the JAX manager would write into
+    the working directory)."""
+
+    def __init__(self, output_dir: str, total_limit: Optional[int] = None, async_save: bool = False):
+        self.output_dir = output_dir
+        self.total_limit = total_limit
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
+        self._pending: Optional[int] = None
+        self._error: Optional[BaseException] = None
+        self.saves: List[Dict[str, Any]] = []
+        self.last_save: Dict[str, Any] = {}
+
+    def wait(self) -> None:
+        """Block until any in-flight write has committed; raise its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread, self._pending = None, None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _ckpt_dirs(self) -> List[str]:
+        if not self.output_dir or not os.path.isdir(self.output_dir):
+            return []
+        dirs = [d for d in os.listdir(self.output_dir)
+                if re.fullmatch(r"checkpoint-\d+", d) and os.path.exists(os.path.join(self.output_dir, d, STATE_FILE))]
+        return sorted(dirs, key=lambda d: int(d.split("-")[1]))
+
+    def _path(self, step: int) -> str:
+        return os.path.abspath(os.path.join(self.output_dir, f"checkpoint-{step}"))
+
+    def _write(self, step: int, host: Dict[str, Any]) -> None:
+        t0 = time.perf_counter()
+        path = self._path(step)
+        tmp = path + ".tmp"
+        try:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(host, os.path.join(tmp, STATE_FILE))
+            shutil.rmtree(path, ignore_errors=True)
+            os.replace(tmp, path)
+        except BaseException as e:
+            self._error = e
+        self.last_save["write_seconds"] = time.perf_counter() - t0
+
+    def save(self, step: int, state: Dict[str, Any]) -> None:
+        t_wait = time.perf_counter()
+        self.wait()
+        if not self.output_dir:
+            return
+        if self.total_limit is not None:
+            dirs = self._ckpt_dirs()
+            while dirs and len(dirs) >= self.total_limit:
+                shutil.rmtree(os.path.join(self.output_dir, dirs.pop(0)))
+        t0 = time.perf_counter()
+        nbytes = tree_bytes(state)
+        os.makedirs(self.output_dir, exist_ok=True)
+        free = shutil.disk_usage(self.output_dir).free
+        if nbytes > free:
+            raise RuntimeError(f"checkpoint-{step} takes {nbytes / 1e9:.2f} GB, {os.path.abspath(self.output_dir)} "
+                               f"has {free / 1e9:.2f} GB free")
+        host = _to_host(state)
+        self.last_save = {"step": step, "bytes": nbytes, "wait_seconds": t0 - t_wait,
+                          "to_host_seconds": time.perf_counter() - t0}
+        self.saves.append(self.last_save)
+        if self.async_save:
+            self._pending = step
+            self._thread = threading.Thread(target=self._write, args=(step, host), name="checkpoint-write")
+            self._thread.start()
+        else:
+            self._write(step, host)
+            self.wait()
+
+    def latest_step(self) -> Optional[int]:
+        """The newest committed step, or the step of the write in flight."""
+        if self._pending is not None:
+            return self._pending
+        dirs = self._ckpt_dirs()
+        return int(dirs[-1].split("-")[1]) if dirs else None
+
+    def restore(self, step: int) -> Dict[str, Any]:
+        self.wait()
+        return torch.load(os.path.join(self._path(step), STATE_FILE), map_location="cpu", weights_only=True)
+
+    def resume_latest(self) -> Tuple[Optional[int], Optional[Dict[str, Any]]]:
+        step = self.latest_step()
+        if step is None:
+            return None, None
+        return step, self.restore(step)
+
+
+# ---------------------------------------------------------------------------
+# logging: TensorBoard event files written by hand, or wandb
+# ---------------------------------------------------------------------------
+
+
+def _crc32c_table() -> List[int]:
+    table = []
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+        table.append(c)
+    return table
+
+
+_CRC32C = _crc32c_table()
+
+
+def crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli), the checksum of TFRecord framing."""
+    crc = 0xFFFFFFFF
+    table = _CRC32C
+    for b in data:
+        crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    return crc ^ 0xFFFFFFFF
+
+
+def masked_crc32c(data: bytes) -> int:
+    crc = crc32c(data)
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _varint(n: int) -> bytes:
+    n &= (1 << 64) - 1  # int64 two's complement
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _field(number: int, wire: int, payload: bytes) -> bytes:
+    key = _varint((number << 3) | wire)
+    if wire == 2:
+        return key + _varint(len(payload)) + payload
+    return key + payload
+
+
+def encode_event(wall_time: float, step: int = 0, file_version: Optional[str] = None,
+                 values: Optional[List[bytes]] = None) -> bytes:
+    """A ``tensorflow.Event`` protobuf: ``wall_time`` (1, double), ``step``
+    (2, int64), ``file_version`` (3) or ``summary`` (5) of encoded
+    ``Summary.Value`` messages."""
+    out = _field(1, 1, struct.pack("<d", wall_time)) + _field(2, 0, _varint(step))
+    if file_version is not None:
+        out += _field(3, 2, file_version.encode())
+    if values is not None:
+        out += _field(5, 2, b"".join(_field(1, 2, v) for v in values))
+    return out
+
+
+def scalar_value(tag: str, value: float) -> bytes:
+    """``Summary.Value{tag (1), simple_value (2, float)}``."""
+    return _field(1, 2, tag.encode()) + _field(2, 5, struct.pack("<f", value))
+
+
+def image_value(tag: str, png: bytes, height: int, width: int, channels: int = 3) -> bytes:
+    """``Summary.Value{tag (1), image (4): Image{height, width, colorspace, encoded_image_string}}``."""
+    image = (_field(1, 0, _varint(height)) + _field(2, 0, _varint(width)) + _field(3, 0, _varint(channels))
+             + _field(4, 2, png))
+    return _field(1, 2, tag.encode()) + _field(4, 2, image)
+
+
+def image_grid(images: np.ndarray, ncols: int = 8) -> np.ndarray:
+    """[N, H, W, 3] in [0, 1] -> one uint8 [rows·H, cols·W, 3] grid, ``ncols``
+    a row (tensorboardX's ``add_images``)."""
+    n, h, w, c = images.shape
+    cols = min(n, ncols)
+    rows = -(-n // cols)
+    canvas = np.zeros((rows * h, cols * w, c), np.float32)
+    for i in range(n):
+        r, k = divmod(i, cols)
+        canvas[r * h:(r + 1) * h, k * w:(k + 1) * w] = images[i]
+    return (canvas * 255.0).clip(0, 255).astype(np.uint8)
+
+
+class EventWriter:
+    """A TensorBoard event file ``events.out.tfevents.<time>.<host>`` under
+    ``logdir``, created at the first write: TFRecord records (length, its
+    masked CRC-32C, the ``Event`` bytes, their masked CRC-32C), the first one
+    the ``brain.Event:2`` file version."""
+
+    def __init__(self, logdir: str):
+        self.logdir = logdir
+        self.path: Optional[str] = None
+        self._file = None
+
+    def _record(self, event: bytes) -> None:
+        if self._file is None:
+            os.makedirs(self.logdir, exist_ok=True)
+            self.path = os.path.join(self.logdir, f"events.out.tfevents.{int(time.time())}.{socket.gethostname()}")
+            self._file = open(self.path, "ab")
+            self._record(encode_event(time.time(), file_version="brain.Event:2"))
+        header = struct.pack("<Q", len(event))
+        self._file.write(header + struct.pack("<I", masked_crc32c(header)) + event
+                         + struct.pack("<I", masked_crc32c(event)))
+        self._file.flush()
+
+    def add_scalars(self, step: int, values: Dict[str, float]) -> None:
+        self._record(encode_event(time.time(), step, values=[scalar_value(k, float(v)) for k, v in values.items()]))
+
+    def add_image(self, step: int, tag: str, image: np.ndarray) -> None:
+        """``image`` uint8 [H, W, 3], written as a PNG (Pillow)."""
+        import io
+
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.fromarray(image).save(buf, format="PNG")
+        self._record(encode_event(time.time(), step, values=[image_value(tag, buf.getvalue(), *image.shape)]))
+
+    def close(self) -> None:
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+
+
+class Tracker:
+    """Scalar and image logging to TensorBoard event files (``EventWriter``)
+    and/or wandb; a no-op without ``logdir``. ``backend`` is the reference's
+    ``--report_to``: tensorboard | wandb | all; wandb raises ImportError when
+    the package cannot be imported (the JAX ``Tracker``)."""
+
+    def __init__(self, logdir: Optional[str], backend: str = "tensorboard", project: str = "instantir_tpu",
+                 run_name: Optional[str] = None):
+        self.writer: Optional[EventWriter] = None
+        self.wandb = None
+        if not logdir:
+            return
+        if backend not in ("tensorboard", "wandb", "all"):
+            raise ValueError(f"unknown tracker backend {backend!r}")
+        if backend in ("tensorboard", "all"):
+            self.writer = EventWriter(logdir)
+        if backend in ("wandb", "all"):
+            try:
+                import wandb
+            except ImportError as e:
+                raise ImportError("Tracker(backend='wandb') requires the wandb package; "
+                                  "install it or use backend='tensorboard'") from e
+            self.wandb = wandb.init(project=project, name=run_name, dir=logdir)
+
+    def scalars(self, step: int, values: Dict[str, float]) -> None:
+        if self.writer is not None:
+            self.writer.add_scalars(step, values)
+        if self.wandb is not None:
+            self.wandb.log({k: float(v) for k, v in values.items()}, step=step)
+
+    def images(self, step: int, tag: str, images: np.ndarray) -> None:
+        """images: [N, H, W, 3] in [0, 1]."""
+        clipped = np.clip(images, 0, 1)
+        if self.writer is not None:
+            self.writer.add_image(step, tag, image_grid(clipped))
+        if self.wandb is not None:
+            import wandb
+
+            self.wandb.log({tag: [wandb.Image(im) for im in clipped]}, step=step)
+
+    def close(self) -> None:
+        if self.writer is not None:
+            self.writer.close()
+        if self.wandb is not None:
+            self.wandb.finish()
+
+
+# ---------------------------------------------------------------------------
 # The trainer frame
 # ---------------------------------------------------------------------------
 
@@ -211,10 +703,12 @@ class Trainer:
     """The models on one device, the trainable split from a path predicate,
     the losses ``loss_configs`` picks, ``ClippedAdamW`` on the trainable
     leaves, every draw of a step from a seeded ``torch.Generator`` unless
-    given, and gradient accumulation. A subclass sets
+    given, gradient accumulation, the RealESRGAN degradation of raw batches,
+    checkpoints, the tracker and the host loop ``run``. A subclass sets
     ``self._loss_fn(batch, draws, generator) -> (total, metrics)``.
     ``device="cuda"`` (the default) raises without a card; pass
-    ``device="cpu"`` to train on the CPU."""
+    ``device="cpu"`` to train on the CPU. The checkpoint directory and the
+    event file are made at their first write."""
 
     def __init__(self, tag: str, models: Dict[str, nn.Module], cfg, pred: PathPred,
                  losses_config: Optional[LossesConfig], schedule, device):
@@ -243,6 +737,10 @@ class Trainer:
         self._uncond_tok: Optional[torch.Tensor] = None
         self._generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.global_step = 0
+        self.tag = tag
+        self.degradation = RealESRGANDegradation(resolution=cfg.resolution)
+        self.ckpt = CheckpointManager(cfg.output_dir, cfg.checkpoints_total_limit, async_save=cfg.async_checkpointing)
+        self.tracker = Tracker(os.path.join(cfg.output_dir, "logs") if cfg.output_dir else None, backend=cfg.report_to)
         print(f"[{tag}] trainable params: {count_params(self.trainable) / 1e6:.2f}M")
 
     def loss_configs(self, losses_config: Optional[LossesConfig]) -> List[SingleLossConfig]:
@@ -276,17 +774,59 @@ class Trainer:
                 torch.zeros((1, 3, DINO_TRAIN_SIZE, DINO_TRAIN_SIZE), dtype=torch.float32, device=self.device))
         return self._uncond_tok
 
-    def prepare_batch(self, batch: Dict[str, torch.Tensor], cond: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """An already degraded pair ``{"lq", "gt"}`` (NHWC in [-1, 1]) plus the
-        text conditioning (``cond``, whatever the step reads) -> the step's
-        batch on the trainer's device. Raw ``{"images", "kernel", ...}``
-        batches need the RealESRGAN degradation, which is not ported yet."""
-        if "lq" not in batch or "gt" not in batch:
-            raise NotImplementedError("prepare_batch: raw images need the on-device degradation "
-                                      "(data/degradation.py), which is not ported yet; pass 'lq' and 'gt'")
-        out = {"lq": torch.as_tensor(batch["lq"]).to(self.device), "gt": torch.as_tensor(batch["gt"]).to(self.device),
-               "uncond_tokens": self._uncond_image_tokens()}
-        out.update({k: torch.as_tensor(v).to(self.device) for k, v in cond.items()})
+    def prepare_batch(self, batch: Dict[str, Any], cond: Dict[str, Any], step: Optional[int] = None,
+                      draws=None, noise=None) -> Dict[str, torch.Tensor]:
+        """A host batch plus the text conditioning (``cond``, whatever the
+        step reads) -> the step's batch on the trainer's device:
+        ``finish_batch(stage_batch(...), cond)``. A raw batch ``{"images"
+        [B, H, W, 3] in [0, 1], "kernel", "kernel2", "sinc_kernel", ...}`` is
+        uploaded and degraded on the device (``run_degradation``: traced when
+        H, W are multiples of 16·sf, with ``jit_degradation``), its draws
+        those of ``step`` (default: the current step;
+        ``degradation_generators``, and the eager chain's ``host_rng =
+        default_rng(seed·7919 + step)`` as in JAX) unless given (``draws``
+        for the traced chain, ``noise`` for the eager one). An already
+        degraded pair ``{"lq", "gt"}`` (NHWC in [-1, 1]) is taken as it is."""
+        return self.finish_batch(self.stage_batch(batch, step, draws, noise), cond)
+
+    def stage_batch(self, batch: Dict[str, Any], step: Optional[int] = None, draws=None,
+                    noise=None) -> Dict[str, Any]:
+        """The host half of ``prepare_batch`` (``pipelined_batches`` runs it
+        on its worker thread): the batch's upload (pinned, no wait for the
+        device) and, for a raw batch on the traced chain, the step's choices
+        drawn on the host. On the device it only copies (and casts a tensor
+        given in another dtype than fp32)."""
+        if "lq" in batch and "gt" in batch:
+            return {"lq": to_device(batch["lq"], self.device), "gt": to_device(batch["gt"], self.device)}
+        missing = [k for k in ("images", "kernel", "kernel2", "sinc_kernel") if k not in batch]
+        if missing:
+            raise ValueError(f"prepare_batch: a batch holds 'lq' and 'gt', or raw 'images' with their kernels; "
+                             f"this one lacks {missing}")
+        step = self.global_step if step is None else step
+        images = to_device(_host_f32(batch["images"]), self.device)
+        kernels = tuple(to_device(_host_f32(batch[k]), self.device) for k in ("kernel", "kernel2", "sinc_kernel"))
+        generator, device_generator = degradation_generators(self.cfg.seed, step, self.device)
+        if draws is None and takes_traced_chain(self.degradation, images.shape, self.cfg.jit_degradation):
+            sf = self.degradation.degrade_opt["sf"]
+            draws = self.degradation.draw_choices(images.shape[0], (images.shape[1] // sf, images.shape[2] // sf),
+                                                  generator)
+        return {"images": images, "kernels": kernels, "step": step, "draws": draws, "noise": noise,
+                "device_generator": device_generator}
+
+    def finish_batch(self, staged: Dict[str, Any], cond: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The device half of ``prepare_batch``, on the thread that runs the
+        steps: the degradation of a staged raw batch, the unconditional
+        image tokens and the conditioning's upload."""
+        if "images" in staged:
+            step = staged["step"]
+            lq, gt = run_degradation(self.degradation, staged["images"], staged["kernels"],
+                                     jit_mode=self.cfg.jit_degradation,
+                                     host_rng=np.random.default_rng(self.cfg.seed * 7919 + step), draws=staged["draws"],
+                                     noise=staged["noise"], device_generator=staged["device_generator"])
+        else:
+            lq, gt = staged["lq"], staged["gt"]
+        out = {"lq": lq, "gt": gt, "uncond_tokens": self._uncond_image_tokens()}
+        out.update({k: to_device(v, self.device) for k, v in cond.items()})
         return out
 
     def loss(self, batch, draws=None, generator: Optional[torch.Generator] = None):
@@ -321,3 +861,102 @@ class Trainer:
             self.optimizer.step(grads)
         self.global_step += 1
         return metrics
+
+    # ------------------------------------------------------------------
+    # checkpoints and the host loop
+    # ------------------------------------------------------------------
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """What a checkpoint holds, the JAX trainers' state: ``trainable``
+        (the fp32 masters by name), ``opt_state`` (the AdamW state by name,
+        the update count, and the gradient-accumulation buffers, as optax's
+        ``MultiSteps`` holds them) and ``step``."""
+        opt_state = self.optimizer.state_by_name(self.trainable_names)
+        opt_state["micro_steps"] = self._micro_steps
+        opt_state["accumulated"] = (None if self._accumulated is None
+                                    else dict(zip(self.trainable_names, self._accumulated)))
+        return {"trainable": dict(zip(self.trainable_names, self.optimizer.masters)), "opt_state": opt_state,
+                "step": self.global_step}
+
+    @torch.no_grad()
+    def load_checkpoint_state(self, state: Dict[str, Any]) -> None:
+        """Put back ``checkpoint_state``'s result (tensors on any device)."""
+        self.optimizer.load_masters([state["trainable"][n] for n in self.trainable_names])
+        opt_state = state["opt_state"]
+        self.optimizer.load_state_by_name(self.trainable_names, opt_state)
+        self._micro_steps = int(opt_state["micro_steps"])
+        acc = opt_state["accumulated"]
+        self._accumulated = None if acc is None else [acc[n].to(self.device, copy=True) for n in self.trainable_names]
+        self.global_step = int(state["step"])
+
+    def resume(self) -> Optional[int]:
+        """With ``resume_from_checkpoint="latest"``, load the newest
+        ``checkpoint-{step}`` under ``output_dir``; returns its step."""
+        if self.cfg.resume_from_checkpoint != "latest":
+            return None
+        step, state = self.ckpt.resume_latest()
+        if state is None:
+            return None
+        self.load_checkpoint_state(state)
+        print(f"[{self.tag}] resumed from checkpoint-{step}")
+        return step
+
+    def save_checkpoint(self) -> None:
+        """Save the state at the current step, once (the in-loop save and the final save may meet)."""
+        if self.ckpt.latest_step() == self.global_step:
+            return
+        self.ckpt.save(self.global_step, self.checkpoint_state())
+
+    def run(self, data_iter: Iterator, cond, val_batch=None) -> List[Dict[str, float]]:
+        """The host loop (the JAX trainers' ``run``): resume, then until
+        ``max_train_steps``: the next batch (prefetched ``prefetch_batches``
+        ahead by ``pipelined_batches``, or prepared in turn), ``train_step``,
+        the metrics and ``steps_per_sec`` to the tracker every
+        ``logging_steps``, a checkpoint every ``checkpointing_steps``, and a
+        stop after a SIGTERM (``handle_preemption``); then the final save.
+        ``cond`` is a dict, or a callable of the host batch (per-sample
+        captions). ``sanity_check`` takes one step and returns. The data
+        running out ends the loop. Returns the logged records."""
+        cfg = self.cfg
+        self.resume()
+        if cfg.handle_preemption:
+            install_preemption_handler()
+        source = (pipelined_batches(self, data_iter, cond, cfg.max_train_steps, cfg.prefetch_batches)
+                  if cfg.prefetch_batches > 0 else None)
+        records: List[Dict[str, float]] = []
+        tic = time.time()
+        try:
+            while self.global_step < cfg.max_train_steps:
+                try:
+                    if source is not None:
+                        batch = next(source)
+                    else:
+                        host_batch = next(data_iter)
+                        batch = self.prepare_batch(host_batch, cond(host_batch) if callable(cond) else cond)
+                except StopIteration:
+                    break
+                if cfg.sanity_check:
+                    print(f"[{self.tag}] sanity check: one batch prepared",
+                          {k: tuple(v.shape) for k, v in batch.items()})
+                metrics = self.train_step(batch)
+                if cfg.sanity_check:
+                    print(f"[{self.tag}] sanity check PASS", {k: float(v) for k, v in metrics.items()})
+                    return records
+                if self.global_step % cfg.logging_steps == 0:
+                    values = {k: float(v) for k, v in metrics.items()}
+                    dt = time.time() - tic
+                    tic = time.time()
+                    values["steps_per_sec"] = cfg.logging_steps / dt
+                    self.tracker.scalars(self.global_step, values)
+                    records.append({"step": self.global_step, **values})
+                if self.global_step % cfg.checkpointing_steps == 0:
+                    self.save_checkpoint()
+                if preemption_requested():
+                    print(f"[{self.tag}] preemption: checkpointing at step {self.global_step} and exiting")
+                    break
+            self.save_checkpoint()
+            self.ckpt.wait()
+        finally:
+            if source is not None:
+                source.close()
+        return records

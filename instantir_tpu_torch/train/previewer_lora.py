@@ -21,12 +21,10 @@ into a previewer LoRA that denoises in one step. Per step:
      reads the trainer's DINOv2; update every LoRA leaf (the Resampler's too).
 
 All four UNet calls take the cond pooled embeds and time ids; only the text
-changes. PyTorch idiom as in stages 1 and 2 (``common.Trainer``). Not ported
-yet: the RealESRGAN degradation (``prepare_batch`` takes an already degraded
-``lq``/``gt`` pair), the host loop ``run``/``resume``/``save_checkpoint``, the
-tracker (``last_vis_strip`` keeps the visualisation strip instead),
-``validate_previewer``, preemption handling, 8-bit Adam and the int8 frozen
-UNet.
+changes. PyTorch idiom as in stages 1 and 2 (``common.Trainer``: raw images
+degraded on the device, the host loop ``run``/``resume``/``save_checkpoint``).
+The visualisation strip goes to the tracker and stays in ``last_vis_strip``.
+Not ported yet: ``validate_previewer``, 8-bit Adam and the int8 frozen UNet.
 """
 
 from __future__ import annotations
@@ -66,10 +64,10 @@ class PreviewerConfig:
     use_8bit_adam: bool = False  # not ported
     quantize_frozen_unet: bool = False  # not ported
     max_grad_norm: float = 1.0
-    prefetch_batches: int = 2  # used by the host loop, which is not ported
+    prefetch_batches: int = 2  # batches prepared ahead by a worker thread (common.pipelined_batches); 0: in turn
     gradient_accumulation_steps: int = 1
     resolution: int = 512
-    jit_degradation: bool = True  # used by the degradation, which is not ported
+    jit_degradation: bool = True  # the traced chain when H, W are multiples of 16·sf (common.run_degradation)
     num_ddim_timesteps: int = 50
     w_min: float = 3.0
     w_max: float = 15.0
@@ -82,13 +80,12 @@ class PreviewerConfig:
     sanity_check: bool = False
     validation_steps: int = 0  # 0 disables; not ported
     resume_from_checkpoint: Optional[str] = "latest"
-    handle_preemption: bool = False  # not ported
-    async_checkpointing: bool = False  # not ported
+    handle_preemption: bool = False  # SIGTERM -> checkpoint at the next step boundary and stop
+    async_checkpointing: bool = False  # write checkpoints from a thread, overlapping the next steps
     report_to: str = "tensorboard"
 
 
-_NOT_PORTED = {"use_8bit_adam": False, "quantize_frozen_unet": False, "handle_preemption": False,
-               "async_checkpointing": False, "validation_steps": 0}
+_NOT_PORTED = {"use_8bit_adam": False, "quantize_frozen_unet": False, "validation_steps": 0}
 
 
 def _check_ported(cfg: PreviewerConfig) -> None:
@@ -276,7 +273,8 @@ class PreviewerTrainer(common.Trainer):
                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """``common.Trainer.train_step``, then the DINOLoss center's momentum
         fold; the visualisation strip leaves the metrics and is kept as
-        ``last_vis_strip`` on every ``visualize_every_k``-th step."""
+        ``last_vis_strip`` (and goes to the tracker) on every
+        ``visualize_every_k``-th step."""
         step = self.global_step
         metrics = super().train_step(batch, draws, generator)
         mean = metrics.pop(TEACHER_MEAN, None)
@@ -286,6 +284,8 @@ class PreviewerTrainer(common.Trainer):
         strip = metrics.pop("_vis_strip", None)
         if strip is not None and self._vis.visualize_every_k > 0 and step % self._vis.visualize_every_k == 0:
             self.last_vis_strip = strip
+            if self.tracker.writer is not None or self.tracker.wandb is not None:
+                self.tracker.images(step, "TrainVisualization", (strip.float().cpu().numpy() + 1.0) / 2.0)
         return metrics
 
     def lora_state(self) -> Dict[str, torch.Tensor]:

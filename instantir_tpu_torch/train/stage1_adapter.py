@@ -18,10 +18,10 @@ step can be held against the JAX step's own ``jax.random`` draws; otherwise
 the draws come from a ``torch.Generator`` on the trainer's device.
 
 Public tensors keep the JAX layout: NHWC images in [-1, 1], NHWC noise.
-Not ported yet: the RealESRGAN degradation (``prepare_batch`` takes an
-already degraded ``lq``/``gt`` pair), the host loop ``run`` with checkpoints,
-tracker, validation and preemption handling, 8-bit Adam, the int8 frozen
-UNet, and optimiser-state sharding over more than one device.
+``prepare_batch`` degrades raw images on the device, and ``run`` /
+``resume`` / ``save_checkpoint`` are the host loop (``common.Trainer``). Not
+ported yet: validation, 8-bit Adam, the int8 frozen UNet, and
+optimiser-state sharding over more than one device.
 """
 
 from __future__ import annotations
@@ -55,10 +55,10 @@ class Stage1Config:
     use_8bit_adam: bool = False  # not ported
     quantize_frozen_unet: bool = False  # not ported
     max_grad_norm: float = 1.0
-    prefetch_batches: int = 2  # used by the host loop, which is not ported
+    prefetch_batches: int = 2  # batches prepared ahead by a worker thread (common.pipelined_batches); 0: in turn
     gradient_accumulation_steps: int = 1
     resolution: int = 512
-    jit_degradation: bool = True  # used by the degradation, which is not ported
+    jit_degradation: bool = True  # the traced chain when H, W are multiples of 16·sf (common.run_degradation)
     image_drop_rate: float = 0.05
     importance_sampling: bool = False
     checkpointing_steps: int = 500
@@ -68,13 +68,12 @@ class Stage1Config:
     sanity_check: bool = False
     validation_steps: int = 0  # 0 disables; not ported
     resume_from_checkpoint: Optional[str] = "latest"
-    handle_preemption: bool = False  # not ported
-    async_checkpointing: bool = False  # not ported
+    handle_preemption: bool = False  # SIGTERM -> checkpoint at the next step boundary and stop
+    async_checkpointing: bool = False  # write checkpoints from a thread, overlapping the next steps
     report_to: str = "tensorboard"
 
 
-_NOT_PORTED = {"use_8bit_adam": False, "quantize_frozen_unet": False, "handle_preemption": False,
-               "async_checkpointing": False, "validation_steps": 0}
+_NOT_PORTED = {"use_8bit_adam": False, "quantize_frozen_unet": False, "validation_steps": 0}
 
 
 def _check_ported(cfg: Stage1Config) -> None:

@@ -21,10 +21,11 @@ the trainable split, every draw of a step is an optional argument
 ``torch.func.functional_call`` rather than a swap into the modules. The EMA
 copy is fp32 whatever the models' dtype: the JAX modules keep fp32 parameters
 under bf16 compute, and a bf16 copy at decay 0.999 would drop every update
-smaller than half an ulp. Not ported yet: the RealESRGAN degradation
-(``prepare_batch`` takes an already degraded ``lq``/``gt`` pair), the host
-loop ``run`` with checkpoints, tracker, validation and preemption handling,
-8-bit Adam, the int8 frozen UNet and ``aggregator_adapter``.
+smaller than half an ulp. ``prepare_batch`` degrades raw images on the
+device, and ``run`` / ``resume`` / ``save_checkpoint`` are the host loop
+(``common.Trainer``); a checkpoint holds the EMA copy beside the JAX
+trainers' state. Not ported yet: validation, 8-bit Adam, the int8 frozen
+UNet and ``aggregator_adapter``.
 """
 
 from __future__ import annotations
@@ -60,10 +61,10 @@ class Stage2Config:
     use_8bit_adam: bool = False  # not ported
     quantize_frozen_unet: bool = False  # not ported
     max_grad_norm: float = 1.0
-    prefetch_batches: int = 2  # used by the host loop, which is not ported
+    prefetch_batches: int = 2  # batches prepared ahead by a worker thread (common.pipelined_batches); 0: in turn
     gradient_accumulation_steps: int = 1
     resolution: int = 512
-    jit_degradation: bool = True  # used by the degradation, which is not ported
+    jit_degradation: bool = True  # the traced chain when H, W are multiples of 16·sf (common.run_degradation)
     image_drop_rate: float = 0.0
     text_drop_rate: float = 0.85
     cond_drop_rate: float = 0.15
@@ -83,13 +84,13 @@ class Stage2Config:
     sanity_check: bool = False
     validation_steps: int = 0  # 0 disables; not ported
     resume_from_checkpoint: Optional[str] = "latest"
-    handle_preemption: bool = False  # not ported
-    async_checkpointing: bool = False  # not ported
+    handle_preemption: bool = False  # SIGTERM -> checkpoint at the next step boundary and stop
+    async_checkpointing: bool = False  # write checkpoints from a thread, overlapping the next steps
     report_to: str = "tensorboard"
 
 
 _NOT_PORTED = {"use_8bit_adam": False, "quantize_frozen_unet": False, "aggregator_adapter": False,
-               "handle_preemption": False, "async_checkpointing": False, "validation_steps": 0}
+               "validation_steps": 0}
 
 
 def _check_ported(cfg: Stage2Config) -> None:
@@ -268,6 +269,20 @@ class Stage2Trainer(common.Trainer):
             masters = self.master_parameters()
             common.ema_update(self.ema_adapter, {n: masters[n] for n in self.ema_adapter}, cfg.ema_decay)
         return metrics
+
+    def checkpoint_state(self):
+        """``common.Trainer.checkpoint_state`` plus the fp32 EMA adapter copy (``ema_adapter``)."""
+        state = super().checkpoint_state()
+        if self.ema_adapter is not None:
+            state["ema_adapter"] = self.ema_adapter
+        return state
+
+    @torch.no_grad()
+    def load_checkpoint_state(self, state) -> None:
+        super().load_checkpoint_state(state)
+        if self.ema_adapter is not None and "ema_adapter" in state:
+            for n, t in self.ema_adapter.items():
+                t.copy_(state["ema_adapter"][n])
 
     def aggregator_state(self) -> Dict[str, torch.Tensor]:
         """The reference-format ``aggregator_ckpt.pt`` payload in fp32 on the

@@ -736,19 +736,25 @@ def _imported_modules(path: Path, top_level_only: bool = False):
 
 
 def test_port_imports_no_hf_packages_and_pillow_only_in_functions():
-    """The port (and ``chip_smoke.py``) reads checkpoints and tokenizes
-    without ``transformers``, ``safetensors`` or ``regex``: it needs torch,
-    numpy and the standard library alone. Pillow is imported only inside the
-    functions of the command-line entry points (inference, serving, demo)."""
+    """The port (and ``chip_smoke.py``) reads checkpoints, tokenizes and
+    writes TensorBoard event files without ``transformers``, ``safetensors``,
+    ``regex`` or tensorboardX: it needs torch, numpy, scipy and the standard
+    library alone. PyYAML is imported only inside the functions that read
+    the YAML configs. Pillow is imported only inside the functions of the
+    command-line entry points (inference, serving, demo, training), of the
+    datasets (image decode) and of the event writer (PNG summaries)."""
     files = sorted((REPO / "instantir_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     names = {str(f.relative_to(REPO)) for f in files}
     for new in ("convert.py", "pipeline/load.py", "models/clip_text.py", "utils/tokenizer.py", "utils/text.py",
-                "utils/watermark.py", "cli/infer.py", "cli/serve.py", "cli/app.py", "pipeline/slots.py"):
+                "utils/watermark.py", "cli/infer.py", "cli/serve.py", "cli/app.py", "pipeline/slots.py",
+                "data/kernels.py", "data/degradation.py", "data/dataset.py", "cli/train.py"):
         assert f"instantir_tpu_torch/{new}" in names
     bad = [f"{f.relative_to(REPO)}: {m}" for f in files for m in _imported_modules(f)
-           if m.split(".")[0] in ("jax", "flax", "instantir_tpu", "transformers", "safetensors", "regex")]
+           if m.split(".")[0] in ("jax", "flax", "instantir_tpu", "transformers", "safetensors", "regex",
+                                  "tensorboardX")]
     bad += [f"{f.relative_to(REPO)}: {m} at the top level" for f in files for m in _imported_modules(f, True)
-            if m.split(".")[0] == "PIL"]
+            if m.split(".")[0] in ("PIL", "yaml")]
+    pillow_users = ("cli/infer.py", "cli/serve.py", "cli/app.py", "data/dataset.py", "train/common.py")
     bad += [f"{f.relative_to(REPO)}: {m}" for f in files for m in _imported_modules(f)
-            if m.split(".")[0] == "PIL" and f.name not in ("infer.py", "serve.py", "app.py")]
+            if m.split(".")[0] == "PIL" and str(f.relative_to(REPO / "instantir_tpu_torch")) not in pillow_users]
     assert not bad, bad

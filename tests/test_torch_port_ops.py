@@ -98,7 +98,7 @@ def test_port_imports_no_jax():
     assert not bad, bad
     covered = {str(f.relative_to(REPO)) for f in files}
     for new in ("train/common.py", "train/stage1_adapter.py", "losses/losses.py", "losses/loss_config.py",
-                "ops/group_norm.py"):
+                "ops/group_norm.py", "data/degradation.py", "data/dataset.py", "cli/train.py"):
         assert f"instantir_tpu_torch/{new}" in covered
 
 

@@ -367,7 +367,6 @@ def test_no_lora_raises(setup):
 
 
 @pytest.mark.parametrize("field,value", [("use_8bit_adam", True), ("quantize_frozen_unet", True),
-                                         ("handle_preemption", True), ("async_checkpointing", True),
                                          ("validation_steps", 100)])
 def test_unported_config_fields_raise(field, value):
     cfg = dataclasses.replace(PreviewerConfig(**STEP_CFG), **{field: value})

@@ -368,8 +368,7 @@ def test_bf16_models_run_the_previewer_on_the_fp32_ema(setup):
 
 
 @pytest.mark.parametrize("field,value", [("use_8bit_adam", True), ("quantize_frozen_unet", True),
-                                         ("aggregator_adapter", True), ("handle_preemption", True),
-                                         ("async_checkpointing", True), ("validation_steps", 100)])
+                                         ("aggregator_adapter", True), ("validation_steps", 100)])
 def test_unported_config_fields_raise(field, value):
     cfg = dataclasses.replace(Stage2Config(**STEP_CFG), **{field: value})
     with pytest.raises(NotImplementedError, match=field):

@@ -492,7 +492,6 @@ def test_own_draws_are_seeded_and_generator_driven(port_inputs):
 
 
 @pytest.mark.parametrize("field,value", [("use_8bit_adam", True), ("quantize_frozen_unet", True),
-                                         ("handle_preemption", True), ("async_checkpointing", True),
                                          ("validation_steps", 100)])
 def test_unported_config_fields_raise(setup, field, value):
     cfg = dataclasses.replace(Stage1Config(**STEP_CFG), **{field: value})
@@ -502,7 +501,7 @@ def test_unported_config_fields_raise(setup, field, value):
 
 def test_raw_batches_and_missing_card_raise(port_inputs):
     trainer, _ = port_inputs()
-    with pytest.raises(NotImplementedError, match="degradation"):
+    with pytest.raises(ValueError, match="kernel"):  # raw images need their blur kernels for the degradation
         trainer.prepare_batch({"images": torch.zeros(1, 8, 8, 3)}, {})
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
