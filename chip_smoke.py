@@ -67,7 +67,21 @@ which ends the script with a nonzero exit on failure:
    variant) and at 512² (two slots: a mid-flight admission leaves both
    bitwise equal to each alone), ``ContinuousRestoreServer`` over the same
    buckets (five concurrent requests); with ``--steps 30`` config #4 through
-   both servers, three requests each, in turns;
+   both servers, two requests each, in turns;
+4e. the quantized restore on phase 4's models at 1024², 4 steps: a copy of
+   the UNet and the Aggregator quantized W8 and one W8A8
+   (``InstantIRPipeline.quantize``; weight bytes before and after,
+   ``memory_allocated`` falling by at least 40% of the quantized weights'
+   bf16 bytes), the int8 products on the card bitwise against the CPU op's
+   int32 (a dense layer and a 3x3 convolution; their ms beside the bf16 op's),
+   each pipeline staged and as one CUDA graph on one noise (the graph equal
+   to the staged restore), PSNR against the bf16 image (W8 no further from
+   it than W8A8), s/image of bf16, W8 and W8A8 in turns, peaks, launches
+   derived (the bf16 path's); ``RestoreServer`` on the W8 pipeline (its
+   budget's weights against bf16's, a request replayed without a launch);
+   ``cli.infer.main --quantized w8 --fused`` on phase 4c's loaded pipeline
+   (run at the end of 4c); with ``--steps 30`` config #4 as graphs in W8 and
+   W8A8 (a recording and a replay each) against a bf16 staged restore;
 5. stage-2 (Aggregator) training at full SDXL width: two
    ``Stage2Trainer.train_step``s at 512² (batch 2) and one at 1024² (batch 1,
    gradient checkpointing on the UNet and the Aggregator); loss,
@@ -86,7 +100,14 @@ which ends the script with a nonzero exit on failure:
    LoRA leaf moved, no frozen leaf changed, every step's launch counters equal
    to the counts derived from the config. In phases 5-7 each bf16 trainable
    leaf trains through an fp32 master with fp32 AdamW moments: every master
-   must move and every bf16 leaf must hold its master's rounding;
+   must move and every bf16 leaf must hold its master's rounding. Each of
+   phases 5-7 ends with one more 512² batch-2 step on a trainer with
+   ``quantize_frozen_unet`` and ``use_8bit_adam`` over a copy of the UNet,
+   in turns with the bf16 trainer's step (bf16, QLoRA, QLoRA, bf16): the
+   launches of the bf16 step, finite metrics, every master moved, each bf16
+   leaf its rounding, no frozen leaf or int8 buffer changed, the moments
+   int8; s/step and each step's peak net of the other trainer's UNet and
+   optimiser;
 7b. training from raw images on the same models, under cuDNN's TF32 default
    (on): the traced and the eager RealESRGAN degradation at 512² batch 2 and
    1024² batch 1 against the same call on the CPU (the first JPEG's input
@@ -102,8 +123,13 @@ which ends the script with a nonzero exit on failure:
    of the state, with its read and put-back seconds); stage 1's s/step of
    ``run`` with ``prefetch_batches`` 0 and 2 in turns from one state beside
    the bare ``train_step`` (the masters after every turn bitwise equal);
-   every launch count derived, every trainable master moved, no frozen
-   leaf changed;
+   the first stage-1 run, the previewer and stage 2 also render
+   ``--validation_image`` (two PNGs) at step 2 (strips (2, 536, 1536, 3), the
+   tag in the event file, one more render timed with its launches derived
+   from ``Stage1Config`` / ``RestoreConfig``); stage 1 with
+   ``--use_8bit_adam --quantize_frozen_unet`` on a copy of the UNet, 2
+   steps, its checkpoint resumed bitwise; every launch count derived, every
+   trainable master moved, no frozen leaf changed;
 8. fp32, after the bf16 models are freed: ``build_pipeline`` with its default
    dtype restores a 512² image in 4 steps and one fp32 ``Stage1Trainer`` step
    runs at 512², batch 1, both through the fp32 flash entry points and the
@@ -124,6 +150,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -1617,6 +1644,32 @@ def run_load_and_cli(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) 
             out["config4"] = {"first": records[0]["seconds"], "replay": records[1]["seconds"],
                               "first_restore": records[0]["restore_seconds"],
                               "replay_restore": records[1]["restore_seconds"]}
+
+        # phase 4e's CLI run: --quantized w8 --fused on the loaded pipeline (quantized in place by main), the
+        # 1024² PNG of the run with its own load; its PNG against that run's bf16 PNG
+        lp._graphs.clear()
+        torch.cuda.empty_cache()
+        q_args = argv(user_in, os.path.join(root, "out_w8"), 4, ("--quantized", "w8"))
+        cli_cfg = infer.restore_config(infer.build_parser().parse_args(q_args))
+        per = expected_restore_launches(ucfg, cli_cfg, build_step_phases(cli_cfg), lat)
+        zero_counters(mods)
+        t0 = time.perf_counter()
+        records = infer.main(q_args, models=models)
+        q_sec = time.perf_counter() - t0
+        launches = read_counters(mods)
+        if lp.quantized != "w8" or launches != every_counter({k: 2 * n for k, n in per.items()}):
+            fail(f"phase 4e, the CLI with --quantized w8: the pipeline is {lp.quantized}, launched {launches}, "
+                 f"derived 2 x {per}")
+        got_w8 = np.asarray(infer.read_image(os.path.join(root, "out_w8", "a.png")))
+        psnr = psnr01(torch, got_w8, got) if got_w8.shape == got.shape else -1.0
+        log(f"  phase 4e, CLI --quantized w8 --fused, 1024² 4 steps: {q_sec:.3f} s from main() to its return "
+            f"(quantize, warm-up, capture, replay; the image {records[0]['seconds']:.3f} s PNG read to PNG written), "
+            f"launches {launches}; its PNG against the bf16 CLI's: PSNR {psnr:.2f} dB on {card_line}")
+        if not (got_w8.shape == got.shape and len(np.unique(got_w8)) > 1):
+            fail(f"phase 4e: the CLI with --quantized w8 wrote {got_w8.shape}, {len(np.unique(got_w8))} values")
+        out["cli_w8"] = {"seconds": q_sec, "image_seconds": records[0]["seconds"], "psnr_db": psnr,
+                         "launches": launches}
+        lp._graphs.clear()
         del lp, encoders, models
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1666,7 +1719,7 @@ def run_serving(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> di
     ``ContinuousRestoreServer`` over the same buckets with (2, 1) slots and
     ``tick_steps`` 2: five concurrent requests finish at their sizes, the
     traffic replays only. With ``steps`` other than 4, (e) config #4 through
-    both servers at 1024², three requests each, in turns."""
+    both servers at 1024², two requests each, in turns."""
     import threading
     import zlib
 
@@ -1927,7 +1980,7 @@ def run_serving(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> di
         servers = {"whole-request": RestoreServer(pipe, encode, ServeConfig(**c4)).start(),
                    "continuous": ContinuousRestoreServer(pipe, encode, ServeConfig(continuous=True, **c4)).start()}
         secs = {k: [] for k in servers}
-        for _ in range(3):
+        for _ in range(2):
             for name, srv in servers.items():
                 t0 = time.perf_counter()
                 got = srv.submit(png_pixels(1024, 1024), prompt="config 4", timeout=900)
@@ -1951,6 +2004,255 @@ def run_serving(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> di
         pipe._graphs.clear()
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def psnr01(torch, a, b) -> float:
+    """PSNR in dB of two images in [-1, 1] (tensors or uint8 arrays in [0, 255]), on [0, 1]."""
+    def unit(x):
+        x = torch.as_tensor(x)
+        return x.float() / 255.0 if x.dtype == torch.uint8 else (x.float().clamp(-1.0, 1.0) + 1.0) / 2.0
+
+    mse = ((unit(a).cpu() - unit(b).cpu()) ** 2).mean().item()
+    return float("inf") if mse == 0.0 else 10.0 * math.log10(1.0 / mse)
+
+
+def model_bytes(models) -> int:
+    """Bytes of every parameter and buffer of ``models``."""
+    return sum(t.numel() * t.element_size() for m in models for t in (*m.parameters(), *m.buffers()))
+
+
+def check_int8_products(torch, p88, card_line: str) -> dict:
+    """The int8 products of the W8A8 pipeline's layers on the card against the
+    same codes through the CPU op, the int32 before scaling, bitwise: a dense
+    layer (an ``attn1.to_q`` of 1280 x 1280, 2 x 1024 tokens: CFG batch 2 at
+    the 1024² restore's 32² level) and a 3x3 convolution (the first resnet's
+    ``conv1``, 320 channels, batch 2 at 64², the 512² restore's level). Their
+    times on the card at the 1024² restore's shapes beside the bf16 op's."""
+    import torch.nn.functional as F
+
+    from instantir_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(21)
+    dense = next(m for n, m in p88.unet.named_modules()
+                 if n.endswith("attn1.to_q") and m.quant_mode == "w8a8" and tuple(m.weight_q.shape) == (1280, 1280))
+    conv = p88.unet.down_blocks[0].resnets[0].conv1
+    if conv.quant_mode != "w8a8" or tuple(conv.weight_q.shape) != (320, 320, 3, 3):
+        fail(f"phase 4e: down_blocks.0.resnets.0.conv1 is {conv.quant_mode}, not a W8A8 320-channel 3x3 convolution")
+    a = torch.randint(-127, 128, (2 * 1024, 1280), generator=g, dtype=torch.int8)
+    codes = torch.randint(-127, 128, (2, 320, 64, 64), generator=g).to(torch.bfloat16)
+    cases = {"dense 2048x1280 @ 1280x1280": (quant.int_mm(a.cuda(), dense.weight_q).cpu(),
+                                              quant.int_mm(a, dense.weight_q.cpu())),
+             "3x3 conv 320->320 at 2x64x64": (quant.conv_int32(codes.cuda(), conv.weight_q, 1, 1).cpu(),
+                                              quant.conv_int32(codes, conv.weight_q.cpu(), 1, 1))}
+    for what, (got, want) in cases.items():
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            fail(f"phase 4e: the int8 product ({what}) on the card differs from the CPU's: "
+                 f"{(got.long() - want.long()).abs().max().item()} at most")
+    log(f"  int8 products on the card equal the CPU op's int32, bitwise: {list(cases)}")
+    x = torch.randn(2, 4096, 1280, device="cuda").to(torch.bfloat16)  # 1024²: the 64² level, S = 4096
+    xc = torch.randn(2, 320, 128, 128, device="cuda").to(torch.bfloat16)
+    wd, wc = dense.weight_q.float().to(torch.bfloat16), conv.weight_q.float().to(torch.bfloat16)
+    ms = {"dense w8a8": time_ms(torch, lambda: quant.w8a8_dense(x, dense.weight_q, dense.weight_scale)),
+          "dense bf16": time_ms(torch, lambda: F.linear(x, wd)),
+          "conv w8a8": time_ms(torch, lambda: quant.w8a8_conv(xc, conv.weight_q, conv.weight_scale, 1, 1)),
+          "conv int32 product": time_ms(torch, lambda: quant.conv_int32(xc, conv.weight_q, 1, 1)),
+          "conv bf16": time_ms(torch, lambda: F.conv2d(xc, wc, padding=1))}
+    log(f"  ms per call, dense 2x4096x1280 @ 1280x1280 and 3x3 conv 320->320 at 2x128x128: "
+        f"{json.dumps({k: round(v, 4) for k, v in ms.items()})} on {card_line}")
+    return ms
+
+
+def run_quantized(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> dict:
+    """Phase 4e: the quantized restore on phase 4's bf16 models at 1024², 4
+    steps. A copy of the UNet and the Aggregator quantized in W8 and one in
+    W8A8 (``InstantIRPipeline.quantize``): the weight bytes before and after,
+    and ``memory_allocated`` falling by at least 40% of the quantized weights'
+    bf16 bytes; the int8 products on the card against the CPU op
+    (``check_int8_products``); each pipeline's restore staged and as one CUDA
+    graph on the bf16 restore's noise (the graph equal to the staged
+    restore), images finite, their PSNR against the bf16 image (W8 no
+    further from it than W8A8), s/image of bf16, W8 and W8A8 in turns (staged
+    and replayed), peaks, launch counts derived from the config (the same as
+    bf16's: quantization touches neither attention nor GroupNorm);
+    ``RestoreServer`` on the W8 pipeline at 1024² (its budget row against
+    bf16's, one request replayed without a launch). With ``steps`` other
+    than 4 (the 4-step times then in one pass, not in turns), config #4 as
+    graphs in W8 and W8A8, each recorded and replayed once, against a bf16
+    staged restore on the same noise."""
+    import numpy as np
+
+    from instantir_tpu_torch.cli.serve import RestoreServer, ServeConfig, estimate_hbm_budget
+    from instantir_tpu_torch.ops import quant
+    from instantir_tpu_torch.pipeline.instantir import InstantIRPipeline, RestoreNoise, build_step_phases
+
+    bf16 = torch.bfloat16
+    pipe._graphs.clear()  # phase 4d's recordings
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"launches": {}}
+    g = torch.Generator(device="cuda").manual_seed(17)
+    res, lat = 1024, 1024 // 8
+    base = restore_config(4)
+    fused_cfg = dataclasses.replace(base, fused=True)
+    expected = expected_restore_launches(ucfg, base, build_step_phases(base), lat)
+
+    def inputs(n_steps: int):
+        lq = torch.rand(1, res, res, 3, generator=g, device="cuda") * 2.0 - 1.0
+        pe = (torch.randn(1, 77, 2048, generator=g, device="cuda") * 0.1).to(bf16)
+        pooled = (torch.randn(1, 1280, generator=g, device="cuda") * 0.1).to(bf16)
+        shape = (1, lat, lat, 4)
+        noise = RestoreNoise(*(torch.randn(shape, generator=g, device="cuda") for _ in range(2)),
+                             [torch.randn(shape, generator=g, device="cuda") for _ in range(n_steps)])
+        return lq, pe, pooled, noise
+
+    def restore(what: str, p, cfg, args, want: dict):
+        """One restore between counter reads: (image, seconds, peak GB, peak GB over what was allocated before)."""
+        lq, pe, pooled, noise = args
+        zero_counters(mods)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.time()
+        image, _ = p.restore(lq, pe, pooled, cfg=cfg, noise=noise, output_type="pt")
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        launches = out["launches"][what] = read_counters(mods)
+        if launches != every_counter(want):
+            fail(f"phase 4e, {what}: kernel launches {launches}, derived {every_counter(want)}")
+        if tuple(image.shape) != (1, res, res, 3) or not torch.isfinite(image).all():
+            fail(f"phase 4e, {what}: the image is not finite RGB of shape (1, {res}, {res}, 3)")
+        peak = torch.cuda.max_memory_allocated()
+        return image, sec, peak / 1e9, (peak - before) / 1e9
+
+    # 1. the two quantized copies: bytes and memory
+    pipes, weights = {"bf16": pipe}, {}
+    weights["bf16"] = model_bytes([pipe.unet, pipe.aggregator])
+    for mode in ("w8", "w8a8"):
+        p = InstantIRPipeline(copy.deepcopy(pipe.unet), copy.deepcopy(pipe.aggregator), pipe.vae, pipe.resampler,
+                              pipe.image_encoder, pipe.schedule, device="cuda")
+        gc.collect()
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated()
+        t0 = time.time()
+        p.quantize(weight_only=mode == "w8")
+        torch.cuda.synchronize()
+        q_sec = time.time() - t0
+        gc.collect()
+        drop = alloc0 - torch.cuda.memory_allocated()
+        n_q = sum(quant.quantized_bytes(m)[0] for m in (p.unet, p.aggregator))
+        weights[mode] = model_bytes([p.unet, p.aggregator])
+        if p.quantized != mode:
+            fail(f"phase 4e: the pipeline quantized as {mode} reports {p.quantized}")
+        log(f"  {mode}: quantized in {q_sec:.2f} s: {n_q / 1e9:.3f} B weight values int8 (their bf16 bytes "
+            f"{2 * n_q / 1e9:.3f} GB); UNet + Aggregator bytes {weights['bf16'] / 1e9:.3f} -> {weights[mode] / 1e9:.3f} "
+            f"GB; memory_allocated fell by {drop / 1e9:.3f} GB ({drop / (2 * n_q):.1%} of the quantized weights' bf16 "
+            f"bytes)")
+        if not drop >= 0.4 * 2 * n_q:
+            fail(f"phase 4e: quantize ({mode}) freed {drop / 1e9:.3f} GB, less than 40% of the quantized weights' bf16 "
+                 f"bytes {2 * n_q / 1e9:.3f} GB")
+        pipes[mode] = p
+        out[f"quantize_{mode}"] = {"seconds": q_sec, "values": n_q, "freed_gb": drop / 1e9}
+    out["weight_gb"] = {k: v / 1e9 for k, v in weights.items()}
+    out["int8_ms"] = check_int8_products(torch, pipes["w8a8"], card_line)
+
+    # 2. staged and recorded restores on one noise; PSNR against bf16; s/image in turns
+    args = inputs(4)
+    images, peaks = {}, {}
+    for mode, p in pipes.items():
+        images[mode], _, peaks[mode], act = restore(f"{mode} staged restore", p, base, args, expected)
+        torch.cuda.empty_cache()
+        graph_img, rec_sec, rec_peak, _ = restore(f"{mode} graph recording", p, fused_cfg, args,
+                                                  {k: 2 * n for k, n in expected.items()})
+        diff = (graph_img.float() - images[mode].float()).abs().max().item()
+        scale = max(1.0, images[mode].float().abs().max().item())
+        log(f"  {mode}: staged peak {peaks[mode]:.2f} GB ({act:.2f} over what was allocated before), recording "
+            f"{rec_sec:.3f} s, peak {rec_peak:.2f} GB; graph vs staged image max abs difference {diff:.3e}")
+        if not diff <= 1e-3 * scale:
+            fail(f"phase 4e, {mode}: the replayed image differs from the staged one by {diff} > 1e-3 x {scale}")
+    psnr = {mode: psnr01(torch, images[mode], images["bf16"]) for mode in ("w8", "w8a8")}
+    log(f"  PSNR against the bf16 image on [0, 1]: W8 {psnr['w8']:.2f} dB, W8A8 {psnr['w8a8']:.2f} dB")
+    if not psnr["w8"] >= psnr["w8a8"]:
+        fail(f"phase 4e: the W8 image is further from bf16 ({psnr['w8']:.2f} dB) than the W8A8 one "
+             f"({psnr['w8a8']:.2f} dB)")
+    secs = {}
+    for mode in ("bf16", "w8", "w8a8", "w8a8", "w8", "bf16") if steps == 4 else ("bf16", "w8", "w8a8"):
+        for kind in ("staged", "graph"):
+            _, sec, _, _ = restore(f"{mode} {kind} restore", pipes[mode], base if kind == "staged" else fused_cfg,
+                                   args, expected if kind == "staged" else {})
+            secs.setdefault(f"{mode}_{kind}", []).append(sec)
+    log(f"  1024² 4 steps, s/image in turns: "
+        f"{json.dumps({k: ['%.3f' % x for x in v] for k, v in secs.items()})} on {card_line}")
+    out.update(psnr=psnr, peak_gb=peaks, sec={k: min(v) for k, v in secs.items()})
+
+    # 3. RestoreServer on the W8 pipeline: its budget row against bf16's, one request replayed without a launch
+    for p in pipes.values():
+        p._graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def encode(prompts):
+        pe = torch.stack([(torch.randn(77, 2048, generator=g, device="cuda") * 0.1) for _ in prompts]).to(bf16)
+        return pe, torch.stack([(torch.randn(1280, generator=g, device="cuda") * 0.1) for _ in prompts]).to(bf16)
+
+    server = RestoreServer(pipes["w8"], encode, ServeConfig(num_inference_steps=4, resolutions=(res,),
+                                                            batch_sizes=(1,)))
+    zero_counters(mods)
+    server.start(warmup=True)
+    launches = out["launches"]["w8 serve warmup"] = read_counters(mods)
+    if launches != every_counter({k: 2 * n for k, n in expected.items()}):
+        fail(f"phase 4e: the W8 server's warmup launched {launches}, derived 2 x {expected}")
+    budget = {mode: estimate_hbm_budget(pipes[mode], server.buckets, server._bucket_batch) for mode in ("bf16", "w8")}
+    rep = server.warmup_report[0]
+    lone = (torch.rand(res, res, 3, generator=torch.Generator().manual_seed(4)) * 255).to(torch.uint8).numpy()
+    zero_counters(mods)
+    t0 = time.time()
+    got = server.submit(lone, prompt="lone", timeout=900)
+    sec = time.time() - t0
+    launches = out["launches"]["w8 serve request"] = read_counters(mods)
+    server.stop()
+    log(f"  W8 RestoreServer 1024² batch 1: warmup {rep['seconds']:.3f} s, peak increment {rep['peak_gb']:.3f} GB, "
+        f"held {rep['held_gb']:.3f} GB; budget params {budget['bf16']['params_gb']} -> {budget['w8']['params_gb']} GB, "
+        f"total {budget['bf16']['total_gb']} -> {budget['w8']['total_gb']} GB; one request {sec:.3f} s, launches "
+        f"{launches}")
+    if launches != every_counter({}) or got.shape != lone.shape or got.dtype != np.uint8:
+        fail(f"phase 4e: the W8 server's request launched {launches} or came back {got.shape} {got.dtype}")
+    freed = (weights["bf16"] - weights["w8"]) / 1e9
+    if not budget["w8"]["params_gb"] <= budget["bf16"]["params_gb"] - 0.9 * freed:
+        fail(f"phase 4e: the W8 budget's params {budget['w8']['params_gb']} GB did not shrink by the {freed:.3f} GB "
+             "the quantization freed")
+    out["serve_w8"] = {"budget": budget, "warmup": rep, "request_sec": sec}
+    pipes["w8"]._graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. config #4 as graphs in W8 and W8A8 (bf16's graph: phase 4b's config #4 line, this call), each recorded
+    # and replayed once, its image against the bf16 staged restore's on the same noise (a bf16 graph replays
+    # the staged image exactly, phase 4b)
+    if steps != 4:
+        c4 = restore_config(steps)
+        c4_graph = dataclasses.replace(c4, fused=True)
+        c4_expected = expected_restore_launches(ucfg, c4, build_step_phases(c4), lat)
+        c4_args = inputs(steps)
+        bf16_img, bf16_sec, _, _ = restore(f"bf16 {steps}-step staged restore", pipe, c4, c4_args, c4_expected)
+        c4_secs, c4_psnr = {}, {}
+        for mode in ("w8", "w8a8"):
+            p = pipes[mode]
+            img, rec_sec, rec_peak, _ = restore(f"{mode} {steps}-step graph recording", p, c4_graph, c4_args,
+                                                {k: 2 * n for k, n in c4_expected.items()})
+            _, c4_secs[mode], _, _ = restore(f"{mode} {steps}-step graph replay", p, c4_graph, c4_args, {})
+            c4_psnr[mode] = psnr01(torch, img, bf16_img)
+            p._graphs.clear()
+            torch.cuda.empty_cache()
+            log(f"  config #4, {steps} steps, {mode}: recording {rec_sec:.3f} s, peak {rec_peak:.2f} GB; a replay "
+                f"{c4_secs[mode]:.3f} s/image; PSNR against the bf16 image {c4_psnr[mode]:.2f} dB (bf16 staged "
+                f"{bf16_sec:.3f} s) on {card_line}")
+        out["config4"] = {"sec": c4_secs, "psnr": c4_psnr}
+    for p in pipes.values():
+        p._graphs.clear()
+    del pipes, images
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2043,6 +2345,77 @@ def check_leaves(torch, before_train: dict, before_frozen: dict, trainable: dict
         "changed")
 
 
+def optimizer_bytes(torch, trainer) -> int:
+    """Bytes the trainer's optimiser holds beside the model: fp32 masters that
+    are not the leaves themselves, and the moments (fp32 AdamW's, or the
+    8-bit one's flat buffers)."""
+    opt = trainer.optimizer
+    if hasattr(opt, "flat"):
+        own = [opt.flat, opt.mu_q, opt.nu_q, opt.mu_scale, opt.nu_scale]
+    else:
+        own = [m for p, m in zip(opt.params, opt.masters) if m is not p]
+        own += [t for s in opt.optimizer.state.values() for t in s.values() if isinstance(t, torch.Tensor)]
+    return sum(t.numel() * t.element_size() for t in own)
+
+
+def qlora_turns(torch, trainer, make_qlora, batch, g, mods: dict, expected: dict, what: str, card_line: str) -> dict:
+    """One more 512² batch-2 step with ``quantize_frozen_unet`` and
+    ``use_8bit_adam`` (``make_qlora(unet)``: a trainer over a copy of the
+    UNet, which it quantizes in place): the bf16 trainer's step and the QLoRA
+    step in turns (bf16, QLoRA, QLoRA, bf16), each with the launches of the
+    bf16 step and finite metrics; the QLoRA trainer's bases W8, its moments
+    int8, every master moved, each bf16 leaf its master's rounding, no frozen
+    leaf or int8 buffer changed. Each step's peak is also given net of what
+    the other trainer alone holds (its UNet and its optimiser), the peak a
+    run of that trainer alone would reach."""
+    from instantir_tpu_torch.ops import quant
+    from instantir_tpu_torch.train.adam8bit import AdamW8bit
+
+    unet = copy.deepcopy(trainer.unet)
+    q = make_qlora(unet)
+    if quant.quant_mode(q.unet) != "w8" or not isinstance(q.optimizer, AdamW8bit):
+        fail(f"{what}: the QLoRA trainer's UNet is {quant.quant_mode(q.unet)}, its optimiser "
+             f"{type(q.optimizer).__name__}")
+    named = q.named_parameters()
+    masters = dict(zip(q.trainable_names, q.optimizer.masters))
+    frozen = {n: p for n, p in named.items() if not p.requires_grad}
+    frozen.update({f"unet.{n}": b for n, b in q.unet.named_buffers() if n.rsplit(".", 1)[-1].startswith("weight_")})
+    before_train, before_frozen = _checksums(torch, masters), _checksums(torch, frozen)
+    held = {id(trainer): model_bytes([trainer.unet]) + optimizer_bytes(torch, trainer),
+            id(q): model_bytes([q.unet]) + optimizer_bytes(torch, q)}
+    n_q = quant.quantized_bytes(q.unet)[0]
+    log(f"  {what}: {n_q / 1e9:.3f} B UNet weight values W8 (UNet {model_bytes([trainer.unet]) / 1e9:.2f} -> "
+        f"{model_bytes([q.unet]) / 1e9:.2f} GB), optimiser state {optimizer_bytes(torch, trainer) / 1e9:.2f} GB fp32 "
+        f"AdamW -> {optimizer_bytes(torch, q) / 1e9:.2f} GB 8-bit ({len(q.trainable_names)} leaves, "
+        f"{q.optimizer.mu_q.shape[0]} blocks of {q.optimizer.mu_q.shape[1]})")
+    out = {"sec": {"bf16": [], "qlora": []}, "peak_gb": {"bf16": [], "qlora": []}, "launches": None}
+    for kind in ("bf16", "qlora", "qlora", "bf16"):
+        t = trainer if kind == "bf16" else q
+        other = q if kind == "bf16" else trainer
+        launches, sec, _ = train_step_checked(torch, t, batch, g, mods, expected, f"{what}, {kind} step", card_line)
+        peak = torch.cuda.max_memory_allocated()
+        out["sec"][kind].append(sec)
+        out["peak_gb"][kind].append((peak - held[id(other)]) / 1e9)
+        if kind == "qlora":
+            out["launches"] = {k: n + (out["launches"] or {}).get(k, 0) for k, n in launches.items()}
+            if t is q and len(out["sec"]["qlora"]) == 2:
+                check_leaves(torch, before_train, before_frozen, masters, frozen, f"{what}, 2 QLoRA steps")
+                for n, p, m in zip(q.trainable_names, q.trainable, q.optimizer.masters):
+                    if m.dtype != torch.float32 or (p is not m and not torch.equal(p.detach(), m.to(p.dtype))):
+                        fail(f"{what}: the leaf {n} is not its fp32 master's rounding")
+                opt = q.optimizer
+                if opt.mu_q.dtype != torch.int8 or opt.nu_q.dtype != torch.int8 or not opt.mu_q.abs().sum() > 0:
+                    fail(f"{what}: the 8-bit moments are {opt.mu_q.dtype} / {opt.nu_q.dtype}, or all zero")
+    log(f"  {what}: s/step in turns bf16 {['%.3f' % x for x in out['sec']['bf16']]}, QLoRA "
+        f"{['%.3f' % x for x in out['sec']['qlora']]}; peak net of the other trainer bf16 "
+        f"{['%.2f' % x for x in out['peak_gb']['bf16']]} GB, QLoRA {['%.2f' % x for x in out['peak_gb']['qlora']]} GB; "
+        f"every master fp32 (each bf16 leaf its rounding), moments int8; on {card_line}")
+    del q, unet
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_stage2(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     """Phase 5: stage-2 (Aggregator) training steps at full SDXL width."""
     from instantir_tpu_torch.train.stage2_aggregator import Stage2Config, Stage2Trainer
@@ -2088,6 +2461,15 @@ def run_stage2(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     check_leaves(torch, before_train, before_frozen, masters, frozen, "stage 2, 3 steps")
     check_masters(torch, trainer, "stage 2")
     out["cfg"] = cfg
+    qcfg = dataclasses.replace(cfg, quantize_frozen_unet=True, use_8bit_adam=True)
+    expected = every_counter(expected_stage2_launches(ucfg, cfg, 512 // 8, checkpointing=False))
+    if not mods["group_norm"].USE_FUSED:
+        expected["group_norm_silu"] = 0
+    out["qlora"] = qlora_turns(
+        torch, trainer, lambda unet: Stage2Trainer(unet, pipe.aggregator, pipe.resampler, pipe.vae, pipe.image_encoder,
+                                                   qcfg, device="cuda"),
+        trainer.prepare_batch(*training_batch(torch, g, 2, 512, torch.bfloat16, uncond=True)), g, mods, expected,
+        "stage-2 QLoRA at 512² batch 2", card_line)
     log(f"  stage-2 512² steps {['%.3f' % x for x in out['sec_512']]} s (the first includes warm-up), peak "
         f"{out['peak_gb_512']:.2f} GB; 1024² step {out['sec_1024']:.3f} s, peak {out['peak_gb_1024']:.2f} GB; "
         f"on {card_line}")
@@ -2143,7 +2525,11 @@ def run_training(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     check_leaves(torch, before_train, before_frozen, masters, frozen, "stage 1, 4 steps")
     check_masters(torch, trainer, "stage 1")
     log(f"  512² steps {['%.3f' % s for s in secs]} s (the first includes warm-up), 1024² step {big_sec:.3f} s")
-    return {"train_512": total, "train_1024": big, "sec_512": secs, "sec_1024": big_sec}
+    qcfg = dataclasses.replace(cfg, quantize_frozen_unet=True, use_8bit_adam=True)
+    qlora = qlora_turns(torch, trainer, lambda unet: Stage1Trainer(unet, pipe.resampler, pipe.vae, pipe.image_encoder,
+                                                                   qcfg, device="cuda"),
+                        make_batch(2, 512), g, mods, expected, "stage-1 QLoRA at 512² batch 2", card_line)
+    return {"train_512": total, "train_1024": big, "sec_512": secs, "sec_1024": big_sec, "qlora": qlora}
 
 
 def run_previewer(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
@@ -2222,6 +2608,12 @@ def run_previewer(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     trainer.unet.gradient_checkpointing = False
     check_leaves(torch, before_train, before_frozen, masters, frozen, "previewer, 4 steps")
     check_masters(torch, trainer, "previewer")
+    qcfg = dataclasses.replace(cfg, quantize_frozen_unet=True, use_8bit_adam=True)
+    out["qlora"] = qlora_turns(
+        torch, trainer, lambda unet: PreviewerTrainer(unet, pipe.resampler, pipe.vae, pipe.image_encoder, qcfg,
+                                                      device="cuda"),
+        trainer.prepare_batch(*training_batch(torch, g, 2, 512, torch.bfloat16, uncond=True)), g, mods,
+        expected_for(512, False), "previewer QLoRA at 512² batch 2", card_line)
     log(f"  previewer 512² Huber steps {['%.3f' % x for x in out['sec_512']]} s (the first includes warm-up), peak "
         f"{out['peak_gb_512']:.2f} GB; DINOLoss step {out['sec_dino']:.3f} s, peak {out['peak_gb_dino']:.2f} GB; "
         f"1024² step {out['sec_1024']:.3f} s, peak {out['peak_gb_1024']:.2f} GB; on {card_line}")
@@ -2403,10 +2795,10 @@ def check_degradation(torch, mods: dict, card_line: str) -> dict:
 
 
 def cli_train(torch, argv: list, pipe, mods: dict, per_step: dict, steps: int, pred, what: str, card_line: str,
-              before_train: Optional[dict] = None) -> dict:
+              before_train: Optional[dict] = None, extra: Optional[dict] = None) -> dict:
     """``cli.train.main(argv, pipe=pipe)`` with every counter set to 0 just
     before and read just after: the launches must be ``steps`` x
-    ``per_step``, every trainable master (the stage's ``pred``) must move
+    ``per_step`` (plus ``extra``: the validation renders'), every trainable master (the stage's ``pred``) must move
     from ``before_train`` (default: the leaves' values before the run, a
     fresh trainer's masters) and no frozen leaf may change."""
     import contextlib
@@ -2434,9 +2826,9 @@ def cli_train(torch, argv: list, pipe, mods: dict, per_step: dict, steps: int, p
     launches = read_counters(mods)
     for line in text.getvalue().rstrip().splitlines():
         log(f"    | {line}")
-    want = every_counter({k: n * steps for k, n in per_step.items()})
+    want = every_counter({k: n * steps + (extra or {}).get(k, 0) for k, n in per_step.items()})
     if launches != want:
-        fail(f"phase 7b, {what}: kernel launches {launches}, derived {steps} x {per_step}")
+        fail(f"phase 7b, {what}: kernel launches {launches}, derived {steps} x {per_step} + {extra}")
     trainer = result["trainer"]
     if trainer.global_step != int(argv[argv.index("--max_train_steps") + 1]):
         fail(f"phase 7b, {what}: the run ended at step {trainer.global_step}")
@@ -2514,6 +2906,37 @@ def write_image_folder(root: str) -> str:
     return config
 
 
+def validation_checked(torch, trainer, val: dict, cond: dict, tag: str, expected: dict, what: str, mods: dict,
+                       card_line: str) -> float:
+    """The validation render of a ``cli.train`` run: ``last_validation``
+    holds uint8 strips ``(N, 24 + H, 3·H, 3)`` and the event file a ``tag``
+    image; then one more render between counter reads, its launches
+    ``expected`` (derived from ``Stage1Config`` / ``RestoreConfig``).
+    Returns its seconds."""
+    import numpy as np
+
+    n, h = val["lq"].shape[0], val["lq"].shape[1]
+    strips = trainer.last_validation
+    if strips is None or strips.shape != (n, h + 24, 3 * h, 3) or strips.dtype != np.uint8:
+        fail(f"phase 7b, {what}: the run's validation strips are "
+             f"{None if strips is None else (strips.shape, strips.dtype)}, not uint8 {(n, h + 24, 3 * h, 3)}")
+    with open(trainer.tracker.writer.path, "rb") as f:
+        if tag.encode() not in f.read():
+            fail(f"phase 7b, {what}: the event file {trainer.tracker.writer.path} holds no {tag} image")
+    zero_counters(mods)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.validate(val, cond)
+    torch.cuda.synchronize()
+    sec = time.time() - t0
+    launches = read_counters(mods)
+    if launches != every_counter(expected):
+        fail(f"phase 7b, {what}: the validation render launched {launches}, derived {every_counter(expected)}")
+    log(f"  {what}: the run logged {tag} strips {strips.shape}; a render of the {n} validation images {sec:.3f} s, "
+        f"launches {launches} (derived); on {card_line}")
+    return sec
+
+
 def run_train_cli(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     """Phase 7b: training from raw images on phase 4's bf16 models, with
     cuDNN's TF32 switch at its default (on) as a user's run has it: the
@@ -2539,8 +2962,11 @@ def train_cli_phases(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     import tempfile
 
     from instantir_tpu_torch import convert
+    from instantir_tpu_torch.cli import train as cli_mod
     from instantir_tpu_torch.models.aggregator import Aggregator
     from instantir_tpu_torch.pipeline.factory import synthesize_weights
+    from instantir_tpu_torch.pipeline.instantir import InstantIRPipeline, build_step_phases
+    from instantir_tpu_torch.train.common import quantize_frozen_unet
     from instantir_tpu_torch.train.previewer_lora import lora_trainable_pred
     from instantir_tpu_torch.train.stage1_adapter import Stage1Config, Stage1Trainer, stage1_trainable_pred
     from instantir_tpu_torch.train.stage2_aggregator import Stage2Config, stage2_trainable_pred
@@ -2555,6 +2981,15 @@ def train_cli_phases(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
         return counts
 
     s1_step = derived(expected_train_launches(ucfg, 512 // 8, checkpointing=False))
+    # the validation renders at 512², batch 2: stage 1 samples 30 steps (Stage1Config: one UNet forward a step),
+    # the previewer takes one UNet forward, stage 2 restores with config #4 at 30 steps (RestoreConfig)
+    unet_fwd, _ = forward_launches(ucfg, 512 // 8)
+    val_cfg = restore_config(30)
+    val_launches = {"stage1": derived({k: 30 * n for k, n in unet_fwd.items()}), "previewer": derived(unet_fwd),
+                    "stage2": derived(expected_restore_launches(ucfg, val_cfg, build_step_phases(val_cfg), 512 // 8))}
+    out["validation_sec"] = {}
+    g = torch.Generator(device="cuda").manual_seed(23)
+    val_cond = training_batch(torch, g, 2, 512, torch.bfloat16)[1]
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     free = shutil.disk_usage(root).free
     if free < 40e9:
@@ -2563,11 +2998,25 @@ def train_cli_phases(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     common_flags = ["--resolution", "512", "--train_batch_size", "2", "--lr_warmup_steps", "0", "--losses_config",
                     losses]
     try:
+        val_dir = os.path.join(root, "val")
+        os.makedirs(val_dir)
+        rng = torch.Generator().manual_seed(29)
+        val_pngs = []
+        for name, (w, h) in (("v0.png", (640, 480)), ("v1.png", (512, 512))):
+            val_pngs.append(os.path.join(val_dir, name))
+            write_png(val_pngs[-1], (torch.rand(h, w, 3, generator=rng) * 255).to(torch.uint8).numpy())
+        val_flags = ["--validation_steps", "2", "--validation_image", *val_pngs]
+        val = cli_mod._val_batch(cli_mod.build_parser().parse_args(["stage1", "--resolution", "512", *val_flags]))
+
         s1_dir = os.path.join(root, "stage1")
         flags = ["stage1", "--synthetic_data", *common_flags, "--checkpointing_steps", "2",
                  "--checkpoints_total_limit", "1", "--prefetch_batches", "2", "--output_dir", s1_dir]
-        run = cli_train(torch, flags + ["--max_train_steps", "2"], pipe, mods, s1_step, 2, stage1_trainable_pred,
-                        "stage-1 CLI, 2 steps", card_line)
+        run = cli_train(torch, flags + ["--max_train_steps", "2", *val_flags], pipe, mods, s1_step, 2,
+                        stage1_trainable_pred, "stage-1 CLI, 2 steps, validation at step 2", card_line,
+                        extra=val_launches["stage1"])
+        out["validation_sec"]["stage1"] = validation_checked(
+            torch, run["result"]["trainer"], val, val_cond, "validation/stage1", val_launches["stage1"],
+            "stage-1 validation (30 steps, CFG 5)", mods, card_line)
         out["launches_stage1"] = dict(run["launches"])
         out["stage1_saves"] = run["saves"]
         first = run["result"]["trainer"]
@@ -2613,6 +3062,39 @@ def train_cli_phases(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
         del payload, mapped
         shutil.rmtree(s1_dir)
 
+        # stage 1 with 8-bit Adam and the W8 frozen UNet (on a copy of the UNet, quantized before the run so
+        # that the frozen leaves checked are the run's), a checkpoint at 2, resumed bitwise
+        qpipe = InstantIRPipeline(copy.deepcopy(pipe.unet), None, pipe.vae, pipe.resampler, pipe.image_encoder,
+                                  pipe.schedule, device="cuda")
+        quantize_frozen_unet(qpipe.unet, keep_pred=stage1_trainable_pred)
+        q_dir = os.path.join(root, "stage1_qlora")
+        q_flags = ["stage1", "--synthetic_data", *common_flags, "--checkpointing_steps", "2",
+                   "--checkpoints_total_limit", "1", "--use_8bit_adam", "--quantize_frozen_unet", "--output_dir",
+                   q_dir, "--max_train_steps", "2"]
+        run = cli_train(torch, q_flags, qpipe, mods, s1_step, 2, stage1_trainable_pred,
+                        "stage-1 CLI, 8-bit Adam and the W8 frozen UNet, 2 steps", card_line)
+        first = run["result"]["trainer"]
+        out["launches_qlora_cli"], out["qlora_saves"] = run["launches"], run["saves"]
+        del run
+        cfg = Stage1Config(output_dir=q_dir, train_batch_size=2, resolution=512, lr_warmup_steps=0,
+                           use_8bit_adam=True, quantize_frozen_unet=True)
+        trainer = Stage1Trainer(qpipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder, cfg, device="cuda")
+        t0 = time.time()
+        step = trainer.resume()
+        torch.cuda.synchronize()
+        out["qlora_resume_sec"] = time.time() - t0
+        bad = tree_differences(torch, first.checkpoint_state(), trainer.checkpoint_state())
+        if bad or step != 2 or trainer.optimizer.mu_q.dtype != torch.int8:
+            fail(f"phase 7b: the 8-bit run resumed at step {step}; its state differs from the saved one at {bad[:5]}")
+        n_train = sum(p.numel() for p in trainer.trainable)
+        log(f"  8-bit resume: checkpoint-2 ({out['qlora_saves'][-1]['bytes'] / 1e9:.2f} GB, "
+            f"{out['qlora_saves'][-1]['bytes'] / n_train:.2f} bytes a trainable value) read and put back in "
+            f"{out['qlora_resume_sec']:.2f} s; masters, int8 moments and scales, count and step bitwise the saved ones")
+        del trainer, first, qpipe
+        shutil.rmtree(q_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+
         # stage 1 from a folder of PNGs (Pillow decode, captions, the port's YAML reader)
         config = write_image_folder(root)
         run = cli_train(torch, ["stage1", "--data_config", config, "--data_dir", root, *common_flags,
@@ -2627,9 +3109,13 @@ def train_cli_phases(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
         # the previewer, its losses from config_files/losses.yaml
         pv_dir = os.path.join(root, "previewer")
         run = cli_train(torch, ["previewer", "--synthetic_data", *common_flags, "--max_train_steps", "2",
-                                "--output_dir", pv_dir],
+                                "--output_dir", pv_dir, *val_flags],
                         pipe, mods, derived(expected_previewer_launches(ucfg, 512 // 8, False)), 2,
-                        lora_trainable_pred, "previewer CLI, 2 steps", card_line)
+                        lora_trainable_pred, "previewer CLI, 2 steps, validation at step 2", card_line,
+                        extra=val_launches["previewer"])
+        out["validation_sec"]["previewer"] = validation_checked(
+            torch, run["result"]["trainer"], val, val_cond, "validation/previewer_one_step",
+            val_launches["previewer"], "previewer validation (one step at t = 999)", mods, card_line)
         lora = torch.load(os.path.join(pv_dir, "previewer_lora_weights.bin"), map_location="cpu", weights_only=True)
         if set(lora) != set(run["result"]["trainer"].lora_state()):
             fail("phase 7b: previewer_lora_weights.bin holds other tensors than the trainer's LoRA")
@@ -2646,10 +3132,14 @@ def train_cli_phases(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
         s2_dir = os.path.join(root, "stage2")
         s2_flags = ["stage2", "--synthetic_data", *common_flags, "--max_train_steps", "2", "--checkpointing_steps",
                     "2", "--checkpoints_total_limit", "1", "--async_checkpointing", "--use_ema_adapter",
-                    "--output_dir", s2_dir]
+                    "--output_dir", s2_dir, *val_flags]
         s2cfg = Stage2Config(optimize_adapter=False, cfg_scale=1.0)
         run = cli_train(torch, s2_flags, pipe, mods, derived(expected_stage2_launches(ucfg, s2cfg, 512 // 8, False)),
-                        2, stage2_trainable_pred(s2cfg), "stage-2 CLI, 2 steps, async checkpoints", card_line)
+                        2, stage2_trainable_pred(s2cfg), "stage-2 CLI, 2 steps, async checkpoints, validation at "
+                        "step 2", card_line, extra=val_launches["stage2"])
+        out["validation_sec"]["stage2"] = validation_checked(
+            torch, run["result"]["trainer"], val, val_cond, "validation/instantir", val_launches["stage2"],
+            "stage-2 validation (config #4, 30 steps)", mods, card_line)
         for name in ("aggregator.pt", "instantir_config.json", "checkpoint-2"):
             if not os.path.exists(os.path.join(s2_dir, name)):
                 fail(f"phase 7b: the stage-2 run wrote no {name}")
@@ -2928,6 +3418,11 @@ def main() -> None:
         "the continuous server")
     serving = run_serving(torch, pipe, args.steps, mods, ucfg, card_line)
 
+    # 4e. the quantized restore
+    log("[4e] quantized restore at SDXL width: W8 and W8A8 copies of the UNet and the Aggregator, the int8 products, "
+        "staged and graph restores against bf16, the W8 server")
+    quantized = run_quantized(torch, pipe, args.steps, mods, ucfg, card_line)
+
     # 5. stage-2 training (before stage 1, which frees the Aggregator)
     log("[5] stage-2 (Aggregator) training at SDXL width")
     stage2 = run_stage2(torch, pipe, ucfg, mods, card_line)
@@ -2977,6 +3472,14 @@ def main() -> None:
                 "train_cli_previewer": train_cli["launches_previewer"][name],
                 "train_cli_stage2": train_cli["launches_stage2"][name],
                 "train_run_turns": train_cli["launches_turns"][name],
+                "restore_w8_w8a8": sum(quantized["launches"][f"{m} {k}"][name] for m in ("w8", "w8a8")
+                                       for k in ("staged restore", "graph recording")),
+                "restore_cli_w8": cli["cli_w8"]["launches"][name],
+                "serve_w8_warmup": quantized["launches"]["w8 serve warmup"][name],
+                "train_stage2_qlora": stage2["qlora"]["launches"][name],
+                "train_qlora": train["qlora"]["launches"][name],
+                "train_previewer_qlora": previewer["qlora"]["launches"][name],
+                "train_cli_qlora": train_cli["launches_qlora_cli"][name],
                 "fp32": f32["restore"][name] + f32["train"][name]}
 
     src = "instantir_tpu_torch/csrc/"
@@ -3071,6 +3574,23 @@ def main() -> None:
         f"fp32 512² 4-step restore "
         f"{min(f32['restore_sec']):.3f} s/image (peak {f32['peak_gb_restore']:.2f} GB), fp32 stage-1 step at 512² "
         f"batch 1 {f32['train_sec']:.3f} s (peak {f32['peak_gb_train']:.2f} GB); on {card_line}")
+    def qlora_line(q):
+        return {k: {"s_per_step": round(min(q["sec"][k]), 3), "peak_gb": round(max(q["peak_gb"][k]), 2)}
+                for k in ("bf16", "qlora")}
+
+    log(f"[9] int8: UNet + Aggregator weights {json.dumps({k: round(v, 3) for k, v in quantized['weight_gb'].items()})} "
+        f"GB; 1024² 4-step s/image {json.dumps({k: round(v, 3) for k, v in quantized['sec'].items()})}, staged peaks "
+        f"{json.dumps({k: round(v, 2) for k, v in quantized['peak_gb'].items()})} GB, PSNR against bf16 "
+        f"{json.dumps({k: round(v, 2) for k, v in quantized['psnr'].items()})} dB"
+        f"{'; config #4 graphs ' + json.dumps(quantized['config4']) if 'config4' in quantized else ''}; int8 ops ms "
+        f"{json.dumps({k: round(v, 4) for k, v in quantized['int8_ms'].items()})}; CLI --quantized w8 "
+        f"{cli['cli_w8']['image_seconds']:.3f} s/image; W8 server budget params "
+        f"{quantized['serve_w8']['budget']['bf16']['params_gb']} -> {quantized['serve_w8']['budget']['w8']['params_gb']} "
+        f"GB; 512² batch-2 steps bf16 vs QLoRA (8-bit AdamW + W8 UNet), peak net of the other trainer: stage 2 "
+        f"{json.dumps(qlora_line(stage2['qlora']))}, stage 1 {json.dumps(qlora_line(train['qlora']))}, previewer "
+        f"{json.dumps(qlora_line(previewer['qlora']))}; validation renders s "
+        f"{json.dumps({k: round(v, 3) for k, v in train_cli['validation_sec'].items()})}; 8-bit stage-1 checkpoint "
+        f"{train_cli['qlora_saves'][-1]['bytes'] / 1e9:.2f} GB; on {card_line}")
     log(json.dumps({"kernels": entries}))
     log(card_line)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,10 @@ Usage (on the card; ``--fused`` replays one CUDA graph per image size):
       --sdxl_path /path/sdxl --instantir_path /path/instantir \\
       --vision_encoder_path /path/dinov2 --test_path lq_dir --out_path out
 
-``--quantized``, ``--sequence_parallel`` and ``--use_clip_encoder`` are not
-ported and raise ``NotImplementedError``. The noise comes from a
+``--quantized w8a8|w8`` quantizes the UNet and the Aggregator to int8 after
+the load (``InstantIRPipeline.quantize``; on a pipeline passed in as
+``models``, in place). ``--sequence_parallel`` and ``--use_clip_encoder``
+are not ported and raise ``NotImplementedError``. The noise comes from a
 ``torch.Generator`` seeded with ``--seed``: the same seed draws other noise
 than the JAX CLI's ``jax.random.PRNGKey``.
 """
@@ -148,9 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--quantized", nargs="?", const="w8a8", default=None, choices=("w8a8", "w8"),
-        help="not ported yet (raises NotImplementedError): int8 inference on "
-        "the UNet+Aggregator: 'w8a8' (dynamic activation quant) or 'w8' "
-        "(weight-only).",
+        help="int8 inference on the UNet+Aggregator: 'w8a8' (dynamic "
+        "activation quant, int8 products) or 'w8' (weight-only: weights "
+        "dequantized at use). The VAE, encoders and LoRA stay fp.",
     )
     p.add_argument(
         "--deepcache_interval", type=int, default=1,
@@ -194,7 +196,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_NOT_PORTED_FLAGS = ("quantized", "sequence_parallel", "use_clip_encoder")
+_NOT_PORTED_FLAGS = ("sequence_parallel", "use_clip_encoder")
 
 
 def restore_config(args: argparse.Namespace) -> RestoreConfig:
@@ -279,6 +281,8 @@ def main(argv: Optional[List[str]] = None, device="cuda", models=None) -> List[D
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported yet")
     pipe, text_encoders = models if models is not None else load_models(args, device)
+    if args.quantized:
+        pipe.quantize(weight_only=args.quantized == "w8")
     cfg = restore_config(args)
 
     post_fix = f"_{args.post_fix}" if args.post_fix else ""

@@ -765,7 +765,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve CUDA graphs recorded at warmup (the restore per bucket, or each slot step "
                    "variant); --no-fused serves the staged restore")
     p.add_argument("--quantized", nargs="?", const="w8a8", default=None, choices=("w8a8", "w8"),
-                   help="not ported yet (raises NotImplementedError): int8 UNet+Aggregator")
+                   help="int8 UNet+Aggregator: 'w8a8' (dynamic activation quant, int8 products) or 'w8' "
+                   "(weight-only: weights dequantized at use, half the weight bytes)")
     p.add_argument("--continuous", action="store_true",
                    help="step-level continuous batching: resident slot batch per "
                    "bucket, per-slot timesteps, mid-flight refill. Exact schedule "
@@ -805,8 +806,6 @@ def main(argv: Optional[List[str]] = None, device="cuda"):
     from instantir_tpu_torch.pipeline.load import load_instantir_pipeline, load_text_encoders
 
     args = build_parser().parse_args(argv)
-    if args.quantized:
-        raise NotImplementedError("--quantized is not ported yet")
     if args.mesh:
         raise NotImplementedError("--mesh is not ported yet")
     if args.model_parallel != 1:
@@ -818,6 +817,8 @@ def main(argv: Optional[List[str]] = None, device="cuda"):
         previewer_lora_path=args.previewer_lora_path,
         device=device,
     )
+    if args.quantized:
+        pipe.quantize(weight_only=args.quantized == "w8")
     encoders = load_text_encoders(args.sdxl_path, device=device)
 
     def encode(prompts: List[str]):

@@ -17,8 +17,12 @@ Usage (on the card):
   python -m instantir_tpu_torch.cli.train stage1 --synthetic_data --resolution 512 \\
       --train_batch_size 2 --max_train_steps 100 --output_dir out
 
-``--use_8bit_adam``, ``--quantize_frozen_unet``, ``--aggregator_adapter`` and
-``--validation_steps > 0`` are not ported and raise ``NotImplementedError``.
+``--validation_steps N --validation_image a.png b.png`` renders those images
+(resized to ``--resolution``, LQ and GT alike) every N steps into the event
+file (``train/validation.py``); ``--use_8bit_adam`` stores the Adam moments
+in blockwise int8; ``--quantize_frozen_unet`` keeps the frozen UNet's bases
+in int8, dequantized at use. ``--aggregator_adapter`` is not ported and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -79,11 +83,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--w_min", type=float, default=3.0)
     p.add_argument("--w_max", type=float, default=15.0)
     p.add_argument("--synthetic_data", action="store_true", help="procedural data (smoke tests)")
-    p.add_argument("--validation_steps", type=int, default=0, help="0 disables periodic validation (not ported)")
+    p.add_argument("--validation_steps", type=int, default=0, help="0 disables periodic validation")
     p.add_argument("--validation_image", type=str, nargs="*", default=None,
                    help="LQ image path(s) rendered every --validation_steps")
-    p.add_argument("--use_8bit_adam", action="store_true", help="blockwise-int8 Adam moments (not ported)")
-    p.add_argument("--quantize_frozen_unet", action="store_true", help="int8 frozen UNet base weights (not ported)")
+    p.add_argument("--use_8bit_adam", action="store_true",
+                   help="blockwise-int8 Adam moment storage (reference --use_8bit_adam / bnb AdamW8bit)")
+    p.add_argument("--quantize_frozen_unet", action="store_true",
+                   help="QLoRA storage: the frozen UNet's base weights int8, dequantized at use; the trained "
+                        "ip/LoRA weights stay fp")
     p.add_argument("--prefetch_batches", type=int, default=2,
                    help="a worker thread prepares this many batches ahead (0: in turn; the batches are the same)")
     p.add_argument("--scale_lr", action="store_true",
@@ -102,11 +109,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_ported(args: argparse.Namespace) -> None:
     """Raise ``NotImplementedError`` naming the first flag whose code is not ported."""
-    for flag in ("use_8bit_adam", "quantize_frozen_unet", "aggregator_adapter"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet")
-    if args.validation_steps > 0:
-        raise NotImplementedError("--validation_steps > 0 is not ported yet (train/validation.py)")
+    if args.aggregator_adapter:
+        raise NotImplementedError("--aggregator_adapter is not ported yet")
+
+
+def _val_batch(args: argparse.Namespace) -> Optional[Dict[str, torch.Tensor]]:
+    """``{"lq", "gt"}``: the ``--validation_image`` files resized to
+    ``--resolution`` (bicubic), NHWC in [-1, 1]; GT is the LQ image, as the
+    reference renders LQ-only validation sets. None without
+    ``--validation_steps > 0`` and images."""
+    if not (args.validation_steps > 0 and args.validation_image):
+        return None
+    from PIL import Image
+
+    imgs = []
+    for path in args.validation_image:
+        im = Image.open(path).convert("RGB").resize((args.resolution, args.resolution), Image.BICUBIC)
+        imgs.append(np.asarray(im, np.float32) / 127.5 - 1.0)
+    arr = torch.from_numpy(np.stack(imgs))
+    return {"lq": arr, "gt": arr}
 
 
 def _build_models(args: argparse.Namespace, device="cuda") -> InstantIRPipeline:
@@ -261,7 +282,7 @@ def main(argv: Optional[List[str]] = None, device="cuda", pipe: Optional[Instant
                            importance_sampling=args.importance_sampling, **shared)
         trainer = Stage2Trainer(pipe.unet, pipe.aggregator, *models[1:], cfg, losses_cfg, device=pipe.device)
         export, name = trainer.export_aggregator, "aggregator.pt"
-    records = trainer.run(data, cond)
+    records = trainer.run(data, cond, val_batch=_val_batch(args))
     os.makedirs(args.output_dir, exist_ok=True)
     path = os.path.join(args.output_dir, name)
     export(path)

@@ -283,6 +283,65 @@ def export_named(trees: Dict[str, Dict[str, Any]]) -> Dict[str, np.ndarray]:
     return out
 
 
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(np.asarray(tree))
+
+
+def export_quantized(export, tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX model tree quantized by ``instantir_tpu/ops/quant.py::quantize_tree``
+    (``{"params": pruned tree, "quant": {..., "base": {"kernel_q" or
+    "kernel_qw", "kernel_scale"}}}``) -> the port's state dict through its
+    exporter ``export`` (``export_unet``, ``export_aggregator``): each
+    quantized base's codes as int8 ``<name>.weight_q`` (W8A8) or
+    ``<name>.weight_qw`` (W8), HWIO -> OIHW and ``[in, out]`` -> ``[out, in]``,
+    and its fp32 ``<name>.weight_scale [out]``, in place of ``<name>.weight``.
+    The exporters are linear re-layouts, so the codes, the scales broadcast
+    over each kernel and a mask of the modes go through them as kernels."""
+    quant = tree.get("quant", {})
+
+    def fill(params, qnode, fn):
+        """``params`` with each quantized base's kernel set to ``fn(entry, codes)``."""
+        out = dict(params)
+        for key, q in qnode.items():
+            if key == "base" and "kernel_scale" in q:
+                codes = np.asarray(q.get("kernel_q", q.get("kernel_qw")))
+                out["base"] = {**params.get("base", {}), "kernel": fn(q, codes)}
+            else:
+                out[key] = fill(params.get(key, {}), q, fn)
+        return out
+
+    params = tree["params"]
+    zeros = _map_tree(lambda a: np.zeros(a.shape, np.float32), params)
+    mode = export({"params": fill(zeros, quant, lambda q, c: np.full(c.shape, 1.0 if "kernel_q" in q else 2.0,
+                                                                       np.float32))})
+    codes = export({"params": fill(params, quant, lambda q, c: c.astype(np.float32))})
+    scales = export({"params": fill(zeros, quant, lambda q, c: np.broadcast_to(
+        np.asarray(q["kernel_scale"], np.float32), c.shape).copy())})
+    out = {}
+    for name, value in codes.items():
+        m = mode[name]
+        if not (name.endswith(".weight") and m.any()):
+            out[name] = value
+            continue
+        prefix = name[:-len("weight")]
+        key = "weight_q" if m.flat[0] == 1.0 else "weight_qw"
+        out[prefix + key] = value.astype(np.int8)
+        out[prefix + "weight_scale"] = np.ascontiguousarray(scales[name].reshape(value.shape[0], -1)[:, 0])
+    return out
+
+
+def load_quantized(model: torch.nn.Module, state: Dict[str, np.ndarray]) -> None:
+    """Quantize the bases of ``model`` that ``state`` (``export_quantized``'s
+    result) holds codes for, in their modes, then load ``state`` strictly,
+    each tensor in its own dtype."""
+    from instantir_tpu_torch.ops.quant import quantize_like
+
+    quantize_like(model, state)
+    model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in state.items()}, strict=True)
+
+
 _PROCESSOR = re.compile(r"^(down_blocks|up_blocks|mid_block)\.(.*\.attn2)\.processor\.(.+)$")
 
 

@@ -8,8 +8,17 @@ branch is skipped when ``lora_scale`` is 0. Parameter names are the
 diffusers/PEFT state-dict names (``weight``, ``bias``, ``lora_A.weight``,
 ``lora_B.weight``). Normalisation parameters are fp32 whatever the model dtype.
 ``merge_lora`` folds the branch into merged weights for a model run with
-``lora_scale=0``. The int8 ``Quantizable*`` branches of the JAX package are
-not ported yet.
+``lora_scale=0``.
+
+The int8 branches of the JAX ``QuantizableDense`` / ``QuantizableConv``
+live in ``LoRALinear`` and ``LoRAConv2d`` (``_Quantizable``):
+``quantize_(weight_only)`` deletes the fp ``weight`` and keeps int8 codes and
+fp32 per-output-channel scales as buffers. W8A8 (``weight_q``) runs the int8
+product of ``ops/quant.py`` and adds the bias in the compute dtype; W8
+(``weight_qw``) dequantizes to the compute dtype at each use and runs the
+ordinary ``F.linear`` / ``F.conv2d`` (``quant.w8_op``), differentiable in
+``x``. The LoRA
+branches stay in fp, and ``merge_lora`` leaves a quantized base unmerged.
 """
 
 from __future__ import annotations
@@ -21,10 +30,34 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from instantir_tpu_torch.ops import quant
 from instantir_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_nchw
 
 
-class LoRALinear(nn.Linear):
+class _Quantizable:
+    """The int8 state of a LoRA base layer: ``quant_mode`` is None (fp
+    ``weight``), "w8a8" (``weight_q``) or "w8" (``weight_qw``), with fp32
+    ``weight_scale [out]`` beside the codes."""
+
+    quant_mode: Optional[str] = None
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype the layer computes in: its weight's, or the one it had before ``quantize_``."""
+        return self.weight.dtype if self.quant_mode is None else self._compute_dtype
+
+    @torch.no_grad()
+    def quantize_(self, weight_only: bool = False) -> None:
+        """Replace the fp ``weight`` by its int8 codes and scales (``quant.quantize_weight``)."""
+        q, scale = quant.quantize_weight(self.weight)
+        self._compute_dtype = self.weight.dtype
+        del self.weight
+        self.register_buffer("weight_qw" if weight_only else "weight_q", q)
+        self.register_buffer("weight_scale", scale)
+        self.quant_mode = "w8" if weight_only else "w8a8"
+
+
+class LoRALinear(_Quantizable, nn.Linear):
     """Linear with an optional low-rank adapter branch (PEFT semantics)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, lora_rank: int = 0,
@@ -38,14 +71,21 @@ class LoRALinear(nn.Linear):
             nn.init.zeros_(self.lora_B.weight)
 
     def forward(self, x: torch.Tensor, lora_scale: float = 0.0) -> torch.Tensor:
-        x = x.to(self.weight.dtype)
-        y = F.linear(x, self.weight, self.bias)
+        x = x.to(self.compute_dtype)
+        if self.quant_mode is None:
+            y = F.linear(x, self.weight, self.bias)
+        elif self.quant_mode == "w8":
+            y = quant.w8_op(x, self.weight_qw, self.weight_scale, self.bias, self._compute_dtype)
+        else:
+            y = quant.w8a8_dense(x, self.weight_q, self.weight_scale)
+            if self.bias is not None:
+                y = y + self.bias.to(y.dtype)
         if self.lora_rank > 0 and lora_scale != 0.0:
             y = y + (lora_scale * self.lora_alpha / self.lora_rank) * self.lora_B(self.lora_A(x))
         return y
 
 
-class LoRAConv2d(nn.Conv2d):
+class LoRAConv2d(_Quantizable, nn.Conv2d):
     """NCHW conv with an optional low-rank adapter (A: k x k -> r, B: 1 x 1 -> out)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, stride: int = 1,
@@ -62,8 +102,16 @@ class LoRAConv2d(nn.Conv2d):
             nn.init.zeros_(self.lora_B.weight)
 
     def forward(self, x: torch.Tensor, lora_scale: float = 0.0) -> torch.Tensor:
-        x = x.to(self.weight.dtype)
-        y = super().forward(x)
+        x = x.to(self.compute_dtype)
+        if self.quant_mode is None:
+            y = super().forward(x)
+        elif self.quant_mode == "w8":
+            y = quant.w8_op(x, self.weight_qw, self.weight_scale, self.bias, self._compute_dtype, self.stride[0],
+                            self.padding[0])
+        else:
+            y = quant.w8a8_conv(x, self.weight_q, self.weight_scale, self.stride[0], self.padding[0])
+            if self.bias is not None:
+                y = y + self.bias.to(y.dtype).reshape(1, -1, 1, 1)
         if self.lora_rank > 0 and lora_scale != 0.0:
             y = y + (lora_scale * self.lora_alpha / self.lora_rank) * self.lora_B(self.lora_A(x))
         return y
@@ -77,10 +125,12 @@ def merge_lora(model: nn.Module, lora_scale: float) -> Dict[str, torch.Tensor]:
     rounded to it first, as the JAX version does). Returns ``{parameter
     name: merged weight}`` for the LoRA-bearing layers only: run the model on
     them with ``lora_scale=0`` through ``torch.func.functional_call``, and
-    every other parameter is the model's own, by reference."""
+    every other parameter is the model's own, by reference. A quantized base
+    has no fp weight to merge into and is left out, as the JAX version skips
+    one."""
     merged = {}
     for name, m in model.named_modules():
-        if isinstance(m, (LoRALinear, LoRAConv2d)) and m.lora_rank > 0:
+        if isinstance(m, (LoRALinear, LoRAConv2d)) and m.lora_rank > 0 and m.quant_mode is None:
             a, b, w = m.lora_A.weight, m.lora_B.weight, m.weight
             if isinstance(m, LoRALinear):  # b [out, r] @ a [r, in]
                 delta = b @ a
@@ -183,7 +233,7 @@ class AdaLayerNorm(nn.Module):
         nn.init.zeros_(self.linear.bias)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor, lora_scale: float = 0.0) -> torch.Tensor:
-        emb = self.linear(F.silu(temb.to(self.linear.weight.dtype)), lora_scale)
+        emb = self.linear(F.silu(temb.to(self.linear.compute_dtype)), lora_scale)
         shift, scale = emb[:, None, :].chunk(2, dim=-1)
         normed = F.layer_norm(x.float(), (x.shape[-1],), eps=1e-6).to(x.dtype)
         return normed * (1.0 + scale) + shift

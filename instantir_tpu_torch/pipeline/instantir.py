@@ -47,7 +47,7 @@ from instantir_tpu_torch.models.vae import (
     unscale_latents,
     vae_scale_factor,
 )
-from instantir_tpu_torch.ops import group_norm
+from instantir_tpu_torch.ops import group_norm, quant
 from instantir_tpu_torch.schedulers.diffusion import (
     DiffusionSchedule,
     add_noise,
@@ -237,7 +237,11 @@ class InstantIRPipeline:
         ``models.layers.merge_lora``) and free the LoRA A/B pairs. Previewing
         steps then run the UNet on the merged weights with the adapter branch
         skipped. Afterwards ``restore`` requires ``cfg.lora_alpha == alpha``
-        (or 0). Recorded CUDA graphs are dropped."""
+        (or 0). Recorded CUDA graphs are dropped. A quantized pipeline
+        refuses: its int8 bases cannot take the merge."""
+        if self.quantized is not None:
+            raise ValueError("freeze_previewer() on a quantized pipeline is unsupported: the int8 base weights "
+                             "can't absorb a LoRA merge")
         if self._frozen is not None:
             raise ValueError(f"the previewer is already frozen at lora_alpha={self._frozen_alpha}")
         with torch.no_grad():
@@ -248,6 +252,37 @@ class InstantIRPipeline:
                 m.lora_rank = 0
         self._frozen, self._frozen_alpha = merged, float(alpha)
         self._graphs.clear()
+        return self
+
+    @property
+    def quantized(self) -> Optional[str]:
+        """"w8a8" or "w8" after ``quantize``, else None."""
+        return quant.quant_mode(self.unet) or quant.quant_mode(self.aggregator)
+
+    def quantize(self, min_size: Optional[int] = None, weight_only: bool = False) -> "InstantIRPipeline":
+        """Inference-only int8 quantization of the UNet and the Aggregator
+        (CLI ``--quantized``), twin of the JAX ``InstantIRPipeline.quantize``:
+        every LoRA base weight of at least ``min_size`` values
+        (``ops.quant.DEFAULT_MIN_SIZE`` by default) becomes int8 codes with
+        per-output-channel scales, in place (``ops.quant.quantize_tree``), and
+        the bf16 weight it replaces is freed. ``weight_only=False`` is W8A8
+        (``--quantized w8a8``: dynamic activation quantization and int8
+        products), ``True`` is W8 (``--quantized w8``: the weights
+        dequantized at each use, the ordinary op). The VAE, the encoders, the
+        LoRA branches, the norms and the small convolutions stay in fp; the
+        dynamic previewer LoRA branch still runs. Idempotent. Refused after
+        ``freeze_previewer``; ``freeze_previewer`` and
+        ``fuse_previewer_lora`` are refused after it. Recorded CUDA graphs are
+        dropped."""
+        if self._frozen is not None:
+            raise ValueError("quantize() after freeze_previewer() is unsupported: quantize first")
+        if self.quantized is not None:
+            return self
+        for model in (self.unet, self.aggregator):
+            quant.quantize_tree(model, min_size=min_size, weight_only=weight_only)
+        self._graphs.clear()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
         return self
 
     # ------------------------------------------------------------------
@@ -269,13 +304,18 @@ class InstantIRPipeline:
     def load_params(self, path: str) -> None:
         """Load ``<path>/params.pt`` into the models in place (strict), so
         recorded CUDA graphs replay on the new weights. A frozen previewer's
-        merged weights are not in the file: load before ``freeze_previewer``."""
+        merged weights are not in the file: load before ``freeze_previewer``.
+        The int8 codes and scales of a quantized pipeline are in the file: a
+        base that the file holds in int8 is quantized in its mode before the
+        load (``ops.quant.quantize_like``)."""
         if self._frozen is not None:
             raise ValueError("load_params after freeze_previewer would leave the merged previewer weights stale")
         state = torch.load(os.path.join(path, "params.pt"), map_location="cpu", weights_only=True)
         with torch.no_grad():
             for name in self._MODELS:
-                getattr(self, name).load_state_dict(state[name], strict=True)
+                model = getattr(self, name)
+                quant.quantize_like(model, state[name])
+                model.load_state_dict(state[name], strict=True)
 
     # ------------------------------------------------------------------
     # Encoders (run once per call, outside the denoise loop)
@@ -649,6 +689,9 @@ class InstantIRPipeline:
         then, as in the JAX package. Without ``noise`` the draws come from
         ``generator`` in the same order on both paths."""
         _check_ported(cfg)
+        if cfg.fuse_previewer_lora and self.quantized is not None:
+            raise ValueError("fuse_previewer_lora can't merge into int8 base weights: quantized pipelines use the "
+                             "dynamic LoRA branch (the default)")
         dev = self.device
         b, h, w, _ = lq_images.shape
         n_steps = len(inference_timesteps(cfg))

@@ -11,8 +11,11 @@ CPU tensors per ``checkpoint-{step}/``), tensorboardX by ``EventWriter``
 (TensorBoard event files written by hand: TFRecord framing, masked CRC-32C,
 the ``Event`` protobuf encoded here). ``Trainer`` holds what the JAX
 ``Stage1Trainer``, ``Stage2Trainer`` and ``PreviewerTrainer`` repeat,
-``run`` and ``resume`` included. The mesh/ZeRO helpers,
-``quantize_frozen_unet`` and 8-bit Adam of the JAX package are not ported.
+``run`` (with the validation renders every ``validation_steps``) and
+``resume`` included. ``make_adamw(use_8bit=True)`` is the blockwise-int8
+``train/adam8bit.py``; ``quantize_frozen_unet`` stores the frozen UNet's
+bases as W8 (``ops/quant.py``). The mesh/ZeRO helpers of the JAX package are
+not ported.
 """
 
 from __future__ import annotations
@@ -153,6 +156,10 @@ class ClippedAdamW:
     def load_state_by_name(self, names: List[str], state: Dict[str, Any]) -> None:
         """Put back a copy of ``state_by_name``'s result; the moments move to
         each master's device, ``step`` stays where ``torch.optim`` keeps it."""
+        if "adamw" not in state:
+            raise RuntimeError("this checkpoint holds 8-bit Adam moments: it was written with --use_8bit_adam; "
+                               "resume it with --use_8bit_adam, or resume from the exported weights with a fresh "
+                               "optimizer")
         self.count = int(state["count"])
         for n, m in zip(names, self.masters):
             s = state["adamw"].get(n)
@@ -180,10 +187,32 @@ def make_adamw(
     eps: float = 1e-8,
     max_grad_norm: Optional[float] = 1.0,
     use_8bit: bool = False,
-) -> ClippedAdamW:
+):
+    """``ClippedAdamW``, or with ``use_8bit`` the blockwise-int8 ``AdamW8bit``
+    (the reference's optional ``bnb.optim.AdamW8bit``), which has its interface."""
     if use_8bit:
-        raise NotImplementedError("make_adamw(use_8bit=True): the blockwise-int8 Adam is not ported yet")
+        from instantir_tpu_torch.train.adam8bit import AdamW8bit
+
+        return AdamW8bit(params, lr, weight_decay, b1, b2, eps, max_grad_norm)
     return ClippedAdamW(params, lr, weight_decay, b1, b2, eps, max_grad_norm)
+
+
+def quantize_frozen_unet(unet: nn.Module, keep_pred: Optional[PathPred] = None) -> nn.Module:
+    """QLoRA-style weight-only int8 storage of the frozen UNet during
+    training, twin of the JAX ``quantize_frozen_unet`` (arXiv 2305.14314: a
+    quantized frozen base, fp adapters): every LoRA base weight of at least
+    ``ops.quant.DEFAULT_MIN_SIZE`` values becomes W8 (``weight_qw``), in place,
+    dequantized to the compute dtype at each use, so gradients still flow
+    through the UNet to what trains upstream (the stage-2 Aggregator).
+    ``keep_pred``, a trainable-path predicate over ``("unet", *module path)``,
+    keeps trained bases (the ip projections) in fp. The replaced bf16 weights
+    are freed unless the caller holds them."""
+    from instantir_tpu_torch.ops.quant import quantize_tree
+
+    exclude = None
+    if keep_pred is not None:
+        exclude = lambda path: keep_pred(("unet",) + tuple(path))  # noqa: E731
+    return quantize_tree(unet, weight_only=True, exclude=exclude)
 
 
 def normal_draw(given: Optional[torch.Tensor], shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
@@ -725,6 +754,8 @@ class Trainer:
                                  f"the trainer on {self.device.type}")
         self.schedule = (schedule or sdxl_schedule()).to(self.device)
         self.losses = build_losses(self.loss_configs(losses_config))
+        if cfg.quantize_frozen_unet:
+            quantize_frozen_unet(models["unet"], keep_pred=self.frozen_unet_keep)
         self.trainable_names = set_trainable(models, pred)
         named = self.named_parameters()
         self.trainable: List[nn.Parameter] = [named[n] for n in self.trainable_names]
@@ -732,6 +763,7 @@ class Trainer:
             self.trainable, lr_schedule(cfg.lr_scheduler, cfg.learning_rate, cfg.lr_warmup_steps, cfg.max_train_steps),
             weight_decay=cfg.weight_decay, use_8bit=cfg.use_8bit_adam, max_grad_norm=cfg.max_grad_norm)
         self._loss_fn: Optional[Callable] = None
+        self.last_validation: Optional[np.ndarray] = None  # the strips of run's newest validation render
         self._accumulated: Optional[List[torch.Tensor]] = None
         self._micro_steps = 0
         self._uncond_tok: Optional[torch.Tensor] = None
@@ -742,6 +774,16 @@ class Trainer:
         self.ckpt = CheckpointManager(cfg.output_dir, cfg.checkpoints_total_limit, async_save=cfg.async_checkpointing)
         self.tracker = Tracker(os.path.join(cfg.output_dir, "logs") if cfg.output_dir else None, backend=cfg.report_to)
         print(f"[{tag}] trainable params: {count_params(self.trainable) / 1e6:.2f}M")
+
+    # with ``quantize_frozen_unet``: the UNet bases kept in fp (a predicate over
+    # ``("unet", *module path)``), the trained ones
+    frozen_unet_keep: Optional[PathPred] = None
+
+    def validate(self, val_batch: Dict[str, Any], cond) -> np.ndarray:
+        """Render ``val_batch`` (``{"lq", "gt"}`` NHWC in [-1, 1]) on the live
+        weights, log the strips to the tracker and return them (uint8
+        ``[N, 24 + H, 3·W, 3]``): the stage's ``train/validation.py`` function."""
+        raise NotImplementedError(f"{type(self).__name__} has no validation render")
 
     def loss_configs(self, losses_config: Optional[LossesConfig]) -> List[SingleLossConfig]:
         """The losses this trainer sums: ``diffusion_losses``, L2 by default
@@ -915,7 +957,10 @@ class Trainer:
         ``logging_steps``, a checkpoint every ``checkpointing_steps``, and a
         stop after a SIGTERM (``handle_preemption``); then the final save.
         ``cond`` is a dict, or a callable of the host batch (per-sample
-        captions). ``sanity_check`` takes one step and returns. The data
+        captions). With ``val_batch`` and ``validation_steps > 0``, after
+        every step whose number ``validation_steps`` divides, ``validate``
+        renders it (the JAX trainers' order: after the logging, before the
+        checkpoint). ``sanity_check`` takes one step and returns. The data
         running out ends the loop. Returns the logged records."""
         cfg = self.cfg
         self.resume()
@@ -949,6 +994,8 @@ class Trainer:
                     values["steps_per_sec"] = cfg.logging_steps / dt
                     self.tracker.scalars(self.global_step, values)
                     records.append({"step": self.global_step, **values})
+                if val_batch is not None and cfg.validation_steps > 0 and self.global_step % cfg.validation_steps == 0:
+                    self.last_validation = self.validate(val_batch, cond)
                 if self.global_step % cfg.checkpointing_steps == 0:
                     self.save_checkpoint()
                 if preemption_requested():

@@ -24,7 +24,9 @@ All four UNet calls take the cond pooled embeds and time ids; only the text
 changes. PyTorch idiom as in stages 1 and 2 (``common.Trainer``: raw images
 degraded on the device, the host loop ``run``/``resume``/``save_checkpoint``).
 The visualisation strip goes to the tracker and stays in ``last_vis_strip``.
-Not ported yet: ``validate_previewer``, 8-bit Adam and the int8 frozen UNet.
+``run`` renders ``validate_previewer`` every ``validation_steps``;
+``use_8bit_adam`` takes the blockwise-int8 AdamW and ``quantize_frozen_unet``
+stores every frozen UNet base as W8 (the LoRA pairs stay fp).
 """
 
 from __future__ import annotations
@@ -50,8 +52,7 @@ from instantir_tpu_torch.train import common
 
 @dataclasses.dataclass
 class PreviewerConfig:
-    """The same fields and defaults as the JAX twin. Fields whose code is not
-    ported raise ``NotImplementedError`` when set away from "off"."""
+    """The same fields and defaults as the JAX twin."""
 
     output_dir: str = "previewer_out"
     max_train_steps: int = 1000
@@ -61,8 +62,9 @@ class PreviewerConfig:
     lr_scheduler: str = "constant"
     lr_warmup_steps: int = 100
     weight_decay: float = 1e-2
-    use_8bit_adam: bool = False  # not ported
-    quantize_frozen_unet: bool = False  # not ported
+    use_8bit_adam: bool = False  # blockwise-int8 Adam moments (train/adam8bit.py)
+    # QLoRA storage (common.quantize_frozen_unet): LoRA distillation over W8 frozen UNet bases
+    quantize_frozen_unet: bool = False
     max_grad_norm: float = 1.0
     prefetch_batches: int = 2  # batches prepared ahead by a worker thread (common.pipelined_batches); 0: in turn
     gradient_accumulation_steps: int = 1
@@ -78,20 +80,11 @@ class PreviewerConfig:
     logging_steps: int = 10
     seed: int = 42
     sanity_check: bool = False
-    validation_steps: int = 0  # 0 disables; not ported
+    validation_steps: int = 0  # 0 disables
     resume_from_checkpoint: Optional[str] = "latest"
     handle_preemption: bool = False  # SIGTERM -> checkpoint at the next step boundary and stop
     async_checkpointing: bool = False  # write checkpoints from a thread, overlapping the next steps
     report_to: str = "tensorboard"
-
-
-_NOT_PORTED = {"use_8bit_adam": False, "quantize_frozen_unet": False, "validation_steps": 0}
-
-
-def _check_ported(cfg: PreviewerConfig) -> None:
-    for name, off in _NOT_PORTED.items():
-        if getattr(cfg, name) != off:
-            raise NotImplementedError(f"PreviewerConfig.{name}={getattr(cfg, name)!r} is not ported yet")
 
 
 def lora_trainable_pred(path: Tuple[str, ...]) -> bool:
@@ -245,7 +238,6 @@ class PreviewerTrainer(common.Trainer):
 
     def __init__(self, unet, resampler, vae, image_encoder, cfg: PreviewerConfig,
                  losses_config: Optional[LossesConfig] = None, schedule=None, device="cuda"):
-        _check_ported(cfg)
         self.unet, self.resampler, self.vae, self.image_encoder = unet, resampler, vae, image_encoder
         models = {"unet": unet, "resampler": resampler, "vae": vae, "image_encoder": image_encoder}
         if not any(lora_trainable_pred(tuple(n.split("."))) for n in common.named_parameters(models)):
@@ -287,6 +279,11 @@ class PreviewerTrainer(common.Trainer):
             if self.tracker.writer is not None or self.tracker.wandb is not None:
                 self.tracker.images(step, "TrainVisualization", (strip.float().cpu().numpy() + 1.0) / 2.0)
         return metrics
+
+    def validate(self, val_batch, cond):
+        from instantir_tpu_torch.train.validation import validate_previewer
+
+        return validate_previewer(self, val_batch["lq"], val_batch["gt"], cond, self.tracker, self.global_step)
 
     def lora_state(self) -> Dict[str, torch.Tensor]:
         """The diffusers-format previewer LoRA (``unet.<path>.lora_A/B.weight``),

@@ -19,9 +19,12 @@ the draws come from a ``torch.Generator`` on the trainer's device.
 
 Public tensors keep the JAX layout: NHWC images in [-1, 1], NHWC noise.
 ``prepare_batch`` degrades raw images on the device, and ``run`` /
-``resume`` / ``save_checkpoint`` are the host loop (``common.Trainer``). Not
-ported yet: validation, 8-bit Adam, the int8 frozen UNet, and
-optimiser-state sharding over more than one device.
+``resume`` / ``save_checkpoint`` are the host loop (``common.Trainer``), which
+renders ``validate_stage1`` every ``validation_steps``. ``use_8bit_adam``
+takes the blockwise-int8 AdamW (``train/adam8bit.py``);
+``quantize_frozen_unet`` stores the frozen UNet's bases as W8 in place, the
+trained ip projections kept in fp. Not ported yet: optimiser-state sharding
+over more than one device.
 """
 
 from __future__ import annotations
@@ -41,8 +44,7 @@ from instantir_tpu_torch.train import common
 
 @dataclasses.dataclass
 class Stage1Config:
-    """The same fields and defaults as the JAX twin. Fields whose code is not
-    ported raise ``NotImplementedError`` when set away from "off"."""
+    """The same fields and defaults as the JAX twin."""
 
     output_dir: str = "stage1_out"
     max_train_steps: int = 1000
@@ -52,8 +54,9 @@ class Stage1Config:
     lr_scheduler: str = "cosine"
     lr_warmup_steps: int = 100
     weight_decay: float = 1e-2
-    use_8bit_adam: bool = False  # not ported
-    quantize_frozen_unet: bool = False  # not ported
+    use_8bit_adam: bool = False  # blockwise-int8 Adam moments (train/adam8bit.py)
+    # QLoRA storage (common.quantize_frozen_unet): the frozen UNet's bases W8, the ip projections fp
+    quantize_frozen_unet: bool = False
     max_grad_norm: float = 1.0
     prefetch_batches: int = 2  # batches prepared ahead by a worker thread (common.pipelined_batches); 0: in turn
     gradient_accumulation_steps: int = 1
@@ -66,20 +69,11 @@ class Stage1Config:
     logging_steps: int = 10
     seed: int = 42
     sanity_check: bool = False
-    validation_steps: int = 0  # 0 disables; not ported
+    validation_steps: int = 0  # 0 disables
     resume_from_checkpoint: Optional[str] = "latest"
     handle_preemption: bool = False  # SIGTERM -> checkpoint at the next step boundary and stop
     async_checkpointing: bool = False  # write checkpoints from a thread, overlapping the next steps
     report_to: str = "tensorboard"
-
-
-_NOT_PORTED = {"use_8bit_adam": False, "quantize_frozen_unet": False, "validation_steps": 0}
-
-
-def _check_ported(cfg: Stage1Config) -> None:
-    for name, off in _NOT_PORTED.items():
-        if getattr(cfg, name) != off:
-            raise NotImplementedError(f"Stage1Config.{name}={getattr(cfg, name)!r} is not ported yet")
 
 
 def stage1_trainable_pred(path: Tuple[str, ...]) -> bool:
@@ -170,11 +164,17 @@ class Stage1Trainer(common.Trainer):
 
     def __init__(self, unet, resampler, vae, image_encoder, cfg: Stage1Config,
                  losses_config: Optional[LossesConfig] = None, schedule=None, device="cuda"):
-        _check_ported(cfg)
         self.unet, self.resampler, self.vae, self.image_encoder = unet, resampler, vae, image_encoder
         models = {"unet": unet, "resampler": resampler, "vae": vae, "image_encoder": image_encoder}
         super().__init__("stage1", models, cfg, stage1_trainable_pred, losses_config, schedule, device)
         self._loss_fn = build_stage1_step(unet, resampler, vae, image_encoder, self.schedule, self.losses, cfg)
+
+    frozen_unet_keep = staticmethod(stage1_trainable_pred)
+
+    def validate(self, val_batch, cond):
+        from instantir_tpu_torch.train.validation import validate_stage1
+
+        return validate_stage1(self, val_batch["lq"], val_batch["gt"], cond, self.tracker, self.global_step)
 
     def adapter_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The reference-format ``adapter_ckpt.pt`` payload ``{image_proj,

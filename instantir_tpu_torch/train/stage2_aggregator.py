@@ -24,8 +24,11 @@ under bf16 compute, and a bf16 copy at decay 0.999 would drop every update
 smaller than half an ulp. ``prepare_batch`` degrades raw images on the
 device, and ``run`` / ``resume`` / ``save_checkpoint`` are the host loop
 (``common.Trainer``); a checkpoint holds the EMA copy beside the JAX
-trainers' state. Not ported yet: validation, 8-bit Adam, the int8 frozen
-UNet and ``aggregator_adapter``.
+trainers' state. ``run`` renders ``validate_stage2`` every
+``validation_steps``; ``use_8bit_adam`` takes the blockwise-int8 AdamW and
+``quantize_frozen_unet`` stores the frozen UNet's bases as W8 (the ip
+projections fp), through which the gradients reach the Aggregator. Not ported
+yet: ``aggregator_adapter``.
 """
 
 from __future__ import annotations
@@ -58,8 +61,10 @@ class Stage2Config:
     lr_scheduler: str = "constant"
     lr_warmup_steps: int = 100
     weight_decay: float = 1e-2
-    use_8bit_adam: bool = False  # not ported
-    quantize_frozen_unet: bool = False  # not ported
+    use_8bit_adam: bool = False  # blockwise-int8 Adam moments (train/adam8bit.py)
+    # QLoRA storage (common.quantize_frozen_unet): the frozen UNet's bases W8, the ip projections fp;
+    # gradients still flow through it to the Aggregator
+    quantize_frozen_unet: bool = False
     max_grad_norm: float = 1.0
     prefetch_batches: int = 2  # batches prepared ahead by a worker thread (common.pipelined_batches); 0: in turn
     gradient_accumulation_steps: int = 1
@@ -82,15 +87,14 @@ class Stage2Config:
     logging_steps: int = 10
     seed: int = 42
     sanity_check: bool = False
-    validation_steps: int = 0  # 0 disables; not ported
+    validation_steps: int = 0  # 0 disables
     resume_from_checkpoint: Optional[str] = "latest"
     handle_preemption: bool = False  # SIGTERM -> checkpoint at the next step boundary and stop
     async_checkpointing: bool = False  # write checkpoints from a thread, overlapping the next steps
     report_to: str = "tensorboard"
 
 
-_NOT_PORTED = {"use_8bit_adam": False, "quantize_frozen_unet": False, "aggregator_adapter": False,
-               "validation_steps": 0}
+_NOT_PORTED = {"aggregator_adapter": False}
 
 
 def _check_ported(cfg: Stage2Config) -> None:
@@ -283,6 +287,13 @@ class Stage2Trainer(common.Trainer):
         if self.ema_adapter is not None and "ema_adapter" in state:
             for n, t in self.ema_adapter.items():
                 t.copy_(state["ema_adapter"][n])
+
+    frozen_unet_keep = staticmethod(stage1_trainable_pred)
+
+    def validate(self, val_batch, cond):
+        from instantir_tpu_torch.train.validation import validate_stage2
+
+        return validate_stage2(self, val_batch["lq"], val_batch["gt"], cond, self.tracker, self.global_step)
 
     def aggregator_state(self) -> Dict[str, torch.Tensor]:
         """The reference-format ``aggregator_ckpt.pt`` payload in fp32 on the

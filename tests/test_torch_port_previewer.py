@@ -368,10 +368,18 @@ def test_no_lora_raises(setup):
 
 @pytest.mark.parametrize("field,value", [("use_8bit_adam", True), ("quantize_frozen_unet", True),
                                          ("validation_steps", 100)])
-def test_unported_config_fields_raise(field, value):
-    cfg = dataclasses.replace(PreviewerConfig(**STEP_CFG), **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        PreviewerTrainer(None, None, None, None, cfg, device="cpu")
+def test_unported_config_fields_raise(setup, monkeypatch, field, value):
+    """The fields the JAX trainer has and the port once refused now build a
+    trainer that honours them: the 8-bit AdamW, the W8 frozen UNet (at a
+    lowered threshold, the tiny weights being under the default), validation."""
+    from instantir_tpu_torch.ops import quant
+    from instantir_tpu_torch.train.adam8bit import AdamW8bit
+
+    monkeypatch.setattr(quant, "DEFAULT_MIN_SIZE", 1)
+    trainer = _build_port(setup["params"], setup["dcfg"], **{field: value})
+    assert getattr(trainer.cfg, field) == value
+    assert isinstance(trainer.optimizer, AdamW8bit) == (field == "use_8bit_adam")
+    assert (quant.quant_mode(trainer.unet) == "w8") == (field == "quantize_frozen_unet")
 
 
 def test_jax_and_port_configs_have_the_same_fields():

@@ -369,10 +369,25 @@ def test_bf16_models_run_the_previewer_on_the_fp32_ema(setup):
 
 @pytest.mark.parametrize("field,value", [("use_8bit_adam", True), ("quantize_frozen_unet", True),
                                          ("aggregator_adapter", True), ("validation_steps", 100)])
-def test_unported_config_fields_raise(field, value):
-    cfg = dataclasses.replace(Stage2Config(**STEP_CFG), **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        Stage2Trainer(None, None, None, None, None, cfg, device="cpu")
+def test_unported_config_fields_raise(setup, monkeypatch, field, value):
+    """``aggregator_adapter`` still raises; the other fields, ported since,
+    build a trainer that honours them (the W8 frozen UNet at a lowered
+    threshold, its ip projections kept in fp)."""
+    from instantir_tpu_torch.ops import quant
+    from instantir_tpu_torch.train.adam8bit import AdamW8bit
+
+    if field == "aggregator_adapter":
+        cfg = dataclasses.replace(Stage2Config(**STEP_CFG), **{field: value})
+        with pytest.raises(NotImplementedError, match=field):
+            Stage2Trainer(None, None, None, None, None, cfg, device="cpu")
+        return
+    monkeypatch.setattr(quant, "DEFAULT_MIN_SIZE", 1)
+    trainer = _build_port(setup["params"], setup["dcfg"], **{field: value})
+    assert getattr(trainer.cfg, field) == value
+    assert isinstance(trainer.optimizer, AdamW8bit) == (field == "use_8bit_adam")
+    assert (quant.quant_mode(trainer.unet) == "w8") == (field == "quantize_frozen_unet")
+    ip = [m for n, m in trainer.unet.named_modules() if n.endswith(("to_k_ip", "to_v_ip"))]
+    assert ip and all(m.quant_mode is None for m in ip)
 
 
 def test_jax_and_port_configs_have_the_same_fields():

@@ -155,8 +155,9 @@ def test_adamw_matches_optax_over_three_updates(warmup, max_norm, dtype):
         assert miss >= 0.5 * max(moved), (miss, moved)
     if warmup:
         assert opt.count == 3
-    with pytest.raises(NotImplementedError):
-        tcommon.make_adamw(tp, 1e-3, use_8bit=True)
+    from instantir_tpu_torch.train.adam8bit import AdamW8bit
+
+    assert isinstance(tcommon.make_adamw([torch.nn.Parameter(_t(p)) for p in p0], 1e-3, use_8bit=True), AdamW8bit)
 
 
 def test_trainable_predicate_on_port_names():
@@ -493,10 +494,19 @@ def test_own_draws_are_seeded_and_generator_driven(port_inputs):
 
 @pytest.mark.parametrize("field,value", [("use_8bit_adam", True), ("quantize_frozen_unet", True),
                                          ("validation_steps", 100)])
-def test_unported_config_fields_raise(setup, field, value):
-    cfg = dataclasses.replace(Stage1Config(**STEP_CFG), **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        Stage1Trainer(None, None, None, None, cfg, device="cpu")
+def test_unported_config_fields_raise(setup, monkeypatch, field, value):
+    """The fields the port once refused now build a trainer that honours
+    them: the 8-bit AdamW, the W8 frozen UNet (at a lowered threshold; the
+    trained ip projections stay fp), validation."""
+    from instantir_tpu_torch.ops import quant
+    from instantir_tpu_torch.train.adam8bit import AdamW8bit
+
+    monkeypatch.setattr(quant, "DEFAULT_MIN_SIZE", 1)
+    trainer = _build_port(setup["params"], setup["dcfg"], **{field: value})
+    assert getattr(trainer.cfg, field) == value
+    assert isinstance(trainer.optimizer, AdamW8bit) == (field == "use_8bit_adam")
+    assert (quant.quant_mode(trainer.unet) == "w8") == (field == "quantize_frozen_unet")
+    assert all(trainer.named_parameters()[n].requires_grad for n in trainer.trainable_names)
 
 
 def test_raw_batches_and_missing_card_raise(port_inputs):
