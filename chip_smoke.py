@@ -18,7 +18,12 @@ which ends the script with a nonzero exit on failure:
    card at the main paths' shapes (plus ragged ones, a cross shape with Sq !=
    Skv, a kv tail of 72 keys, an odd batch x heads and an odd S; for GroupNorm
    every shape of the restore in bf16, fp16 and fp32, a ragged one, one past a
-   cluster's shared memory, and the fp32 paths' shapes in fp32), with time,
+   cluster's shared memory, and the fp32 paths' shapes in fp32), and at the
+   model variants' shapes (``VARIANT_SHAPES``: K1 at pad_concat's ragged
+   Aggregator maps, 2080 and 528 at 512², 8256 at 1024², and at external_kv's
+   cross shapes, 4096 queries over 8192, 6144 or 2048 keys; K2-K4 at 2080 and
+   528; K5 at pad_concat's Aggregator maps at 1024² and 512², batch 2, bf16;
+   ZeroSFT's GroupNorm shapes are derived and found among the restore's), with time,
    bound (fp32: the 3xTF32 rate, the FFMA rate's share beside it), the plain
    version's time and a one-call library yardstick (SDPA's own fp32 error is
    logged too); the wrappers' host time per call;
@@ -82,12 +87,42 @@ which ends the script with a nonzero exit on failure:
    ``cli.infer.main --quantized w8 --fused`` on phase 4c's loaded pipeline
    (run at the end of 4c); with ``--steps 30`` config #4 as graphs in W8 and
    W8A8 (a recording and a replay each) against a bf16 staged restore;
+4f. the model variants on phase 4's models at 1024², batch 2 (as under
+   CFG), each against the plain path (attention ``use_flash=False``, the
+   GroupNorm's plain version), every count derived from the config: the
+   Aggregator with ``pad_concat`` off / on x ``attn1_mode`` ``plain`` /
+   ``split`` / ``sep_split`` (phase 4's weights, sep_split's ``ln_*_ref``
+   drawn; ``variant_flash_calls``: plain 4 K1 at 8192 and 30 at 2048, 8256
+   and 2080 with the pad; split 8192 and 2048 either way, equal to plain
+   without the pad; sep_split 16 at 4096 and 120 at 1024, four attentions a
+   block over one stream; 21 K5 a forward) and ``global_pool_conditions``
+   (the mean of the unpooled residuals); a ``residual_fusion="zero_sft"``
+   UNet (its ZeroSFT leaves drawn) fed the plain Aggregator's residuals: a
+   forward (70 K1, 46 + 10 K5) and a forward and backward of the residuals
+   with checkpointing (K1 in the down and mid blocks, 34; K2 twice and
+   K3 / K4 once in the up blocks, 72 / 36 / 36; K5 56 + 33 recomputed), s/forward,
+   s/step and peaks in turns with the ``add`` UNet; ``Attention`` with
+   ``external_kv`` ``concat`` / ``additive`` / ``ta_additive`` at the UNet's
+   /16 shape over a ``KVCopy`` cache of a second image, whole and thinned by
+   ``drop_kvs(0.5)`` (one K1 at 4096 x 8192 or 6144; two, at 4096 x 4096 and
+   4096 x 4096 or 2048);
 5. stage-2 (Aggregator) training at full SDXL width: two
    ``Stage2Trainer.train_step``s at 512² (batch 2) and one at 1024² (batch 1,
    gradient checkpointing on the UNet and the Aggregator); loss,
    ``preview_error_latent`` and gradient norm finite, every Aggregator leaf
    moved, no frozen leaf changed, and every step's launch counters equal to
    the counts derived from the config;
+5b. stage 2 with ``aggregator_adapter``: ``enable_aggregator_adapter`` on
+   phase 4's Aggregator (1.466 B trainable values against 1.005 B) and its
+   steps at 512², batch 2, in turns with phase 5's trainer (the plain step's
+   launches: the ip branches attend over 64 keys on the plain path; every
+   master moved, the ip leaves' and the agg_resampler's too, no frozen leaf
+   changed); the pad_concat Aggregator's parameter gradients at 512², batch
+   2, with sep_split (16 K2-K4 at one stream's 1024 tokens) and plain (4 at
+   2080 and 30 at 528), against the plain path within ``VARIANT_GRAD_TOL``;
+   ``cli.train.main stage2 --aggregator_adapter`` 2 steps with a checkpoint
+   (read back bitwise), resumed to 4 (2 x the plain step's launches each
+   run), ``aggregator.pt`` strictly onto an adapter Aggregator;
 6. stage-1 training at full SDXL width: three ``Stage1Trainer.train_step``s at
    512² (batch 2) and one at 1024² (batch 1, gradient checkpointing); the same
    checks;
@@ -205,6 +240,18 @@ F32_RES = 512
 EXTRA_SHAPES = [(2, 2304, 2304, 10), (2, 1000, 1000, 10), (1, 200, 520, 10), (2, 8264, 8264, 10), (3, 1024, 1024, 5),
                 (1, 1001, 1001, 10)]
 FLASH_SHAPES = [(b, s, s, h) for b, s, h in RESTORE_SHAPES] + EXTRA_SHAPES
+# (B, Sq, Skv, H) of the model variants (phases 4f and 5b), derived from the config in phase 3: pad_concat's
+# ragged Aggregator maps at 512² (65x32 = 2080 at /16, 33x16 = 528 at /32) and at 1024² (129x64 = 8256, past the
+# JAX kernel's resident limit of 8192), and external_kv at the UNet's /16 shape (4096 queries): the K/V cache of
+# a second image appended (concat: 4096 + 4096 keys; thinned by drop_kvs(0.5): 4096 + 2048) or attended on its own
+# (additive, ta_additive: 4096; thinned 2048). K1 checks them all; K2-K4 the ragged 512² ones (phase 5b's
+# Aggregator gradients; its per-stream sep_split shape, 1024, is TRAIN_SHAPES[0])
+VARIANT_SHAPES = [(2, 2080, 2080, 10), (2, 528, 528, 20), (2, 8256, 8256, 10), (2, 4096, 8192, 10),
+                  (2, 4096, 6144, 10), (2, 4096, 2048, 10)]
+VARIANT_TRAIN_SHAPES = VARIANT_SHAPES[:2]
+# relative L2 of a backward pass through the bf16 kernels (and the fused GroupNorm) against the same backward
+# through the plain path: twice FORWARD_TOL, the backward adding three bf16 products per attention to the forward's
+VARIANT_GRAD_TOL = 1e-1
 F32_SHAPES = [(b, s, s, h) for b, s, h in F32_PATH_SHAPES] + EXTRA_SHAPES
 HOST_TIMING_SHAPE = RESTORE_SHAPES[1]  # most of a restore's launches
 # (C, H, W) of GroupNorm32 on the restore path at 1024², CFG batch 2: the UNet's twelve shapes, then the
@@ -316,14 +363,14 @@ def host_us_per_call(torch, fn, calls: int = 200, runs: int = 5) -> float:
 
 def check_flash(torch, attention) -> list:
     """Phase 3, K1: the flash forward against its plain version at every
-    shape: the restore's, the extra ones and the training paths' (stage 1's
+    shape: the restore's, the extra ones, the training paths' (stage 1's
     first self-attention; stage 2's previewer and the main UNet's down and
-    mid blocks)."""
+    mid blocks) and the model variants' (``VARIANT_SHAPES``)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for b, s, skv, h in FLASH_SHAPES + [(b, s, s, h) for b, s, h in TRAIN_SHAPES]:
+    for b, s, skv, h in FLASH_SHAPES + [(b, s, s, h) for b, s, h in TRAIN_SHAPES] + VARIANT_SHAPES:
         q = torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16)
         k, v = (torch.randn(b, skv, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
         out = attention.flash_attention(q, k, v)
@@ -354,8 +401,8 @@ def check_flash(torch, attention) -> list:
 
 def check_flash_training(torch, attention) -> dict:
     """Phase 3, K2-K4: the forward with lse and the two backward kernels
-    against their plain versions, at the restore's shapes, the trainer's and
-    the extra ones. The backward kernels are fed the forward kernel's own
+    against their plain versions, at the restore's shapes, the trainer's, the
+    extra ones and the ragged ones of phase 5b (``VARIANT_TRAIN_SHAPES``). The backward kernels are fed the forward kernel's own
     output and lse, their plain version the plain forward's. On the card the
     plain backward runs with 1024-wide blocks (the kernel's rounding points; a
     64-wide Python sweep of S=8192 would take minutes)."""
@@ -363,7 +410,8 @@ def check_flash_training(torch, attention) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = {"fwd_lse": [], "bwd_dq": [], "bwd_dkv": []}
-    for b, s, skv, h in FLASH_SHAPES + [(b, s, s, h) for b, s, h in TRAIN_SHAPES + STAGE2_SHAPES]:
+    for b, s, skv, h in (FLASH_SHAPES + [(b, s, s, h) for b, s, h in TRAIN_SHAPES + STAGE2_SHAPES]
+                         + VARIANT_TRAIN_SHAPES):
         q, do = (torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
         k, v = (torch.randn(b, skv, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
         shape = dict(B=b, S=s, Skv=skv, H=h)
@@ -698,6 +746,81 @@ def flash_launches_by_seq(phases, unet_calls: dict, agg_calls: dict) -> dict:
             for s, c in calls.items():
                 by_seq[s] = by_seq.get(s, 0) + c * n * len(p["t"])
     return by_seq
+
+
+def aggregator_levels(cfg, lat: int, pad: bool) -> list:
+    """(H, W) of the Aggregator's H-concatenated map at each level: 2·lat rows
+    (2·lat + 1 with ``pad_concat``'s zero row), each stride-2 downsample
+    taking H to ceil(H / 2) (the pad rebuild keeps an odd H), W = lat >> level."""
+    h, out = 2 * lat + (1 if pad else 0), []
+    for i in range(len(cfg.block_out_channels)):
+        out.append((h, lat >> i))
+        h = (h + 1) // 2
+    return out
+
+
+def variant_flash_calls(cfg, lat: int, pad: bool, mode: str) -> dict:
+    """Flash launches of one Aggregator forward with ``pad_concat=pad`` and
+    ``attn1_mode=mode``, by (Sq, Skv): ``plain`` attends over the whole map
+    (the pad row included), ``split`` over both streams without it, and
+    ``sep_split`` four times per block over one stream's (H // 2)·W tokens
+    (each stream with itself and with the other); every attention with
+    Skv >= 512 and Sq >= 128 (``dot_product_attention``'s rule)."""
+    levels = aggregator_levels(cfg, lat, pad)
+    counts: dict = {}
+
+    def add(level: int, blocks: int):
+        h, w = levels[level]
+        s, per_block = {"plain": (h * w, 1), "split": (2 * (h // 2) * w, 1), "sep_split": ((h // 2) * w, 4)}[mode]
+        if s >= 512 and blocks:
+            counts[(s, s)] = counts.get((s, s), 0) + blocks * per_block
+
+    for i, kind in enumerate(cfg.down_block_types):
+        if kind == "CrossAttnDownBlock2D":
+            add(i, cfg.layers_per_block * cfg.transformer_layers_per_block[i])
+    add(len(cfg.block_out_channels) - 1, cfg.transformer_layers_per_block[-1])
+    return counts
+
+
+def aggregator_group_norm_shapes(cfg, lat: int, pad: bool) -> dict:
+    """GroupNorm32 calls of one Aggregator forward by (C, H, W) on the maps
+    of ``aggregator_levels`` (``group_norm_shapes_per_forward``'s count)."""
+    levels = aggregator_levels(cfg, lat, pad)
+    counts: dict = {}
+    chans = cfg.block_out_channels
+
+    def add(c: int, level: int, k: int = 1):
+        key = (c,) + levels[level]
+        counts[key] = counts.get(key, 0) + k
+
+    c_in = chans[0]
+    for i, kind in enumerate(cfg.down_block_types):
+        for _ in range(cfg.layers_per_block):
+            add(c_in, i)
+            add(chans[i], i, 2 if kind == "CrossAttnDownBlock2D" else 1)
+            c_in = chans[i]
+    add(chans[-1], len(chans) - 1, 5)
+    return counts
+
+
+def zero_sft_group_norms(cfg, lat: int) -> dict:
+    """The GroupNorm32 calls a ``residual_fusion="zero_sft"`` UNet adds to one
+    forward, by (C, H, W): each up-block resnet's ZeroSFT normalises the
+    concatenation its resnet's ``norm1`` sees, and ``mid_zero_sft`` the mid
+    block's output."""
+    from instantir_tpu_torch.models.unet import down_stack_channels
+
+    chans = cfg.block_out_channels
+    n = len(chans)
+    counts = {(chans[-1], lat >> (n - 1), lat >> (n - 1)): 1}
+    skips, c_in = list(down_stack_channels(cfg)), chans[-1]
+    for i in range(len(cfg.up_block_types)):
+        level = n - 1 - i
+        for _ in range(cfg.layers_per_block + 1):
+            key = (c_in + skips.pop(), lat >> level, lat >> level)
+            counts[key] = counts.get(key, 0) + 1
+            c_in = chans[level]
+    return counts
 
 
 def group_norms_per_forward(cfg, with_up: bool = True) -> dict:
@@ -2256,6 +2379,310 @@ def run_quantized(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> 
     return out
 
 
+def variant_aggregator(torch, pipe, ucfg, g, **variant):
+    """An Aggregator built with ``variant`` (``pad_concat``, ``attn1_mode``,
+    ...) on the card in bf16, holding phase 4's Aggregator weights; the
+    leaves those lack (sep_split's ``ln_k_ref`` / ``ln_v_ref``) drawn from
+    ``g`` (weights N(0, 1/fan_in), biases N(0, 0.01)) so that they act."""
+    from instantir_tpu_torch.models.aggregator import Aggregator
+
+    agg = Aggregator(ucfg, dtype=torch.bfloat16, device="meta", **variant)
+    agg.to_empty(device="cuda")
+    own = pipe.aggregator.state_dict()
+    with torch.no_grad():
+        for name, p in agg.named_parameters():
+            if name in own:
+                p.copy_(own[name])
+            else:
+                std = p.shape[-1] ** -0.5 if p.dim() >= 2 else 0.1
+                p.copy_(torch.randn(p.shape, generator=g, device="cuda") * std)
+    return agg.requires_grad_(False).eval()
+
+
+def set_plain(model, group_norm, plain: bool) -> None:
+    """Route every attention of ``model`` to the plain path (``use_flash``
+    off) and the GroupNorms to the plain version, or both back."""
+    from instantir_tpu_torch.models.attention import Attention, SplitAttention
+
+    for m in model.modules():
+        if isinstance(m, (Attention, SplitAttention)):
+            m.use_flash = not plain
+    group_norm.USE_FUSED = not plain
+
+
+def rel_l2(torch, got, want) -> float:
+    """Relative L2 of two tensors, or of two sequences of tensors taken as one vector."""
+    if isinstance(got, (tuple, list)):
+        got = torch.cat([t.float().reshape(-1) for t in got])
+        want = torch.cat([t.float().reshape(-1) for t in want])
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def run_variants(torch, pipe, mods: dict, ucfg, card_line: str) -> dict:
+    """Phase 4f: the model variants at SDXL width on phase 4's bf16 models,
+    1024², batch 2 (as under CFG). Every launch count is derived from the
+    config, every kernel path held against the plain path.
+
+    1. The Aggregator with ``pad_concat`` off and on x ``attn1_mode``
+       ``plain`` / ``split`` / ``sep_split`` (``variant_flash_calls``; the
+       K5 count is the plain Aggregator's); ``split`` without a pad equals
+       ``plain``; ``global_pool_conditions`` is the mean of the unpooled
+       residuals.
+    2. A ``residual_fusion="zero_sft"`` UNet (phase 4's weights, its ZeroSFT
+       leaves drawn so the branch acts) fed the plain Aggregator's
+       residuals: a forward, and a forward and backward of a scalar loss with
+       respect to the residuals (gradient checkpointing on), each against the
+       plain path; s/forward, s/step and peaks against the ``add`` UNet in
+       turns.
+    3. ``Attention`` with ``external_kv`` in each mode at the UNet's /16
+       shape, fed a ``KVCopy`` cache of a second image whole and thinned by
+       ``drop_kvs(0.5)``."""
+    from instantir_tpu_torch.models.attention import Attention
+    from instantir_tpu_torch.models.kv_cache import AttentionCache, KVCopy, drop_kvs, init_kv_copy
+    from instantir_tpu_torch.models.unet import UNet2DConditionModel
+    from instantir_tpu_torch.models.zero_sft import ZeroSFT
+    from instantir_tpu_torch.pipeline.factory import synthesize_weights
+
+    group_norm = mods["group_norm"]
+    if not group_norm.USE_FUSED:
+        fail("phase 4f derives its counts with the fused GroupNorm on")
+    pipe._graphs.clear()  # phase 4e's recordings
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, b = 1024, 2
+    lat = res // 8
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(31)
+    sample = torch.randn(b, 4, lat, lat, generator=g, device="cuda").to(bf16)
+    preview = torch.randn(b, 4, lat, lat, generator=g, device="cuda").to(bf16)
+    t = torch.tensor([501, 501], device="cuda")
+    pooled_dim = ucfg.projection_class_embeddings_input_dim - 6 * ucfg.addition_time_embed_dim
+    pooled = (torch.randn(b, pooled_dim, generator=g, device="cuda") * 0.1).to(bf16)
+    tids = torch.tensor([[res, res, 0, 0, res, res]] * b, dtype=bf16, device="cuda")
+    gn_agg = group_norms_per_forward(ucfg, with_up=False)["total"]
+    if (aggregator_group_norm_shapes(ucfg, lat, False) != group_norm_shapes_per_forward(ucfg, lat, lat, False, 2)
+            or {s: n for (s, _), n in variant_flash_calls(ucfg, lat, False, "plain").items()}
+            != flash_calls_per_forward(ucfg, lat, lat, with_up=False, concat=2)
+            or sum(aggregator_group_norm_shapes(ucfg, lat, True).values()) != gn_agg):
+        fail("phase 4f: the variant derivations disagree with phase 4's for the plain Aggregator")
+    out = {"launches": {name: 0 for name in COUNTERS}, "aggregator": {}}
+
+    def counted(what: str, fn, want: dict):
+        zero_counters(mods)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        result = fn()
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        launches = read_counters(mods)
+        if launches != every_counter(want):
+            fail(f"phase 4f, {what}: kernel launches {launches}, derived {every_counter(want)}")
+        for name, n in launches.items():
+            out["launches"][name] += n
+        return result, sec, torch.cuda.max_memory_allocated() / 1e9
+
+    def plain_run(model, fn):
+        set_plain(model, group_norm, True)
+        try:
+            zero_counters(mods)
+            result = fn()
+            if any(read_counters(mods).values()):
+                fail(f"phase 4f: the plain path launched {read_counters(mods)}")
+            return result
+        finally:
+            set_plain(model, group_norm, False)
+
+    # 1. the Aggregator in six settings
+    kept = {}
+    for pad in (False, True):
+        for mode in ("plain", "split", "sep_split"):
+            what = f"Aggregator pad_concat={pad} attn1_mode={mode}"
+            agg = variant_aggregator(torch, pipe, ucfg, g, pad_concat=pad, attn1_mode=mode)
+            calls = variant_flash_calls(ucfg, lat, pad, mode)
+            want = {"flash_attention_fwd": sum(calls.values()), "group_norm_silu": gn_agg}
+
+            def fwd():
+                with torch.no_grad():
+                    down, mid = agg(sample, t, preview, pooled, tids, ref_scale=0.5)
+                return list(down) + [mid]
+
+            counted(f"{what}, first call", fwd, want)
+            got, _, peak = counted(what, fwd, want)
+            sec = time_ms(torch, fwd, iters=3, warmup=0) / 1e3
+            ref = plain_run(agg, fwd)
+            rel = rel_l2(torch, got, ref)
+            shapes = [tuple(r.shape) for r in got]
+            if kept and shapes != kept["plain"]["shapes"]:
+                fail(f"phase 4f, {what}: residual shapes {shapes} differ from the plain Aggregator's")
+            if not (all(torch.isfinite(r).all() for r in got) and rel <= FORWARD_TOL):
+                fail(f"phase 4f, {what}: the residuals are not finite or {rel} (relative L2) from the plain path "
+                     f"(> {FORWARD_TOL})")
+            row = {"launches_by_shape": {f"{sq}x{skv}": n for (sq, skv), n in calls.items()}, "rel_l2": rel,
+                   "sec": sec, "peak_gb": peak}
+            if not pad and mode == "split":
+                same = rel_l2(torch, got, kept["plain"]["out"])
+                diff = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, kept["plain"]["out"]))
+                row["vs_plain"] = same
+                log(f"  split without a pad against plain: relative L2 {same:.3e}, max abs difference {diff:.3e}")
+                if not same <= 1e-6:
+                    fail(f"phase 4f: split without a pad row differs from plain by {same} (relative L2)")
+            if not pad and mode == "plain":
+                kept["plain"] = {"out": got, "shapes": shapes}
+                agg.global_pool_conditions = True
+                pooled_out, _, _ = counted("Aggregator global_pool_conditions", fwd, want)
+                agg.global_pool_conditions = False
+                if not all(torch.equal(p, r.mean(dim=(2, 3), keepdim=True)) for p, r in zip(pooled_out, got)):
+                    fail("phase 4f: global_pool_conditions is not the mean of the unpooled residuals")
+                log("  global_pool_conditions: every residual the mean of its unpooled map over H and W "
+                    f"({[tuple(p.shape) for p in pooled_out][:2]} ...)")
+            log(f"  {what}: K1 by (Sq, Skv) {row['launches_by_shape']}, K5 {gn_agg}; relative L2 against the plain "
+                f"path {rel:.3e}; {sec * 1e3:.1f} ms per forward, peak {peak:.2f} GB; on {card_line}")
+            out["aggregator"][f"{'pad_' if pad else ''}{mode}"] = row
+            del agg, got, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # 2. a zero_sft UNet fed the plain Aggregator's residuals
+    residuals = kept.pop("plain")["out"]
+    down_res, mid_res = residuals[:-1], residuals[-1]
+    zcfg = dataclasses.replace(ucfg, residual_fusion="zero_sft")
+    zunet = UNet2DConditionModel(zcfg, dtype=bf16, device="meta")
+    zunet.to_empty(device="cuda")
+    own = pipe.unet.state_dict()
+    with torch.no_grad():
+        for name, p in zunet.named_parameters():
+            if name in own:
+                p.copy_(own[name])
+    for m in zunet.modules():
+        if isinstance(m, ZeroSFT):
+            synthesize_weights(m, g)
+    zunet.requires_grad_(False).eval()
+    n_zero = sum(p.numel() for n, p in zunet.named_parameters() if n not in own)
+    text = (torch.randn(b, 77, ucfg.cross_attention_dim, generator=g, device="cuda") * 0.1).to(bf16)
+    ip = torch.randn(b, 64, ucfg.cross_attention_dim, generator=g, device="cuda").to(bf16)
+    weight = torch.randn(b, 4, lat, lat, generator=g, device="cuda")
+    unet_calls = flash_calls_per_forward(ucfg, lat, lat, with_up=True)
+    down_mid = sum(flash_calls_per_forward(ucfg, lat, lat, with_up=False).values())
+    up_calls = sum(unet_calls.values()) - down_mid
+    gn_unet = group_norms_per_forward(ucfg)["total"]
+    zero_gn = zero_sft_group_norms(ucfg, lat)
+    n_zero_gn = sum(zero_gn.values())
+    n_up_zero = n_zero_gn - 1  # all but mid_zero_sft lie inside the up blocks
+    fwd_want = {"flash_attention_fwd": sum(unet_calls.values()), "group_norm_silu": gn_unet + n_zero_gn}
+    add_fwd_want = {"flash_attention_fwd": sum(unet_calls.values()), "group_norm_silu": gn_unet}
+    # the backward: down and mid blocks see no gradient (K1, not recomputed); the up blocks take the residuals,
+    # so each of their attentions runs K2 twice (checkpointing recomputes it) and K3 / K4 once, and their K5
+    # (ZeroSFT's included) runs again in the recomputation
+    step_want = {"flash_attention_fwd": down_mid, "flash_attention_fwd_lse": 2 * up_calls,
+                 "flash_attention_bwd_dq": up_calls, "flash_attention_bwd_dkv": up_calls,
+                 "group_norm_silu": gn_unet + n_zero_gn + up_group_norms(ucfg) + n_up_zero}
+    add_step_want = dict(step_want, group_norm_silu=gn_unet + up_group_norms(ucfg))
+    log(f"  zero_sft UNet: {n_zero / 1e6:.2f} M ZeroSFT parameters (drawn) beside phase 4's UNet weights; its ZeroSFT "
+        f"GroupNorms by (C, H, W) {zero_gn}; derived forward {fwd_want}, forward and backward {step_want}")
+
+    def unet_fwd(model):
+        def fn():
+            with torch.no_grad():
+                return model(sample, t, text, pooled, tids, ip_hidden_states=ip,
+                             down_block_additional_residuals=down_res, mid_block_additional_residual=mid_res)
+        return fn
+
+    def unet_step(model):
+        def fn():
+            leaves = [r.detach().requires_grad_() for r in residuals]
+            model.gradient_checkpointing = True
+            try:
+                o = model(sample, t, text, pooled, tids, ip_hidden_states=ip,
+                          down_block_additional_residuals=leaves[:-1], mid_block_additional_residual=leaves[-1])
+                loss = (o.float() * weight).mean()
+                grads = torch.autograd.grad(loss, leaves)
+            finally:
+                model.gradient_checkpointing = False
+            return loss.detach(), grads
+        return fn
+
+    zout, _, _ = counted("zero_sft UNet forward", unet_fwd(zunet), fwd_want)
+    zref = plain_run(zunet, unet_fwd(zunet))
+    rel_fwd = rel_l2(torch, zout, zref)
+    (loss, zgrads), _, _ = counted("zero_sft UNet forward and backward", unet_step(zunet), step_want)
+    _, ref_grads = plain_run(zunet, unet_step(zunet))
+    rel_grad = rel_l2(torch, zgrads, ref_grads)
+    per_res = [rel_l2(torch, a, r) for a, r in zip(zgrads, ref_grads)]
+    if not (torch.isfinite(zout).all() and rel_fwd <= FORWARD_TOL):
+        fail(f"phase 4f: the zero_sft UNet's output is not finite or {rel_fwd} from the plain path (> {FORWARD_TOL})")
+    if not (all(torch.isfinite(x).all() and x.abs().max() > 0 for x in zgrads) and rel_grad <= VARIANT_GRAD_TOL):
+        fail(f"phase 4f: the zero_sft UNet's residual gradients are zero, not finite or {rel_grad} from the plain "
+             f"path (> {VARIANT_GRAD_TOL})")
+    log(f"  zero_sft UNet at {res}² batch {b}: output {tuple(zout.shape)}, relative L2 against the plain path "
+        f"{rel_fwd:.3e}; gradients of the 10 residuals {rel_grad:.3e} (worst residual {max(per_res):.3e}); loss "
+        f"{float(loss):.5g}")
+    del zout, zref, zgrads, ref_grads
+    # in turns, each turn's launches checked on one call, its time the median of three runs of three calls
+    # (forward) or of one call (forward and backward) between CUDA events
+    timing = {"fwd": {"add": [], "zero_sft": []}, "step": {"add": [], "zero_sft": []},
+              "peak_gb": {"add": [], "zero_sft": []}}
+    for kind in ("add", "zero_sft", "zero_sft", "add"):
+        model = pipe.unet if kind == "add" else zunet
+        counted(f"{kind} UNet forward", unet_fwd(model), fwd_want if kind == "zero_sft" else add_fwd_want)
+        timing["fwd"][kind].append(time_ms(torch, unet_fwd(model), iters=3, warmup=0) / 1e3)
+        _, _, peak = counted(f"{kind} UNet step", unet_step(model), step_want if kind == "zero_sft" else add_step_want)
+        timing["step"][kind].append(time_ms(torch, unet_step(model), iters=1, warmup=0) / 1e3)
+        timing["peak_gb"][kind].append(peak)
+    out["zero_sft"] = {"rel_l2_fwd": rel_fwd, "rel_l2_grad": rel_grad, "timing": timing}
+    log(f"  zero_sft vs add UNet at {res}² batch {b} in turns (add, zero_sft, zero_sft, add; CUDA events): s/forward "
+        f"{json.dumps({k: [round(x, 4) for x in v] for k, v in timing['fwd'].items()})}, s/(forward + backward of "
+        f"the residuals, checkpointing) {json.dumps({k: [round(x, 4) for x in v] for k, v in timing['step'].items()})}"
+        f", peak {json.dumps({k: [round(x, 2) for x in v] for k, v in timing['peak_gb'].items()})} GB; on {card_line}")
+    del zunet, residuals, down_res, mid_res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. external K/V at the UNet's /16 shape: a KVCopy cache of a second image, whole and thinned
+    src = pipe.unet.down_blocks[1].attentions[0].transformer_blocks[0].attn1
+    dim, heads = ucfg.block_out_channels[1], ucfg.num_attention_heads[1]
+    kv = KVCopy(dim, dtype=bf16, device="cuda").requires_grad_(False)
+    init_kv_copy(kv, src)
+    second = torch.randn(b, (lat // 2) ** 2, dim, generator=g, device="cuda").to(bf16)
+    x = torch.randn(b, (lat // 2) ** 2, dim, generator=g, device="cuda").to(bf16)
+    temb = torch.randn(b, ucfg.time_embed_dim, generator=g, device="cuda").to(bf16)
+    with torch.no_grad():
+        cache = kv(second)
+        thinned = drop_kvs({"attn1": AttentionCache(cache, cache)}, 0.5,
+                           generator=torch.Generator(device="cuda").manual_seed(3))["attn1"].self_attention
+    if thinned.k.shape[1] != round(cache.k.shape[1] * 0.5):
+        fail(f"phase 4f: drop_kvs(0.5) kept {thinned.k.shape[1]} of {cache.k.shape[1]} tokens")
+    out["external_kv"] = {}
+    for mode in ("concat", "additive", "ta_additive"):
+        attn = Attention(dim, heads, dim // heads, external_kv_mode=mode, temb_dim=ucfg.time_embed_dim, dtype=bf16,
+                         device="cuda")
+        missing = attn.load_state_dict(src.state_dict(), strict=False).missing_keys
+        with torch.no_grad():
+            for name in missing:
+                p = attn.get_parameter(name)
+                p.copy_(torch.randn(p.shape, generator=g, device="cuda") * (p.shape[-1] ** -0.5 if p.dim() >= 2 else 0.1))
+        attn.requires_grad_(False)
+        for which, ext in (("whole", cache), ("thinned", thinned)):
+            n_kv = ext.k.shape[1]
+            shapes = [(x.shape[1], x.shape[1] + n_kv)] if mode == "concat" else [(x.shape[1], x.shape[1]),
+                                                                                 (x.shape[1], n_kv)]
+
+            def fn():
+                with torch.no_grad():
+                    return attn(x, temb=temb, external_kv=ext)
+
+            got, sec, _ = counted(f"external_kv {mode} {which}", fn, {"flash_attention_fwd": len(shapes)})
+            ref = plain_run(attn, fn)
+            rel = rel_l2(torch, got, ref)
+            if not (torch.isfinite(got).all() and rel <= FORWARD_TOL):
+                fail(f"phase 4f: external_kv {mode} ({which}) is not finite or {rel} from the plain path")
+            out["external_kv"][f"{mode}_{which}"] = {"shapes": shapes, "rel_l2": rel}
+            log(f"  Attention external_kv={mode}, cache {which} ({n_kv} tokens): K1 at (Sq, Skv) {shapes}, relative "
+                f"L2 against the plain path {rel:.3e}")
+        del attn
+    log(f"  phase 4f launches {out['launches']}; on {card_line}")
+    return out
+
+
 def _checksums(torch, params: dict) -> dict:
     """Per-leaf (sum, sum of squares) in fp64: changes with any element. One
     copy to the host for all leaves."""
@@ -2473,6 +2900,205 @@ def run_stage2(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     log(f"  stage-2 512² steps {['%.3f' % x for x in out['sec_512']]} s (the first includes warm-up), peak "
         f"{out['peak_gb_512']:.2f} GB; 1024² step {out['sec_1024']:.3f} s, peak {out['peak_gb_1024']:.2f} GB; "
         f"on {card_line}")
+    out["trainer"] = trainer  # phase 5b takes its steps in turns with this one's
+    return out
+
+
+def run_stage2_adapter(torch, pipe, stage2: dict, ucfg, mods: dict, card_line: str) -> dict:
+    """Phase 5b: stage 2 with ``aggregator_adapter`` at SDXL width.
+
+    1. ``enable_aggregator_adapter`` on phase 4's Aggregator, then two
+       ``train_step``s at 512², batch 2, in turns with phase 5's plain
+       trainer (``stage2["trainer"]``, freed after them; plain, adapter,
+       adapter, plain, plain, adapter) on one batch: finite
+       metrics, every master moved (the Aggregator's, its new ip leaves' and
+       the agg_resampler's), no frozen leaf changed, masters and moments fp32,
+       the launches of the plain step (the ip branches attend over
+       ``adapter_tokens`` = 64 keys and take the plain path); s/step and peaks
+       (each with both trainers' models and optimisers held).
+    2. One forward and backward of the Aggregator alone at 512², batch 2,
+       with ``pad_concat`` and ``attn1_mode="sep_split"`` (K2-K4 at one
+       stream's 32x32 = 1024 tokens; sep_split drops the pad row), and with
+       ``pad_concat`` and ``plain`` (K2-K4 at the ragged 2080 and 528), each
+       against the plain path (``use_flash=False``, GroupNorm plain).
+    3. ``cli.train.main stage2 --aggregator_adapter --synthetic_data`` for 2
+       steps with a checkpoint, then resumed to 4: the first run's state
+       equals ``checkpoint-2`` bitwise, the second run resumes from it and
+       leaves ``checkpoint-4``, ``aggregator.pt`` maps strictly onto an
+       adapter Aggregator; launches 2 x the plain step's each run."""
+    import contextlib
+    import io
+    import tempfile
+
+    from instantir_tpu_torch.cli import train as cli_mod
+    from instantir_tpu_torch.models.aggregator import Aggregator
+    from instantir_tpu_torch.train.stage2_aggregator import Stage2Trainer, enable_aggregator_adapter
+
+    group_norm = mods["group_norm"]
+    plain = stage2.pop("trainer")
+    out = {"launches": {name: 0 for name in COUNTERS}, "grads_launches": {name: 0 for name in COUNTERS}}
+    cfg = dataclasses.replace(plain.cfg, aggregator_adapter=True)
+    per_step = every_counter(expected_stage2_launches(ucfg, plain.cfg, 512 // 8, checkpointing=False))
+    if not group_norm.USE_FUSED:
+        per_step["group_norm_silu"] = 0
+
+    # 1. the adapter's steps in turns with the plain ones
+    t0 = time.time()
+    agg, agg_res = enable_aggregator_adapter(pipe.aggregator, pipe.aggregator.state_dict(),
+                                             pipe.image_encoder.config.hidden_size, cfg, seed=0)
+    trainer = Stage2Trainer(pipe.unet, agg, pipe.resampler, pipe.vae, pipe.image_encoder, cfg, device="cuda",
+                            agg_resampler=agg_res)
+    torch.cuda.synchronize()
+    named = trainer.named_parameters()
+    frozen = {n: p for n, p in named.items() if not p.requires_grad}
+    ip_leaves = [n for n in trainer.trainable_names if ".processor." in n]
+    res_leaves = [n for n in trainer.trainable_names if n.startswith("agg_resampler.")]
+    if not (ip_leaves and res_leaves and all(n.startswith(("aggregator.", "agg_resampler."))
+                                            for n in trainer.trainable_names)):
+        fail("phase 5b: the adapter trainer does not train the Aggregator's ip leaves and the agg_resampler alone")
+    log(f"  enable_aggregator_adapter + trainer in {time.time() - t0:.2f} s: {len(trainer.trainable_names)} trainable "
+        f"leaves ({len(ip_leaves)} attn1 ip leaves, {len(res_leaves)} agg_resampler leaves, "
+        f"{sum(named[n].numel() for n in res_leaves) / 1e6:.2f} M agg_resampler parameters, "
+        f"{agg_res.config.num_queries} queries), {len(frozen)} frozen")
+    masters = trainer_masters(torch, trainer, "stage 2 with the adapter")
+    before_train, before_frozen = _checksums(torch, masters), _checksums(torch, frozen)
+    g = torch.Generator(device="cuda").manual_seed(37)
+    batch = trainer.prepare_batch(*training_batch(torch, g, 2, 512, torch.bfloat16, uncond=True))
+    turns = {"sec": {"plain": [], "adapter": []}, "peak_gb": {"plain": [], "adapter": []}}
+    for kind in ("plain", "adapter", "adapter", "plain", "plain", "adapter"):
+        t = plain if kind == "plain" else trainer
+        launches, sec, _ = train_step_checked(torch, t, batch, g, mods, per_step,
+                                              f"stage-2 train_step ({kind}) at 512² batch 2", card_line)
+        turns["sec"][kind].append(sec)
+        turns["peak_gb"][kind].append(torch.cuda.max_memory_allocated() / 1e9)
+        if kind == "adapter":
+            for name, n in launches.items():
+                out["launches"][name] += n
+    check_leaves(torch, before_train, before_frozen, masters, frozen, "stage 2 with the adapter, 3 steps")
+    check_masters(torch, trainer, "stage 2 with the adapter")
+    out["turns"] = turns
+    log(f"  stage 2 plain vs adapter at 512² batch 2 in turns (the first of each warms up): s/step "
+        f"{json.dumps({k: [round(x, 3) for x in v] for k, v in turns['sec'].items()})}, peak "
+        f"{json.dumps({k: [round(x, 2) for x in v] for k, v in turns['peak_gb'].items()})} GB (both trainers' "
+        f"models and optimisers held); on {card_line}")
+    del trainer, agg, agg_res, masters, batch, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the Aggregator's gradients at the per-stream and ragged shapes
+    lat, b = 512 // 8, 2
+    bf16 = torch.bfloat16
+    sample = torch.randn(b, 4, lat, lat, generator=g, device="cuda").to(bf16)
+    preview = torch.randn(b, 4, lat, lat, generator=g, device="cuda").to(bf16)
+    t = torch.tensor([301, 701], device="cuda")
+    pooled_dim = ucfg.projection_class_embeddings_input_dim - 6 * ucfg.addition_time_embed_dim
+    pooled = (torch.randn(b, pooled_dim, generator=g, device="cuda") * 0.1).to(bf16)
+    tids = torch.tensor([[512, 512, 0, 0, 512, 512]] * b, dtype=bf16, device="cuda")
+    gn_agg = group_norms_per_forward(ucfg, with_up=False)["total"]
+    out["grads"] = {}
+    for mode in ("sep_split", "plain"):
+        agg = variant_aggregator(torch, pipe, ucfg, g, pad_concat=True, attn1_mode=mode).requires_grad_(True)
+        params = [p for _, p in agg.named_parameters()]
+        names = [n for n, _ in agg.named_parameters()]
+        calls = variant_flash_calls(ucfg, lat, True, mode)
+        n = sum(calls.values())
+        want = every_counter({"flash_attention_fwd_lse": n, "flash_attention_bwd_dq": n,
+                              "flash_attention_bwd_dkv": n, "group_norm_silu": gn_agg})
+
+        def grads():
+            down, mid = agg(sample, t, preview, pooled, tids, ref_scale=0.5)
+            loss = sum(r.float().square().mean() for r in down) + mid.float().square().mean()
+            return torch.autograd.grad(loss, params)
+
+        zero_counters(mods)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        got = grads()
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        launches = read_counters(mods)
+        if launches != want:
+            fail(f"phase 5b, Aggregator pad_concat {mode} gradients: launches {launches}, derived {want}")
+        for name, k in launches.items():
+            out["grads_launches"][name] += k
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        set_plain(agg, group_norm, True)
+        try:
+            ref = grads()
+        finally:
+            set_plain(agg, group_norm, False)
+        rel = rel_l2(torch, got, ref)
+        per_leaf = sorted(((rel_l2(torch, a, r), nm) for a, r, nm in zip(got, ref, names) if r.float().norm() > 0),
+                          reverse=True)
+        if not (all(torch.isfinite(x).all() for x in got) and rel <= VARIANT_GRAD_TOL):
+            fail(f"phase 5b: the pad_concat {mode} Aggregator's gradients are not finite or {rel} from the plain "
+                 f"path (> {VARIANT_GRAD_TOL})")
+        out["grads"][mode] = {"launches_by_shape": {f"{sq}x{skv}": k for (sq, skv), k in calls.items()},
+                              "rel_l2": rel, "worst_leaf": per_leaf[0], "sec": sec, "peak_gb": peak}
+        log(f"  Aggregator pad_concat {mode} forward + backward at 512² batch 2: K2-K4 by (Sq, Skv) "
+            f"{out['grads'][mode]['launches_by_shape']}, K5 {gn_agg}; parameter gradients {rel:.3e} (relative L2) "
+            f"from the plain path, worst leaf {per_leaf[0][1]} {per_leaf[0][0]:.3e}; {sec:.3f} s, peak {peak:.2f} GB")
+        del agg, params, got, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 3. the training CLI with --aggregator_adapter, checkpointed and resumed
+    root = tempfile.mkdtemp(prefix="chip_smoke_adapter_")
+    try:
+        free = shutil.disk_usage(root).free
+        if free < 40e9:
+            fail(f"phase 5b: the checkpoints need 40 GB, {root} has {free / 1e9:.2f} GB free")
+        flags = ["stage2", "--aggregator_adapter", "--synthetic_data", "--resolution", "512", "--train_batch_size",
+                 "2", "--lr_warmup_steps", "0", "--checkpointing_steps", "2", "--checkpoints_total_limit", "1",
+                 "--output_dir", root, "--losses_config", str(REPO / "config_files" / "losses.yaml")]
+        shared = _checksums(torch, dict(pipe.aggregator.named_parameters()))
+        out["cli"] = {}
+        for steps in (2, 4):
+            text = io.StringIO()
+            zero_counters(mods)
+            t0 = time.time()
+            with contextlib.redirect_stdout(text):
+                result = cli_mod.main(flags + ["--max_train_steps", str(steps)], pipe=pipe)
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            launches = read_counters(mods)
+            for line in text.getvalue().rstrip().splitlines():
+                log(f"    | {line}")
+            trainer = result["trainer"]
+            want = every_counter({k: 2 * n for k, n in per_step.items()})
+            if launches != want or trainer.global_step != steps:
+                fail(f"phase 5b, the CLI to {steps} steps: launches {launches} (derived {want}), ended at step "
+                     f"{trainer.global_step}")
+            for name, k in launches.items():
+                out["launches"][name] += k
+            left = sorted(d for d in os.listdir(root) if d.startswith("checkpoint-"))
+            if left != [f"checkpoint-{steps}"]:
+                fail(f"phase 5b: the CLI run to {steps} steps left {left}")
+            if steps == 2:
+                out["cli"]["restore"] = restore_checked(torch, trainer, 2, "stage 2 with the adapter", card_line)
+                masters = dict(zip(trainer.trainable_names, trainer.optimizer.masters))
+                moved = _checksums(torch, {n: masters["aggregator." + n] for n in shared})
+                stuck = [n for n in shared if moved[n] == shared[n]]
+                if stuck:
+                    fail(f"phase 5b: {len(stuck)} Aggregator masters did not move in the CLI run, e.g. {stuck[:3]}")
+            elif "resumed from checkpoint-2" not in text.getvalue():
+                fail("phase 5b: the second CLI run did not resume from checkpoint-2")
+            out["cli"][f"sec_{steps}"] = sec
+            log(f"  CLI stage2 --aggregator_adapter to {steps} steps: {sec:.2f} s for the run and its export, launches "
+                f"{launches}, checkpoint writes {trainer.ckpt.saves}; on {card_line}")
+            del result, trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        exported = torch.load(os.path.join(root, "aggregator.pt"), map_location="cpu", weights_only=True)
+        Aggregator(ucfg, dtype=torch.bfloat16, device="meta", aggregator_adapter=True).load_state_dict(
+            exported, strict=True, assign=True)
+        if not any(".attn1.processor.to_k_ip." in k for k in exported):
+            fail("phase 5b: aggregator.pt holds no attn1 ip leaf")
+        log(f"  aggregator.pt ({len(exported)} tensors) maps strictly onto an adapter Aggregator")
+        del exported
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  phase 5b launches: adapter steps and CLI {out['launches']}, gradient checks {out['grads_launches']}")
     return out
 
 
@@ -3389,6 +4015,17 @@ def main() -> None:
     gn_cases = ([(GN_BATCH, shape, (bf16, fp32)) for shape in gn_shapes(F32_RES) if shape not in GN_SHAPES]
                 + [(1, shape, (fp32,)) for shape in gn_shapes(F32_RES, aggregator=False)]
                 + [(1, shape, (bf16,)) for shape in gn_shapes(1024)])
+    # the model variants' (phases 4f and 5b, batch 2, bf16): pad_concat's Aggregator maps at 1024² and 512²; a
+    # zero_sft UNet's ZeroSFT norms take the shapes its up resnets' norm1 and its mid block take, already among
+    # GN_UNET_SHAPES at 1024²
+    zero_sft_shapes = sorted(zero_sft_group_norms(ucfg, 1024 // 8))
+    if not set(zero_sft_shapes) <= set(GN_UNET_SHAPES):
+        fail(f"ZeroSFT's GroupNorm shapes {zero_sft_shapes} are not all among GN_UNET_SHAPES")
+    pad_shapes = sorted(set(aggregator_group_norm_shapes(ucfg, 1024 // 8, True))
+                        | set(aggregator_group_norm_shapes(ucfg, 512 // 8, True)))
+    gn_cases += [(GN_BATCH, shape, (bf16,)) for shape in pad_shapes]
+    log(f"  the variants' K5 shapes: pad_concat {pad_shapes}; ZeroSFT {zero_sft_shapes} (checked among the "
+        "restore's)")
     log("[3] kernel check against the plain versions")
     if args.only not in ("group_norm", "flash_f32"):
         k1_rows = check_flash(torch, attention)
@@ -3423,9 +4060,21 @@ def main() -> None:
         "staged and graph restores against bf16, the W8 server")
     quantized = run_quantized(torch, pipe, args.steps, mods, ucfg, card_line)
 
+    # 4f. the model variants
+    log("[4f] model variants at SDXL width: the Aggregator's pad_concat x attn1_mode and global_pool_conditions, a "
+        "zero_sft UNet forward and backward, external_kv in three modes")
+    variants = run_variants(torch, pipe, mods, ucfg, card_line)
+
     # 5. stage-2 training (before stage 1, which frees the Aggregator)
     log("[5] stage-2 (Aggregator) training at SDXL width")
     stage2 = run_stage2(torch, pipe, ucfg, mods, card_line)
+
+    # 5b. stage 2 with the Aggregator's own image-prompt adapter
+    log("[5b] stage 2 with --aggregator_adapter at SDXL width: steps in turns with phase 5's, the variant "
+        "Aggregator's gradients, the training CLI with a checkpoint and its resume")
+    adapter = run_stage2_adapter(torch, pipe, stage2, ucfg, mods, card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 6. stage-1 training
     log("[6] stage-1 training at SDXL width")
@@ -3480,6 +4129,9 @@ def main() -> None:
                 "train_qlora": train["qlora"]["launches"][name],
                 "train_previewer_qlora": previewer["qlora"]["launches"][name],
                 "train_cli_qlora": train_cli["launches_qlora_cli"][name],
+                "variants": variants["launches"][name],
+                "train_stage2_adapter": adapter["launches"][name],
+                "aggregator_variant_grads": adapter["grads_launches"][name],
                 "fp32": f32["restore"][name] + f32["train"][name]}
 
     src = "instantir_tpu_torch/csrc/"
@@ -3591,6 +4243,16 @@ def main() -> None:
         f"{json.dumps(qlora_line(previewer['qlora']))}; validation renders s "
         f"{json.dumps({k: round(v, 3) for k, v in train_cli['validation_sec'].items()})}; 8-bit stage-1 checkpoint "
         f"{train_cli['qlora_saves'][-1]['bytes'] / 1e9:.2f} GB; on {card_line}")
+    log(f"[9] variants: Aggregator per setting (1024² batch 2) "
+        f"{json.dumps({k: {'ms': round(v['sec'] * 1e3, 1), 'rel_l2': v['rel_l2']} for k, v in variants['aggregator'].items()})}; "
+        f"zero_sft vs add UNet s/forward {json.dumps({k: round(min(v), 4) for k, v in variants['zero_sft']['timing']['fwd'].items()})}, "
+        f"s/(forward + backward) {json.dumps({k: round(min(v), 4) for k, v in variants['zero_sft']['timing']['step'].items()})}, "
+        f"peak GB {json.dumps({k: round(max(v), 2) for k, v in variants['zero_sft']['timing']['peak_gb'].items()})}; "
+        f"stage 2 at 512² batch 2, s/step plain vs adapter "
+        f"{json.dumps({k: round(min(v), 3) for k, v in adapter['turns']['sec'].items()})}, peak "
+        f"{json.dumps({k: round(max(v), 2) for k, v in adapter['turns']['peak_gb'].items()})} GB; the CLI with the "
+        f"adapter {adapter['cli']['sec_2']:.2f} s (2 steps) and {adapter['cli']['sec_4']:.2f} s (resumed to 4); on "
+        f"{card_line}")
     log(json.dumps({"kernels": entries}))
     log(card_line)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

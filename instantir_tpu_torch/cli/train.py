@@ -21,8 +21,12 @@ Usage (on the card):
 (resized to ``--resolution``, LQ and GT alike) every N steps into the event
 file (``train/validation.py``); ``--use_8bit_adam`` stores the Adam moments
 in blockwise int8; ``--quantize_frozen_unet`` keeps the frozen UNet's bases
-in int8, dequantized at use. ``--aggregator_adapter`` is not ported and
-raises ``NotImplementedError``.
+in int8, dequantized at use. ``stage2 --aggregator_adapter
+[--adapter_tokens N]`` trains the Aggregator with its own image-prompt adapter
+(``train/stage2_aggregator.py::enable_aggregator_adapter``: a Resampler of N
+queries and a time-aware IP branch on every self-attention); its validation
+render raises ``ValueError``, as the JAX CLI's does (the restore has no image
+tokens for the Aggregator).
 """
 
 from __future__ import annotations
@@ -76,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_ema_adapter", action="store_true")
     p.add_argument("--optimize_adapter", action="store_true")
     p.add_argument("--aggregator_adapter", action="store_true",
-                   help="stage2: the aggregator's own image-prompt adapter (not ported)")
+                   help="stage2: give the aggregator its own image-prompt adapter (a Resampler over the encoder "
+                        "tokens + a TA-IP branch on each attn1), trained with it")
     p.add_argument("--adapter_tokens", type=int, default=64)
     p.add_argument("--importance_sampling", action="store_true")
     p.add_argument("--num_ddim_timesteps", type=int, default=50)
@@ -105,12 +110,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--report_to", type=str, default="tensorboard", choices=["tensorboard", "wandb", "all"],
                    help="tracker backend (wandb when the package is importable)")
     return p
-
-
-def check_ported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` naming the first flag whose code is not ported."""
-    if args.aggregator_adapter:
-        raise NotImplementedError("--aggregator_adapter is not ported yet")
 
 
 def _val_batch(args: argparse.Namespace) -> Optional[Dict[str, torch.Tensor]]:
@@ -232,7 +231,6 @@ def main(argv: Optional[List[str]] = None, device="cuda", pipe: Optional[Instant
     place. Returns ``{"trainer", "records" (the logged metrics of ``run``),
     "exports" (the written files)}``."""
     args = build_parser().parse_args(argv)
-    check_ported(args)
     from instantir_tpu_torch.losses import load_losses_config
 
     losses_cfg = load_losses_config(args.losses_config) if os.path.exists(args.losses_config) else None
@@ -280,7 +278,15 @@ def main(argv: Optional[List[str]] = None, device="cuda", pipe: Optional[Instant
                            use_ema_adapter=args.use_ema_adapter, optimize_adapter=args.optimize_adapter,
                            aggregator_adapter=args.aggregator_adapter, adapter_tokens=args.adapter_tokens,
                            importance_sampling=args.importance_sampling, **shared)
-        trainer = Stage2Trainer(pipe.unet, pipe.aggregator, *models[1:], cfg, losses_cfg, device=pipe.device)
+        aggregator, agg_resampler = pipe.aggregator, None
+        if cfg.aggregator_adapter:
+            from instantir_tpu_torch.train.stage2_aggregator import enable_aggregator_adapter
+
+            aggregator, agg_resampler = enable_aggregator_adapter(
+                pipe.aggregator, pipe.aggregator.state_dict(), pipe.image_encoder.config.hidden_size, cfg,
+                seed=args.seed)
+        trainer = Stage2Trainer(pipe.unet, aggregator, *models[1:], cfg, losses_cfg, device=pipe.device,
+                                agg_resampler=agg_resampler)
         export, name = trainer.export_aggregator, "aggregator.pt"
     records = trainer.run(data, cond, val_batch=_val_batch(args))
     os.makedirs(args.output_dir, exist_ok=True)

@@ -17,6 +17,18 @@ exporters and returns ``{"<model>.<parameter name>": array}``, the names of
 name by name. ``export_ip_adapter`` and ``export_adapter`` lay the stage-1
 result out as the reference's ``adapter.pt`` payload.
 
+The model variants' leaves carry over too: ``export_unet`` writes a
+``residual_fusion="zero_sft"`` UNet's ``up_blocks.{i}.zero_sfts.{j}.*`` and
+``mid_zero_sft.*``; ``export_aggregator`` the attn1 ip branch of the
+``aggregator_adapter`` (``attn1.processor.to_k_ip`` ...), the ``sep_split``
+AdaLNs ``attn1.ln_k_ref`` / ``ln_v_ref``, and any attention's
+``ln_k_ext`` / ``ln_v_ext`` (``ta_additive``); ``export_kv_copy``,
+``export_conditioning_embedding``, ``export_image_proj`` and
+``export_mlp_proj`` the standalone modules; the stage-2 ``agg_resampler``
+goes through ``export_resampler``. Neither the JAX exporter nor any released
+checkpoint names the ZeroSFT, split or ext leaves: their names here are the
+port modules' attributes.
+
 The other way, for ``pipeline/load.py``: ``load_torch_state_dict`` reads a
 checkpoint file (its own ``.safetensors`` reader: the port needs no
 ``safetensors`` package), ``import_ip_adapter`` and
@@ -93,6 +105,16 @@ def _inv_attention(out, prefix, node):
         if "ln_k_ip" in node:
             _inv_lora_dense(out, f"{p}.ln_k_ip.linear", node["ln_k_ip"]["linear"])
             _inv_lora_dense(out, f"{p}.ln_v_ip.linear", node["ln_v_ip"]["linear"])
+    for ln in ("ln_k_ref", "ln_v_ref", "ln_k_ext", "ln_v_ext"):  # SplitAttention "sep"; ta_additive
+        if ln in node:
+            _inv_lora_dense(out, f"{prefix}.{ln}.linear", node[ln]["linear"])
+
+
+def _inv_zero_sft(out, prefix, node):
+    for name in ("zero_conv", "mlp_shared", "zero_mul", "zero_add"):
+        _inv_conv(out, f"{prefix}.{name}", node[name])
+    if "param_free_norm" in node:
+        _inv_gn32(out, f"{prefix}.param_free_norm", node["param_free_norm"])
 
 
 def _inv_transformer_block(out, prefix, node):
@@ -136,6 +158,8 @@ def _inv_block(out, prefix, node):
             _inv_lora_conv(out, f"{prefix}.downsamplers.0.conv", sub["conv"])
         elif name == "upsamplers_0":
             _inv_lora_conv(out, f"{prefix}.upsamplers.0.conv", sub["conv"])
+        elif name.startswith("zero_sfts_"):
+            _inv_zero_sft(out, f"{prefix}.zero_sfts.{name.split('_')[-1]}", sub)
 
 
 def _inv_sft(out, prefix, node):
@@ -157,6 +181,8 @@ def export_unet(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
         elif name.startswith("up_blocks_"):
             _inv_block(out, f"up_blocks.{name.split('_')[-1]}", node)
     _inv_block(out, "mid_block", p["mid_block"])
+    if "mid_zero_sft" in p:
+        _inv_zero_sft(out, "mid_zero_sft", p["mid_zero_sft"])
     _inv_gn32(out, "conv_norm_out", p["conv_norm_out"])
     _inv_conv(out, "conv_out", p["conv_out"]["base"])
     return out
@@ -196,6 +222,44 @@ def export_resampler(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
         _inv_norm(out, f"layers.{i}.1.0", p[f"layers_{i}_ff_norm"])
         _inv_linear(out, f"layers.{i}.1.1", p[f"layers_{i}_ff_in"])
         _inv_linear(out, f"layers.{i}.1.3", p[f"layers_{i}_ff_out"])
+    return out
+
+
+def export_kv_copy(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    p = tree["params"]
+    out: Dict[str, np.ndarray] = {}
+    _inv_lora_dense(out, "to_k", p["to_k"])
+    _inv_lora_dense(out, "to_v", p["to_v"])
+    return out
+
+
+def export_conditioning_embedding(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    p = tree["params"]
+    out: Dict[str, np.ndarray] = {}
+    _inv_conv(out, "conv_in", p["conv_in"])
+    for name, node in p.items():
+        if name.startswith("blocks_"):
+            _inv_conv(out, f"blocks.{name.split('_')[-1]}", node)
+    _inv_conv(out, "conv_out", p["conv_out"])
+    return out
+
+
+def export_image_proj(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """``ImageProjModel``'s tree (``proj``, ``norm``)."""
+    p = tree["params"]
+    out: Dict[str, np.ndarray] = {}
+    _inv_linear(out, "proj", p["proj"])
+    _inv_norm(out, "norm", p["norm"])
+    return out
+
+
+def export_mlp_proj(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """``MLPProjModel``'s tree (``fc1``, ``fc2``, ``norm``)."""
+    p = tree["params"]
+    out: Dict[str, np.ndarray] = {}
+    _inv_linear(out, "fc1", p["fc1"])
+    _inv_linear(out, "fc2", p["fc2"])
+    _inv_norm(out, "norm", p["norm"])
     return out
 
 
@@ -270,7 +334,8 @@ def to_torch(state: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in state.items()}
 
 
-_EXPORTERS = {"unet": export_unet, "aggregator": export_aggregator, "resampler": export_resampler, "vae": export_vae}
+_EXPORTERS = {"unet": export_unet, "aggregator": export_aggregator, "resampler": export_resampler, "vae": export_vae,
+              "agg_resampler": export_resampler}
 
 
 def export_named(trees: Dict[str, Dict[str, Any]]) -> Dict[str, np.ndarray]:

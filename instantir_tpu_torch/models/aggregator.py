@@ -11,15 +11,30 @@ Twin of ``instantir_tpu/models/aggregator.py::Aggregator``:
     ``conditioning_scale``.
 The Aggregator never carries LoRA. With ``gradient_checkpointing`` (from
 ``UNetConfig``, switchable between calls) each down block and the mid block
-is recomputed in the backward pass. ``pad_concat``, ``attn1_mode`` and
-``aggregator_adapter`` are not ported yet.
+is recomputed in the backward pass.
+
+The ablations of the JAX module, each off by default:
+  * ``pad_concat``: a zero row between the two streams at the stem, re-zeroed
+    after every down block (the rebuilt map also replaces that block's last
+    residual);
+  * ``attn1_mode``: ``"plain"`` (joint self-attention over the whole map),
+    ``"split"`` (joint, the pad row left out) or ``"sep_split"`` (per-stream
+    self-attention plus AdaLN'd cross-stream attention, ``ref_scale``);
+  * ``aggregator_adapter``: a time-aware IP branch on every self-attention
+    (``processor.to_k_ip`` / ``to_v_ip`` / ``ln_k_ip`` / ``ln_v_ip``) over
+    ``ip_hidden_states``, the image tokens the caller projects first (stage 2's
+    ``agg_resampler``); it needs ``attn1_mode="plain"``;
+  * ``global_pool_conditions``: every residual mean-pooled over H and W.
+``ConditioningEmbedding`` is the JAX package's pixel-space condition encoder,
+which no Aggregator path uses.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -31,6 +46,7 @@ from instantir_tpu_torch.models.unet import (
     down_stack_channels,
     time_and_added_embedding,
 )
+from instantir_tpu_torch.models.unet_blocks import CrossAttnDownBlock2D
 
 
 class SFT(nn.Module):
@@ -61,25 +77,74 @@ def _split_h(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return t[:, :, : hh // 2], t[:, :, hh - hh // 2 :]
 
 
+def _pad_row(c: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """``[c; zero row; r]`` along H."""
+    return torch.cat([c, c.new_zeros(c.shape[0], c.shape[1], 1, c.shape[3]), r], dim=2)
+
+
+def _rebuild_pad(t: torch.Tensor) -> torch.Tensor:
+    """The map with its middle row zeroed again, each stream's rows kept."""
+    cond, ref = _split_h(t)
+    return _pad_row(cond, ref)
+
+
+class ConditioningEmbedding(nn.Module):
+    """ControlNet-style pixel-space condition encoder, twin of the JAX
+    module: ``conv_in`` -> SiLU -> [3x3 conv -> SiLU -> 3x3 stride-2 conv ->
+    SiLU] x (len - 1) -> zero-init ``conv_out`` (NCHW)."""
+
+    def __init__(self, embedding_channels: int, block_out_channels: Sequence[int] = (16, 32, 96, 256),
+                 conditioning_channels: int = 3, dtype=torch.float32, device=None):
+        super().__init__()
+        common = dict(dtype=dtype, device=device)
+        chans = tuple(block_out_channels)
+        self.conv_in = nn.Conv2d(conditioning_channels, chans[0], 3, padding=1, **common)
+        blocks = []
+        for i in range(len(chans) - 1):
+            blocks.append(nn.Conv2d(chans[i], chans[i], 3, padding=1, **common))
+            blocks.append(nn.Conv2d(chans[i], chans[i + 1], 3, stride=2, padding=1, **common))
+        self.blocks = nn.ModuleList(blocks)
+        self.conv_out = nn.Conv2d(chans[-1], embedding_channels, 3, padding=1, **common)
+        nn.init.zeros_(self.conv_out.weight)
+        nn.init.zeros_(self.conv_out.bias)
+
+    def forward(self, conditioning: torch.Tensor) -> torch.Tensor:
+        x = F.silu(self.conv_in(conditioning.to(self.conv_in.weight.dtype)))
+        for block in self.blocks:
+            x = F.silu(block(x))
+        return self.conv_out(x)
+
+
 class Aggregator(nn.Module):
     """SDXL down+mid trunk on the H-concatenated (LQ, preview) pair (NCHW)."""
 
-    def __init__(self, config: UNetConfig, use_flash: bool = True, dtype=torch.float32, device=None):
+    def __init__(self, config: UNetConfig, use_flash: bool = True, dtype=torch.float32, device=None,
+                 pad_concat: bool = False, attn1_mode: str = "plain", aggregator_adapter: bool = False,
+                 global_pool_conditions: bool = False):
         super().__init__()
+        if aggregator_adapter and attn1_mode != "plain":
+            raise ValueError("aggregator_adapter requires attn1_mode='plain' (the split-attention "
+                             "ablations replace attn1 with SplitAttention, which has no ip branch)")
         cfg = config
         self.config = cfg
         self.dtype = dtype
+        self.use_flash = use_flash
+        self.pad_concat = pad_concat
+        self.attn1_mode = attn1_mode
+        self.aggregator_adapter = aggregator_adapter
+        self.global_pool_conditions = global_pool_conditions
         self.gradient_checkpointing = cfg.gradient_checkpointing  # may be switched between calls
         common = dict(dtype=dtype, device=device)
         no_lora = dict(lora_rank=0, lora_alpha=1.0)
+        variant = dict(attn1_with_ip=aggregator_adapter, attn1_mode=attn1_mode)
         c0 = cfg.block_out_channels[0]
         self.conv_in = nn.Conv2d(cfg.in_channels, c0, 3, padding=1, **common)
         self.ref_conv_in = nn.Conv2d(cfg.in_channels, c0, 3, padding=1, **common)
         self.time_embedding = TimestepEmbedding(c0, cfg.time_embed_dim, **common)
         self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, cfg.time_embed_dim,
                                                **common)
-        self.down_blocks = build_down_blocks(cfg, False, False, no_lora, use_flash, common)
-        self.mid_block = build_mid_block(cfg, False, False, no_lora, use_flash, common)
+        self.down_blocks = build_down_blocks(cfg, False, False, no_lora, use_flash, common, **variant)
+        self.mid_block = build_mid_block(cfg, False, False, no_lora, use_flash, common, **variant)
         self.controlnet_down_blocks = nn.ModuleList([sft_head(ch, dtype, device) for ch in down_stack_channels(cfg)])
         self.controlnet_mid_block = sft_head(cfg.block_out_channels[-1], dtype, device)
 
@@ -96,27 +161,47 @@ class Aggregator(nn.Module):
         added_text_embeds: torch.Tensor,
         added_time_ids: torch.Tensor,
         conditioning_scale: float = 1.0,
+        ip_hidden_states: Optional[torch.Tensor] = None,  # aggregator_adapter tokens [B, N, cross_dim]
+        ip_scale: Optional[float] = None,
+        ref_scale: float = 1.0,  # sep_split's cross-stream strength
     ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+        if self.aggregator_adapter and ip_hidden_states is None:
+            raise ValueError("aggregator_adapter=True requires ip_hidden_states (project the "
+                             "image-encoder tokens through the aggregator's Resampler first)")
         cfg = self.config
         b = sample.shape[0]
         timesteps = torch.as_tensor(timesteps, device=sample.device).reshape(-1).expand(b)
         emb = time_and_added_embedding(cfg, self.time_embedding, self.add_embedding, timesteps,
                                        added_text_embeds, added_time_ids)
+        # sep_split's AdaLN and the adapter's TA-IP AdaLN read the combined time embedding
+        attn_temb = emb if (self.attn1_mode == "sep_split" or self.aggregator_adapter) else None
+        attn_kw = dict(ip_hidden_states=ip_hidden_states, attn_temb=attn_temb, ip_scale=ip_scale,
+                       ref_scale=ref_scale)
 
-        def run(block, *args):
+        def run(block, *args, **kwargs):
             if self.gradient_checkpointing and torch.is_grad_enabled():
-                return checkpoint(block, *args, use_reentrant=False)
-            return block(*args)
+                return checkpoint(block, *args, use_reentrant=False, **kwargs)
+            return block(*args, **kwargs)
 
-        x = torch.cat([self.conv_in(sample.to(self.dtype)), self.ref_conv_in(controlnet_cond.to(self.dtype))], dim=2)
+        cond = self.conv_in(sample.to(self.dtype))
+        ref = self.ref_conv_in(controlnet_cond.to(self.dtype))
+        x = _pad_row(cond, ref) if self.pad_concat else torch.cat([cond, ref], dim=2)
         res_samples = (x,)
         for block in self.down_blocks:
-            x, res = run(block, x, emb)
+            if isinstance(block, CrossAttnDownBlock2D):
+                x, res = run(block, x, emb, **attn_kw)
+            else:
+                x, res = run(block, x, emb)
+            if self.pad_concat:
+                x = _rebuild_pad(x)
+                res = res[:-1] + (x,)
             res_samples = res_samples + res
-        x = run(self.mid_block, x, emb)
+        x = run(self.mid_block, x, emb, **attn_kw)
 
         down = tuple(self._head(head, r) * conditioning_scale
                      for head, r in zip(self.controlnet_down_blocks, res_samples))
         mid = self._head(self.controlnet_mid_block, x) * conditioning_scale
+        if self.global_pool_conditions:
+            down = tuple(r.mean(dim=(2, 3), keepdim=True) for r in down)
+            mid = mid.mean(dim=(2, 3), keepdim=True)
         return down, mid
-

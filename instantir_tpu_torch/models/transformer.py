@@ -5,6 +5,12 @@ Twin of ``instantir_tpu/models/transformer.py``: diffusers
 folded into ``Attention`` and cross-attention removable
 (``has_cross_attention=False`` for the Aggregator). Modules take NCHW maps;
 tokens are the row-major flattened H·W axis, as in the JAX package.
+
+The Aggregator's variants of the self-attention ``attn1``: ``attn1_with_ip``
+gives it the decoupled time-aware IP branch over cross-attention-wide image
+tokens (``aggregator_adapter``); ``attn1_mode`` ``"split"`` / ``"sep_split"``
+makes it a ``SplitAttention`` (``joint`` / ``sep``) over the map's
+``spatial`` (H, W), with ``ref_scale`` for ``sep``.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from instantir_tpu_torch.models.attention import Attention
+from instantir_tpu_torch.models.attention import Attention, SplitAttention
 from instantir_tpu_torch.models.layers import GroupNorm32, LayerNorm32, LoRALinear
 
 
@@ -48,13 +54,22 @@ class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, head_dim: int, cross_attention_dim: int = 2048,
                  has_cross_attention: bool = True, with_ip: bool = False, time_aware_ip: bool = True,
                  temb_dim: Optional[int] = None, lora_rank: int = 0, lora_alpha: float = 1.0,
-                 use_flash: bool = True, dtype=torch.float32, device=None):
+                 use_flash: bool = True, dtype=torch.float32, device=None, attn1_with_ip: bool = False,
+                 attn1_mode: str = "plain"):
         super().__init__()
         common = dict(dtype=dtype, device=device)
         lora = dict(lora_rank=lora_rank, lora_alpha=lora_alpha)
         self.has_cross_attention = has_cross_attention
+        self.attn1_with_ip = attn1_with_ip
+        self.attn1_mode = attn1_mode
         self.norm1 = LayerNorm32(dim, eps=1e-5, **common)
-        self.attn1 = Attention(dim, heads, head_dim, use_flash=use_flash, **lora, **common)
+        if attn1_mode == "plain":
+            self.attn1 = Attention(dim, heads, head_dim, with_ip=attn1_with_ip, time_aware_ip=time_aware_ip,
+                                   temb_dim=temb_dim, ip_dim=cross_attention_dim, use_flash=use_flash, **lora,
+                                   **common)
+        else:
+            self.attn1 = SplitAttention(dim, heads, head_dim, mode="sep" if attn1_mode == "sep_split" else "joint",
+                                        temb_dim=temb_dim, use_flash=use_flash, **common)
         if has_cross_attention:
             self.norm2 = LayerNorm32(dim, eps=1e-5, **common)
             self.attn2 = Attention(dim, heads, head_dim, cross_attention_dim=cross_attention_dim, with_ip=with_ip,
@@ -65,8 +80,17 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: Optional[torch.Tensor] = None,
                 ip_hidden_states: Optional[torch.Tensor] = None, temb: Optional[torch.Tensor] = None,
-                lora_scale: float = 0.0, ip_scale: Optional[float] = None) -> torch.Tensor:
-        hidden_states = hidden_states + self.attn1(self.norm1(hidden_states), lora_scale=lora_scale)
+                lora_scale: float = 0.0, ip_scale: Optional[float] = None, spatial=None,
+                ref_scale: float = 1.0) -> torch.Tensor:
+        normed = self.norm1(hidden_states)
+        if self.attn1_mode == "plain":
+            with_ip = self.attn1_with_ip
+            attn1_out = self.attn1(normed, ip_hidden_states=ip_hidden_states if with_ip else None,
+                                   temb=temb if with_ip else None, lora_scale=lora_scale,
+                                   ip_scale=ip_scale if with_ip else None)
+        else:
+            attn1_out = self.attn1(normed, spatial, temb=temb, ref_scale=ref_scale)
+        hidden_states = hidden_states + attn1_out
         if self.has_cross_attention:
             hidden_states = hidden_states + self.attn2(
                 self.norm2(hidden_states), encoder_hidden_states=encoder_hidden_states,
@@ -82,7 +106,7 @@ class Transformer2DModel(nn.Module):
                  cross_attention_dim: int = 2048, has_cross_attention: bool = True, with_ip: bool = False,
                  time_aware_ip: bool = True, temb_dim: Optional[int] = None, norm_num_groups: int = 32,
                  lora_rank: int = 0, lora_alpha: float = 1.0, use_flash: bool = True, dtype=torch.float32,
-                 device=None):
+                 device=None, attn1_with_ip: bool = False, attn1_mode: str = "plain"):
         super().__init__()
         common = dict(dtype=dtype, device=device)
         lora = dict(lora_rank=lora_rank, lora_alpha=lora_alpha)
@@ -90,20 +114,21 @@ class Transformer2DModel(nn.Module):
         self.proj_in = LoRALinear(in_channels, in_channels, **lora, **common)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(in_channels, heads, head_dim, cross_attention_dim, has_cross_attention, with_ip,
-                                  time_aware_ip, temb_dim, use_flash=use_flash, **lora, **common)
+                                  time_aware_ip, temb_dim, use_flash=use_flash, attn1_with_ip=attn1_with_ip,
+                                  attn1_mode=attn1_mode, **lora, **common)
             for _ in range(num_layers)
         ])
         self.proj_out = LoRALinear(in_channels, in_channels, **lora, **common)
 
     def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: Optional[torch.Tensor] = None,
                 ip_hidden_states: Optional[torch.Tensor] = None, temb: Optional[torch.Tensor] = None,
-                lora_scale: float = 0.0, ip_scale: Optional[float] = None) -> torch.Tensor:
+                lora_scale: float = 0.0, ip_scale: Optional[float] = None, ref_scale: float = 1.0) -> torch.Tensor:
         b, c, h, w = hidden_states.shape
         residual = hidden_states
         x = self.norm(hidden_states).permute(0, 2, 3, 1).reshape(b, h * w, c)
         x = self.proj_in(x, lora_scale)
         for block in self.transformer_blocks:
             x = block(x, encoder_hidden_states=encoder_hidden_states, ip_hidden_states=ip_hidden_states,
-                      temb=temb, lora_scale=lora_scale, ip_scale=ip_scale)
+                      temb=temb, lora_scale=lora_scale, ip_scale=ip_scale, spatial=(h, w), ref_scale=ref_scale)
         x = self.proj_out(x, lora_scale)
         return x.reshape(b, h, w, c).permute(0, 3, 1, 2) + residual

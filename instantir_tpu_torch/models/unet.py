@@ -8,6 +8,10 @@ cross-attention dim 2048, text_time added embeddings (2816 = 1280 pooled +
 the image-prompt tokens an explicit input, and the time-aware IP AdaLN reads
 the UNet's own time embedding. Parameter names are the diffusers names.
 ``forward`` also takes DeepCache's split (``return_deep`` / ``cached_deep``).
+``UNetConfig.residual_fusion`` says how the Aggregator's residuals enter:
+``"add"`` (SDXL / InstantIR) or ``"zero_sft"`` (each up-block resnet fuses its
+(residual, skip) pair through its own ``zero_sfts.{j}``, the mid residual
+through ``mid_zero_sft``; ``models/zero_sft.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from instantir_tpu_torch.models.unet_blocks import (
     UNetMidBlock2DCrossAttn,
     UpBlock2D,
 )
+from instantir_tpu_torch.models.zero_sft import ZeroSFT
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +56,9 @@ class UNetConfig:
     time_aware_ip: bool = True
     lora_rank: int = 0  # previewer LoRA rank (0 = no LoRA params)
     lora_alpha: float = 1.0
+    # how the Aggregator's residuals enter: "add" or "zero_sft" (GroupNorm-SFT
+    # modulation with zero-init convolutions at every skip and the mid block)
+    residual_fusion: str = "add"
     # recompute each down/mid/up block in the backward pass instead of storing
     # its activations (``torch.utils.checkpoint`` per block); the parameters
     # and the outputs are the same with the flag on or off
@@ -91,8 +99,9 @@ def down_stack_channels(cfg: UNetConfig) -> Tuple[int, ...]:
 
 
 def build_down_blocks(cfg: UNetConfig, has_cross_attention: bool, with_ip: bool, lora: dict, use_flash: bool,
-                      common: dict) -> nn.ModuleList:
-    """The SDXL down path (shared by the UNet and the Aggregator trunk)."""
+                      common: dict, attn1_with_ip: bool = False, attn1_mode: str = "plain") -> nn.ModuleList:
+    """The SDXL down path (shared by the UNet and the Aggregator trunk, whose
+    self-attentions take ``attn1_with_ip`` and ``attn1_mode``)."""
     blocks = []
     in_ch = cfg.block_out_channels[0]
     for i, block_type in enumerate(cfg.down_block_types):
@@ -106,7 +115,8 @@ def build_down_blocks(cfg: UNetConfig, has_cross_attention: bool, with_ip: bool,
                 in_ch, out_ch, heads=heads, head_dim=out_ch // heads,
                 transformer_layers=cfg.transformer_layers_per_block[i],
                 cross_attention_dim=cfg.cross_attention_dim, has_cross_attention=has_cross_attention,
-                with_ip=with_ip, time_aware_ip=cfg.time_aware_ip, use_flash=use_flash, **kw))
+                with_ip=with_ip, time_aware_ip=cfg.time_aware_ip, use_flash=use_flash, attn1_with_ip=attn1_with_ip,
+                attn1_mode=attn1_mode, **kw))
         elif block_type == "DownBlock2D":
             blocks.append(DownBlock2D(in_ch, out_ch, **kw))
         else:
@@ -116,14 +126,15 @@ def build_down_blocks(cfg: UNetConfig, has_cross_attention: bool, with_ip: bool,
 
 
 def build_mid_block(cfg: UNetConfig, has_cross_attention: bool, with_ip: bool, lora: dict, use_flash: bool,
-                    common: dict) -> UNetMidBlock2DCrossAttn:
+                    common: dict, attn1_with_ip: bool = False, attn1_mode: str = "plain") -> UNetMidBlock2DCrossAttn:
     heads = cfg.num_attention_heads[-1]
     mid_ch = cfg.block_out_channels[-1]
     return UNetMidBlock2DCrossAttn(
         mid_ch, cfg.time_embed_dim, heads=heads, head_dim=mid_ch // heads,
         transformer_layers=cfg.transformer_layers_per_block[-1], cross_attention_dim=cfg.cross_attention_dim,
         has_cross_attention=has_cross_attention, with_ip=with_ip, time_aware_ip=cfg.time_aware_ip,
-        norm_num_groups=cfg.norm_num_groups, use_flash=use_flash, **lora, **common)
+        norm_num_groups=cfg.norm_num_groups, use_flash=use_flash, attn1_with_ip=attn1_with_ip, attn1_mode=attn1_mode,
+        **lora, **common)
 
 
 def time_and_added_embedding(cfg: UNetConfig, time_embedding: nn.Module, add_embedding: nn.Module,
@@ -155,8 +166,12 @@ class UNet2DConditionModel(nn.Module):
         self.time_embedding = TimestepEmbedding(c0, cfg.time_embed_dim, cfg.time_cond_proj_dim, **common)
         self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, cfg.time_embed_dim,
                                                **common)
+        zero_sft = cfg.residual_fusion == "zero_sft"
         self.down_blocks = build_down_blocks(cfg, True, cfg.with_ip, lora, use_flash, common)
         self.mid_block = build_mid_block(cfg, True, cfg.with_ip, lora, use_flash, common)
+        mid_ch = cfg.block_out_channels[-1]
+        self.mid_zero_sft = (ZeroSFT(mid_ch, mid_ch, norm_num_groups=cfg.norm_num_groups, **common)
+                             if zero_sft else None)
 
         skips = list(down_stack_channels(cfg))
         reversed_channels = tuple(reversed(cfg.block_out_channels))
@@ -170,7 +185,7 @@ class UNet2DConditionModel(nn.Module):
             skip_channels = tuple(reversed(skips[-num_res:]))
             del skips[-num_res:]
             kw = dict(temb_channels=cfg.time_embed_dim, add_upsample=i < len(cfg.up_block_types) - 1,
-                      norm_num_groups=cfg.norm_num_groups, **lora, **common)
+                      norm_num_groups=cfg.norm_num_groups, zero_sft=zero_sft, **lora, **common)
             if block_type == "CrossAttnUpBlock2D":
                 heads = reversed_heads[i]
                 up.append(CrossAttnUpBlock2D(
@@ -216,16 +231,19 @@ class UNet2DConditionModel(nn.Module):
         approximates only when the trunk is reused across timesteps. In
         shallow mode ``down_block_additional_residuals`` must be the shallow
         skip slice (the first ``3·cache_depth`` entries at layers_per_block 2)
-        and ``mid_block_additional_residual`` is unused. The port fuses
-        residuals by addition only (the JAX package's ``residual_fusion='add'``,
-        which ``cached_deep`` requires there).
+        and ``mid_block_additional_residual`` is unused; ``cached_deep``
+        requires ``residual_fusion='add'``. With ``'zero_sft'`` the residuals
+        are required: each is paired with its skip and fused in the up block.
         """
         cfg = self.config
         b = sample.shape[0]
         shallow = cached_deep is not None
         n_blocks = len(cfg.down_block_types)
-        if (shallow or return_deep) and not 1 <= cache_depth < n_blocks:
-            raise ValueError(f"cache_depth must be in [1, {n_blocks - 1}], got {cache_depth}")
+        if shallow or return_deep:
+            if not 1 <= cache_depth < n_blocks:
+                raise ValueError(f"cache_depth must be in [1, {n_blocks - 1}], got {cache_depth}")
+            if shallow and cfg.residual_fusion != "add":
+                raise ValueError("cached_deep requires residual_fusion='add'")
         timesteps = torch.as_tensor(timesteps, device=sample.device).reshape(-1).expand(b)
         emb = time_and_added_embedding(cfg, self.time_embedding, self.add_embedding, timesteps,
                                        added_text_embeds, added_time_ids, timestep_cond)
@@ -255,15 +273,25 @@ class UNet2DConditionModel(nn.Module):
             if down_block_additional_residuals is not None and len(down_block_additional_residuals) != len(down_res):
                 raise ValueError(f"shallow mode expects {len(down_res)} residuals (the shallow skip slice), "
                                  f"got {len(down_block_additional_residuals)}")
+        zero_sft = cfg.residual_fusion == "zero_sft"
         if down_block_additional_residuals is not None:
-            down_res = tuple(s + r.to(s.dtype) for s, r in zip(down_res, down_block_additional_residuals))
+            if zero_sft:  # (control, skip) pairs, fused in the up blocks
+                down_res = tuple((r.to(s.dtype), s) for s, r in zip(down_res, down_block_additional_residuals))
+            else:
+                down_res = tuple(s + r.to(s.dtype) for s, r in zip(down_res, down_block_additional_residuals))
+        elif zero_sft:
+            raise ValueError("residual_fusion='zero_sft' is a controlnet-fusion variant; it requires "
+                             "down_block_additional_residuals/mid_block_additional_residual")
 
         if shallow:  # the mid block lives in the cached trunk
             sample = cached_deep.to(self.dtype)
         else:
             sample = run(self.mid_block, sample, emb, **attn_kw)
             if mid_block_additional_residual is not None:
-                sample = sample + mid_block_additional_residual.to(sample.dtype)
+                if zero_sft:
+                    sample = self.mid_zero_sft(mid_block_additional_residual.to(sample.dtype), sample)
+                else:
+                    sample = sample + mid_block_additional_residual.to(sample.dtype)
 
         deep = None
         n_up = len(self.up_blocks)

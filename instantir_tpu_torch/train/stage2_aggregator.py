@@ -27,8 +27,17 @@ device, and ``run`` / ``resume`` / ``save_checkpoint`` are the host loop
 trainers' state. ``run`` renders ``validate_stage2`` every
 ``validation_steps``; ``use_8bit_adam`` takes the blockwise-int8 AdamW and
 ``quantize_frozen_unet`` stores the frozen UNet's bases as W8 (the ip
-projections fp), through which the gradients reach the Aggregator. Not ported
-yet: ``aggregator_adapter``.
+projections fp), through which the gradients reach the Aggregator.
+
+``aggregator_adapter`` gives the Aggregator its own image-prompt adapter
+(``enable_aggregator_adapter`` builds both parts): a Resampler,
+``agg_resampler``, projects the (image-dropped) DINOv2 tokens *before* the
+Aggregator call, and a time-aware IP branch on every self-attention of the
+Aggregator reads them. ``agg_resampler`` trains with the Aggregator (fp32
+masters, the 8-bit moments under ``use_8bit_adam``) and goes into the
+checkpoints. The validation render cannot run with the adapter: the restore
+calls the Aggregator without image tokens, which raises ``ValueError`` in the
+JAX trainer and here alike.
 """
 
 from __future__ import annotations
@@ -36,12 +45,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
 from instantir_tpu_torch.losses import DiffusionLossInputs
 from instantir_tpu_torch.losses.loss_config import LossesConfig
+from instantir_tpu_torch.models.aggregator import Aggregator
 from instantir_tpu_torch.models.dinov2 import preprocess_dinov2
+from instantir_tpu_torch.models.resampler import Resampler, ResamplerConfig
 from instantir_tpu_torch.models.vae import scale_latents, vae_scale_factor
 from instantir_tpu_torch.schedulers.diffusion import add_noise, importance_sampling_weights, lcm_single_step
 from instantir_tpu_torch.train import common
@@ -50,8 +62,7 @@ from instantir_tpu_torch.train.stage1_adapter import stage1_trainable_pred
 
 @dataclasses.dataclass
 class Stage2Config:
-    """The same fields and defaults as the JAX twin. Fields whose code is not
-    ported raise ``NotImplementedError`` when set away from "off"."""
+    """The same fields and defaults as the JAX twin."""
 
     output_dir: str = "stage2_out"
     max_train_steps: int = 1000
@@ -80,8 +91,9 @@ class Stage2Config:
     ema_decay: float = 0.999
     ema_update_steps: int = 1
     importance_sampling: bool = False
-    aggregator_adapter: bool = False  # not ported
-    adapter_tokens: int = 64  # read by aggregator_adapter only
+    # the Aggregator's own Resampler and a TA-IP branch on every attn1, trained with it
+    aggregator_adapter: bool = False
+    adapter_tokens: int = 64  # the agg_resampler's queries
     checkpointing_steps: int = 500
     checkpoints_total_limit: Optional[int] = 3
     logging_steps: int = 10
@@ -94,25 +106,66 @@ class Stage2Config:
     report_to: str = "tensorboard"
 
 
-_NOT_PORTED = {"aggregator_adapter": False}
-
-
-def _check_ported(cfg: Stage2Config) -> None:
-    for name, off in _NOT_PORTED.items():
-        if getattr(cfg, name) != off:
-            raise NotImplementedError(f"Stage2Config.{name}={getattr(cfg, name)!r} is not ported yet")
-
-
 def stage2_trainable_pred(cfg: Stage2Config) -> common.PathPred:
     """Path ``(model, *parameter name parts)`` -> trains in stage 2? The
-    Aggregator, plus the adapter (stage 1's leaves) under ``optimize_adapter``."""
+    Aggregator and its ``agg_resampler``, plus the adapter (stage 1's leaves)
+    under ``optimize_adapter``."""
 
     def pred(path: Tuple[str, ...]) -> bool:
-        if path[0] == "aggregator":
+        if path[0] in ("aggregator", "agg_resampler"):
             return True
         return cfg.optimize_adapter and stage1_trainable_pred(path)
 
     return pred
+
+
+@torch.no_grad()
+def enable_aggregator_adapter(aggregator: Aggregator, state: Dict[str, torch.Tensor], encoder_hidden_size: int,
+                              cfg: Stage2Config, image_proj_sd: Optional[Dict[str, torch.Tensor]] = None,
+                              seed: int = 0) -> Tuple[Aggregator, Resampler]:
+    """Twin of the JAX function: returns ``(aggregator', agg_resampler)`` on
+    ``aggregator``'s device and in its dtype.
+
+    * ``aggregator'``: a new Aggregator with ``aggregator_adapter=True`` (each
+      attn1 grows ``processor.to_k_ip`` / ``to_v_ip`` and the AdaLNs
+      ``ln_k_ip`` / ``ln_v_ip``), holding ``state`` (the Aggregator's tensors
+      by name, e.g. ``aggregator.state_dict()``) and, for the leaves ``state``
+      lacks, fresh ones by ``pipeline/load.py::fill_missing_leaves``'s rule
+      (the AdaLN linears zero, so the modulation starts as the identity);
+    * ``agg_resampler``: the Aggregator's own Resampler (dim 1280, depth 4,
+      20 heads of 64, ``num_queries = adapter_tokens``, input width
+      ``encoder_hidden_size``, output the cross-attention width), loaded
+      strictly from ``image_proj_sd`` when given, else fresh by the same rule.
+
+    The fresh leaves come from one ``numpy`` generator seeded with ``seed``,
+    the Aggregator's first. ``aggregator`` itself is left as it is."""
+    from instantir_tpu_torch.pipeline.load import fill_missing_leaves
+
+    ucfg = aggregator.config
+    device = next(aggregator.parameters()).device
+    dtype = aggregator.dtype
+    rng = np.random.default_rng(seed)
+    agg = Aggregator(ucfg, use_flash=aggregator.use_flash, dtype=dtype, device="meta",
+                     pad_concat=aggregator.pad_concat, attn1_mode=aggregator.attn1_mode, aggregator_adapter=True,
+                     global_pool_conditions=aggregator.global_pool_conditions)
+    full = fill_missing_leaves(agg, state, rng)
+    agg.to_empty(device=device)
+    for name, p in agg.named_parameters():
+        p.copy_(full[name])
+    agg.gradient_checkpointing = aggregator.gradient_checkpointing
+
+    rcfg = ResamplerConfig(num_queries=cfg.adapter_tokens, embedding_dim=encoder_hidden_size,
+                           output_dim=ucfg.cross_attention_dim)
+    res = Resampler(rcfg, dtype=dtype, device="meta")
+    res_state = dict(image_proj_sd) if image_proj_sd is not None else fill_missing_leaves(res, {}, rng)
+    names = {n for n, _ in res.named_parameters()}
+    if image_proj_sd is not None and set(res_state) != names:
+        raise KeyError(f"image_proj_sd does not match the agg_resampler: missing {sorted(names - set(res_state))[:5]}, "
+                       f"unexpected {sorted(set(res_state) - names)[:5]}")
+    res.to_empty(device=device)
+    for name, p in res.named_parameters():
+        p.copy_(res_state[name])
+    return agg.requires_grad_(False).eval(), res.requires_grad_(False).eval()
 
 
 # The adapter leaves the EMA copy tracks (the Resampler and the ip projections).
@@ -152,11 +205,13 @@ def _module_tensors(ema: Optional[Dict[str, torch.Tensor]], model: str, module: 
     return {n[len(prefix):]: t.to(own[n[len(prefix):]].dtype) for n, t in ema.items() if n.startswith(prefix)}
 
 
-def build_stage2_step(unet, aggregator, resampler, vae, image_encoder, schedule, losses, cfg: Stage2Config) -> Callable:
+def build_stage2_step(unet, aggregator, resampler, vae, image_encoder, schedule, losses, cfg: Stage2Config,
+                      agg_resampler: Optional[Resampler] = None) -> Callable:
     """Returns ``loss_fn(batch, draws, generator, ema_adapter) -> (total,
     metrics)``, the differentiable part of a step; ``ema_adapter`` is the EMA
     copy ``{"<model>.<name>": tensor}`` the previewer runs with (None: the
-    live adapter)."""
+    live adapter). With ``agg_resampler`` the image tokens are projected
+    through it before the Aggregator call, which reads them."""
     alpha = cfg.lora_alpha
     iw = torch.from_numpy(importance_sampling_weights(schedule.num_train_timesteps)) if cfg.importance_sampling else None
 
@@ -218,7 +273,10 @@ def build_stage2_step(unet, aggregator, resampler, vae, image_encoder, schedule,
             preview = lcm_single_step(schedule, eps, t, noisy)
             preview_err = torch.mean((preview.float() - gt_latent.float()) ** 2)
 
-        down_res, mid_res = aggregator(lq_latent, t, preview, pooled, time_ids)
+        agg_kwargs = {}
+        if agg_resampler is not None:  # the image-dropped tokens, projected before the Aggregator call
+            agg_kwargs["ip_hidden_states"] = agg_resampler(tokens)
+        down_res, mid_res = aggregator(lq_latent, t, preview, pooled, time_ids, **agg_kwargs)
         ip_base = resampler(tokens, lora_scale=0.0)
         eps_pred = unet(noisy, t, text, pooled, time_ids, ip_hidden_states=ip_base,
                         down_block_additional_residuals=down_res, mid_block_additional_residual=mid_res,
@@ -241,22 +299,35 @@ def build_stage2_step(unet, aggregator, resampler, vae, image_encoder, schedule,
 class Stage2Trainer(common.Trainer):
     """Holds the models, the optimiser, the fp32 EMA adapter copy and the step
     (``common.Trainer``). ``device="cuda"`` (the default) raises without a
-    card; pass ``device="cpu"`` to train on the CPU."""
+    card; pass ``device="cpu"`` to train on the CPU. With ``aggregator_adapter``
+    the Aggregator must have been built with the adapter and ``agg_resampler``
+    given (``enable_aggregator_adapter`` makes both): it joins the models as
+    ``"agg_resampler"``."""
 
     def __init__(self, unet, aggregator, resampler, vae, image_encoder, cfg: Stage2Config,
-                 losses_config: Optional[LossesConfig] = None, schedule=None, device="cuda"):
-        _check_ported(cfg)
+                 losses_config: Optional[LossesConfig] = None, schedule=None, device="cuda",
+                 agg_resampler: Optional[Resampler] = None):
+        if cfg.aggregator_adapter:
+            if agg_resampler is None:
+                raise ValueError("aggregator_adapter=True needs the aggregator's Resampler module "
+                                 "(agg_resampler) -- use enable_aggregator_adapter(...) to build it")
+            if not getattr(aggregator, "aggregator_adapter", False):
+                raise ValueError("aggregator_adapter=True but the Aggregator module was built "
+                                 "without aggregator_adapter=True")
+        self.agg_resampler = agg_resampler if cfg.aggregator_adapter else None
         self.unet, self.aggregator, self.resampler = unet, aggregator, resampler
         self.vae, self.image_encoder = vae, image_encoder
         models = {"unet": unet, "aggregator": aggregator, "resampler": resampler, "vae": vae,
                   "image_encoder": image_encoder}
+        if self.agg_resampler is not None:
+            models["agg_resampler"] = self.agg_resampler
         super().__init__("stage2", models, cfg, stage2_trainable_pred(cfg), losses_config, schedule, device)
         self.ema_adapter: Optional[Dict[str, torch.Tensor]] = None
         if cfg.use_ema_adapter:
             self.ema_adapter = {n: p.detach().float().clone() for n, p in self.named_parameters().items()
                                 if ADAPTER_EMA_PRED(tuple(n.split(".")))}
         self._loss_fn = build_stage2_step(unet, aggregator, resampler, vae, image_encoder, self.schedule,
-                                          self.losses, cfg)
+                                          self.losses, cfg, agg_resampler=self.agg_resampler)
 
     def loss(self, batch, draws: Optional[Stage2Draws] = None, generator: Optional[torch.Generator] = None):
         """The differentiable forward of a step, the previewer on the EMA

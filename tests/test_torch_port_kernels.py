@@ -22,8 +22,12 @@ def _need_card():
 
 
 # beside the square shapes: Sq != Skv with neither a multiple of the tiles, a kv
-# tail of 72 keys, and an odd S (lse and D rows start off 16-byte alignment)
-CARD_SHAPES = [(1024, 1024), (2304, 2304), (1000, 1000), (200, 520), (1024, 1096), (1001, 1001)]
+# tail of 72 keys, and an odd S (lse and D rows start off 16-byte alignment);
+# then the model variants': the Aggregator's ragged pad_concat maps at 512²
+# (65x32 and 33x16 tokens) and external_kv's cross shape (a cache of 4096
+# tokens appended to 4096)
+CARD_SHAPES = [(1024, 1024), (2304, 2304), (1000, 1000), (200, 520), (1024, 1096), (1001, 1001), (2080, 2080),
+               (528, 528), (4096, 8192)]
 
 
 @pytest.mark.cuda

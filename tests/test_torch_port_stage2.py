@@ -11,8 +11,8 @@ the JAX step's own ``jax.random`` draws are fed to the port, and loss,
 the parameters after two AdamW updates and the EMA adapter after them are
 compared. The EMA decay is 0.5 so that the second step's previewer runs with
 an adapter the first update moved. The port-only tests cover the Aggregator's
-gradient checkpointing, the config fields that are not ported and the EMA
-helpers.
+gradient checkpointing, the config fields ported since the first slice and
+the EMA helpers.
 """
 
 from __future__ import annotations
@@ -370,15 +370,17 @@ def test_bf16_models_run_the_previewer_on_the_fp32_ema(setup):
 @pytest.mark.parametrize("field,value", [("use_8bit_adam", True), ("quantize_frozen_unet", True),
                                          ("aggregator_adapter", True), ("validation_steps", 100)])
 def test_unported_config_fields_raise(setup, monkeypatch, field, value):
-    """``aggregator_adapter`` still raises; the other fields, ported since,
-    build a trainer that honours them (the W8 frozen UNet at a lowered
-    threshold, its ip projections kept in fp)."""
+    """Every field is ported now. ``aggregator_adapter`` without the
+    Aggregator's Resampler raises ``ValueError`` as the JAX trainer does
+    (``tests/test_torch_port_aggregator_adapter.py`` trains with it); the
+    other fields build a trainer that honours them (the W8 frozen UNet at a
+    lowered threshold, its ip projections kept in fp)."""
     from instantir_tpu_torch.ops import quant
     from instantir_tpu_torch.train.adam8bit import AdamW8bit
 
     if field == "aggregator_adapter":
         cfg = dataclasses.replace(Stage2Config(**STEP_CFG), **{field: value})
-        with pytest.raises(NotImplementedError, match=field):
+        with pytest.raises(ValueError, match="agg_resampler"):
             Stage2Trainer(None, None, None, None, None, cfg, device="cpu")
         return
     monkeypatch.setattr(quant, "DEFAULT_MIN_SIZE", 1)

@@ -460,14 +460,11 @@ def test_parser_takes_every_jax_flag():
 @pytest.mark.parametrize("flags", [["--use_8bit_adam"], ["--quantize_frozen_unet"], ["--aggregator_adapter"],
                                    ["--validation_steps", "100"]])
 def test_unported_flags_raise(flags):
-    """``--aggregator_adapter`` still raises, naming itself; the flags ported
-    since pass ``check_ported`` and reach the trainer's config."""
+    """Every flag is ported now (the CLI refuses none): each parses to the
+    value the trainer's config takes (``--aggregator_adapter`` trains in
+    ``tests/test_torch_port_aggregator_adapter.py``)."""
     args = ct.build_parser().parse_args(["stage2", *flags])
-    if flags[0] == "--aggregator_adapter":
-        with pytest.raises(NotImplementedError, match=flags[0]):
-            ct.main(["stage2", *flags], device="cpu")
-        return
-    ct.check_ported(args)
+    assert not hasattr(ct, "check_ported")
     dest = flags[0][2:]
     assert getattr(args, dest) == (100 if len(flags) > 1 else True)
 
