@@ -106,6 +106,16 @@ which ends the script with a nonzero exit on failure:
    /16 shape over a ``KVCopy`` cache of a second image, whole and thinned by
    ``drop_kvs(0.5)`` (one K1 at 4096 x 8192 or 6144; two, at 4096 x 4096 and
    4096 x 4096 or 2048);
+4g. the CLIP image-prompt encoder (``--use_clip_encoder``) on phase 4's UNet,
+   Aggregator and VAE, run on phase 4c's tree before it is deleted: a
+   synthetic ViT-B/16 ``CLIPImageEncoder`` in bf16 (its penultimate layer's
+   tokens) and a Resampler at ``embedding_dim`` 768; 1024², 4 steps, staged
+   and as one CUDA graph on the same noise (the launches phase 4's, the
+   graph within 1e-3 of its scale of the staged image; s/image in turns),
+   the encoder's ms per call; the tower written as an HF folder beside an
+   InstantIR folder for the 768-wide Resampler, and ``cli.infer.main
+   --use_clip_encoder --fused`` with its own load on one 1024² PNG (launches
+   derived as in 4c, its PNG equal to the in-memory restore's);
 5. stage-2 (Aggregator) training at full SDXL width: two
    ``Stage2Trainer.train_step``s at 512² (batch 2) and one at 1024² (batch 1,
    gradient checkpointing on the UNet and the Aggregator); loss,
@@ -143,6 +153,16 @@ which ends the script with a nonzero exit on failure:
    leaf its rounding, no frozen leaf or int8 buffer changed, the moments
    int8; s/step and each step's peak net of the other trainer's UNet and
    optimiser;
+7c. the perceptual losses: three previewer steps at 512² batch 2 with
+   ``[HuberLoss 1, LPIPSLoss 1, DreamSIMLoss 1]`` (a full-width synthetic
+   VGG16 LPIPS; DreamSim's ``embed_fns`` a synthetic ViT-B/16 projection), a
+   warm-up and two in turns with a Huber-only trainer (the launches of phase 7's 512² step,
+   every LoRA master moved, no frozen leaf changed, the masters fp32; s/step
+   and peaks); a forward and a backward through ``pred_image`` at 512²
+   batch 2 for each of LPIPSLoss, CLIPLoss (4 augmentations), IDLoss
+   (IR-SE50, fixed landmarks) and DreamSIMLoss (finite, nonzero gradients;
+   < 1e-5 on identical images; ms per call; no K1-K5 launch), and
+   ``MTCNN.detect`` on a 512² image with synthetic weights;
 7b. training from raw images on the same models, under cuDNN's TF32 default
    (on): the traced and the eager RealESRGAN degradation at 512² batch 2 and
    1024² batch 1 against the same call on the CPU (the first JPEG's input
@@ -1503,7 +1523,7 @@ def write_checkpoint_tree(torch, pipe, encoders, root: str) -> dict:
     return {"sdxl": sdxl, "instantir": inst, "dinov2": dino, "gb": need / 1e9}
 
 
-def run_load_and_cli(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> dict:
+def run_load_and_cli(torch, pipe, steps: int, mods: dict, ucfg, card_line: str, after_tree=None) -> dict:
     """Phase 4c: phase 4's bf16 models written as a checkpoint tree in the
     released layout (with two synthetic full-width CLIP towers), loaded back
     with ``load_instantir_pipeline`` / ``load_text_encoders`` (every parameter
@@ -1516,8 +1536,10 @@ def run_load_and_cli(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) 
     one-size figure; then ``main`` as a user runs it, its PNG equal to the
     loaded pipeline's restore of the same pixels. The bf16 text towers'
     outputs are held to the same weights in fp32. With ``steps`` other than
-    4, config #4 through the CLI (a recording and a replay). The tree is
-    deleted at the end."""
+    4, config #4 through the CLI (a recording and a replay). ``after_tree(paths,
+    towers)``, when given, runs last on the tree and the in-memory text towers
+    (phase 4g); its result is kept under ``"after_tree"``. The tree is deleted
+    at the end."""
     import tempfile
 
     import numpy as np
@@ -1794,6 +1816,10 @@ def run_load_and_cli(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) 
                          "launches": launches}
         lp._graphs.clear()
         del lp, encoders, models
+        gc.collect()
+        torch.cuda.empty_cache()
+        if after_tree is not None:
+            out["after_tree"] = after_tree(paths, towers)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del towers
@@ -2683,6 +2709,175 @@ def run_variants(torch, pipe, mods: dict, ucfg, card_line: str) -> dict:
     return out
 
 
+def run_clip_encoder(torch, pipe, paths: dict, towers, mods: dict, ucfg, card_line: str) -> dict:
+    """Phase 4g: the restore with a CLIP image-prompt encoder (``--use_clip_encoder``)
+    on phase 4's UNet, Aggregator and VAE: a synthetic ViT-B/16
+    ``CLIPImageEncoder`` in bf16 (the penultimate layer's 197 tokens, the
+    plain attention) and a Resampler at ``embedding_dim`` 768. 1024², 4
+    steps, staged and as one CUDA graph on the same noise (the launches those
+    of phase 4's restore, the graph's image within 1e-3 of its scale of the
+    staged one; s/image in turns); the encoder's ms per call. Then the whole
+    tower written as an HF folder (``config.json``, ``model.safetensors``)
+    and an InstantIR folder for the 768-wide Resampler beside phase 4c's
+    tree, and ``cli.infer.main --use_clip_encoder --fused`` with its own load
+    on one 1024² PNG: its launches derived as in phase 4c, its PNG equal to
+    the in-memory restore of the same pixels."""
+    import numpy as np
+
+    from instantir_tpu_torch import convert
+    from instantir_tpu_torch.cli import infer
+    from instantir_tpu_torch.models.clip_vision import CLIPImageEncoder, CLIPVisionModel, clip_vit_b16_config
+    from instantir_tpu_torch.models.resampler import Resampler, instantir_resampler_config
+    from instantir_tpu_torch.pipeline.factory import synthesize_weights
+    from instantir_tpu_torch.pipeline.instantir import InstantIRPipeline, RestoreNoise, build_step_phases
+    from instantir_tpu_torch.utils.tokenizer import CLIPTokenizer
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(13)
+    ccfg = clip_vit_b16_config()
+    tower = synthesize_weights(CLIPVisionModel(ccfg, dtype=bf16, device="cuda").requires_grad_(False).eval(), g)
+    tower_sd = {k: v.detach().cpu() for k, v in tower.state_dict().items()}
+    del tower
+    enc = CLIPImageEncoder(ccfg, dtype=bf16, device="cuda").requires_grad_(False).eval()
+    enc.load_state_dict(convert.import_clip_vision(tower_sd, [n for n, _ in enc.named_parameters()]), strict=True)
+    rcfg = instantir_resampler_config(lora_rank=ucfg.lora_rank, embedding_dim=ccfg.hidden_size)
+    resampler = synthesize_weights(Resampler(rcfg, dtype=bf16, device="cuda").requires_grad_(False).eval(), g)
+    cpipe = InstantIRPipeline(pipe.unet, pipe.aggregator, pipe.vae, resampler, enc, pipe.schedule, device="cuda")
+    log(f"  CLIP ViT-B/16 image encoder: {sum(p.numel() for p in enc.parameters()) / 1e6:.1f} M parameters "
+        f"({ccfg.num_layers - 1} of {ccfg.num_layers} layers), Resampler at embedding_dim {rcfg.embedding_dim}")
+
+    pixels = torch.randn(1, 3, ccfg.image_size, ccfg.image_size, generator=g, device="cuda").to(bf16)
+    with torch.no_grad():
+        tokens = enc(pixels)
+        enc_ms = time_ms(torch, lambda: enc(pixels))
+    if tuple(tokens.shape) != (1, 197, 768) or not torch.isfinite(tokens).all():
+        fail(f"phase 4g: the CLIP encoder's tokens are not finite of shape (1, 197, 768): {tuple(tokens.shape)}")
+
+    res, lat = 1024, 1024 // 8
+    base = restore_config(4)
+    fused_cfg = dataclasses.replace(base, fused=True)
+    expected = expected_restore_launches(ucfg, base, build_step_phases(base), lat)
+    lq = torch.rand(1, res, res, 3, generator=g, device="cuda") * 2.0 - 1.0
+    pe = (torch.randn(1, 77, 2048, generator=g, device="cuda") * 0.1).to(bf16)
+    pooled = (torch.randn(1, 1280, generator=g, device="cuda") * 0.1).to(bf16)
+    shape = (1, lat, lat, 4)
+    noise = RestoreNoise(*(torch.randn(shape, generator=g, device="cuda") for _ in range(2)),
+                         [torch.randn(shape, generator=g, device="cuda") for _ in range(4)])
+    out = {"launches": {}}
+
+    def restore(what: str, cfg, want: dict):
+        zero_counters(mods)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        image, _ = cpipe.restore(lq, pe, pooled, cfg=cfg, noise=noise, output_type="pt")
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        launches = out["launches"][what] = read_counters(mods)
+        if launches != every_counter(want):
+            fail(f"phase 4g, {what}: kernel launches {launches} differ from the counts derived from the config "
+                 f"{every_counter(want)}")
+        if tuple(image.shape) != (1, res, res, 3) or not torch.isfinite(image).all():
+            fail(f"phase 4g, {what}: the image is not finite RGB of shape (1, {res}, {res}, 3)")
+        return image, sec, torch.cuda.max_memory_allocated() / 1e9
+
+    staged_img, _, staged_peak = restore("staged restore", base, expected)
+    graph_img, record_sec, _ = restore("graph recording", fused_cfg, {k: 2 * n for k, n in expected.items()})
+    secs = {"staged": [], "graph": []}
+    for kind in ("staged", "graph", "graph", "staged"):
+        img, sec, _ = restore(f"{kind} turn", base if kind == "staged" else fused_cfg,
+                              expected if kind == "staged" else {})
+        secs[kind].append(sec)
+        if kind == "graph":
+            graph_img = img
+    diff = (graph_img.float() - staged_img.float()).abs().max().item()
+    scale = max(1.0, staged_img.float().abs().max().item())
+    log(f"  CLIP-encoder restore 1024² 4 steps: staged {['%.3f' % x for x in secs['staged']]} s/image, one CUDA graph "
+        f"{['%.3f' % x for x in secs['graph']]} (recording {record_sec:.3f} s); peak {staged_peak:.2f} GB; graph vs "
+        f"staged image max abs difference {diff:.3e} (scale {scale:.3f}); encoder {enc_ms:.3f} ms per call at 224² "
+        f"batch 1; launches per restore {every_counter(expected)} on {card_line}")
+    if not diff <= 1e-3 * scale:
+        fail(f"phase 4g: the graph-replayed image differs from the staged one by {diff} > 1e-3 x {scale}")
+    cpipe._graphs.clear()
+    del staged_img, graph_img, img
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the tower as an HF folder and an InstantIR folder for the 768-wide Resampler beside phase 4c's tree
+    root = os.path.dirname(paths["dinov2"])
+    clip_dir, inst = os.path.join(root, "clip_vision"), os.path.join(root, "instantir_clip")
+    os.makedirs(clip_dir)
+    os.makedirs(inst)
+    convert.write_safetensors(os.path.join(clip_dir, "model.safetensors"), tower_sd)
+    with open(os.path.join(clip_dir, "config.json"), "w") as f:
+        json.dump({"architectures": ["CLIPVisionModelWithProjection"], "hidden_size": ccfg.hidden_size,
+                   "num_hidden_layers": ccfg.num_layers, "num_attention_heads": ccfg.num_heads,
+                   "intermediate_size": ccfg.intermediate_size, "image_size": ccfg.image_size,
+                   "patch_size": ccfg.patch_size, "projection_dim": ccfg.projection_dim,
+                   "hidden_act": ccfg.hidden_act, "layer_norm_eps": ccfg.eps}, f)
+    res_sd = {k: v.detach().cpu() for k, v in resampler.state_dict().items()}
+    adapter = torch.load(os.path.join(paths["instantir"], "adapter.pt"), map_location="cpu", weights_only=True)
+    adapter["image_proj"] = {k: v for k, v in res_sd.items() if "lora_" not in k}
+    torch.save(adapter, os.path.join(inst, "adapter.pt"))
+    prefix = "unet.encoder_hid_proj.image_projection_layers.0."
+    lora = torch.load(os.path.join(paths["instantir"], "previewer_lora_weights.bin"), map_location="cpu",
+                      weights_only=True)
+    lora = {k: v for k, v in lora.items() if not k.startswith(prefix)}
+    lora.update({prefix + k: v for k, v in res_sd.items() if "lora_" in k})
+    torch.save(lora, os.path.join(inst, "previewer_lora_weights.bin"))
+    os.symlink(os.path.join(paths["instantir"], "aggregator.pt"), os.path.join(inst, "aggregator.pt"))
+    with open(os.path.join(inst, "instantir_config.json"), "w") as f:
+        json.dump({"lora_rank": ucfg.lora_rank, "resampler": dataclasses.asdict(rcfg)}, f)
+    del adapter, lora, tower_sd
+
+    # cli.infer.main --use_clip_encoder --fused with its own load, one 1024² PNG
+    lq_dir, out_dir = os.path.join(root, "lq_clip"), os.path.join(root, "out_clip")
+    os.makedirs(lq_dir)
+    rgb = (torch.rand(res, res, 3, generator=torch.Generator().manual_seed(17)) * 255).to(torch.uint8).numpy()
+    write_png(os.path.join(lq_dir, "a.png"), rgb)
+    argv = ["--sdxl_path", paths["sdxl"], "--instantir_path", inst, "--vision_encoder_path", clip_dir,
+            "--use_clip_encoder", "--test_path", lq_dir, "--out_path", out_dir, "--fused", "--num_inference_steps",
+            "4", "--batch_size", "1"]
+    parsed = infer.build_parser().parse_args(argv)
+    cli_cfg = infer.restore_config(parsed)
+    per = expected_restore_launches(ucfg, cli_cfg, build_step_phases(cli_cfg), lat)
+    zero_counters(mods)
+    t0 = time.perf_counter()
+    records = infer.main(argv)
+    cli_sec = time.perf_counter() - t0
+    launches = out["launches"]["cli"] = read_counters(mods)
+    if launches != every_counter({k: 2 * n for k, n in per.items()}):
+        fail(f"phase 4g, the CLI with --use_clip_encoder: launched {launches}, derived 2 x {per}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = np.asarray(infer.read_image(os.path.join(out_dir, "a.png")))
+    encoders = [(t, CLIPTokenizer.from_pretrained(os.path.join(paths["sdxl"], sub)))
+                for t, sub in zip(towers, ("tokenizer", "tokenizer_2"))]
+    pe, pooled = infer.encode_prompts(encoders, [infer.DEFAULT_PROMPT], "cuda")
+    npe, npooled = infer.encode_prompts(encoders, [infer.DEFAULT_NEG_PROMPT], "cuda")
+    arr = rgb.astype(np.float32) / 127.5 - 1.0
+    image, _ = cpipe.restore(torch.from_numpy(arr[None]).cuda(), pe, pooled, negative_prompt_embeds=npe,
+                             negative_pooled_embeds=npooled, cfg=cli_cfg,
+                             generator=torch.Generator(device="cuda").manual_seed(parsed.seed))
+    want = (((np.clip(image[0], -1.0, 1.0) + 1.0) / 2.0) * 255.0).astype(np.uint8)
+    diff = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max()) if got.shape == want.shape else -1
+    log(f"  CLI --use_clip_encoder --fused with its own load, 1024² 4 steps: {cli_sec:.3f} s from main() to its "
+        f"return (load, warm-up, capture, replay; the image {records[0]['seconds']:.3f} s PNG read to PNG written), "
+        f"launches {launches}; its PNG against the in-memory CLIP-encoder restore of the same pixels: max abs "
+        f"difference {diff} (uint8), {len(np.unique(got))} distinct values on {card_line}")
+    if diff != 0 or len(np.unique(got)) < 2:
+        fail(f"phase 4g: the CLI's PNG differs from the in-memory restore of its input (max abs difference {diff})")
+    cpipe._graphs.clear()
+    del cpipe, enc, resampler, image
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(staged_sec=min(secs["staged"]), graph_sec=min(secs["graph"]), record_sec=record_sec, enc_ms=enc_ms,
+               cli_sec=cli_sec, cli_image_sec=records[0]["seconds"], peak_gb=staged_peak,
+               total={k: sum(out["launches"][w][k] for w in ("staged restore", "graph recording", "cli"))
+                      for k in COUNTERS})
+    return out
+
+
 def _checksums(torch, params: dict) -> dict:
     """Per-leaf (sum, sum of squares) in fp64: changes with any element. One
     copy to the host for all leaves."""
@@ -3243,6 +3438,164 @@ def run_previewer(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     log(f"  previewer 512² Huber steps {['%.3f' % x for x in out['sec_512']]} s (the first includes warm-up), peak "
         f"{out['peak_gb_512']:.2f} GB; DINOLoss step {out['sec_dino']:.3f} s, peak {out['peak_gb_dino']:.2f} GB; "
         f"1024² step {out['sec_1024']:.3f} s, peak {out['peak_gb_1024']:.2f} GB; on {card_line}")
+    return out
+
+
+def synthetic_insightface_state(torch, cfg, g) -> dict:
+    """A synthetic IR-SE50 state dict in InsightFace's names: every
+    BatchNorm's weight, bias and running statistics drawn from ``g`` (folded
+    on load by ``IDLoss``), the other weights fan-in scaled."""
+    from instantir_tpu_torch.losses.arcface import Affine, ArcFaceBackbone
+    from instantir_tpu_torch.pipeline.factory import synthesize_weights
+
+    model = synthesize_weights(ArcFaceBackbone(cfg, device="cuda"), g)
+    affines = {name: m.scale.numel() for name, m in model.named_modules() if isinstance(m, Affine)}
+    sd = {k: v for k, v in model.state_dict().items() if k.rsplit(".", 1)[0] not in affines}
+    for name, n in affines.items():
+        def draw(shift, std):
+            return shift + std * torch.randn(n, generator=g, device="cuda")
+
+        sd.update({f"{name}.weight": draw(1.0, 0.1), f"{name}.bias": draw(0.0, 0.1),
+                   f"{name}.running_mean": draw(0.0, 0.1), f"{name}.running_var": draw(1.0, 0.1).abs()})
+    return sd
+
+
+def run_perceptual(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
+    """Phase 7c: the perceptual losses at full width. Three previewer steps at
+    512² batch 2 with ``[HuberLoss 1, LPIPSLoss 1, DreamSIMLoss 1]`` (a
+    full-width synthetic VGG16 LPIPS; DreamSim's ``embed_fns`` one synthetic
+    ViT-B/16 ``CLIPVisionModel`` projection, fp32) in turns with a Huber-only
+    trainer over the same models (Huber, perceptual, perceptual, Huber, after
+    one perceptual warm-up step): the launches of phase 7's 512² step (the
+    towers launch no kernel: the VAE's
+    GroupNorms and the towers' attention run the plain versions), every
+    LoRA master moved, no frozen leaf changed, the masters fp32; s/step and
+    peaks. Then a forward and a backward through ``pred_image`` at 512²
+    batch 2 for each of LPIPSLoss, CLIPLoss (ViT-B/16 towers, 4
+    augmentations, random prompt ids), IDLoss (IR-SE50, a fixed-landmark
+    detector) and DreamSIMLoss: finite losses, finite nonzero gradients, <
+    1e-5 on identical images (LPIPS, ID, DreamSim), ms per call; and
+    ``MTCNN.detect`` on a 512² image with synthetic weights, its ms."""
+    import numpy as np
+
+    from instantir_tpu_torch.losses import CLIPLoss, DiffusionLossInputs, DreamSIMLoss, IDLoss, LPIPSLoss
+    from instantir_tpu_torch.losses.arcface import ir_se_50_config
+    from instantir_tpu_torch.losses.loss_config import LossesConfig, SingleLossConfig
+    from instantir_tpu_torch.losses.lpips import LPIPS
+    from instantir_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from instantir_tpu_torch.models.clip_vision import CLIPVisionModel, clip_vit_b16_config, preprocess_clip
+    from instantir_tpu_torch.pipeline.factory import synthesize_weights
+    from instantir_tpu_torch.train.previewer_lora import PreviewerConfig, PreviewerTrainer
+    from instantir_tpu_torch.utils.mtcnn import MTCNN
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    lpips_sd = {k: v.abs() if k.startswith("lin") else v  # the published heads are nonnegative
+                for k, v in synthesize_weights(LPIPS(device="cuda"), g).state_dict().items()}
+    vcfg = clip_vit_b16_config()
+    vit = synthesize_weights(CLIPVisionModel(vcfg, device="cuda").requires_grad_(False).eval(), g)
+
+    def embed(images01):  # [B, 224, 224, 3] in [0, 1] -> the projected class token
+        return vit(preprocess_clip(images01, vcfg.image_size).permute(0, 3, 1, 2))[1]
+
+    cfg = PreviewerConfig(train_batch_size=2, resolution=512, lr_warmup_steps=0, output_dir="")
+    losses = LossesConfig(lcm_losses=[
+        SingleLossConfig(name="HuberLoss", weight=1.0, init_params={"huber_c": 0.001}),
+        SingleLossConfig(name="LPIPSLoss", weight=1.0, init_params={"params": lpips_sd}),
+        SingleLossConfig(name="DreamSIMLoss", weight=1.0, init_params={"embed_fns": [embed]})])
+    models = (pipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder)
+    huber = PreviewerTrainer(*models, cfg, device="cuda")
+    perceptual = PreviewerTrainer(*models, cfg, losses, device="cuda")
+    named = perceptual.named_parameters()
+    frozen = {n: p for n, p in named.items() if not p.requires_grad}
+    masters = trainer_masters(torch, perceptual, "previewer with LPIPS + DreamSim")
+    before_train, before_frozen = _checksums(torch, masters), _checksums(torch, frozen)
+    expected = every_counter(expected_previewer_launches(ucfg, 512 // 8, False))
+    batch = perceptual.prepare_batch(*training_batch(torch, g, 2, 512, torch.bfloat16, uncond=True))
+    out = {"sec": {"huber": [], "perceptual": []}, "peak_gb": {"huber": [], "perceptual": []},
+           "train_previewer_perceptual": {name: 0 for name in COUNTERS}}
+    # the first perceptual step warms up the towers (cuDNN plans for VGG16 and the ViT); the turns follow
+    for kind in ("warm-up", "huber", "perceptual", "perceptual", "huber"):
+        t = huber if kind == "huber" else perceptual
+        launches, sec, metrics = train_step_checked(torch, t, batch, g, mods, expected,
+                                                    f"previewer step at 512² batch 2, {kind}", card_line)
+        if kind != "warm-up":
+            out["sec"][kind].append(sec)
+            out["peak_gb"][kind].append(torch.cuda.max_memory_allocated() / 1e9)
+        if kind != "huber":
+            if not {"HuberLoss", "LPIPSLoss", "DreamSIMLoss"} <= set(metrics):
+                fail(f"phase 7c: the perceptual step's metrics {sorted(metrics)} lack a loss")
+            for name, n in launches.items():
+                out["train_previewer_perceptual"][name] += n
+            if len(out["sec"]["perceptual"]) == 2:  # before the Huber trainer writes its masters' rounding
+                check_leaves(torch, before_train, before_frozen, masters, frozen, "phase 7c, 3 perceptual steps")
+                check_masters(torch, perceptual, "phase 7c")
+    log(f"  previewer 512² batch 2 in turns: Huber {['%.3f' % x for x in out['sec']['huber']]} s/step (peak "
+        f"{['%.2f' % x for x in out['peak_gb']['huber']]} GB), Huber + LPIPS + DreamSim "
+        f"{['%.3f' % x for x in out['sec']['perceptual']]} s/step (peak "
+        f"{['%.2f' % x for x in out['peak_gb']['perceptual']]} GB) on {card_line}")
+    lpips_loss = next(loss for loss, _ in perceptual.losses if isinstance(loss, LPIPSLoss))
+    dreamsim = next(loss for loss, _ in perceptual.losses if isinstance(loss, DreamSIMLoss))
+    del huber, perceptual, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # each loss alone: a forward and a backward through pred_image
+    text_cfg = CLIPTextConfig(hidden_size=512, num_layers=12, num_heads=8, intermediate_size=2048, projection_dim=512)
+    text = synthesize_weights(CLIPTextModel(text_cfg, device="cuda"), g)
+    clip = CLIPLoss(params=(vit.state_dict(), text.state_dict(), 100.0), augmentations_number=4, device="cuda")
+    del text
+
+    def landmarks(images):  # fixed plausible 5-point landmarks for every image
+        s = images.shape[1]
+        base = np.asarray([[0.3, 0.4], [0.7, 0.4], [0.5, 0.6], [0.35, 0.8], [0.65, 0.8]]) * s
+        return np.tile(base[None], (images.shape[0], 1, 1)).astype(np.float32), []
+
+    idl = IDLoss(params=synthetic_insightface_state(torch, ir_se_50_config(), g), detect_fn=landmarks, device="cuda")
+    pred = torch.rand(2, 512, 512, 3, generator=g, device="cuda") * 2.0 - 1.0
+    target = torch.rand(2, 512, 512, 3, generator=g, device="cuda") * 2.0 - 1.0
+    ids = torch.randint(1, 49406, (2, 77), generator=g, device="cuda")
+    ids[:, 0], ids[:, 20] = 49406, 49407  # start and end of text
+    out["ms"] = {}
+    for name, loss in (("LPIPSLoss", lpips_loss), ("CLIPLoss", clip), ("IDLoss", idl), ("DreamSIMLoss", dreamsim)):
+        def call():
+            x = pred.clone().requires_grad_(True)
+            val = loss(DiffusionLossInputs(predicted=x, target=x, pred_image=x, target_image=target, prompt_ids=ids,
+                                           generator=g))
+            val.backward()
+            return val.detach(), x.grad
+
+        zero_counters(mods)
+        val, grad = call()
+        launches = read_counters(mods)
+        ms = time_ms(torch, call, iters=3, warmup=1)
+        same = None
+        if name != "CLIPLoss":
+            with torch.no_grad():
+                same = loss(DiffusionLossInputs(predicted=pred, target=pred, pred_image=pred, target_image=pred)).item()
+        log(f"  {name} at 512² batch 2: loss {val.item():.6g}, gradient max {grad.abs().max().item():.3e}, "
+            f"identical images {same}, {ms:.2f} ms per forward + backward, launches {launches} on {card_line}")
+        if not (torch.isfinite(val) and torch.isfinite(grad).all() and grad.abs().max() > 0):
+            fail(f"phase 7c: {name}'s loss or its gradient through pred_image is not finite and nonzero")
+        if same is not None and not abs(same) < 1e-5:
+            fail(f"phase 7c: {name} of identical images is {same}, not < 1e-5")
+        if any(launches.values()):
+            fail(f"phase 7c: {name} launched {launches}; its tower runs the plain versions")
+        out["ms"][name] = ms
+    del clip, idl, lpips_loss, dreamsim, vit, pred, target, grad
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(23)
+    detector = MTCNN(device="cuda")
+    img = (torch.rand(512, 512, 3, generator=torch.Generator().manual_seed(29)) * 255).numpy()
+    detector.detect(img)
+    t0 = time.perf_counter()
+    boxes, probs, lms = detector.detect(img)
+    out["mtcnn_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"  MTCNN.detect on a 512² image, synthetic weights: {len(boxes)} faces, {out['mtcnn_ms']:.1f} ms (the "
+        f"second call) on {card_line}")
+    if not (len(boxes) == len(probs) == len(lms) and lms.shape[1:] == (5, 2)):
+        fail(f"phase 7c: MTCNN.detect returned {boxes.shape}, {probs.shape}, {lms.shape}")
     return out
 
 
@@ -4046,9 +4399,17 @@ def main() -> None:
     log("[4b] restore options at SDXL width: one CUDA graph, merged LoRA, DeepCache, Heun, bf16 decode, tiling, slicing")
     options = run_restore_options(torch, pipe, args.steps, mods, ucfg, card_line)
 
-    # 4c. a checkpoint tree in the released layout, loaded back, and the inference CLI
+    # 4c. a checkpoint tree in the released layout, loaded back, and the inference CLI; then on that tree
+    # 4g. the CLIP image-prompt encoder: the restore staged and as a graph, and the CLI with --use_clip_encoder
     log("[4c] load a checkpoint tree in the released layout and restore through the inference CLI at SDXL width")
-    cli = run_load_and_cli(torch, pipe, args.steps, mods, ucfg, card_line)
+
+    def phase_4g(paths, towers):
+        log("[4g] the CLIP image-prompt encoder at SDXL width: a ViT-B/16 CLIPImageEncoder and a 768-wide "
+            "Resampler on phase 4's models, staged and as one CUDA graph, the CLI with --use_clip_encoder")
+        return run_clip_encoder(torch, pipe, paths, towers, mods, ucfg, card_line)
+
+    cli = run_load_and_cli(torch, pipe, args.steps, mods, ucfg, card_line, after_tree=phase_4g)
+    clip_enc = cli["after_tree"]
 
     # 4d. serving
     log("[4d] serving at SDXL width: the whole-request server, the demo app's adapter swap, the slot sampler, "
@@ -4088,6 +4449,13 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 7c. the perceptual losses
+    log("[7c] the perceptual losses at full width: previewer steps with LPIPS + DreamSim in turns with Huber, each "
+        "loss's forward and backward through pred_image, MTCNN.detect")
+    perceptual = run_perceptual(torch, pipe, ucfg, mods, card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 7b. training from raw images: the degradation, the training CLI, checkpoints and resume
     log("[7b] training from raw images at SDXL width: the degradation on the card, the training CLI (stage 1 with "
         "checkpoints and resume, stage 1 from PNGs, the previewer, stage 2 with async checkpoints), s/step of run")
@@ -4107,6 +4475,7 @@ def main() -> None:
                 "restore_graph_recording": options["launches"]["graph recording"][name],
                 "restore_deepcache": options["launches"]["DeepCache restore"][name],
                 "restore_cli": cli["launches"][name],
+                "restore_clip_encoder": clip_enc["total"][name],
                 "serve_warmup": serving["launches"]["serve warmup"][name],
                 "serve_traffic": serving["launches"]["serve traffic"][name],
                 "slot_steps": serving["launches"]["slot steps 1024"][name],
@@ -4117,6 +4486,7 @@ def main() -> None:
                 "train_stage2_1024": stage2["train_stage2_1024"][name],
                 "train_previewer_512": previewer["train_previewer_512"][name],
                 "train_previewer_1024": previewer["train_previewer_1024"][name],
+                "train_previewer_perceptual": perceptual["train_previewer_perceptual"][name],
                 "train_cli_stage1": train_cli["launches_stage1"][name],
                 "train_cli_previewer": train_cli["launches_previewer"][name],
                 "train_cli_stage2": train_cli["launches_stage2"][name],
@@ -4253,6 +4623,15 @@ def main() -> None:
         f"{json.dumps({k: round(max(v), 2) for k, v in adapter['turns']['peak_gb'].items()})} GB; the CLI with the "
         f"adapter {adapter['cli']['sec_2']:.2f} s (2 steps) and {adapter['cli']['sec_4']:.2f} s (resumed to 4); on "
         f"{card_line}")
+    log(f"[9] CLIP image-prompt encoder (ViT-B/16, 1024² 4 steps): staged {clip_enc['staged_sec']:.3f} s/image, "
+        f"one CUDA graph {clip_enc['graph_sec']:.3f} (recording {clip_enc['record_sec']:.3f} s), encoder "
+        f"{clip_enc['enc_ms']:.3f} ms, CLI --use_clip_encoder with its own load {clip_enc['cli_sec']:.2f} s (image "
+        f"{clip_enc['cli_image_sec']:.3f} s); previewer 512² batch 2 s/step Huber "
+        f"{json.dumps([round(x, 3) for x in perceptual['sec']['huber']])} vs Huber + LPIPS + DreamSim "
+        f"{json.dumps([round(x, 3) for x in perceptual['sec']['perceptual']])}, peaks "
+        f"{json.dumps({k: [round(x, 2) for x in v] for k, v in perceptual['peak_gb'].items()})} GB; ms per forward + "
+        f"backward at 512² batch 2 {json.dumps({k: round(v, 2) for k, v in perceptual['ms'].items()})}; MTCNN.detect "
+        f"512² {perceptual['mtcnn_ms']:.1f} ms; on {card_line}")
     log(json.dumps({"kernels": entries}))
     log(card_line)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,9 @@ Usage (on the card; ``--fused`` replays one CUDA graph per image size):
 
 ``--quantized w8a8|w8`` quantizes the UNet and the Aggregator to int8 after
 the load (``InstantIRPipeline.quantize``; on a pipeline passed in as
-``models``, in place). ``--sequence_parallel`` and ``--use_clip_encoder``
-are not ported and raise ``NotImplementedError``. The noise comes from a
+``models``, in place). ``--use_clip_encoder`` reads ``--vision_encoder_path``
+as an HF CLIP vision tower (``load_instantir_pipeline(use_clip_encoder=True)``).
+``--sequence_parallel`` is not ported and raises ``NotImplementedError``. The noise comes from a
 ``torch.Generator`` seeded with ``--seed``: the same seed draws other noise
 than the JAX CLI's ``jax.random.PRNGKey``.
 """
@@ -196,7 +197,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_NOT_PORTED_FLAGS = ("sequence_parallel", "use_clip_encoder")
+_NOT_PORTED_FLAGS = ("sequence_parallel",)
 
 
 def restore_config(args: argparse.Namespace) -> RestoreConfig:

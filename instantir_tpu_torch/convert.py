@@ -2,7 +2,9 @@
 
 The port's own copy of the exporters of ``instantir_tpu/convert/flax_to_torch.py``
 that the restore path needs (``export_unet``, ``export_aggregator``,
-``export_resampler``, ``export_vae``, ``export_dinov2``). They emit the
+``export_resampler``, ``export_vae``, ``export_dinov2``), and exporters of the
+perceptual losses' towers for the tests (``export_clip_vision``,
+``export_clip_image_encoder``, ``export_lpips``, ``export_arcface``). They emit the
 diffusers / HF ``transformers`` / reference state-dict names with OIHW conv
 and ``[out, in]`` linear weights, which are the port's parameter names, so
 ``module.load_state_dict(to_torch(export_x(tree)), strict=True)`` carries a
@@ -33,7 +35,8 @@ The other way, for ``pipeline/load.py``: ``load_torch_state_dict`` reads a
 checkpoint file (its own ``.safetensors`` reader: the port needs no
 ``safetensors`` package), ``import_ip_adapter`` and
 ``import_previewer_lora`` rename ``adapter.pt``'s ip projections and the
-previewer LoRA file's keys to the port's names.
+previewer LoRA file's keys to the port's names, and ``import_clip_vision``
+takes an HF CLIP vision tower's tensors by name.
 """
 
 from __future__ import annotations
@@ -326,6 +329,104 @@ def export_dinov2(tree: Dict[str, Any], num_layers: int) -> Dict[str, np.ndarray
         _inv_linear(out, f"{q}.mlp.fc1", n["fc1"])
         _inv_linear(out, f"{q}.mlp.fc2", n["fc2"])
         out[f"{q}.layer_scale2.lambda1"] = np.asarray(n["layerscale2"])
+    return out
+
+
+def export_clip_vision(tree: Dict[str, Any], num_layers: int, head: bool = True) -> Dict[str, np.ndarray]:
+    """A JAX ``CLIPVisionModel`` tree -> HF ``CLIPVisionModelWithProjection``
+    names (the inverse of ``convert_clip_vision``); ``head=False`` leaves out
+    ``post_layernorm`` and ``visual_projection``, which ``CLIPImageEncoder``
+    does not hold (a JAX tree converted from a whole tower may)."""
+    out: Dict[str, np.ndarray] = {}
+    p, q = tree["params"], "vision_model."
+    out[f"{q}embeddings.class_embedding"] = np.asarray(p["cls_token"])
+    out[f"{q}embeddings.position_embedding.weight"] = np.asarray(p["pos_embed"])
+    _inv_conv(out, f"{q}embeddings.patch_embedding", p["patch_embed"])
+    _inv_norm(out, f"{q}pre_layrnorm", p["pre_norm"])
+    if head:
+        _inv_norm(out, f"{q}post_layernorm", p["post_norm"])
+    for i in range(num_layers):
+        n, layer = p[f"layers_{i}"], f"{q}encoder.layers.{i}"
+        _inv_norm(out, f"{layer}.layer_norm1", n["norm1"])
+        for src, dst in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("proj", "out_proj")):
+            _inv_linear(out, f"{layer}.self_attn.{dst}", n[src])
+        _inv_norm(out, f"{layer}.layer_norm2", n["norm2"])
+        _inv_linear(out, f"{layer}.mlp.fc1", n["fc1"])
+        _inv_linear(out, f"{layer}.mlp.fc2", n["fc2"])
+    if head and "visual_projection" in p:
+        _inv_linear(out, "visual_projection", p["visual_projection"])
+    return out
+
+
+def export_clip_image_encoder(tree: Dict[str, Any], num_layers: int) -> Dict[str, np.ndarray]:
+    """A JAX ``CLIPImageEncoder`` tree (``{"params": {"clip": ...}}``, the
+    first ``num_layers - 1`` layers) -> the port ``CLIPImageEncoder``'s state dict."""
+    return export_clip_vision({"params": tree["params"]["clip"]}, num_layers - 1, head=False)
+
+
+def import_clip_vision(sd: Dict[str, Any], names) -> Dict[str, Any]:
+    """An HF ``CLIPVisionModelWithProjection`` (or ``CLIPModel``) state dict ->
+    the tensors of a port ``CLIPVisionModel`` or ``CLIPImageEncoder`` with
+    parameter ``names``: the port's names are HF's (``vision_model.*``, HF's
+    ``pre_layrnorm`` spelling, ``visual_projection.weight``), so each is
+    taken by name and the rest (a text tower, the last layer and the
+    post-norm an image encoder never reads) is passed over. A name ``sd``
+    lacks raises ``KeyError``."""
+    missing = [n for n in names if n not in sd]
+    if missing:
+        raise KeyError(f"the CLIP vision checkpoint lacks {len(missing)} of the model's tensors (first: {missing[:5]})")
+    return {n: sd[n] for n in names}
+
+
+def export_lpips(tree: Dict[str, Any], config) -> Dict[str, np.ndarray]:
+    """A JAX ``LPIPS`` tree -> the published ``lpips.LPIPS(net='vgg')`` names."""
+    out: Dict[str, np.ndarray] = {}
+    p = tree["params"]
+    for si, conv_ids in enumerate(config.slices):
+        for ci in conv_ids:
+            _inv_conv(out, f"net.slice{si + 1}.{ci}", p[f"conv_{ci}"])
+        _inv_conv(out, f"lin{si}.model.1", p[f"lin_{si}"])
+    return out
+
+
+def export_arcface(tree: Dict[str, Any], config) -> Dict[str, np.ndarray]:
+    """A JAX ``ArcFaceBackbone`` tree (BatchNorms folded) -> the port
+    ``ArcFaceBackbone``'s state dict (InsightFace module names, ``Affine``
+    ``scale`` / ``bias``). The JAX head flattens NHWC and its converter
+    permutes ``output_layer.3``'s input columns to match; the port flattens
+    NCHW, so the permutation is undone here."""
+    out: Dict[str, np.ndarray] = {}
+    p = tree["params"]
+
+    def affine(prefix, node):
+        out[f"{prefix}.scale"] = np.asarray(node["scale"])
+        out[f"{prefix}.bias"] = np.asarray(node["bias"])
+
+    _inv_conv(out, "input_layer.0", p["stem_conv"])
+    affine("input_layer.1", p["stem_bn"])
+    out["input_layer.2.weight"] = np.asarray(p["stem_prelu"])
+    bi = 0
+    for _, n_units in config.stages:
+        for _ in range(n_units):
+            blk, q = p[f"block_{bi}"], f"body.{bi}"
+            affine(f"{q}.res_layer.0", blk["bn0"])
+            _inv_conv(out, f"{q}.res_layer.1", blk["conv1"])
+            out[f"{q}.res_layer.2.weight"] = np.asarray(blk["prelu"])
+            _inv_conv(out, f"{q}.res_layer.3", blk["conv2"])
+            affine(f"{q}.res_layer.4", blk["bn2"])
+            _inv_conv(out, f"{q}.res_layer.5.fc1", blk["se_fc1"])
+            _inv_conv(out, f"{q}.res_layer.5.fc2", blk["se_fc2"])
+            if "shortcut_conv" in blk:
+                _inv_conv(out, f"{q}.shortcut_layer.0", blk["shortcut_conv"])
+                affine(f"{q}.shortcut_layer.1", blk["shortcut_bn"])
+            bi += 1
+    affine("output_layer.0", p["head_bn"])
+    spatial, c = config.input_size // (2 ** len(config.stages)), config.stages[-1][0]
+    w = np.asarray(p["head_fc"]["kernel"]).T  # [emb, H·W·C], the NHWC flatten
+    out["output_layer.3.weight"] = np.ascontiguousarray(
+        w.reshape(-1, spatial, spatial, c).transpose(0, 3, 1, 2).reshape(w.shape[0], -1))
+    out["output_layer.3.bias"] = np.asarray(p["head_fc"]["bias"])
+    affine("output_layer.4", p["head_bn1d"])
     return out
 
 

@@ -1,2 +1,3 @@
 """Training data of the port (twin of ``instantir_tpu/data``): blur kernels,
-the RealESRGAN degradation and the image-folder datasets."""
+the RealESRGAN degradation, the image-folder datasets and the face-identity
+pair dataset."""

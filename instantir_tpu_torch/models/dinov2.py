@@ -202,16 +202,24 @@ def _mean_std(dtype: torch.dtype, device: torch.device) -> Tuple[torch.Tensor, t
             torch.tensor(DINOV2_STD, dtype=dtype, device=device))
 
 
+def resize_bhwc(images: torch.Tensor, out_h: int, out_w: int,
+                kernel: Callable[[np.ndarray], np.ndarray] = _triangle) -> torch.Tensor:
+    """[B, H, W, C] -> [B, out_h, out_w, C] with ``jax.image.resize``'s
+    weights for ``kernel`` (``_triangle``: "bilinear", ``_keys_cubic``:
+    "bicubic"; antialiased when downsampling), summed in fp32 and returned
+    in the input's dtype."""
+    _, h, w, _ = images.shape
+    wy = _resize_weights(h, out_h, kernel, images.device)
+    wx = _resize_weights(w, out_w, kernel, images.device)
+    out = torch.einsum("oh,bhwc->bowc", wy, images.float())
+    return torch.einsum("pw,bowc->bopc", wx, out).to(images.dtype)
+
+
 def preprocess_dinov2(images: torch.Tensor, size: int = 224) -> torch.Tensor:
     """[B, H, W, 3] in [0, 1] -> resized to ``size``² (antialiased bilinear,
-    the JAX ``jax.image.resize`` weights, summed in fp32) and
-    ImageNet-normalized in the input's dtype, [B, H, W, 3]."""
+    ``resize_bhwc``) and ImageNet-normalized in the input's dtype, [B, H, W, 3]."""
     b, h, w, c = images.shape
-    dtype = images.dtype
     if (h, w) != (size, size):
-        wy = _resize_weights(h, size, _triangle, images.device)
-        wx = _resize_weights(w, size, _triangle, images.device)
-        images = torch.einsum("oh,bhwc->bowc", wy, images.float())
-        images = torch.einsum("pw,bowc->bopc", wx, images).to(dtype)
-    mean, std = _mean_std(dtype, images.device)
+        images = resize_bhwc(images, size, size, _triangle)
+    mean, std = _mean_std(images.dtype, images.device)
     return (images - mean) / std

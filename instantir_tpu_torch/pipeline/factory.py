@@ -9,6 +9,17 @@ zero-conv weights are nonzero so those paths do real work. Real weights go in
 afterwards with ``load_state_dict``; ``pipeline.load`` builds the models
 from checkpoint files instead, with ``init_aggregator_from_unet`` when no
 Aggregator checkpoint is given.
+
+Storage: in ``dtype`` (norms fp32), where the JAX ``build_pipeline`` keeps
+fp32 parameters under bf16 compute. Both give JAX's result up to bf16
+arithmetic order, so the port does not keep fp32 copies: flax rounds every
+kernel and bias to the compute dtype at each use, which is the rounding bf16
+storage makes once; the norms stay fp32 in both; only the merged previewer
+LoRA (``fuse_previewer_lora``) differs, merged here from bf16 values where
+JAX merges fp32 ones and rounds once, by at most one bf16 ulp of a layer's
+largest weight. A one-step CFG restore with the merged LoRA is then no
+further from JAX's than the same restore with the dynamic LoRA branch,
+where storage cannot matter (``tests/test_torch_port_bf16_merge.py``).
 """
 
 from __future__ import annotations

@@ -29,12 +29,13 @@ import collections
 import dataclasses
 import functools
 import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from instantir_tpu_torch.models.aggregator import Aggregator
+from instantir_tpu_torch.models.clip_vision import CLIPImageEncoder
 from instantir_tpu_torch.models.dinov2 import DINOv2Model, preprocess_dinov2
 from instantir_tpu_torch.models.layers import LoRAConv2d, LoRALinear, merge_lora
 from instantir_tpu_torch.models.resampler import Resampler
@@ -214,7 +215,8 @@ class InstantIRPipeline:
     outside: ``restore`` takes prompt embeddings."""
 
     def __init__(self, unet: UNet2DConditionModel, aggregator: Aggregator, vae: AutoencoderKL,
-                 resampler: Resampler, image_encoder: DINOv2Model, schedule: DiffusionSchedule,
+                 resampler: Resampler, image_encoder: Union[DINOv2Model, CLIPImageEncoder],
+                 schedule: DiffusionSchedule,
                  device="cuda"):
         self.device = torch.device(device)
         self.unet = unet
@@ -322,21 +324,25 @@ class InstantIRPipeline:
     # ------------------------------------------------------------------
 
     def _uncond_tokens(self, size: int, dtype: torch.dtype) -> torch.Tensor:
-        """DINOv2 tokens of the zero image (in *preprocessed* pixel space),
-        which depend on the encoder's weights alone: computed once per (image
-        size, dtype, weights). The weights are known by every parameter's
+        """The image encoder's tokens of the zero image (in *preprocessed*
+        pixel space; DINOv2's or the CLIP tower's), which depend on the
+        encoder's weights alone: computed once per (image size, dtype,
+        weights). The weights are known by every parameter's and buffer's
         ``data_ptr`` and version counter, which ``load_state_dict`` and any
-        other in-place edit advance."""
+        other in-place edit advance, so another encoder's tokens are never
+        taken from the cache."""
         enc = self.image_encoder
-        key = (size, dtype, tuple((t.data_ptr(), t._version) for t in (*enc.parameters(), *enc.buffers())))
+        key = (size, dtype, type(enc), tuple((t.data_ptr(), t._version) for t in (*enc.parameters(), *enc.buffers())))
         if self._uncond is None or self._uncond[0] != key:
             zeros = torch.zeros((1, 3, size, size), dtype=dtype, device=self.device)
             self._uncond = (key, enc(zeros))
         return self._uncond[1]
 
     def encode_image_embeds(self, images01: torch.Tensor, uncond: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """DINOv2 tokens for (cond, uncond): ``uncond`` is ``_uncond_tokens``,
-        those of a zero tensor in preprocessed pixel space, broadcast."""
+        """The image encoder's tokens for (cond, uncond): ``uncond`` is
+        ``_uncond_tokens``, those of a zero tensor in preprocessed pixel
+        space, broadcast. The pixels are preprocessed at the encoder's own
+        ``image_size`` (a CLIP tower re-normalizes them itself)."""
         cond = self.image_encoder(_nchw(preprocess_dinov2(images01, size=self.image_encoder.config.image_size)))
         return cond, uncond.expand_as(cond)
 

@@ -8,7 +8,11 @@ reference's (``infer.py:114-144``):
   2. ``adapter.pt``: the Resampler and the ip projections of the UNet;
   3. ``previewer_lora_weights.bin``: LoRA tensors of the UNet and the Resampler;
   4. ``aggregator.pt``: the Aggregator (built from the UNet when absent);
-  5. a DINOv2 folder (HF ``transformers`` layout): the image encoder.
+  5. a DINOv2 folder (HF ``transformers`` layout): the image encoder; with
+     ``use_clip_encoder`` an HF CLIP vision folder instead (the reference's
+     ``--use_clip_encoder``, ``infer.py:275-279``), read into a
+     ``CLIPImageEncoder`` with the Resampler's ``embedding_dim`` its
+     ``hidden_size``.
 
 The port's parameter names are the checkpoints' own (``convert.py``), so a
 file's tensors are picked by name; only ``adapter.pt``'s ip projections and
@@ -31,7 +35,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from instantir_tpu_torch.convert import import_ip_adapter, import_previewer_lora, load_torch_state_dict
+from instantir_tpu_torch.convert import (
+    import_clip_vision,
+    import_ip_adapter,
+    import_previewer_lora,
+    load_torch_state_dict,
+)
 from instantir_tpu_torch.models.aggregator import Aggregator
 from instantir_tpu_torch.models.clip_text import (
     CLIPTextConfig,
@@ -39,6 +48,7 @@ from instantir_tpu_torch.models.clip_text import (
     clip_vit_l_text_config,
     open_clip_bigg_text_config,
 )
+from instantir_tpu_torch.models.clip_vision import CLIPImageEncoder, CLIPVisionConfig, clip_vit_b16_config
 from instantir_tpu_torch.models.dinov2 import DINOv2Config, DINOv2Model, dinov2_large_config
 from instantir_tpu_torch.models.layers import GroupNorm32
 from instantir_tpu_torch.models.resampler import Resampler, ResamplerConfig, instantir_resampler_config
@@ -124,6 +134,23 @@ def dinov2_config_from_json(d: Dict[str, Any]) -> DINOv2Config:
         mlp_ratio=d.get("mlp_ratio", 4),
         patch_size=d.get("patch_size", 14),
         image_size=d.get("image_size", 224),
+    )
+
+
+def clip_vision_config_from_json(d: Dict[str, Any]) -> CLIPVisionConfig:
+    """HF CLIP vision ``config.json`` (or a ``CLIPModel``'s, its
+    ``vision_config``) -> ``CLIPVisionConfig``."""
+    d = d.get("vision_config", d)
+    return CLIPVisionConfig(
+        hidden_size=d["hidden_size"],
+        num_layers=d["num_hidden_layers"],
+        num_heads=d["num_attention_heads"],
+        intermediate_size=d["intermediate_size"],
+        image_size=d.get("image_size", 224),
+        patch_size=d.get("patch_size", 16),
+        projection_dim=d.get("projection_dim", 512),
+        hidden_act=d.get("hidden_act", "quick_gelu"),
+        eps=d.get("layer_norm_eps", 1e-5),
     )
 
 
@@ -255,8 +282,11 @@ def load_instantir_pipeline(
 ) -> InstantIRPipeline:
     """An ``InstantIRPipeline`` on ``device`` from a released checkpoint tree.
 
-    The UNet, Aggregator, Resampler and DINOv2 hold ``dtype`` (bf16 by
-    default), the VAE fp32, as in the JAX loader. The InstantIR files are
+    The UNet, Aggregator, Resampler and image encoder hold ``dtype`` (bf16 by
+    default), the VAE fp32, as in the JAX loader. The image encoder is
+    DINOv2, or with ``use_clip_encoder`` the CLIP vision tower of
+    ``vision_encoder_path`` as a ``CLIPImageEncoder`` (its penultimate
+    layer's tokens; the Resampler's ``embedding_dim`` is its ``hidden_size``). The InstantIR files are
     each optional: a missing one leaves its leaves to ``fill_missing_leaves``
     (the Aggregator to ``build_aggregator_state``). ``strict`` (default): a
     present checkpoint that maps onto the model only in part raises (an
@@ -264,11 +294,8 @@ def load_instantir_pipeline(
     instead. A required tensor missing from a file raises ``KeyError`` either
     way. ``timings``, if given, receives the seconds spent reading the files
     (``read_s``) and copying to the device (``to_device_s``)."""
-    if use_clip_encoder:
-        raise NotImplementedError("load_instantir_pipeline(use_clip_encoder=True): the CLIP vision tower "
-                                  "(models/clip_vision.py) is not ported yet")
     if not vision_encoder_path:
-        raise ValueError("load_instantir_pipeline needs vision_encoder_path (the DINOv2 folder)")
+        raise ValueError("load_instantir_pipeline needs vision_encoder_path (the DINOv2 or CLIP vision folder)")
     device = _device(device)
     t_start = time.perf_counter()
     icfg = instantir_config_from_json(instantir_path and os.path.join(instantir_path, "instantir_config.json")) or {}
@@ -279,7 +306,10 @@ def load_instantir_pipeline(
     d = _read_config(os.path.join(sdxl_path, "vae"))
     vae_cfg = vae_config_from_json(d) if d else sdxl_vae_config()
     d = _read_config(vision_encoder_path)
-    dino_cfg = dinov2_config_from_json(d) if d else dinov2_large_config()
+    if use_clip_encoder:
+        dino_cfg = clip_vision_config_from_json(d) if d else clip_vit_b16_config()
+    else:
+        dino_cfg = dinov2_config_from_json(d) if d else dinov2_large_config()
     if "resampler" in icfg:
         res_cfg = ResamplerConfig(**{"lora_rank": lora_rank, **icfg["resampler"]})
     else:
@@ -290,7 +320,7 @@ def load_instantir_pipeline(
     aggregator = Aggregator(unet_cfg, use_flash=use_flash, dtype=dtype, device=meta)
     vae = AutoencoderKL(vae_cfg, dtype=torch.float32, device=meta)
     resampler = Resampler(res_cfg, dtype=dtype, device=meta)
-    dino = DINOv2Model(dino_cfg, dtype=dtype, device=meta)
+    dino = (CLIPImageEncoder if use_clip_encoder else DINOv2Model)(dino_cfg, dtype=dtype, device=meta)
     rng = np.random.default_rng(0)
 
     # the UNet's base weights (its LoRA and ip leaves come from the InstantIR files)
@@ -343,7 +373,11 @@ def load_instantir_pipeline(
         agg_state = build_aggregator_state(aggregator, unet_state, rng)
 
     vae_state = _pick(load_torch_state_dict(_find_weights(os.path.join(sdxl_path, "vae"))), vae, "VAE")
-    dino_state = _pick(load_torch_state_dict(_find_weights(vision_encoder_path)), dino, "DINOv2")
+    encoder_sd = load_torch_state_dict(_find_weights(vision_encoder_path))
+    if use_clip_encoder:
+        dino_state = import_clip_vision(encoder_sd, [n for n, _ in dino.named_parameters()])
+    else:
+        dino_state = _pick(encoder_sd, dino, "DINOv2")
     t_read = time.perf_counter()
 
     for model, state, model_dtype in ((unet, unet_state, dtype), (aggregator, agg_state, dtype),

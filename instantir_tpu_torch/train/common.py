@@ -753,7 +753,7 @@ class Trainer:
                 raise ValueError(f"{type(self).__name__}: {name} lies on {sorted(where)}, "
                                  f"the trainer on {self.device.type}")
         self.schedule = (schedule or sdxl_schedule()).to(self.device)
-        self.losses = build_losses(self.loss_configs(losses_config))
+        self.losses = build_losses(self.loss_configs(losses_config), device=self.device)
         if cfg.quantize_frozen_unet:
             quantize_frozen_unet(models["unet"], keep_pred=self.frozen_unet_keep)
         self.trainable_names = set_trainable(models, pred)

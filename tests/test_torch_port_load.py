@@ -353,14 +353,80 @@ def test_strict_load_raises_on_a_renamed_lora_key(tree, tmp_path, loader):
 
 def test_port_loader_refusals(tree):
     args = (str(tree["root"] / "sdxl"), str(tree["root"] / "instantir"))
-    with pytest.raises(NotImplementedError, match="use_clip_encoder"):
-        tload.load_instantir_pipeline(*args, vision_encoder_path=str(tree["root"] / "dinov2"), use_clip_encoder=True,
-                                      device="cpu")
     with pytest.raises(ValueError, match="vision_encoder_path"):
         tload.load_instantir_pipeline(*args, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tload.load_instantir_pipeline(*args, vision_encoder_path=str(tree["root"] / "dinov2"))
+
+
+CLIP_HF = dict(hidden_size=16, num_hidden_layers=3, num_attention_heads=2, intermediate_size=32, image_size=32,
+               patch_size=8, projection_dim=8, hidden_act="quick_gelu", layer_norm_eps=1e-5)
+
+
+@pytest.fixture(scope="module")
+def clip_dir(tmp_path_factory):
+    """An HF ``CLIPVisionModelWithProjection`` folder (``config.json`` and
+    ``pytorch_model.bin``, every tensor of the tower) at the tree's
+    Resampler width (16), from a JAX tree drawn from a seed."""
+    from instantir_tpu.models.clip_vision import CLIPVisionModel as JCLIPVision
+    from instantir_tpu.models.clip_vision import tiny_clip_vision_config as j_clip_vision_cfg
+
+    folder = tmp_path_factory.mktemp("clip_vision")
+    cfg = j_clip_vision_cfg(num_layers=3)
+    params = _np_tree(_init_random(JCLIPVision(cfg), 9, np.zeros((1, 32, 32, 3), np.float32)))
+    _save_bin(folder / "pytorch_model.bin", convert.export_clip_vision(params, cfg.num_layers))
+    with open(folder / "config.json", "w") as f:
+        json.dump({"architectures": ["CLIPVisionModelWithProjection"], **CLIP_HF}, f)
+    return folder
+
+
+def test_port_loader_reads_a_clip_vision_folder(tree, clip_dir, rng):
+    """``use_clip_encoder=True`` in both loaders: the port's
+    ``CLIPImageEncoder`` holds the JAX encoder's parameters exactly (the
+    tower's last layer, post-norm and projection passed over), the config
+    comes from ``config.json``, and the image tokens and the uncond tokens
+    equal JAX's within 1e-5 of their scale."""
+    from instantir_tpu_torch.models.clip_vision import CLIPImageEncoder
+
+    args = (str(tree["root"] / "sdxl"), str(tree["root"] / "instantir"))
+    jpipe = jload.load_instantir_pipeline(*args, vision_encoder_path=str(clip_dir), dtype=jnp.float32,
+                                          use_clip_encoder=True)
+    tpipe = tload.load_instantir_pipeline(*args, vision_encoder_path=str(clip_dir), dtype=torch.float32,
+                                          use_clip_encoder=True, device="cpu")
+    enc = tpipe.image_encoder
+    assert isinstance(enc, CLIPImageEncoder) and enc.config == tload.clip_vision_config_from_json(CLIP_HF)
+    assert enc.config.num_layers == 3 and len(enc.vision_model.encoder.layers) == 2
+    assert tpipe.resampler.config.embedding_dim == enc.config.hidden_size
+    want = convert.export_clip_image_encoder(_np_tree(jpipe.params["image_encoder"]), 3)
+    got = enc.state_dict()
+    assert set(got) == set(want)
+    for k, v in got.items():
+        np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
+    lq = rng.uniform(size=(1, 48, 40, 3)).astype(np.float32)
+    j_cond, j_uncond = jpipe.encode_image_embeds(jpipe.params, jnp.asarray(lq))
+    with torch.no_grad():
+        cond, uncond = tpipe.encode_image_embeds(torch.from_numpy(lq), tpipe._uncond_tokens(32, torch.float32))
+    assert cond.shape == (1, 17, 16)
+    for g, w in ((cond, j_cond), (uncond, j_uncond)):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * max(1.0, np.abs(w).max())
+
+
+def test_cli_restores_with_the_clip_encoder(tree, clip_dir, tmp_path):
+    """``--use_clip_encoder``: the port's ``main`` on the CPU reads the CLIP
+    folder as the image encoder and restores a 64x64 image."""
+    lq = tmp_path / "lq"
+    lq.mkdir()
+    Image.fromarray((np.random.default_rng(4).uniform(size=(64, 64, 3)) * 255).astype(np.uint8)).save(lq / "d.png")
+    root = tree["root"]
+    records = tinfer.main(["--sdxl_path", str(root / "sdxl"), "--instantir_path", str(root / "instantir"),
+                           "--vision_encoder_path", str(clip_dir), "--use_clip_encoder", "--test_path", str(lq),
+                           "--out_path", str(tmp_path / "out"), "--num_inference_steps", "2", "--min_side", "64",
+                           "--max_side", "64"], device="cpu")
+    assert [(r["files"], r["size"]) for r in records] == [(["d.png"], (64, 64))]
+    img = np.asarray(Image.open(tmp_path / "out" / "d.png"))
+    assert img.shape == (64, 64, 3) and img.std() > 0
 
 
 def test_merge_lora_bf16_within_one_ulp_of_the_jax_merge(tree, loaded):
@@ -591,13 +657,14 @@ def test_cli_parser_takes_every_jax_flag():
 
 @pytest.mark.parametrize("flag", ["--quantized", "--sequence_parallel", "--use_clip_encoder"])
 def test_cli_refuses_the_flags_not_ported(flag, tmp_path):
-    """``--sequence_parallel`` and ``--use_clip_encoder`` still raise, naming
-    themselves; ``--quantized`` (ported since) gets past the check to the
+    """``--sequence_parallel`` still raises, naming itself; ``--quantized``
+    and ``--use_clip_encoder`` (ported since) get past the check to the
     load, which fails on the missing folder."""
     argv = ["--sdxl_path", str(tmp_path / "s"), "--instantir_path", "i", "--vision_encoder_path", "v",
             "--test_path", "t", flag]
-    if flag == "--quantized":
-        assert tinfer.build_parser().parse_args(argv).quantized == "w8a8"
+    if flag in ("--quantized", "--use_clip_encoder"):
+        parsed = tinfer.build_parser().parse_args(argv)
+        assert parsed.quantized == "w8a8" if flag == "--quantized" else parsed.use_clip_encoder
         with pytest.raises(Exception) as info:
             tinfer.main(argv, device="cpu")
         assert not isinstance(info.value, NotImplementedError)
@@ -765,7 +832,7 @@ def test_port_imports_no_hf_packages_and_pillow_only_in_functions():
     bad += [f"{f.relative_to(REPO)}: {m} at the top level" for f in files for m in _imported_modules(f, True)
             if m.split(".")[0] in ("PIL", "yaml")]
     pillow_users = ("cli/infer.py", "cli/serve.py", "cli/app.py", "cli/train.py", "data/dataset.py", "train/common.py",
-                    "utils/vis.py")
+                    "utils/vis.py", "data/face_dataset.py")
     bad += [f"{f.relative_to(REPO)}: {m}" for f in files for m in _imported_modules(f)
             if m.split(".")[0] == "PIL" and str(f.relative_to(REPO / "instantir_tpu_torch")) not in pillow_users]
     assert not bad, bad

@@ -70,6 +70,9 @@ LOSSES = [dict(name="HuberLoss", weight=1.0, init_params={"huber_c": 0.001}),
           dict(name="LCMVisualization", weight=1.0, visualize_every_k=1)]
 MODELS = ("unet", "resampler")
 KEY_SEED = 18  # the four draws: solver index 1, 0, 1, 0; drop uniforms 0.48, 0.64, 0.66, 0.08
+# XLA's CPU backend at its lowest optimisation level for the JAX step's one compile, which bounds this file
+# (as tests/test_torch_port_adam8bit.py compiles its steps)
+FAST = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
 def _t(x):
@@ -151,10 +154,11 @@ def setup():
 
 @pytest.fixture(scope="module")
 def two_steps(setup):
-    """Two previewer updates on each side. The JAX step is compiled once,
-    with a gradient transformation that hands the raw gradients back in place
-    of the optimiser state; AdamW and the center's momentum fold
-    (``PreviewerTrainer.train_step``'s) are then applied outside that program."""
+    """Two previewer updates on each side. The JAX step is compiled once (at
+    ``FAST``), with a gradient transformation that hands the raw gradients
+    back in place of the optimiser state; AdamW and the center's momentum
+    fold (``PreviewerTrainer.train_step``'s) are then applied outside that
+    program."""
     unet, res, vae, dino = setup["models"]
     jcfg = jprev.PreviewerConfig(**STEP_CFG)
     losses = j_build_losses([JSingle(**c) for c in LOSSES])
@@ -162,7 +166,7 @@ def two_steps(setup):
     capture = optax.GradientTransformation(
         init=lambda p: (),
         update=lambda g, state, p=None: (jax.tree_util.tree_map(jnp.zeros_like, g), g))
-    step = jax.jit(lambda tr, fr, batch, key, center: raw_step(tr, fr, (), capture, batch, key, center))
+    step_fn = jax.jit(lambda tr, fr, batch, key, center: raw_step(tr, fr, (), capture, batch, key, center))
 
     trainer = _build_port(setup["params"], setup["dcfg"])
     batch = trainer.prepare_batch({"lq": _t(setup["lq"]), "gt": _t(setup["gt"])},
@@ -181,8 +185,11 @@ def two_steps(setup):
     center = jnp.zeros((setup["dcfg"].hidden_size,), jnp.float32)
     key = jax.random.PRNGKey(KEY_SEED)
     out = []
+    step = None
     for _ in range(2):
         key, k_step = jax.random.split(key)
+        if step is None:
+            step = step_fn.lower(trainable, frozen, jbatch, k_step, center).compile(compiler_options=FAST)
         _, grads, jmetrics, new_center = step(trainable, frozen, jbatch, k_step, center)
         updates, opt_state = apply(grads, opt_state, trainable)
         trainable = optax.apply_updates(trainable, updates)
