@@ -201,6 +201,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -273,6 +274,15 @@ VARIANT_TRAIN_SHAPES = VARIANT_SHAPES[:2]
 # through the plain path: twice FORWARD_TOL, the backward adding three bf16 products per attention to the forward's
 VARIANT_GRAD_TOL = 1e-1
 F32_SHAPES = [(b, s, s, h) for b, s, h in F32_PATH_SHAPES] + EXTRA_SHAPES
+# the lengths at which the JAX kernels switch to their streamed bodies (past RESIDENT_MAX_SEQ = 8192,
+# instantir_tpu/ops/attention.py:128): the 2048² restore's. K1 bf16 at the CFG restore's (B, S, H): the UNet's
+# /16 and /32 maps, then the Aggregator's H-concat of them; K2-K4 bf16 and K1-K4 fp32 at a batch-1 step's
+# 16,384 and 32,768 tokens; K2 alone at the sequence-parallel 2048² restore's rung maps on one rank
+# (CFG batch 2: the UNet's 16,384, the Aggregator's 32,768 and 8192)
+LONG_RES = 2048
+LONG_RESTORE_SHAPES = [(2, 16384, 10), (2, 4096, 20), (2, 32768, 10), (2, 8192, 20)]
+LONG_TRAIN_SHAPES = [(1, 16384, 10), (1, 32768, 10)]
+LONG_SP_SHAPES = [(2, 16384, 10), (2, 32768, 10), (2, 8192, 20)]
 HOST_TIMING_SHAPE = RESTORE_SHAPES[1]  # most of a restore's launches
 # (C, H, W) of GroupNorm32 on the restore path at 1024², CFG batch 2: the UNet's twelve shapes, then the
 # Aggregator's five (its H-concat doubles H); beside them a ragged shape (a group's slab is 40,500 bytes in
@@ -381,16 +391,20 @@ def host_us_per_call(torch, fn, calls: int = 200, runs: int = 5) -> float:
     return statistics.median(per_run)
 
 
-def check_flash(torch, attention) -> list:
+def check_flash(torch, attention, shapes=None, host_timing: bool = True, plain_calls=(2, 1, 2)) -> list:
     """Phase 3, K1: the flash forward against its plain version at every
     shape: the restore's, the extra ones, the training paths' (stage 1's
     first self-attention; stage 2's previewer and the main UNet's down and
-    mid blocks) and the model variants' (``VARIANT_SHAPES``)."""
+    mid blocks) and the model variants' (``VARIANT_SHAPES``); or at
+    ``shapes`` (B, Sq, Skv, H). ``plain_calls`` (iterations, warm-up calls,
+    groups) times the plain version."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for b, s, skv, h in FLASH_SHAPES + [(b, s, s, h) for b, s, h in TRAIN_SHAPES] + VARIANT_SHAPES:
+    if shapes is None:
+        shapes = FLASH_SHAPES + [(b, s, s, h) for b, s, h in TRAIN_SHAPES] + VARIANT_SHAPES
+    for b, s, skv, h in shapes:
         q = torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16)
         k, v = (torch.randn(b, skv, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
         out = attention.flash_attention(q, k, v)
@@ -398,7 +412,7 @@ def check_flash(torch, attention) -> list:
         ref = attention.flash_attention_reference(q, k, v)
         err = (out.float() - ref.float()).abs().max().item()
         ms = time_ms(torch, lambda: attention.flash_attention(q, k, v))
-        plain_ms = time_ms(torch, lambda: attention.flash_attention_reference(q, k, v), iters=2, warmup=1, groups=2)
+        plain_ms = time_ms(torch, lambda: attention.flash_attention_reference(q, k, v), *plain_calls)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
         bound, bound_by = flash_bound_ms(b, s, skv, h)
@@ -411,6 +425,9 @@ def check_flash(torch, attention) -> list:
         if not err <= FLASH_TOL:
             fail(f"flash kernel disagrees with flash_attention_reference at B={b} Sq={s} Skv={skv} H={h}: "
                  f"max abs error {err} > {FLASH_TOL}")
+        del q, k, v, qt, kt, vt, out, ref
+    if not host_timing:
+        return rows
     b, s, h = HOST_TIMING_SHAPE
     q, k, v = (torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
     log(f"  host time per call at B={b} S={s} H={h} (median of 5 runs of 200 calls): flash_attention "
@@ -419,19 +436,25 @@ def check_flash(torch, attention) -> list:
     return rows
 
 
-def check_flash_training(torch, attention) -> dict:
+def check_flash_training(torch, attention, shapes=None, host_timing: bool = True, forward_only=(),
+                         plain_calls=((2, 1, 2), (1, 0, 2))) -> dict:
     """Phase 3, K2-K4: the forward with lse and the two backward kernels
     against their plain versions, at the restore's shapes, the trainer's, the
     extra ones and the ragged ones of phase 5b (``VARIANT_TRAIN_SHAPES``). The backward kernels are fed the forward kernel's own
     output and lse, their plain version the plain forward's. On the card the
     plain backward runs with 1024-wide blocks (the kernel's rounding points; a
-    64-wide Python sweep of S=8192 would take minutes)."""
+    64-wide Python sweep of S=8192 would take minutes): no S x S tensor at
+    any length. ``shapes`` replaces the list; at the ``forward_only`` ones
+    only K2 runs. ``plain_calls`` (iterations, warm-up calls, groups) time
+    the plain forward and backward."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = {"fwd_lse": [], "bwd_dq": [], "bwd_dkv": []}
-    for b, s, skv, h in (FLASH_SHAPES + [(b, s, s, h) for b, s, h in TRAIN_SHAPES + STAGE2_SHAPES]
-                         + VARIANT_TRAIN_SHAPES):
+    if shapes is None:
+        shapes = (FLASH_SHAPES + [(b, s, s, h) for b, s, h in TRAIN_SHAPES + STAGE2_SHAPES]
+                  + VARIANT_TRAIN_SHAPES)
+    for b, s, skv, h in list(shapes) + list(forward_only):
         q, do = (torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
         k, v = (torch.randn(b, skv, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
         shape = dict(B=b, S=s, Skv=skv, H=h)
@@ -450,9 +473,15 @@ def check_flash_training(torch, attention) -> dict:
         bound, bound_by = flash_bound_ms(b, s, skv, h, rows_fp32=1)
         rows["fwd_lse"].append(dict(
             **shape, max_abs_err=max(err_o, err_lse), ms=time_ms(torch, lambda: attention.flash_attention_lse(q, k, v)),
-            plain_ms=time_ms(torch, lambda: attention.flash_attention_lse_reference(q, k, v), iters=2, warmup=1, groups=2),
+            plain_ms=time_ms(torch, lambda: attention.flash_attention_lse_reference(q, k, v), *plain_calls[0]),
             bound_ms=bound, bound_by=bound_by,
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))))
+        if (b, s, skv, h) in forward_only:
+            r2 = rows["fwd_lse"][-1]
+            log(f"  {where}: fwd+lse err {r2['max_abs_err']:.2e} {r2['ms']:.4f} ms (bound {r2['bound_ms']:.4f}, sdpa "
+                f"{r2['library_ms']:.4f}), plain {r2['plain_ms']:.2f} ms")
+            del lib_out, q, k, v, do, out, lse, ref_o, ref_lse, qt, kt, vt
+            continue
 
         delta = attention.flash_delta(out, do)
         dq = attention.flash_backward_dq(q, k, v, do, lse, delta)
@@ -467,7 +496,7 @@ def check_flash_training(torch, attention) -> dict:
         if not all(e <= GRAD_TOL for e in errs):
             fail(f"flash backward disagrees with flash_backward_reference at {where}: relative max errors "
                  f"dq {errs[0]}, dk {errs[1]}, dv {errs[2]} (> {GRAD_TOL})")
-        plain_ms = time_ms(torch, plain, iters=1, warmup=0, groups=2)
+        plain_ms = time_ms(torch, plain, *plain_calls[1])
         dlib = torch.randn_like(lib_out)
         library_ms = time_ms(
             torch, lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dlib, retain_graph=True), iters=5, warmup=1)
@@ -484,7 +513,9 @@ def check_flash_training(torch, attention) -> dict:
             f"{r2['library_ms']:.4f}) | dq err {r3['max_abs_err']:.2e} {r3['ms']:.4f} ms (bound {r3['bound_ms']:.4f}) | "
             f"dkv err {r4['max_abs_err']:.2e} {r4['ms']:.4f} ms (bound {r4['bound_ms']:.4f}) | plain bwd "
             f"{plain_ms:.2f} ms, sdpa bwd {library_ms:.4f} ms")
-        del lib_out
+        del lib_out, refs, q, k, v, do, out, lse, ref_o, ref_lse, dq, dk, dv, qt, kt, vt, dlib
+    if not host_timing:
+        return rows
     b, s, h = TRAIN_SHAPES[0]
     q, k, v, do = (torch.randn(b, s, h, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
     out, lse = attention.flash_attention_lse(q, k, v)
@@ -503,7 +534,7 @@ def f32_errors(got, want):
             diff.abs().max().item())
 
 
-def check_flash_f32(torch, attention) -> dict:
+def check_flash_f32(torch, attention, shapes=None, plain_calls=((2, 1, 2), (1, 0, 2))) -> dict:
     """Phase 3, the fp32 entry points of K1-K4 (``csrc/flash_f32.cu``) against
     the plain fp32 versions at the fp32 paths' shapes and the extra ones:
     outputs and gradients to ``F32_REL_L2`` / ``F32_REL_MAX``, lse to
@@ -512,12 +543,14 @@ def check_flash_f32(torch, attention) -> dict:
     with TF32 off, whose own error against the plain version is logged (it
     takes its products in 3xTF32 too). The plain backward runs with
     1024-wide blocks (in fp32 the blocking moves no rounding point, only the
-    order of the sums)."""
+    order of the sums). ``shapes`` replaces ``F32_SHAPES``; ``plain_calls``
+    as in ``check_flash_training``."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     g = torch.Generator(device="cuda").manual_seed(4)
     rows = {"fwd": [], "fwd_lse": [], "bwd_dq": [], "bwd_dkv": []}
-    for b, s, skv, h in F32_SHAPES:
+    for b, s, skv, h in (F32_SHAPES if shapes is None else shapes):
         q, do = (torch.randn(b, s, h, 64, generator=g, device="cuda") for _ in range(2))
         k, v = (torch.randn(b, skv, h, 64, generator=g, device="cuda") for _ in range(2))
         shape = dict(B=b, S=s, Skv=skv, H=h)
@@ -546,6 +579,9 @@ def check_flash_f32(torch, attention) -> dict:
         if not err_lse <= F32_LSE_TOL:
             fail(f"fp32 flash lse disagrees with its plain fp32 version at {where}: {err_lse} > {F32_LSE_TOL}")
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        # SDPA's memory-efficient kernel, its pick for fp32 here: never its S x S math path at 32,768 keys
+        no_math = sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION])
+        no_math.__enter__()
         lib_out = F.scaled_dot_product_attention(qt, kt, vt)
         lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
         lib_errs = [f32_errors(x.transpose(1, 2), want)[0] for x, want in zip((lib_out,) + lib_grads, (ref_o,) + refs)]
@@ -557,8 +593,9 @@ def check_flash_f32(torch, attention) -> dict:
         lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
         lib_bwd = time_ms(
             torch, lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dlib, retain_graph=True), iters=5, warmup=1)
-        plain_fwd = time_ms(torch, lambda: attention.flash_attention_lse_reference(q, k, v), iters=2, warmup=1, groups=2)
-        plain_bwd_ms = time_ms(torch, plain_bwd, iters=1, warmup=0, groups=2)
+        no_math.__exit__(None, None, None)
+        plain_fwd = time_ms(torch, lambda: attention.flash_attention_lse_reference(q, k, v), *plain_calls[0])
+        plain_bwd_ms = time_ms(torch, plain_bwd, *plain_calls[1])
         for name, fn, err, plain_ms, library_ms, bound_args in (
             ("fwd", lambda: attention.flash_attention(q, k, v), errs["o"], plain_fwd, lib_fwd, {}),
             ("fwd_lse", lambda: attention.flash_attention_lse(q, k, v), errs["o_lse"], plain_fwd, lib_fwd,
@@ -584,7 +621,7 @@ def check_flash_f32(torch, attention) -> dict:
             f"{err_lse:.2e} {r2['ms']:.4f} ms | dq rel L2 {r3['rel_l2_err']:.2e} {share(r3)} | dkv rel L2 "
             f"{r4['rel_l2_err']:.2e} {share(r4)} | dq+dkv {r3['ms'] + r4['ms']:.4f} ms, sdpa bwd {lib_bwd:.4f} ms | "
             f"plain fwd {plain_fwd:.3f} ms, bwd {plain_bwd_ms:.2f} ms")
-        del lib_out, refs
+        del lib_out, refs, q, k, v, do, out, out_lse, lse, dq, dk, dv, ref_o, ref_lse, qt, kt, vt, dlib
     return rows
 
 
@@ -616,7 +653,8 @@ def graph_ms(torch, fn, calls: int = 10, replays: int = 3) -> float:
     return statistics.median(means)
 
 
-def check_group_norm(torch, group_norm, gn_by_shape: dict, path_cases: list) -> list:
+def check_group_norm(torch, group_norm, gn_by_shape: dict, path_cases: list, base: bool = True,
+                     host: bool = True) -> list:
     """Phase 3, K5: the fused GroupNorm(+SiLU) against ``group_norm_silu_nchw``
     (its fp32 values: see ``GN_TOL``) at every shape of the 1024² restore
     path and the extra ones in bf16, fp16 and fp32, and at the other main
@@ -624,7 +662,8 @@ def check_group_norm(torch, group_norm, gn_by_shape: dict, path_cases: list) -> 
     paths), with and without SiLU: back-to-back and device (CUDA graph) time,
     the host time of the dispatch under ``torch.no_grad()`` (bf16 and fp16),
     bound, plain version, ``F.group_norm`` and the launch plan (cluster size
-    and path; "-" for a package without one)."""
+    and path; "-" for a package without one). ``base=False`` checks the
+    ``path_cases`` alone, ``host=False`` leaves out the host timing."""
     import torch.nn.functional as F
 
     if sorted(gn_by_shape) != sorted(GN_UNET_SHAPES + GN_AGG_SHAPES):
@@ -633,7 +672,7 @@ def check_group_norm(torch, group_norm, gn_by_shape: dict, path_cases: list) -> 
     g = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     every_dtype = (torch.bfloat16, torch.float16, torch.float32)
-    cases = [(GN_BATCH, shape, every_dtype) for shape in GN_SHAPES] + path_cases
+    cases = ([(GN_BATCH, shape, every_dtype) for shape in GN_SHAPES] if base else []) + path_cases
     for batch, (c, hh, ww), dtypes in cases:
         for dtype in dtypes:
             name = str(dtype).split(".")[-1]
@@ -659,7 +698,7 @@ def check_group_norm(torch, group_norm, gn_by_shape: dict, path_cases: list) -> 
                     return group_norm.group_norm_silu(x, scale, bias, 32, 1e-5, silu)
 
                 with torch.no_grad():
-                    host_us = host_us_per_call(torch, dispatch) if dtype != torch.float32 else None
+                    host_us = host_us_per_call(torch, dispatch) if host and dtype != torch.float32 else None
                 bound, bound_by = bound_ms(8.0 * x.numel(), 2.0 * x.numel() * x.element_size())
                 row = dict(B=batch, C=c, H=hh, W=ww, dtype=name, silu=silu, max_abs_err=err, bound_ms=bound, bound_by=bound_by,
                            cs=plan.cs if plan else None, path=plan.path if plan else None,
@@ -1109,7 +1148,7 @@ def run_restore(torch, steps: int, mods: dict, ucfg):
     for fused in (False, True):
         group_norm.USE_FUSED = fused
         runs[fused] = dict(warm=restore_once()[1], secs=[])
-    for fused in (False, True, True, False) * (2 if steps <= 8 else 1):
+    for fused in (False, True, True, False):
         group_norm.USE_FUSED = fused
         zero_counters(mods)
         torch.cuda.reset_peak_memory_stats()
@@ -4275,6 +4314,480 @@ def run_fp32(torch, ucfg, mods: dict, card_line: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def one_rank_group(torch):
+    """torchrun's environment for one process (``MASTER_ADDR`` / ``MASTER_PORT``
+    on a free local port, ``WORLD_SIZE`` 1, ``RANK`` and ``LOCAL_RANK`` 0),
+    under which ``parallel.initialize_distributed`` joins an NCCL group of one
+    rank; at the end the group is destroyed and the environment put back, so
+    that the other phases run without a group."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield env
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def ring_counter(torch):
+    """Wrap ``parallel.ring_attention.ring_attention`` to record each call's
+    (batch, global sequence, heads); returns (calls, restore)."""
+    from instantir_tpu_torch.parallel import ring_attention as ring
+    from instantir_tpu_torch.parallel.mesh import axis_size
+
+    orig, calls = ring.ring_attention, []
+
+    def counting(q, k, v, mesh, axis="data", scale=None):
+        calls.append((q.shape[0], q.shape[1] * axis_size(mesh, axis), q.shape[2]))
+        return orig(q, k, v, mesh, axis=axis, scale=scale)
+
+    ring.ring_attention = counting
+
+    def restore():
+        ring.ring_attention = orig
+
+    return calls, restore
+
+
+def check_ring(torch, attention, shapes, card_line: str) -> None:
+    """The ring (``parallel/ring_attention.py``) on CUDA tensors, forward and
+    backward, on a one-rank NCCL group at ``shapes`` (B, S, H), head_dim 64,
+    bf16, against ``flash_attention_diff`` on the same inputs. At one rank the
+    ring is one block: K2's forward, and K3/K4's backward from K2's lse taken
+    to the natural log for the merge and back, so the output is K2's own and
+    the gradients agree within ``GRAD_TOL`` of the largest reference value
+    (bitwise where that round trip is exact)."""
+    from instantir_tpu_torch.parallel import initialize_distributed, make_mesh
+    from instantir_tpu_torch.parallel import ring_attention as ring
+
+    scale = 64 ** -0.5
+    with one_rank_group(torch):
+        initialize_distributed(device="cuda")
+        mesh = make_mesh(device="cuda")
+        for b, s, h in shapes:
+            g = torch.Generator(device="cuda").manual_seed(s + h)
+            q, k, v, do = (torch.randn((b, s, h, 64), generator=g, device="cuda", dtype=torch.bfloat16)
+                           for _ in range(4))
+
+            def run(fn):
+                x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                o = fn(*x)
+                o.backward(do)
+                return [o.detach()] + [t.grad for t in x]
+
+            got = run(lambda q, k, v: ring.ring_attention(q, k, v, mesh, scale=scale))
+            want = run(lambda q, k, v: attention.flash_attention_diff(q, k, v, scale))
+            torch.cuda.synchronize()
+            errs = [((a.float() - w.float()).abs().max() / (w.float().abs().max() if i else 1.0)).item()
+                    for i, (a, w) in enumerate(zip(got, want))]
+            exact = all(torch.equal(a, w) for a, w in zip(got, want))
+            log(f"  ring_attention at one rank ({torch.distributed.get_backend()}), {(b, s, h)} bf16: output max abs "
+                f"{errs[0]:.3e} (tolerance {FLASH_TOL}), dq/dk/dv max abs over the largest {errs[1]:.3e} / "
+                f"{errs[2]:.3e} / {errs[3]:.3e} (tolerance {GRAD_TOL}) against flash_attention_diff; bitwise: "
+                f"{exact}; on {card_line}")
+            if not all(torch.isfinite(t).all() for t in got) or errs[0] > FLASH_TOL or max(errs[1:]) > GRAD_TOL:
+                fail(f"phase 3: ring_attention at {(b, s, h)} on CUDA tensors differs from flash_attention_diff: {errs}")
+            del q, k, v, do, got, want
+
+
+def sp_launches(cfg, ucfg, lat: int, min_seq: int, batch: int = 2):
+    """(K1 and K5 counts, ring calls by (B, S, H)) of a sequence-parallel restore
+    at ``lat``² latents on one rank: every self-attention of at least
+    ``min_seq`` tokens rings (one K2 launch each at one rank), the rest stay
+    on K1; the GroupNorms are the dense restore's."""
+    from instantir_tpu_torch.pipeline.instantir import build_step_phases
+
+    phases = build_step_phases(cfg)
+    unet = flash_calls_per_forward(ucfg, lat, lat, with_up=True)
+    agg = flash_calls_per_forward(ucfg, lat, lat, with_up=False, concat=2)
+    by_seq = flash_launches_by_seq(phases, unet, agg)
+    heads = {**heads_by_seq(ucfg, lat), **heads_by_seq(ucfg, lat, concat=2)}
+    rung = {(batch, s, heads[s]): n for s, n in by_seq.items() if s >= min_seq}
+    dense = expected_restore_launches(ucfg, cfg, phases, lat)
+    k1 = {(batch, s, heads[s]): n for s, n in by_seq.items() if s < min_seq}
+    return dict(dense, flash_attention_fwd=sum(k1.values()), flash_attention_fwd_lse=sum(rung.values())), rung, k1
+
+
+def run_cli_sequence_parallel(torch, pipe, paths: dict, towers, mods: dict, ucfg, card_line: str) -> dict:
+    """Phase 4c's tree, after 4g: ``cli.infer.main --sequence_parallel`` at
+    1024², 4 steps, one rank under torchrun's environment for one process
+    (``one_rank_group``), on phase 4's models and the tree's text towers: the
+    Aggregator's 8192-token maps ring (one K2 launch each), the UNet's stay on
+    K1, every count derived; the PNG finite RGB of its size."""
+    import tempfile
+
+    import numpy as np
+
+    from instantir_tpu_torch.cli import infer
+    from instantir_tpu_torch.utils.tokenizer import CLIPTokenizer
+
+    res = 1024
+    root = tempfile.mkdtemp(prefix="cli_sp_")
+    try:
+        lq_dir, out_dir = os.path.join(root, "lq"), os.path.join(root, "out")
+        os.makedirs(lq_dir)
+        rgb = (torch.rand(res, res, 3, generator=torch.Generator().manual_seed(23)) * 255).to(torch.uint8).numpy()
+        write_png(os.path.join(lq_dir, "a.png"), rgb)
+        argv = ["--sdxl_path", paths["sdxl"], "--instantir_path", paths["instantir"], "--vision_encoder_path",
+                paths["dinov2"], "--test_path", lq_dir, "--out_path", out_dir, "--sequence_parallel",
+                "--num_inference_steps", "4", "--batch_size", "1"]
+        cli_cfg = infer.restore_config(infer.build_parser().parse_args(argv))
+        want, rung, _ = sp_launches(cli_cfg, ucfg, res // 8, cli_cfg.sp_min_seq)
+        encoders = [(t, CLIPTokenizer.from_pretrained(os.path.join(paths["sdxl"], sub)))
+                    for t, sub in zip(towers, ("tokenizer", "tokenizer_2"))]
+        calls, unpatch = ring_counter(torch)
+        try:
+            with one_rank_group(torch):
+                zero_counters(mods)
+                t0 = time.perf_counter()
+                records = infer.main(argv, models=(pipe, encoders))
+                sec = time.perf_counter() - t0
+                launches = read_counters(mods)
+                backend = torch.distributed.get_backend()
+        finally:
+            unpatch()
+            pipe.shard(None)
+        by_call = dict(collections.Counter(calls))
+        got = np.asarray(infer.read_image(os.path.join(out_dir, "a.png")))
+        log(f"  CLI --sequence_parallel, 1024² 4 steps, one rank ({backend}): {sec:.3f} s from main() to its return "
+            f"(the image {records[0]['seconds']:.3f} s PNG read to PNG written), ring calls {by_call} (derived "
+            f"{rung}), launches {launches}; PNG {got.shape}, {len(np.unique(got))} distinct values; on {card_line}")
+        if backend != "nccl" or by_call != rung or launches != every_counter(want):
+            fail(f"phase 4c, the CLI with --sequence_parallel: backend {backend}, ring calls {by_call}, launches "
+                 f"{launches}; derived {rung} and {every_counter(want)}")
+        if got.shape != (res, res, 3) or len(np.unique(got)) < 2:
+            fail(f"phase 4c, the CLI with --sequence_parallel wrote {got.shape}, {len(np.unique(got))} values")
+        return {"launches": launches, "seconds": sec, "ring_calls": by_call}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_restore_2048(torch, pipe, mods: dict, ucfg, card_line: str) -> dict:
+    """Phase 4h: the 2048² restore on phase 4's models at SDXL width (4 steps,
+    CFG 7, batch 1, ``vae_tiling``; phase 4b-4g's recorded pools freed
+    first): staged with K1 and K5 counted by shape against the counts derived
+    from the config, as one CUDA graph on the same noise (its image equal to
+    the staged one), s/image and ``max_memory_allocated`` of each; then
+    ``sequence_parallel`` with ``sp_min_seq=8192`` on a one-rank NCCL group,
+    staged: the UNet's 16,384 and the Aggregator's 32,768 and 8192 maps ring
+    (one K2 launch each), the UNet's 4096 map stays on K1, and the image is
+    within ``RESTORE_TOL`` of the dense one."""
+    from instantir_tpu_torch.parallel import initialize_distributed, make_mesh
+    from instantir_tpu_torch.pipeline.instantir import build_step_phases
+
+    attention, group_norm = mods["attention"], mods["group_norm"]
+    res, lat = LONG_RES, LONG_RES // 8
+    pipe._graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(restore_config(4), vae_tiling=True)
+    phases = build_step_phases(cfg)
+    expected = expected_restore_launches(ucfg, cfg, phases, lat)
+    by_seq = flash_launches_by_seq(phases, flash_calls_per_forward(ucfg, lat, lat, with_up=True),
+                                   flash_calls_per_forward(ucfg, lat, lat, with_up=False, concat=2))
+    heads = {**heads_by_seq(ucfg, lat), **heads_by_seq(ucfg, lat, concat=2)}
+    k1_want = {(2, s, heads[s]): n for s, n in by_seq.items()}
+    gn_want = {(2,) + shape: n for shape, n in group_norm_launches_by_shape(ucfg, phases, lat).items()}
+    if sorted(k1_want) != sorted(LONG_RESTORE_SHAPES) or sum(k1_want.values()) != expected["flash_attention_fwd"]:
+        fail(f"phase 4h: K1 shapes derived {k1_want} are not LONG_RESTORE_SHAPES or do not add up to {expected}")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    lq = torch.rand(1, res, res, 3, generator=g, device="cuda") * 2.0 - 1.0
+    pe = (torch.randn(1, 77, 2048, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+    pooled = (torch.randn(1, 1280, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+    noise = pipe.draw_noise(cfg, 1, res, res, torch.Generator(device="cuda").manual_seed(12))
+
+    def restore(c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image, _ = pipe.restore(lq, pe, pooled, cfg=c, noise=noise, output_type="pt")
+        torch.cuda.synchronize()
+        return image.float(), time.perf_counter() - t0
+
+    # staged, K1 and K5 counted by shape (wrappers around the two kernel entry points)
+    k1_seen, gn_seen = collections.Counter(), collections.Counter()
+    fa, gnf = attention.flash_attention, group_norm.group_norm_silu_fused
+
+    def fa_count(q, k, v, scale=None):
+        k1_seen[(q.shape[0], q.shape[1], q.shape[2])] += 1
+        return fa(q, k, v, scale)
+
+    def gn_count(x, *args, **kwargs):
+        gn_seen[tuple(x.shape)] += 1
+        return gnf(x, *args, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(mods)
+    attention.flash_attention, group_norm.group_norm_silu_fused = fa_count, gn_count
+    try:
+        staged, first_sec = restore(cfg)
+    finally:
+        attention.flash_attention, group_norm.group_norm_silu_fused = fa, gnf
+    launches = read_counters(mods)
+    peak_staged = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  2048² 4 steps staged: first call {first_sec:.3f} s, peak {peak_staged:.2f} GB, launches {launches}; K1 by "
+        f"(B, S, H) {dict(k1_seen)} (derived {k1_want}); K5 by shape {dict(gn_seen)}")
+    if dict(k1_seen) != k1_want or dict(gn_seen) != gn_want or launches != every_counter(expected):
+        fail(f"phase 4h: the staged 2048² restore launched {launches}, K1 {dict(k1_seen)}, K5 {dict(gn_seen)}; "
+             f"derived {expected}, {k1_want}, {gn_want}")
+    if tuple(staged.shape) != (1, res, res, 3) or not torch.isfinite(staged).all():
+        fail(f"phase 4h: the staged 2048² image has shape {tuple(staged.shape)} or is not finite")
+    staged_secs = [restore(cfg)[1] for _ in range(2)]
+
+    # one CUDA graph on the same noise: a recording (warm-up and capture), then replays
+    gcfg = dataclasses.replace(cfg, fused=True)
+    zero_counters(mods)
+    torch.cuda.reset_peak_memory_stats()
+    graph_image, record_sec = restore(gcfg)
+    record_launches = read_counters(mods)
+    peak_graph = torch.cuda.max_memory_allocated() / 1e9
+    graph_secs = [restore(gcfg)[1] for _ in range(2)]
+    pool_gb = torch.cuda.memory_reserved() / 1e9
+    diff = ((graph_image - staged).abs().max() / staged.abs().max()).item()
+    log(f"  2048² 4 steps as one CUDA graph: recording {record_sec:.3f} s (launches {record_launches}), replays "
+        f"{['%.3f' % x for x in graph_secs]} s/image against staged {['%.3f' % x for x in staged_secs]}; peaks "
+        f"staged {peak_staged:.2f} / recording {peak_graph:.2f} GB, reserved after {pool_gb:.2f} GB; the graph's "
+        f"image against the staged one: max abs difference {diff:.3e} of its scale; on {card_line}")
+    if record_launches != every_counter({k: 2 * n for k, n in expected.items()}) or not diff <= 1e-3:
+        fail(f"phase 4h: the graph recording launched {record_launches} (derived 2 x {expected}) or its image is "
+             f"{diff} of scale from the staged one")
+    pipe._graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # sequence parallel on one rank: the long maps ring, one K2 launch each
+    scfg = dataclasses.replace(cfg, sequence_parallel=True, sp_min_seq=8192)
+    want, rung, k1_sp = sp_launches(scfg, ucfg, lat, scfg.sp_min_seq)
+    if sorted(rung) != sorted(LONG_SP_SHAPES):
+        fail(f"phase 4h: the rung maps derived {rung} are not LONG_SP_SHAPES {LONG_SP_SHAPES}")
+    calls, unpatch = ring_counter(torch)
+    k1_seen.clear()
+    try:
+        with one_rank_group(torch):
+            initialize_distributed(device="cuda")
+            pipe.shard(make_mesh(device="cuda"))
+            backend = torch.distributed.get_backend()
+            zero_counters(mods)
+            torch.cuda.reset_peak_memory_stats()
+            attention.flash_attention = fa_count
+            try:
+                sp_image, sp_sec = restore(scfg)
+            finally:
+                attention.flash_attention = fa
+            sp_launches_read = read_counters(mods)
+            peak_sp = torch.cuda.max_memory_allocated() / 1e9
+            pipe.shard(None)
+    finally:
+        unpatch()
+    by_call = dict(collections.Counter(calls))
+    rel = ((sp_image - staged).norm() / staged.norm()).item()
+    log(f"  2048² 4 steps sequence parallel on one rank ({backend}), staged: {sp_sec:.3f} s, peak {peak_sp:.2f} GB, "
+        f"ring calls {by_call} (derived {rung}), K1 by (B, S, H) {dict(k1_seen)} (derived {k1_sp}), launches "
+        f"{sp_launches_read}; against the dense image: relative L2 {rel:.3e} (tolerance {RESTORE_TOL}); on "
+        f"{card_line}")
+    if backend != "nccl" or by_call != rung or dict(k1_seen) != k1_sp or sp_launches_read != every_counter(want):
+        fail(f"phase 4h: the sequence-parallel restore rang {by_call}, K1 {dict(k1_seen)}, launched "
+             f"{sp_launches_read} on {backend}; derived {rung}, {k1_sp}, {every_counter(want)}")
+    if not (torch.isfinite(sp_image).all() and rel <= RESTORE_TOL):
+        fail(f"phase 4h: the sequence-parallel 2048² image is {rel} (relative L2) from the dense one")
+    return {"staged_sec": staged_secs, "graph_sec": graph_secs, "record_sec": record_sec, "sp_sec": sp_sec,
+            "peak_gb": {"staged": peak_staged, "recording": peak_graph, "sp": peak_sp}, "sp_rel_l2": rel,
+            "launches": {"restore_2048": launches, "restore_2048_graph_recording": record_launches,
+                         "restore_2048_sp": sp_launches_read},
+            "k1_by_shape": k1_want, "k2_by_shape": rung}
+
+
+def run_sharded_restore(torch, pipe, mods: dict, ucfg, card_line: str) -> dict:
+    """Phase 4i: the batch-sharded restore (``pipe.shard(make_mesh())``) on a
+    one-rank NCCL group at 1024², 4 steps, on phase 4's restore settings and
+    noise: bitwise the unsharded staged image, the launches the restore's."""
+    from instantir_tpu_torch.parallel import initialize_distributed, make_mesh
+    from instantir_tpu_torch.pipeline.instantir import build_step_phases
+
+    res = 1024
+    cfg = restore_config(4)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    lq = torch.rand(1, res, res, 3, generator=g, device="cuda") * 2.0 - 1.0
+    pe = (torch.randn(1, 77, 2048, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+    pooled = (torch.randn(1, 1280, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+    noise = pipe.draw_noise(cfg, 1, res, res, torch.Generator(device="cuda").manual_seed(14))
+    expected = every_counter(expected_restore_launches(ucfg, cfg, build_step_phases(cfg), res // 8))
+
+    def restore():
+        image, _ = pipe.restore(lq, pe, pooled, cfg=cfg, noise=noise, output_type="pt")
+        torch.cuda.synchronize()
+        return image
+
+    plain = restore()
+    with one_rank_group(torch):
+        initialize_distributed(device="cuda")
+        pipe.shard(make_mesh(device="cuda"))
+        try:
+            zero_counters(mods)
+            t0 = time.perf_counter()
+            sharded = restore()
+            sec = time.perf_counter() - t0
+            launches = read_counters(mods)
+        finally:
+            pipe.shard(None)
+    same = torch.equal(sharded, plain)
+    log(f"  sharded restore, 1024² 4 steps, one rank (nccl): {sec:.3f} s, launches {launches}; bitwise the "
+        f"unsharded staged image: {same} (max abs difference {(sharded - plain).abs().max().item():.3e}); on "
+        f"{card_line}")
+    if not same or launches != expected:
+        fail(f"phase 4i: the sharded restore differs from the unsharded one or launched {launches} (derived {expected})")
+    return {"launches": launches, "seconds": sec}
+
+
+def run_stage1_dp(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
+    """Phase 5c: stage 1 at 512² batch 2 on a one-rank NCCL group. Two steps
+    with the group's mesh (``make_mesh()``, given explicitly: ``mesh="auto"``
+    takes none at one rank; the gradient all-reduce and ZeRO-1 on) against two
+    plain steps from the same state and draws: the masters bitwise equal;
+    the same with ``use_8bit_adam`` (and the int8 moments). Meanwhile, in a
+    process of its own (started first, so that its start-up overlaps the
+    steps; its ~25 GB fit beside theirs), ``python -m torch.distributed.run
+    --standalone --nproc_per_node 1 -m instantir_tpu_torch.cli.train stage1
+    --synthetic_data --use_8bit_adam``, 2 steps with a checkpoint; then its
+    resume to 3 steps under torchrun's environment for one process: the state
+    right after the resume bitwise the checkpoint's, rank 0 the only writer."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from instantir_tpu_torch.cli import train as ct
+    from instantir_tpu_torch.parallel import initialize_distributed, make_mesh
+    from instantir_tpu_torch.train import common
+    from instantir_tpu_torch.train.stage1_adapter import Stage1Config, Stage1Trainer
+
+    expected = every_counter(expected_train_launches(ucfg, 512 // 8, checkpointing=False))
+    if not mods["group_norm"].USE_FUSED:
+        expected["group_norm_silu"] = 0
+    base = Stage1Config(train_batch_size=2, resolution=512, lr_warmup_steps=0, max_train_steps=1000, output_dir="")
+    models = (pipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder)
+    pair, cond = training_batch(torch, torch.Generator(device="cuda").manual_seed(21), 2, 512, torch.bfloat16)
+    out = {"launches": {name: 0 for name in COUNTERS}}
+
+    # the training CLI under torchrun, 2 steps with a checkpoint, started now and awaited after the steps
+    root = tempfile.mkdtemp(prefix="train_dp_")
+    out_dir = os.path.join(root, "out")
+    argv = ["stage1", "--synthetic_data", "--resolution", "512", "--train_batch_size", "2", "--use_8bit_adam",
+            "--checkpointing_steps", "2", "--prefetch_batches", "0", "--lr_warmup_steps", "0", "--output_dir",
+            out_dir]
+    env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                                                              "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    t_cli = time.perf_counter()
+    cli_out = open(os.path.join(root, "torchrun.log"), "w")  # a file: a pipe read only at the end could fill up
+    cli_proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                                 "1", "-m", "instantir_tpu_torch.cli.train", *argv, "--max_train_steps", "2"],
+                                cwd=str(REPO), env=env, stdout=cli_out, stderr=subprocess.STDOUT)
+
+    def two_steps(cfg, mesh, what):
+        trainer = Stage1Trainer(*models, cfg, device="cuda", mesh=mesh)
+        start = [p.detach().clone() for p in trainer.trainable]
+        batch = trainer.prepare_batch(pair, cond)
+        for i in range(2):
+            launches, _, _ = train_step_checked(torch, trainer, batch, torch.Generator(device="cuda").manual_seed(30 + i),
+                                                mods, expected, f"{what}, step {i + 1}/2", card_line)
+            if mesh is not None:
+                for name, n in launches.items():
+                    out["launches"][name] += n
+        state = {"masters": [m.detach().clone() for m in trainer.optimizer.masters],
+                 "opt": trainer.optimizer.state_by_name(trainer.trainable_names), "mesh": trainer.mesh}
+        with torch.no_grad():  # the models back to where this pair of runs started
+            for p, s in zip(trainer.trainable, start):
+                p.copy_(s)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return state
+
+    try:
+        with one_rank_group(torch):
+            initialize_distributed(device="cuda")
+            for tag, extra in (("AdamW", {}), ("8-bit AdamW", {"use_8bit_adam": True})):
+                cfg = dataclasses.replace(base, **extra)
+                dp = two_steps(cfg, make_mesh(device="cuda"), f"stage 1 DP ({tag}, one-rank mesh, ZeRO-1) at 512² "
+                               "batch 2")
+                plain = two_steps(cfg, None, f"stage 1 plain ({tag}) at 512² batch 2")
+                same = (dp["mesh"] is not None
+                        and all(torch.equal(a, b) for a, b in zip(dp["masters"], plain["masters"]))
+                        and tree_differences(torch, dp["opt"], plain["opt"]) == [])
+                log(f"  stage 1 with {tag}: two steps with the one-rank mesh ({dist.get_backend()}) against two "
+                    f"plain steps from the same state and draws: masters and optimiser state bitwise equal: {same}")
+                if not same:
+                    fail(f"phase 5c: stage 1 with {tag} under the one-rank mesh differs from the plain steps")
+                del dp, plain
+
+        # the training CLI's torchrun run, then the resume to 3 steps
+        cli_proc.wait(timeout=600)
+        cli_sec = time.perf_counter() - t_cli
+        cli_out.close()
+        if cli_proc.returncode != 0:
+            with open(cli_out.name) as f:
+                fail(f"phase 5c: torchrun cli.train exited {cli_proc.returncode}:\n{f.read()[-4000:]}")
+        ckpts = sorted(d for d in os.listdir(out_dir) if d.startswith("checkpoint-"))
+        exports = sorted(f for f in os.listdir(out_dir) if f.endswith((".pt", ".json")))
+        log(f"  torchrun --nproc_per_node 1 cli.train stage1 --use_8bit_adam, 2 steps: {cli_sec:.2f} s from its start "
+            f"(beside the steps above), wrote {ckpts} and {exports}")
+        if ckpts != ["checkpoint-2"] or "adapter_ckpt.pt" not in exports:
+            fail(f"phase 5c: the torchrun CLI run left {ckpts} and {exports}")
+        written = torch.load(os.path.join(out_dir, "checkpoint-2", common.STATE_FILE), map_location="cpu",
+                             weights_only=True)
+        resumed = {}
+        orig_resume, orig_save = common.Trainer.resume, common.CheckpointManager.save
+        saves = []
+
+        def capture(self):
+            step = orig_resume(self)
+            resumed.update(step=step, state=common._to_host(self.checkpoint_state()), rank=dist.get_rank(),
+                           mesh=self.mesh is not None)
+            return step
+
+        common.Trainer.resume = capture
+        common.CheckpointManager.save = lambda self, step, state: (saves.append((step, dist.get_rank())),
+                                                                    orig_save(self, step, state))[1]
+        try:
+            with one_rank_group(torch):
+                t0 = time.perf_counter()
+                result = ct.main([*argv, "--max_train_steps", "3"], device="cuda")
+                resume_sec = time.perf_counter() - t0
+        finally:
+            common.Trainer.resume, common.CheckpointManager.save = orig_resume, orig_save
+        diffs = tree_differences(torch, resumed.get("state"), written)
+        log(f"  the resume to 3 steps under torchrun's environment (one rank, mesh {resumed.get('mesh')}): "
+            f"{resume_sec:.2f} s; resumed at step {resumed.get('step')}, its state against checkpoint-2: "
+            f"{'bitwise equal' if not diffs else diffs[:5]}; checkpoint writes (step, rank) {saves}; on {card_line}")
+        if resumed.get("step") != 2 or diffs or saves != [(3, 0)] or result["trainer"].global_step != 3:
+            fail(f"phase 5c: the resumed CLI run: step {resumed.get('step')}, differences {diffs[:5]}, writes {saves}, "
+                 f"{result['trainer'].global_step} steps")
+        del result, written, resumed
+        out.update(cli_sec=cli_sec, resume_sec=resume_sec)
+    finally:
+        if cli_proc.poll() is None:
+            cli_proc.kill()
+            cli_proc.wait()
+        cli_out.close()
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def _weighted(rows, key, weights):
     total = sum(weights)
     return sum(r[key] * w for r, w in zip(rows, weights)) / total
@@ -4307,6 +4820,10 @@ def main() -> None:
                     help="'kernels': stop after the kernel check (no result line); 'group_norm': check K5 alone; "
                          "'flash_f32': check the fp32 flash entry points alone")
     args = ap.parse_args()
+    t_start = time.time()
+
+    def phase(msg: str) -> None:
+        log(f"{msg} (at {time.time() - t_start:.0f} s)")
 
     if not (REPO / "instantir_tpu_torch" / "csrc").is_dir():
         fail(f"no instantir_tpu_torch/ beside {Path(__file__).name}: run it from the root of a checkout")
@@ -4324,7 +4841,7 @@ def main() -> None:
     card_line = smi[0] if smi else torch.cuda.get_device_name(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"[1] card: {card_line}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    phase(f"[1] card: {card_line}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s); TF32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
@@ -4336,7 +4853,7 @@ def main() -> None:
         paths = kernels.build()
     except RuntimeError as e:
         fail(f"kernel build failed: {e}")
-    log(f"[2] built {list(kernels.SOURCES)} in {time.time() - t0:.2f} s")
+    phase(f"[2] built {list(kernels.SOURCES)} in {time.time() - t0:.2f} s")
     for name, text in kernels.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "arning" in line:
@@ -4379,7 +4896,7 @@ def main() -> None:
     gn_cases += [(GN_BATCH, shape, (bf16,)) for shape in pad_shapes]
     log(f"  the variants' K5 shapes: pad_concat {pad_shapes}; ZeroSFT {zero_sft_shapes} (checked among the "
         "restore's)")
-    log("[3] kernel check against the plain versions")
+    phase("[3] kernel check against the plain versions")
     if args.only not in ("group_norm", "flash_f32"):
         k1_rows = check_flash(torch, attention)
         train_rows = check_flash_training(torch, attention)
@@ -4387,77 +4904,119 @@ def main() -> None:
         f32_rows = check_flash_f32(torch, attention)
     if args.only != "flash_f32":
         gn_rows = check_group_norm(torch, group_norm, gn_by_shape, gn_cases)
+    # the lengths past which the JAX kernels stream (RESIDENT_MAX_SEQ = 8192): the 2048² restore's
+    phase("[3] K1-K5 at the 2048² restore's lengths: K1 bf16 at its CFG shapes, K2-K4 bf16 and K1-K4 fp32 at a "
+          "batch-1 step's 16,384 and 32,768 tokens, K2 at the sequence-parallel restore's rung maps, K5 at its "
+          "GroupNorm shapes")
+    long_gn = sorted(set(gn_shapes(LONG_RES)) - set(GN_SHAPES))
+    once = (1, 0, 1)  # a plain version at these lengths takes up to a second a call: timed once
+    if args.only not in ("group_norm", "flash_f32"):
+        k1_rows += check_flash(torch, attention, [(b, s, s, h) for b, s, h in LONG_RESTORE_SHAPES], host_timing=False,
+                               plain_calls=once)
+        long_rows = check_flash_training(torch, attention, [(b, s, s, h) for b, s, h in LONG_TRAIN_SHAPES],
+                                         host_timing=False, forward_only=[(b, s, s, h) for b, s, h in LONG_SP_SHAPES],
+                                         plain_calls=(once, once))
+        for name, rows in long_rows.items():
+            train_rows[name] += rows
+        phase("[3] ring attention on CUDA tensors, forward and backward, at one rank of an NCCL group")
+        check_ring(torch, attention, LONG_TRAIN_SHAPES, card_line)
+    if args.only != "group_norm":
+        for name, rows in check_flash_f32(torch, attention, [(b, s, s, h) for b, s, h in LONG_TRAIN_SHAPES],
+                                          plain_calls=(once, once)).items():
+            f32_rows[name] += rows
+    if args.only != "flash_f32":
+        gn_rows += check_group_norm(torch, group_norm, gn_by_shape, [(GN_BATCH, shape, (bf16,)) for shape in long_gn],
+                                    base=False, host=False)
     if args.only:
         log(f"kernel check passed (--only {args.only}: no restore, no training, no result line)")
         return
 
     # 4. restore
-    log(f"[4] restore at SDXL width, {args.steps} steps, fused GroupNorm off and on")
+    phase(f"[4] restore at SDXL width, {args.steps} steps, fused GroupNorm off and on")
     pipe, restore_launches, sec, by_seq, restore_secs, fused_launches = run_restore(torch, args.steps, mods, ucfg)
 
     # 4b. the restore options
-    log("[4b] restore options at SDXL width: one CUDA graph, merged LoRA, DeepCache, Heun, bf16 decode, tiling, slicing")
+    phase("[4b] restore options at SDXL width: one CUDA graph, merged LoRA, DeepCache, Heun, bf16 decode, tiling, slicing")
     options = run_restore_options(torch, pipe, args.steps, mods, ucfg, card_line)
 
     # 4c. a checkpoint tree in the released layout, loaded back, and the inference CLI; then on that tree
     # 4g. the CLIP image-prompt encoder: the restore staged and as a graph, and the CLI with --use_clip_encoder
-    log("[4c] load a checkpoint tree in the released layout and restore through the inference CLI at SDXL width")
+    phase("[4c] load a checkpoint tree in the released layout and restore through the inference CLI at SDXL width")
 
     def phase_4g(paths, towers):
         log("[4g] the CLIP image-prompt encoder at SDXL width: a ViT-B/16 CLIPImageEncoder and a 768-wide "
             "Resampler on phase 4's models, staged and as one CUDA graph, the CLI with --use_clip_encoder")
-        return run_clip_encoder(torch, pipe, paths, towers, mods, ucfg, card_line)
+        clip = run_clip_encoder(torch, pipe, paths, towers, mods, ucfg, card_line)
+        phase("[4c] cli.infer.main --sequence_parallel at 1024² on the tree, one rank under torchrun's environment")
+        clip["cli_sp"] = run_cli_sequence_parallel(torch, pipe, paths, towers, mods, ucfg, card_line)
+        return clip
 
     cli = run_load_and_cli(torch, pipe, args.steps, mods, ucfg, card_line, after_tree=phase_4g)
     clip_enc = cli["after_tree"]
 
     # 4d. serving
-    log("[4d] serving at SDXL width: the whole-request server, the demo app's adapter swap, the slot sampler, "
+    phase("[4d] serving at SDXL width: the whole-request server, the demo app's adapter swap, the slot sampler, "
         "the continuous server")
     serving = run_serving(torch, pipe, args.steps, mods, ucfg, card_line)
 
     # 4e. the quantized restore
-    log("[4e] quantized restore at SDXL width: W8 and W8A8 copies of the UNet and the Aggregator, the int8 products, "
+    phase("[4e] quantized restore at SDXL width: W8 and W8A8 copies of the UNet and the Aggregator, the int8 products, "
         "staged and graph restores against bf16, the W8 server")
     quantized = run_quantized(torch, pipe, args.steps, mods, ucfg, card_line)
 
     # 4f. the model variants
-    log("[4f] model variants at SDXL width: the Aggregator's pad_concat x attn1_mode and global_pool_conditions, a "
+    phase("[4f] model variants at SDXL width: the Aggregator's pad_concat x attn1_mode and global_pool_conditions, a "
         "zero_sft UNet forward and backward, external_kv in three modes")
     variants = run_variants(torch, pipe, mods, ucfg, card_line)
 
+    # 4h. the 2048² restore, dense (staged and one graph) and sequence parallel on one rank
+    phase("[4h] the 2048² restore at SDXL width, 4 steps, CFG 7, vae_tiling: staged and as one CUDA graph, then "
+          "sequence parallel (sp_min_seq 8192) on a one-rank NCCL group")
+    long_restore = run_restore_2048(torch, pipe, mods, ucfg, card_line)
+
+    # 4i. the batch-sharded restore on a one-rank NCCL group
+    phase("[4i] the sharded restore (pipe.shard(make_mesh())) at 1024², 4 steps, on a one-rank NCCL group")
+    sharded = run_sharded_restore(torch, pipe, mods, ucfg, card_line)
+
     # 5. stage-2 training (before stage 1, which frees the Aggregator)
-    log("[5] stage-2 (Aggregator) training at SDXL width")
+    phase("[5] stage-2 (Aggregator) training at SDXL width")
     stage2 = run_stage2(torch, pipe, ucfg, mods, card_line)
 
     # 5b. stage 2 with the Aggregator's own image-prompt adapter
-    log("[5b] stage 2 with --aggregator_adapter at SDXL width: steps in turns with phase 5's, the variant "
+    phase("[5b] stage 2 with --aggregator_adapter at SDXL width: steps in turns with phase 5's, the variant "
         "Aggregator's gradients, the training CLI with a checkpoint and its resume")
     adapter = run_stage2_adapter(torch, pipe, stage2, ucfg, mods, card_line)
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 5c. data-parallel stage 1 on a one-rank NCCL group, and the training CLI under torchrun
+    phase("[5c] stage 1 data parallel (make_mesh(), ZeRO-1) on a one-rank NCCL group at 512² batch 2, with AdamW "
+          "and 8-bit AdamW, against the plain steps; the training CLI under torchrun, its checkpoint and resume")
+    stage1_dp = run_stage1_dp(torch, pipe, ucfg, mods, card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 6. stage-1 training
-    log("[6] stage-1 training at SDXL width")
+    phase("[6] stage-1 training at SDXL width")
     train = run_training(torch, pipe, ucfg, mods, card_line)
     gc.collect()
     torch.cuda.empty_cache()
 
     # 7. previewer training
-    log("[7] previewer (LCM-LoRA distillation) training at SDXL width")
+    phase("[7] previewer (LCM-LoRA distillation) training at SDXL width")
     previewer = run_previewer(torch, pipe, ucfg, mods, card_line)
     gc.collect()
     torch.cuda.empty_cache()
 
     # 7c. the perceptual losses
-    log("[7c] the perceptual losses at full width: previewer steps with LPIPS + DreamSim in turns with Huber, each "
+    phase("[7c] the perceptual losses at full width: previewer steps with LPIPS + DreamSim in turns with Huber, each "
         "loss's forward and backward through pred_image, MTCNN.detect")
     perceptual = run_perceptual(torch, pipe, ucfg, mods, card_line)
     gc.collect()
     torch.cuda.empty_cache()
 
     # 7b. training from raw images: the degradation, the training CLI, checkpoints and resume
-    log("[7b] training from raw images at SDXL width: the degradation on the card, the training CLI (stage 1 with "
+    phase("[7b] training from raw images at SDXL width: the degradation on the card, the training CLI (stage 1 with "
         "checkpoints and resume, stage 1 from PNGs, the previewer, stage 2 with async checkpoints), s/step of run")
     train_cli = run_train_cli(torch, pipe, ucfg, mods, card_line)
     del pipe
@@ -4465,7 +5024,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 8. fp32
-    log(f"[8] fp32: default build_pipeline, 512² restore and a stage-1 step ({torch.cuda.memory_allocated() / 1e9:.2f} "
+    phase(f"[8] fp32: default build_pipeline, 512² restore and a stage-1 step ({torch.cuda.memory_allocated() / 1e9:.2f} "
         "GB still allocated)")
     f32 = run_fp32(torch, ucfg, mods, card_line)
 
@@ -4502,7 +5061,13 @@ def main() -> None:
                 "variants": variants["launches"][name],
                 "train_stage2_adapter": adapter["launches"][name],
                 "aggregator_variant_grads": adapter["grads_launches"][name],
-                "fp32": f32["restore"][name] + f32["train"][name]}
+                "fp32": f32["restore"][name] + f32["train"][name],
+                "restore_2048": long_restore["launches"]["restore_2048"][name],
+                "restore_2048_graph_recording": long_restore["launches"]["restore_2048_graph_recording"][name],
+                "restore_2048_sp": long_restore["launches"]["restore_2048_sp"][name],
+                "restore_cli_sp": clip_enc["cli_sp"]["launches"][name],
+                "restore_sharded": sharded["launches"][name],
+                "train_stage1_dp": stage1_dp["launches"][name]}
 
     src = "instantir_tpu_torch/csrc/"
     jax_attn = "instantir_tpu/ops/attention.py"
@@ -4523,10 +5088,15 @@ def main() -> None:
         return [sum(by_shape[p][name].get(shape_of(r), 0) for p in by_shape) for r in rows]
 
     k1_weights = [w + (2 * by_seq.get(r["S"], 0) if shape_of(r) in RESTORE_SHAPES else 0)
+                  + long_restore["k1_by_shape"].get(shape_of(r), 0)
                   for r, w in zip(k1_rows, train_weights("flash_attention_fwd", k1_rows))]
+    k2_weights = [w + long_restore["k2_by_shape"].get(shape_of(r), 0)
+                  for r, w in zip(train_rows["fwd_lse"], train_weights("flash_attention_fwd_lse", train_rows["fwd_lse"]))]
     # K5: weighted over the 1024² restore (bf16, CFG batch 2), the path its entry's launches count
-    gn_weights = [gn_by_shape.get((r["C"], r["H"], r["W"]), 0) if (r["dtype"], r["B"]) == ("bfloat16", GN_BATCH)
-                  else 0 for r in gn_rows]
+    gn_long = group_norm_launches_by_shape(ucfg, build_step_phases(restore_config(4)), LONG_RES // 8)
+    gn_weights = [(gn_by_shape.get((r["C"], r["H"], r["W"]), 0) + (gn_long.get((r["C"], r["H"], r["W"]), 0)
+                                                                  if (r["C"], r["H"], r["W"]) in long_gn else 0))
+                  if (r["dtype"], r["B"]) == ("bfloat16", GN_BATCH) else 0 for r in gn_rows]
     # fp32: K1 by the 512² restore's launches per sequence (all CFG batch 2), K2-K4 by the stage-1 step's shape
     f32_fwd_weights = [f32["by_seq"].get(r["S"], 0) if shape_of(r) in F32_PATH_SHAPES[:3] else 0
                        for r in f32_rows["fwd"]]
@@ -4537,7 +5107,7 @@ def main() -> None:
                      restore_launches["flash_attention_fwd"],
                      by_path("flash_attention_fwd")),
         kernel_entry("flash_attention_fwd_lse", "cuda", src + "flash_fwd.cu", jax_attn + ":504", train_rows["fwd_lse"],
-                     train_weights("flash_attention_fwd_lse", train_rows["fwd_lse"]), train["train_512"]["flash_attention_fwd_lse"],
+                     k2_weights, train["train_512"]["flash_attention_fwd_lse"],
                      by_path("flash_attention_fwd_lse")),
         kernel_entry("flash_attention_bwd_dq", "cuda", src + "flash_bwd.cu", jax_attn + ":597", train_rows["bwd_dq"],
                      train_weights("flash_attention_bwd_dq", train_rows["bwd_dq"]), train["train_512"]["flash_attention_bwd_dq"],
@@ -4564,7 +5134,7 @@ def main() -> None:
     for e in entries:
         if not sum(e["launches_by_path"].values()) > 0:
             fail(f"kernel {e['name']} was launched no time on any main path")
-    log(f"[9] {args.steps}-step restore: {sec:.3f} s/image (fused GroupNorm off {restore_secs[False]:.3f}, on "
+    phase(f"[9] {args.steps}-step restore: {sec:.3f} s/image (fused GroupNorm off {restore_secs[False]:.3f}, on "
         f"{restore_secs[True]:.3f}); at 4 steps staged {options['staged_sec']:.3f}, one CUDA graph "
         f"{options['graph_sec']:.3f} (recording {options['record_sec']:.3f} s; peaks {options['staged_peak']:.2f} / "
         f"{options['record_peak']:.2f} GB, pool {options['pool_gb']:.2f} GB), merged LoRA {options['merged_sec']:.3f}, frozen {options['frozen_sec']:.3f}, "
@@ -4600,7 +5170,7 @@ def main() -> None:
         return {k: {"s_per_step": round(min(q["sec"][k]), 3), "peak_gb": round(max(q["peak_gb"][k]), 2)}
                 for k in ("bf16", "qlora")}
 
-    log(f"[9] int8: UNet + Aggregator weights {json.dumps({k: round(v, 3) for k, v in quantized['weight_gb'].items()})} "
+    phase(f"[9] int8: UNet + Aggregator weights {json.dumps({k: round(v, 3) for k, v in quantized['weight_gb'].items()})} "
         f"GB; 1024² 4-step s/image {json.dumps({k: round(v, 3) for k, v in quantized['sec'].items()})}, staged peaks "
         f"{json.dumps({k: round(v, 2) for k, v in quantized['peak_gb'].items()})} GB, PSNR against bf16 "
         f"{json.dumps({k: round(v, 2) for k, v in quantized['psnr'].items()})} dB"
@@ -4613,7 +5183,7 @@ def main() -> None:
         f"{json.dumps(qlora_line(previewer['qlora']))}; validation renders s "
         f"{json.dumps({k: round(v, 3) for k, v in train_cli['validation_sec'].items()})}; 8-bit stage-1 checkpoint "
         f"{train_cli['qlora_saves'][-1]['bytes'] / 1e9:.2f} GB; on {card_line}")
-    log(f"[9] variants: Aggregator per setting (1024² batch 2) "
+    phase(f"[9] variants: Aggregator per setting (1024² batch 2) "
         f"{json.dumps({k: {'ms': round(v['sec'] * 1e3, 1), 'rel_l2': v['rel_l2']} for k, v in variants['aggregator'].items()})}; "
         f"zero_sft vs add UNet s/forward {json.dumps({k: round(min(v), 4) for k, v in variants['zero_sft']['timing']['fwd'].items()})}, "
         f"s/(forward + backward) {json.dumps({k: round(min(v), 4) for k, v in variants['zero_sft']['timing']['step'].items()})}, "
@@ -4623,7 +5193,7 @@ def main() -> None:
         f"{json.dumps({k: round(max(v), 2) for k, v in adapter['turns']['peak_gb'].items()})} GB; the CLI with the "
         f"adapter {adapter['cli']['sec_2']:.2f} s (2 steps) and {adapter['cli']['sec_4']:.2f} s (resumed to 4); on "
         f"{card_line}")
-    log(f"[9] CLIP image-prompt encoder (ViT-B/16, 1024² 4 steps): staged {clip_enc['staged_sec']:.3f} s/image, "
+    phase(f"[9] CLIP image-prompt encoder (ViT-B/16, 1024² 4 steps): staged {clip_enc['staged_sec']:.3f} s/image, "
         f"one CUDA graph {clip_enc['graph_sec']:.3f} (recording {clip_enc['record_sec']:.3f} s), encoder "
         f"{clip_enc['enc_ms']:.3f} ms, CLI --use_clip_encoder with its own load {clip_enc['cli_sec']:.2f} s (image "
         f"{clip_enc['cli_image_sec']:.3f} s); previewer 512² batch 2 s/step Huber "
@@ -4632,6 +5202,13 @@ def main() -> None:
         f"{json.dumps({k: [round(x, 2) for x in v] for k, v in perceptual['peak_gb'].items()})} GB; ms per forward + "
         f"backward at 512² batch 2 {json.dumps({k: round(v, 2) for k, v in perceptual['ms'].items()})}; MTCNN.detect "
         f"512² {perceptual['mtcnn_ms']:.1f} ms; on {card_line}")
+    phase(f"[9] 2048² 4-step restore (vae_tiling): staged {json.dumps([round(x, 3) for x in long_restore['staged_sec']])} "
+          f"s/image, one CUDA graph {json.dumps([round(x, 3) for x in long_restore['graph_sec']])} (recording "
+          f"{long_restore['record_sec']:.3f} s), peaks {json.dumps({k: round(v, 2) for k, v in long_restore['peak_gb'].items()})} "
+          f"GB; sequence parallel on one rank {long_restore['sp_sec']:.3f} s, relative L2 to the dense image "
+          f"{long_restore['sp_rel_l2']:.3e}; sharded 1024² restore on one rank {sharded['seconds']:.3f} s; CLI "
+          f"--sequence_parallel 1024² {clip_enc['cli_sp']['seconds']:.2f} s; torchrun stage-1 CLI 2 steps "
+          f"{stage1_dp['cli_sec']:.2f} s, its resume to 3 {stage1_dp['resume_sec']:.2f} s; on {card_line}")
     log(json.dumps({"kernels": entries}))
     log(card_line)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -314,8 +314,10 @@ def launch(argv: Optional[List[str]] = None, device="cuda"):
         gr = None  # fall back to the stdlib-HTTP demo page below
 
     from instantir_tpu_torch.cli.infer import encode_prompts
+    from instantir_tpu_torch.parallel import initialize_distributed
     from instantir_tpu_torch.pipeline.load import load_instantir_pipeline, load_text_encoders
 
+    initialize_distributed(device=device)  # a no-op without torchrun
     p = argparse.ArgumentParser(description="InstantIR demo (PyTorch/CUDA port)")
     p.add_argument("--sdxl_path", required=True)
     p.add_argument("--instantir_path", required=True)

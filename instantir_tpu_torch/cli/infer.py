@@ -16,9 +16,13 @@ Usage (on the card; ``--fused`` replays one CUDA graph per image size):
 the load (``InstantIRPipeline.quantize``; on a pipeline passed in as
 ``models``, in place). ``--use_clip_encoder`` reads ``--vision_encoder_path``
 as an HF CLIP vision tower (``load_instantir_pipeline(use_clip_encoder=True)``).
-``--sequence_parallel`` is not ported and raises ``NotImplementedError``. The noise comes from a
-``torch.Generator`` seeded with ``--seed``: the same seed draws other noise
-than the JAX CLI's ``jax.random.PRNGKey``.
+``--sequence_parallel`` (under ``torchrun --nproc_per_node N``, one process
+a GPU) restores each image on every rank and rings every self-attention of at
+least ``--sp_min_seq`` tokens over the ranks (``InstantIRPipeline.shard``);
+rank 0 writes the images. The process group is joined at startup
+(``parallel.initialize_distributed``, a no-op without torchrun). The noise
+comes from a ``torch.Generator`` seeded with ``--seed``: the same seed draws
+other noise than the JAX CLI's ``jax.random.PRNGKey``.
 """
 
 from __future__ import annotations
@@ -118,7 +122,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--use_clip_encoder", action="store_true",
-        help="not ported yet (raises NotImplementedError): read "
+        help="read "
         "--vision_encoder_path as an HF CLIP vision tower instead "
         "of DINOv2 and condition on its penultimate-layer tokens "
         "(infer.py:275-279; the released InstantIR adapters are DINOv2-based)",
@@ -169,9 +173,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--sequence_parallel", action="store_true",
-        help="not ported yet (raises NotImplementedError): long-context "
-        "mode for ≥2K² inputs: replicate the batch over all "
-        "local devices and ring-attend long self-attention sequences.",
+        help="long-context mode for ≥2K² inputs (under torchrun, one process "
+        "a GPU): replicate the batch over the ranks and ring-attend long "
+        "self-attention sequences over them",
     )
     p.add_argument(
         "--sp_min_seq", type=int, default=8192,
@@ -195,9 +199,6 @@ def build_parser() -> argparse.ArgumentParser:
         "independent activation memory — the reference's enable_slicing)",
     )
     return p
-
-
-_NOT_PORTED_FLAGS = ("sequence_parallel",)
 
 
 def restore_config(args: argparse.Namespace) -> RestoreConfig:
@@ -229,6 +230,8 @@ def restore_config(args: argparse.Namespace) -> RestoreConfig:
         vae_tiling=args.vae_tiling,
         vae_tile_latent=args.vae_tile_latent,
         vae_slicing=args.vae_slicing,
+        sequence_parallel=args.sequence_parallel,
+        sp_min_seq=args.sp_min_seq,
     )
 
 
@@ -277,14 +280,17 @@ def main(argv: Optional[List[str]] = None, device="cuda", models=None) -> List[D
     in GB."""
     from PIL import Image
 
+    from instantir_tpu_torch.parallel import initialize_distributed, make_mesh
+
     args = build_parser().parse_args(argv)
-    for flag in _NOT_PORTED_FLAGS:
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet")
+    initialize_distributed(device=models[0].device if models is not None else device)  # a no-op without torchrun
     pipe, text_encoders = models if models is not None else load_models(args, device)
     if args.quantized:
         pipe.quantize(weight_only=args.quantized == "w8")
     cfg = restore_config(args)
+    if args.sequence_parallel:
+        pipe.shard(make_mesh(device=pipe.device))
+    writes = not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0
 
     post_fix = f"_{args.post_fix}" if args.post_fix else ""
     out_dir = os.path.join(args.out_path, post_fix)
@@ -313,7 +319,8 @@ def main(argv: Optional[List[str]] = None, device="cuda", models=None) -> List[D
                                       args.seed, args.watermark)
             restore_sec = time.perf_counter() - t0
             for (f, _, size, _), im in zip(items, restored):
-                Image.fromarray(im).resize(size, Image.BILINEAR).save(os.path.join(out_dir, f))
+                if writes:
+                    Image.fromarray(im).resize(size, Image.BILINEAR).save(os.path.join(out_dir, f))
             sec = time.perf_counter() - t0 + sum(it[3] for it in items)
             record = {"files": [it[0] for it in items], "size": (w, h), "seconds": sec,
                       "restore_seconds": restore_sec, "graphs": len(pipe._graphs)}

@@ -779,9 +779,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--limit_gb", type=float, default=None,
                    help="device memory the budget may fill (default: the card's total less a reserve)")
     p.add_argument("--mesh", action="store_true",
-                   help="not ported yet (raises NotImplementedError): shard the serve batch over devices")
+                   help="not ported yet (raises NotImplementedError; the tensor-parallel slice, parallel/tp.py): "
+                   "shard the serve batch over devices")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="not ported yet (raises NotImplementedError when > 1): tensor-parallel axis size")
+                   help="not ported yet (raises NotImplementedError when > 1; the tensor-parallel slice, "
+                   "parallel/tp.py): tensor-parallel axis size")
     return p
 
 
@@ -803,13 +805,17 @@ def serve_config(args: argparse.Namespace) -> ServeConfig:
 
 def main(argv: Optional[List[str]] = None, device="cuda"):
     from instantir_tpu_torch.cli.infer import encode_prompts
+    from instantir_tpu_torch.parallel import initialize_distributed
     from instantir_tpu_torch.pipeline.load import load_instantir_pipeline, load_text_encoders
 
     args = build_parser().parse_args(argv)
     if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet")
+        raise NotImplementedError("--mesh is not ported yet: the serving mesh comes with the tensor-parallel slice "
+                                  "(parallel/tp.py)")
     if args.model_parallel != 1:
-        raise NotImplementedError("--model_parallel is not ported yet")
+        raise NotImplementedError("--model_parallel is not ported yet: it is the tensor-parallel slice "
+                                  "(parallel/tp.py)")
+    initialize_distributed(device=device)  # a no-op without torchrun
     pipe = load_instantir_pipeline(
         args.sdxl_path, args.instantir_path,
         vision_encoder_path=args.vision_encoder_path,

@@ -10,12 +10,17 @@ preemption), then the export (``adapter_ckpt.pt``,
 SDXL width in bf16 from ``--seed`` and the text conditioning is zero
 embeddings; with it they are loaded from the checkpoint tree and each
 batch's captions are encoded by the two text towers (a host cache keeps
-repeated captions). One process, one device: the JAX CLI's multi-host data
-sharding is not ported.
+repeated captions). One process a device: under ``torchrun --nproc_per_node
+N`` the process group is joined at startup (``parallel.initialize_distributed``),
+each process loads its rows of the global ``--train_batch_size`` (the
+datasets' ``process_index`` / ``process_count`` from the group), the trainer
+takes the group's data axis (``mesh="auto"``: the mean gradient, ZeRO-1),
+and only rank 0 logs, writes checkpoints and exports.
 
 Usage (on the card):
   python -m instantir_tpu_torch.cli.train stage1 --synthetic_data --resolution 512 \\
       --train_batch_size 2 --max_train_steps 100 --output_dir out
+  torchrun --nproc_per_node 2 -m instantir_tpu_torch.cli.train stage1 --synthetic_data ...
 
 ``--validation_steps N --validation_image a.png b.png`` renders those images
 (resized to ``--resolution``, LQ and GT alike) every N steps into the event
@@ -35,10 +40,11 @@ import argparse
 import dataclasses
 import json
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from instantir_tpu_torch.models.dinov2 import dinov2_large_config
 from instantir_tpu_torch.models.resampler import instantir_resampler_config
@@ -199,18 +205,37 @@ def _conditioning(args: argparse.Namespace, pipe: InstantIRPipeline, batch_size:
     return cond_fn
 
 
+def _process() -> Tuple[int, int]:
+    """(this process's rank, the process count) of the group, (0, 1) without one."""
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _local_batch(args: argparse.Namespace) -> int:
+    """This process's rows of the global ``--train_batch_size``, which the process count must divide."""
+    _, pc = _process()
+    if args.train_batch_size % pc:
+        raise ValueError(f"train_batch_size={args.train_batch_size} must divide by the process count {pc}")
+    return args.train_batch_size // pc
+
+
 def _data_iter(args: argparse.Namespace):
-    """An endless stream of raw batches at ``--resolution`` (the GT crops the
-    degradation takes, reference ``utils/train_utils.py:123-127``)."""
+    """An endless stream of this process's raw batches at ``--resolution``
+    (the GT crops the degradation takes, reference
+    ``utils/train_utils.py:123-127``): per-process dataset sharding, the
+    analogue of accelerate's sharded dataloader."""
+    pi, pc = _process()
     if args.synthetic_data:
         from instantir_tpu_torch.data.dataset import SyntheticImageDataset
 
-        ds = SyntheticImageDataset(seed=args.seed)
+        ds = SyntheticImageDataset(seed=args.seed, process_index=pi, process_count=pc)
     else:
         from instantir_tpu_torch.data.dataset import WeightedImageDataset, load_data_config
 
-        ds = WeightedImageDataset(load_data_config(args.data_config, args.data_dir), seed=args.seed)
-    return ds.batches(batch_size=args.train_batch_size, gt_size=args.resolution)
+        ds = WeightedImageDataset(load_data_config(args.data_config, args.data_dir), seed=args.seed,
+                                  process_index=pi, process_count=pc)
+    return ds.batches(batch_size=_local_batch(args), gt_size=args.resolution)
 
 
 def _export_instantir_config(pipe: InstantIRPipeline, output_dir: str) -> str:
@@ -232,6 +257,9 @@ def main(argv: Optional[List[str]] = None, device="cuda", pipe: Optional[Instant
     "exports" (the written files)}``."""
     args = build_parser().parse_args(argv)
     from instantir_tpu_torch.losses import load_losses_config
+    from instantir_tpu_torch.parallel import initialize_distributed
+
+    initialize_distributed(device=pipe.device if pipe is not None else device)  # a no-op without torchrun
 
     losses_cfg = load_losses_config(args.losses_config) if os.path.exists(args.losses_config) else None
     if pipe is None:
@@ -240,7 +268,7 @@ def main(argv: Optional[List[str]] = None, device="cuda", pipe: Optional[Instant
         pipe.unet.gradient_checkpointing = True
         if getattr(pipe, "aggregator", None) is not None:
             pipe.aggregator.gradient_checkpointing = True
-    cond = _conditioning(args, pipe, args.train_batch_size)
+    cond = _conditioning(args, pipe, _local_batch(args))
     data = _data_iter(args)
     if args.scale_lr:
         args.learning_rate *= args.gradient_accumulation_steps * args.train_batch_size
@@ -289,11 +317,13 @@ def main(argv: Optional[List[str]] = None, device="cuda", pipe: Optional[Instant
                                 agg_resampler=agg_resampler)
         export, name = trainer.export_aggregator, "aggregator.pt"
     records = trainer.run(data, cond, val_batch=_val_batch(args))
-    os.makedirs(args.output_dir, exist_ok=True)
-    path = os.path.join(args.output_dir, name)
-    export(path)
-    exports = [path, _export_instantir_config(pipe, args.output_dir)]
-    print(f"[train] {args.stage}: {trainer.global_step} steps, wrote {exports}")
+    exports = []
+    if trainer.is_main:  # the reference's accelerator.is_main_process gating
+        os.makedirs(args.output_dir, exist_ok=True)
+        path = os.path.join(args.output_dir, name)
+        export(path)
+        exports = [path, _export_instantir_config(pipe, args.output_dir)]
+        print(f"[train] {args.stage}: {trainer.global_step} steps, wrote {exports}")
     return {"trainer": trainer, "records": records, "exports": exports}
 
 

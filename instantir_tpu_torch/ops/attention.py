@@ -19,10 +19,12 @@ heads, head_dim]`` (BSHD) at every public function, as in the JAX package.
   ``_flash_backward``; plain version ``flash_backward_reference``.
 * ``flash_attention_diff`` -- the ``torch.autograd.Function`` that ties them
   together (twin of ``_flash_diff``).
-* ``dot_product_attention`` -- the dispatch rule of the JAX package: a
-  self-attention with no bias, kv >= 512 and q >= 128 on the accelerator goes
-  to the flash kernels (the differentiable one when an input needs a
-  gradient); everything else goes to ``attention_xla``.
+* ``dot_product_attention`` -- the dispatch rule of the JAX package: inside
+  ``sequence_parallel_scope`` a long self-attention rings over the mesh
+  (``parallel/ring_attention.py``); else a self-attention with no bias,
+  kv >= 512 and q >= 128 on the accelerator goes to the flash kernels (the
+  differentiable one when an input needs a gradient); everything else goes
+  to ``attention_xla``.
 
 Every wrapper takes bf16 or fp32 (one dtype for all its operands), as the
 Pallas kernels take any float dtype: bf16 launches the ``wgmma`` kernels
@@ -37,6 +39,7 @@ where it launches.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional, Tuple
 
@@ -45,6 +48,21 @@ import torch
 from instantir_tpu_torch import kernels
 
 LOG2E = 1.4426950408889634
+
+# The sequence-parallel scope (twin of the JAX package's): while a restore with
+# ``RestoreConfig.sequence_parallel`` runs, ``dot_product_attention`` sends every
+# self-attention with no bias whose sequence reaches ``min_seq`` and divides
+# the mesh axis through ring attention. A stack of (mesh, axis, min_seq).
+_SP_SCOPE: list = []
+
+
+@contextlib.contextmanager
+def sequence_parallel_scope(mesh, axis: str = "data", min_seq: int = 8192):
+    _SP_SCOPE.append((mesh, axis, int(min_seq)))
+    try:
+        yield
+    finally:
+        _SP_SCOPE.pop()
 
 # Launches of each kernel in this process (bumped only where it launches).
 flash_attention_launches = 0  # forward without lse (inference)
@@ -432,7 +450,26 @@ def dot_product_attention(
     (the JAX package's rule, with "on TPU" read as "on a CUDA tensor"),
     ``attention_xla`` for everything else. Where an input needs a gradient the
     differentiable kernels run (forward with lse, dQ and dK/dV backward);
-    otherwise the inference forward."""
+    otherwise the inference forward.
+
+    Inside ``sequence_parallel_scope`` a self-attention with no bias,
+    ``q_len == kv_len >= min_seq`` and the length divisible by the mesh axis
+    rings instead: each rank takes its shard of the replicated q/k/v, runs
+    ``ring_attention`` and all-gathers the output (what ``shard_map`` over
+    replicated inputs does in JAX). That branch is inference only: its
+    gather carries no gradient, so it refuses inputs that need one."""
+    kv_len = k.shape[1]
+    if _SP_SCOPE and bias is None and q.shape[1] == kv_len:
+        from instantir_tpu_torch.parallel import ring_attention as ring
+        from instantir_tpu_torch.parallel.mesh import axis_size
+
+        mesh, axis, min_seq = _SP_SCOPE[-1]
+        if kv_len >= min_seq and kv_len % axis_size(mesh, axis) == 0:
+            if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+                raise NotImplementedError("sequence_parallel_scope rings inference attention only; call "
+                                          "parallel.ring_attention.ring_attention on shards for a gradient")
+            local = [ring.shard_sequence(x, mesh, axis) for x in (q, k, v)]
+            return ring.gather_sequence(ring.ring_attention(*local, mesh, axis=axis, scale=scale), mesh, axis)
     if use_flash and bias is None and q.is_cuda and k.shape[1] >= 512 and q.shape[1] >= 128:
         scale_v = q.shape[-1] ** -0.5 if scale is None else scale
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

@@ -21,11 +21,18 @@ Public tensors keep the JAX layout (NHWC images and latents); the models run
 NCHW inside. Every random draw is injectable (``RestoreNoise``) so a run can be
 held against the JAX pipeline's ``jax.random`` draws; otherwise the draws come
 from a ``torch.Generator`` on the pipeline's device.
+
+``shard(mesh)`` attaches the mesh's ``data`` axis (``parallel/mesh.py``, one
+process per GPU): a restore then runs each rank's rows of the batch and
+all-gathers the result, or, with ``RestoreConfig.sequence_parallel``, runs
+the whole batch on every rank and rings each long self-attention over the
+ranks (``parallel/ring_attention.py``).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import os
@@ -49,6 +56,8 @@ from instantir_tpu_torch.models.vae import (
     vae_scale_factor,
 )
 from instantir_tpu_torch.ops import group_norm, quant
+from instantir_tpu_torch.ops.attention import sequence_parallel_scope
+from instantir_tpu_torch.parallel.mesh import axis_size, gather_batch, replicate_params, shard_batch
 from instantir_tpu_torch.schedulers.diffusion import (
     DiffusionSchedule,
     add_noise,
@@ -70,9 +79,7 @@ def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor, gu
 
 @dataclasses.dataclass(frozen=True)
 class RestoreConfig:
-    """Sampling configuration; the same fields and defaults as the JAX twin.
-    Fields marked "not ported" raise ``NotImplementedError`` when set away
-    from their default."""
+    """Sampling configuration; the same fields and defaults as the JAX twin."""
 
     num_inference_steps: int = 30
     guidance_scale: float = 7.0
@@ -96,8 +103,11 @@ class RestoreConfig:
     deepcache_depth: int = 1
     multistep_restore: bool = False  # the Heun lookahead on previewing steps
     adastep_restore: bool = False
-    sequence_parallel: bool = False  # not ported
-    sp_min_seq: int = 8192  # not ported
+    # with an attached mesh (``InstantIRPipeline.shard``): the batch replicated on
+    # every rank and each self-attention of at least sp_min_seq tokens that the
+    # data axis divides rung over the ranks (``ops.attention.sequence_parallel_scope``)
+    sequence_parallel: bool = False
+    sp_min_seq: int = 8192
     save_preview_row: bool = False
     vae_tiling: bool = False
     vae_tile_latent: int = 96  # latent-space tile edge
@@ -115,7 +125,6 @@ class RestoreConfig:
         return self.guidance_scale > 1.0
 
 
-_NOT_PORTED = ("sequence_parallel", "sp_min_seq")
 # Recorded restores (``RestoreConfig.fused``) kept at once by default
 # (``InstantIRPipeline.max_graphs``). Each holds a private memory pool of its
 # restore's peak (9.86 GB at 1024² on an H100), and the CLI records one per
@@ -126,11 +135,7 @@ MAX_GRAPHS = 2
 _DECODE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _check_ported(cfg: RestoreConfig) -> None:
-    default = RestoreConfig()
-    for name in _NOT_PORTED:
-        if getattr(cfg, name) != getattr(default, name):
-            raise NotImplementedError(f"RestoreConfig.{name}={getattr(cfg, name)!r} is not ported yet")
+def _check_config(cfg: RestoreConfig) -> None:
     if cfg.decode_dtype not in _DECODE_DTYPES:
         raise ValueError(f"RestoreConfig.decode_dtype must be one of {sorted(_DECODE_DTYPES)}, "
                          f"got {cfg.decode_dtype!r}")
@@ -232,6 +237,28 @@ class InstantIRPipeline:
         self._graphs: "collections.OrderedDict[Any, Tuple[torch.cuda.CUDAGraph, List[Optional[torch.Tensor]], Any]]" = \
             collections.OrderedDict()
         self.max_graphs = MAX_GRAPHS  # recordings kept at once (``_graph_replay``)
+        self.mesh = None  # the (data, model) DeviceMesh of ``shard``
+
+    def shard(self, mesh) -> "InstantIRPipeline":
+        """Attach ``mesh`` (``parallel.make_mesh``; None detaches), the twin of
+        the JAX ``shard`` on its ``data`` axis: every rank's parameters become
+        rank 0's (``replicate_params``, a broadcast), and each ``restore``
+        then restores this rank's rows of the batch, which the data axis
+        must divide, and all-gathers the result, so that every rank returns
+        the whole batch; with ``sequence_parallel`` every rank restores the
+        whole batch and rings the long self-attentions. A ``model`` axis
+        larger than 1 is tensor parallelism: not ported yet."""
+        if mesh is not None:
+            if axis_size(mesh, "model") > 1:
+                raise NotImplementedError("InstantIRPipeline.shard: a mesh 'model' axis > 1 (tensor parallelism, "
+                                          "parallel/tp.py) is not ported yet; it is the next slice")
+            for name in self._MODELS:
+                replicate_params(getattr(self, name), mesh)
+            if self._frozen is not None:
+                replicate_params(self._frozen, mesh)
+            self._uncond = None  # tokens computed before the broadcast
+        self.mesh = mesh
+        return self
 
     def freeze_previewer(self, alpha: float = 1.0) -> "InstantIRPipeline":
         """Inference only: merge the UNet's previewer LoRA at strength
@@ -693,14 +720,31 @@ class InstantIRPipeline:
         ``cfg.fused`` replays the whole restore as one CUDA graph
         (``_graph_replay``); ``output_type="latent"`` takes the staged path
         then, as in the JAX package. Without ``noise`` the draws come from
-        ``generator`` in the same order on both paths."""
-        _check_ported(cfg)
+        ``generator`` in the same order on both paths.
+
+        With a mesh attached (``shard``) each rank restores its rows of the
+        batch, using its rows of the whole batch's draws (``noise``, or
+        ``generator``'s draws for the whole batch), and every rank returns
+        the whole batch (an all-gather); a graph (``fused``) holds the
+        rank's own restore, the gather runs outside it. With
+        ``sequence_parallel`` every rank restores the whole batch and the
+        self-attentions of at least ``sp_min_seq`` tokens ring over the
+        ranks. A batch the data axis does not divide, ``sequence_parallel``
+        without a mesh and ``sequence_parallel`` with ``fused`` raise."""
+        _check_config(cfg)
         if cfg.fuse_previewer_lora and self.quantized is not None:
             raise ValueError("fuse_previewer_lora can't merge into int8 base weights: quantized pipelines use the "
                              "dynamic LoRA branch (the default)")
         dev = self.device
         b, h, w, _ = lq_images.shape
         n_steps = len(inference_timesteps(cfg))
+        seq_par = cfg.sequence_parallel and self.mesh is not None
+        if self.mesh is not None and not seq_par and b % axis_size(self.mesh):
+            raise ValueError(f"batch {b} not divisible by mesh data axis {axis_size(self.mesh)}")
+        if cfg.sequence_parallel and self.mesh is None:
+            raise ValueError("sequence_parallel=True requires an attached mesh (pipe.shard(mesh))")
+        if seq_par and cfg.fused:
+            raise ValueError("sequence_parallel does not compose with cfg.fused")
         prev_weights = None
         if self._frozen is not None and cfg.lora_alpha:
             if cfg.lora_alpha != self._frozen_alpha:
@@ -715,17 +759,30 @@ class InstantIRPipeline:
         if len(noise.steps) != n_steps:
             raise ValueError(f"noise.steps holds {len(noise.steps)} draws for {n_steps} steps")
 
-        inputs = [None if t is None else _dense(t, dev) for t in (
-            lq_images, prompt_embeds, pooled_embeds, negative_prompt_embeds, negative_pooled_embeds, reference_latents)]
+        inputs = [lq_images, prompt_embeds, pooled_embeds, negative_prompt_embeds, negative_pooled_embeds,
+                  reference_latents]
+        draws = [noise.vae, noise.init, *noise.steps]
+        data_sharded = self.mesh is not None and not seq_par
+        if data_sharded:  # this rank's rows of the batch and of its draws
+            inputs, draws = shard_batch(inputs, self.mesh), shard_batch(draws, self.mesh)
+        inputs = [None if t is None else _dense(t, dev) for t in inputs]
+        draws = [t.to(dev) for t in draws]
         uncond = self._uncond_tokens(self.image_encoder.config.image_size, lq_images.dtype)
-        draws = [noise.vae.to(dev), noise.init.to(dev), *(s.to(dev) for s in noise.steps)]
         if cfg.fused and output_type != "latent":
             image, previews = self._graph_replay(cfg, [*inputs, uncond, *draws], n_steps, prev_weights)
         else:
-            latents, row, image, previews = self._restore_body(cfg, *inputs, uncond, draws[0], draws[1], draws[2:],
-                                                               prev_weights, decode=output_type != "latent")
+            with sequence_parallel_scope(self.mesh, min_seq=cfg.sp_min_seq) if seq_par else contextlib.nullcontext():
+                latents, row, image, previews = self._restore_body(cfg, *inputs, uncond, draws[0], draws[1],
+                                                                   draws[2:], prev_weights,
+                                                                   decode=output_type != "latent")
             if output_type == "latent":
+                if data_sharded:
+                    latents = gather_batch(latents, self.mesh)
+                    row = None if row is None else gather_batch(row.transpose(0, 1), self.mesh).transpose(0, 1)
                 return _nhwc(latents), None if row is None else row.permute(0, 1, 3, 4, 2)
+        if data_sharded:
+            image = gather_batch(image, self.mesh)
+            previews = None if previews is None else [gather_batch(p, self.mesh) for p in previews]
         image = image.float()
         previews = None if previews is None else [p.float() for p in previews]
         if output_type == "np":

@@ -18,7 +18,10 @@ runs of whole leaves of at most ``CHUNK`` values, not as a dozen ops per leaf:
 a stage-2 Aggregator has thousands of leaves, and the steps are host-bound.
 
 ``BLOCK`` is part of the state's layout: a checkpoint written at another
-block size does not load (``AdamW8bit.load_state_by_name`` says so).
+block size does not load (``AdamW8bit.load_state_by_name`` says so). Under
+ZeRO-1 each rank keeps and updates the moments of an equal run of whole
+blocks and the masters are all-gathered; a checkpoint holds the whole
+moments, in the same layout.
 """
 
 from __future__ import annotations
@@ -47,16 +50,27 @@ class AdamW8bit:
     returns the norm before clipping; ``state_by_name`` /
     ``load_state_by_name`` carry the int8 moments by leaf name;
     ``load_masters`` puts masters back. ``mu_q``/``nu_q`` (int8) and
-    ``mu_scale``/``nu_scale`` (fp32) are the flat moment buffers,
-    ``blocks[i]`` the block range of leaf i."""
+    ``mu_scale``/``nu_scale`` (fp32) are the flat moment buffers of the
+    blocks this rank updates (``owned``), ``blocks[i]`` the block range of
+    leaf i.
+
+    With a ``mesh`` (ZeRO-1) the blocks are split in equal runs over the
+    data axis, on block boundaries: rank r updates and keeps the moments of
+    blocks ``owned = [r·c, (r+1)·c)`` (the flat buffer padded with zero
+    blocks to ``n·c``), then the updated masters are all-gathered. A block
+    is quantized whole on one rank, so codes and scales equal the unsharded
+    optimiser's."""
 
     def __init__(self, params: List[nn.Parameter], lr: Union[Callable[[int], float], float], weight_decay: float,
-                 b1: float, b2: float, eps: float, max_grad_norm: Optional[float]):
+                 b1: float, b2: float, eps: float, max_grad_norm: Optional[float], mesh=None):
+        from instantir_tpu_torch.parallel.mesh import axis_rank, axis_size
+
         self.params = list(params)
         self.schedule = lr if callable(lr) else (lambda step: float(lr))
         self.weight_decay, self.b1, self.b2, self.eps = weight_decay, b1, b2, eps
         self.max_grad_norm = max_grad_norm
         self.count = 0
+        self.mesh = mesh
         dev = self.params[0].device if self.params else torch.device("cpu")
         self.blocks = []
         start = 0
@@ -64,7 +78,11 @@ class AdamW8bit:
             n = -(-p.numel() // BLOCK)
             self.blocks.append((start, start + n))
             start += n
-        self.flat = torch.zeros((start, BLOCK), dtype=torch.float32, device=dev)
+        ranks, rank = axis_size(mesh), axis_rank(mesh)
+        per = -(-start // ranks)
+        self.owned = (min(rank * per, start), min((rank + 1) * per, start))
+        self._slot = (rank * per, per)  # this rank's rows of the padded flat buffer in the gather
+        self.flat = torch.zeros((per * ranks, BLOCK), dtype=torch.float32, device=dev)
         flat1d = self.flat.view(-1)
         self.masters: List[torch.Tensor] = []
         with torch.no_grad():
@@ -76,19 +94,24 @@ class AdamW8bit:
                     self.masters.append(p)
                 else:
                     self.masters.append(view)
-        self.mu_q = torch.zeros((start, BLOCK), dtype=torch.int8, device=dev)
+        mine = self.owned[1] - self.owned[0]
+        self.mu_q = torch.zeros((mine, BLOCK), dtype=torch.int8, device=dev)
         self.nu_q = torch.zeros_like(self.mu_q)
-        self.mu_scale = torch.ones((start, 1), dtype=torch.float32, device=dev)
+        self.mu_scale = torch.ones((mine, 1), dtype=torch.float32, device=dev)
         self.nu_scale = torch.ones_like(self.mu_scale)
-        # runs of whole leaves of at most CHUNK values (a larger leaf is a run of its own)
+        # runs of the owned blocks: (first block, end block, [(leaf, first block, end block)]) of at most
+        # CHUNK values each, cut on leaf boundaries (a larger leaf is a run of its own)
         self.runs = []
-        i = 0
-        while i < len(self.params):
-            j = i + 1
-            while j < len(self.params) and (self.blocks[j][1] - self.blocks[i][0]) * BLOCK <= CHUNK:
-                j += 1
-            self.runs.append((i, j))
-            i = j
+        lo, hi = self.owned
+        for i, (b0, b1) in enumerate(self.blocks):
+            c0, c1 = max(b0, lo), min(b1, hi)
+            if c0 >= c1:
+                continue
+            if self.runs and (c1 - self.runs[-1][0]) * BLOCK <= CHUNK:
+                r0, _, leaves = self.runs[-1]
+                self.runs[-1] = (r0, c1, leaves + [(i, c0, c1)])
+            else:
+                self.runs.append((c0, c1, [(i, c0, c1)]))
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> torch.Tensor:
@@ -101,20 +124,24 @@ class AdamW8bit:
         count = torch.tensor(float(self.count), dtype=torch.float32)
         c1 = (1.0 - torch.tensor(b1, dtype=torch.float32) ** count).to(self.flat.device)
         c2 = (1.0 - torch.tensor(b2, dtype=torch.float32) ** count).to(self.flat.device)
-        for i, j in self.runs:
-            r0, r1 = self.blocks[i][0], self.blocks[j - 1][1]
+        lo = self.owned[0]
+        for r0, r1, leaves in self.runs:
             g = torch.zeros((r1 - r0, BLOCK), dtype=torch.float32, device=self.flat.device)
             g1d = g.view(-1)
-            views = [g1d[(b0 - r0) * BLOCK:(b0 - r0) * BLOCK + p.numel()].view(p.shape)
-                     for p, (b0, _) in zip(self.params[i:j], self.blocks[i:j])]
-            torch._foreach_copy_(views, list(grads[i:j]))
+            views, parts = [], []
+            for i, c0, c1_ in leaves:
+                b0 = self.blocks[i][0]
+                v0, v1 = (c0 - b0) * BLOCK, min(self.params[i].numel(), (c1_ - b0) * BLOCK)
+                views.append(g1d[(c0 - r0) * BLOCK:(c0 - r0) * BLOCK + v1 - v0])
+                parts.append(grads[i].reshape(-1)[v0:v1])
+            torch._foreach_copy_(views, parts)
             if self.max_grad_norm is not None:  # optax's clip: (g / norm) * max_norm past the bound
                 g = torch.where(norm < self.max_grad_norm, g, g / norm * self.max_grad_norm)
-            mu_q, mu_s = self.mu_q[r0:r1], self.mu_scale[r0:r1]
-            nu_q, nu_s = self.nu_q[r0:r1], self.nu_scale[r0:r1]
+            mu_q, mu_s = self.mu_q[r0 - lo:r1 - lo], self.mu_scale[r0 - lo:r1 - lo]
+            nu_q, nu_s = self.nu_q[r0 - lo:r1 - lo], self.nu_scale[r0 - lo:r1 - lo]
             m = b1 * (mu_q.float() * mu_s) + (1 - b1) * g
             n = b2 * (nu_q.float() * nu_s) + (1 - b2) * torch.square(g)
-            del g, g1d, views
+            del g, g1d, views, parts
             p = self.flat[r0:r1]
             u = (m / c1) / (torch.sqrt(n / c2) + self.eps)
             u.add_(self.weight_decay * p)
@@ -126,25 +153,52 @@ class AdamW8bit:
             q, s = quantize_blocks(n)
             nu_q.copy_(q)
             nu_s.copy_(s)
+        if self.mesh is not None:
+            row0, per = self._slot
+            self._all_gather(self.flat, self.flat[row0:row0 + per].clone())
         narrow = [(p, m) for p, m in zip(self.params, self.masters) if m is not p]
         if narrow:
             torch._foreach_copy_([p.data for p, _ in narrow], [m for _, m in narrow])
         return norm
 
-    def _leaf_state(self, i: int) -> Dict[str, torch.Tensor]:
+    def _all_gather(self, out: torch.Tensor, mine: torch.Tensor) -> None:
+        """``out`` (``n·c`` rows) <- every rank's ``mine`` (``c`` rows), in rank order."""
+        import torch.distributed as dist
+
+        from instantir_tpu_torch.parallel.mesh import axis_group
+
+        dist.all_gather_into_tensor(out.view(-1), mine.reshape(-1), group=axis_group(self.mesh))
+
+    def _whole_moments(self) -> Dict[str, torch.Tensor]:
+        """The four moment buffers over every block (under ZeRO-1 all-gathered; every rank takes part)."""
+        own = {"mu_q": self.mu_q, "mu_scale": self.mu_scale, "nu_q": self.nu_q, "nu_scale": self.nu_scale}
+        if self.mesh is None:
+            return own
+        rows = self._slot[1]
+        out = {}
+        for key, t in own.items():
+            mine = torch.zeros((rows,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+            mine[:t.shape[0]] = t
+            out[key] = t.new_empty((self.flat.shape[0],) + tuple(t.shape[1:]))
+            self._all_gather(out[key], mine)
+        return out
+
+    def _leaf_state(self, i: int, whole: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         b0, b1 = self.blocks[i]
-        return {"mu_q": self.mu_q[b0:b1], "mu_scale": self.mu_scale[b0:b1],
-                "nu_q": self.nu_q[b0:b1], "nu_scale": self.nu_scale[b0:b1]}
+        whole = self._whole_moments() if whole is None else whole
+        return {key: t[b0:b1] for key, t in whole.items()}
 
     def state_by_name(self, names: List[str]) -> Dict[str, Any]:
         """The update count and each leaf's int8 moments and scales by name
-        (views of the flat buffers; a checkpoint copies them)."""
+        (views of the flat buffers, or under ZeRO-1 of their all-gather; a
+        checkpoint copies them)."""
+        whole = self._whole_moments()
         return {"count": self.count, "block": BLOCK,
-                "adamw8bit": {n: self._leaf_state(i) for i, n in enumerate(names)}}
+                "adamw8bit": {n: self._leaf_state(i, whole) for i, n in enumerate(names)}}
 
     @torch.no_grad()
     def load_state_by_name(self, names: List[str], state: Dict[str, Any]) -> None:
-        """Put back a copy of ``state_by_name``'s result."""
+        """Put back a copy of ``state_by_name``'s result (this rank's blocks of it under ZeRO-1)."""
         if "adamw8bit" not in state:
             raise RuntimeError("this checkpoint holds the fp32 AdamW state: it was written without "
                                "--use_8bit_adam; resume it without --use_8bit_adam, or resume from the "
@@ -153,9 +207,14 @@ class AdamW8bit:
             raise RuntimeError(f"this checkpoint's 8-bit Adam moments use blocks of {state.get('block')} values, "
                                f"the optimiser {BLOCK}: resume from the exported weights with a fresh optimizer")
         self.count = int(state["count"])
+        lo, hi = self.owned
+        own = {"mu_q": self.mu_q, "mu_scale": self.mu_scale, "nu_q": self.nu_q, "nu_scale": self.nu_scale}
         for i, n in enumerate(names):
-            for key, t in self._leaf_state(i).items():
-                t.copy_(state["adamw8bit"][n][key])
+            b0, b1 = self.blocks[i]
+            c0, c1 = max(b0, lo), min(b1, hi)
+            if c0 < c1:
+                for key, t in own.items():
+                    t[c0 - lo:c1 - lo].copy_(state["adamw8bit"][n][key][c0 - b0:c1 - b0])
 
     @torch.no_grad()
     def load_masters(self, masters: List[torch.Tensor]) -> None:

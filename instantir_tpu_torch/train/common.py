@@ -14,12 +14,24 @@ the ``Event`` protobuf encoded here). ``Trainer`` holds what the JAX
 ``run`` (with the validation renders every ``validation_steps``) and
 ``resume`` included. ``make_adamw(use_8bit=True)`` is the blockwise-int8
 ``train/adam8bit.py``; ``quantize_frozen_unet`` stores the frozen UNet's
-bases as W8 (``ops/quant.py``). The mesh/ZeRO helpers of the JAX package are
-not ported.
+bases as W8 (``ops/quant.py``).
+
+Data parallelism (the JAX trainers' ``mesh="auto"``) runs one process per GPU
+over ``torch.distributed`` (``parallel/mesh.py``): ``resolve_mesh`` takes the
+launched group's ``data`` axis, each rank steps on its rows of the global
+batch with its rows of the global batch's draws, and where the JAX program
+gets a ``psum`` from its shardings the port makes the collectives explicit:
+after the backward the mean of every gradient over the data axis
+(``all_reduce_mean``, flat buckets by dtype), so that the clip sees the
+global norm and accumulation the global mean; the metrics' means likewise;
+ZeRO-1 (``shard_optimizer_state``) in the optimisers, each rank updating its
+``zero1_spec`` shard of the moments and all-gathering the parameters; and
+checkpoints gathered to rank 0, which alone writes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import queue
@@ -34,11 +46,13 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tupl
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from instantir_tpu_torch.data.degradation import RealESRGANDegradation
 from instantir_tpu_torch.losses import build_losses
 from instantir_tpu_torch.losses.loss_config import LossesConfig, SingleLossConfig
+from instantir_tpu_torch.parallel import mesh as pmesh
 from instantir_tpu_torch.schedulers.diffusion import sdxl_schedule
 
 PathPred = Callable[[Tuple[str, ...]], bool]
@@ -96,6 +110,22 @@ def lr_schedule(name: str, base_lr: float, warmup_steps: int = 0, total_steps: i
     return schedule
 
 
+# values a rank of one flat bucket of a ZeRO-1 gather or a gradient all-reduce (256 MB in fp32)
+GATHER_BUCKET = 1 << 26
+
+
+def _buckets(tensors: List[torch.Tensor]) -> Iterator[Tuple[int, int]]:
+    """``[i, j)`` runs of ``tensors`` of at most ``GATHER_BUCKET`` values (a larger tensor is a run of its own)."""
+    i = 0
+    while i < len(tensors):
+        j, size = i, 0
+        while j < len(tensors) and (j == i or size + tensors[j].numel() <= GATHER_BUCKET):
+            size += tensors[j].numel()
+            j += 1
+        yield i, j
+        i = j
+
+
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares over all tensors, fp32."""
     return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
@@ -113,16 +143,28 @@ class ClippedAdamW:
     norm, the clip and the AdamW update (fp32 moments) are taken in fp32 on
     the master, whose rounding is then written back into the leaf -- the value
     the JAX modules cast their fp32 parameters to at each use. ``masters[i]``
-    is ``params[i]`` itself for an fp32 leaf."""
+    is ``params[i]`` itself for an fp32 leaf.
+
+    With a ``mesh`` (ZeRO-1) the masters stay whole on every rank (the JAX
+    trainers' replicated fp32 parameters) and the AdamW state is sharded:
+    each leaf's update runs on this rank's slice of its ``zero1_spec`` axis
+    (``shards[i]``, a copy of that slice; a leaf the data size does not
+    divide updates whole on every rank), and the updated slices are
+    all-gathered into the masters. The update is elementwise, so every value
+    equals the unsharded optimiser's."""
 
     def __init__(self, params: List[nn.Parameter], lr: Union[Callable[[int], float], float], weight_decay: float,
-                 b1: float, b2: float, eps: float, max_grad_norm: Optional[float]):
+                 b1: float, b2: float, eps: float, max_grad_norm: Optional[float], mesh=None):
         self.params = list(params)
         self.masters = [p if p.dtype == torch.float32 else p.detach().float().clone() for p in self.params]
         self.schedule = lr if callable(lr) else (lambda step: float(lr))
         self.max_grad_norm = max_grad_norm
         self.count = 0
-        self.optimizer = torch.optim.AdamW(self.masters, lr=self.schedule(0), betas=(b1, b2), eps=eps,
+        self.mesh = mesh
+        self.axes = [None if mesh is None else pmesh.zero1_spec(m.shape, mesh) for m in self.masters]
+        self.shards = [m if a is None else pmesh.zero1_shard(m, mesh).detach().clone()
+                       for m, a in zip(self.masters, self.axes)]
+        self.optimizer = torch.optim.AdamW(self.shards, lr=self.schedule(0), betas=(b1, b2), eps=eps,
                                            weight_decay=weight_decay)
 
     @torch.no_grad()
@@ -131,26 +173,54 @@ class ClippedAdamW:
         factor = None
         if self.max_grad_norm is not None:
             factor = self.max_grad_norm / torch.clamp(norm, min=self.max_grad_norm)
-        for m, g in zip(self.masters, grads):  # one fp32 gradient at a time: no second copy of them all
+        for s, m, g in zip(self.shards, self.masters, grads):  # one fp32 gradient at a time: no second copy of them all
             g = g.float()
-            m.grad = g if factor is None else g * factor
+            if s is not m:
+                g = pmesh.zero1_shard(g, self.mesh).contiguous()
+            s.grad = g if factor is None else g * factor
         lr = self.schedule(self.count)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+        if self.mesh is not None:
+            sharded = [i for i, a in enumerate(self.axes) if a is not None]
+            for i, full in zip(sharded, self._gather([self.shards[i] for i in sharded], sharded)):
+                self.masters[i].copy_(full)
         for p, m in zip(self.params, self.masters):
             if m is not p:
                 p.copy_(m)
         self.count += 1
         return norm
 
+    def _gather(self, shards: List[torch.Tensor], leaves: List[int]) -> Iterator[torch.Tensor]:
+        """The whole leaves ``leaves`` from every rank's ``shards`` of them
+        (each cut on its ``zero1_spec`` axis): all-gathers of flat buckets of
+        at most ``GATHER_BUCKET`` values a rank."""
+        n, group = pmesh.axis_size(self.mesh), pmesh.axis_group(self.mesh)
+        for i, j in _buckets(shards):
+            flat = torch.cat([t.reshape(-1) for t in shards[i:j]])
+            out = flat.new_empty(n * flat.numel())
+            dist.all_gather_into_tensor(out, flat, group=group)
+            out = out.view(n, flat.numel())
+            off = 0
+            for t, leaf in zip(shards[i:j], leaves[i:j]):
+                parts = out[:, off:off + t.numel()].reshape((n,) + tuple(t.shape))  # [rank, shard]
+                yield parts.movedim(0, self.axes[leaf]).reshape(self.masters[leaf].shape)
+                off += t.numel()
+
     def state_by_name(self, names: List[str]) -> Dict[str, Any]:
         """The optimiser's state under the leaves' ``names``: the update
         count and each master's AdamW state (``step``, ``exp_avg``,
-        ``exp_avg_sq``; absent before its first update)."""
+        ``exp_avg_sq``; absent before its first update), whole: under
+        ZeRO-1 the moments are all-gathered (every rank takes part)."""
         state = self.optimizer.state
-        return {"count": self.count, "adamw": {n: dict(state[m]) for n, m in zip(names, self.masters) if m in state}}
+        out = {n: dict(state[s]) for n, s in zip(names, self.shards) if s in state}
+        sharded = [i for i, (a, s) in enumerate(zip(self.axes, self.shards)) if a is not None and s in state]
+        for key in ("exp_avg", "exp_avg_sq"):
+            for i, full in zip(sharded, self._gather([state[self.shards[i]][key] for i in sharded], sharded)):
+                out[names[i]][key] = full
+        return {"count": self.count, "adamw": out}
 
     @torch.no_grad()
     def load_state_by_name(self, names: List[str], state: Dict[str, Any]) -> None:
@@ -161,19 +231,24 @@ class ClippedAdamW:
                                "resume it with --use_8bit_adam, or resume from the exported weights with a fresh "
                                "optimizer")
         self.count = int(state["count"])
-        for n, m in zip(names, self.masters):
+        for n, m, sh, a in zip(names, self.masters, self.shards, self.axes):
             s = state["adamw"].get(n)
             if s is None:
-                self.optimizer.state.pop(m, None)
+                self.optimizer.state.pop(sh, None)
             else:
-                self.optimizer.state[m] = {k: (v.clone() if k == "step" else v.to(m.device, copy=True))
-                                           for k, v in s.items()}
+                self.optimizer.state[sh] = {
+                    k: (v.clone() if k == "step" else
+                        (v if a is None else pmesh.zero1_shard(v, self.mesh)).to(m.device, copy=True))
+                    for k, v in s.items()}
 
     @torch.no_grad()
     def load_masters(self, masters: List[torch.Tensor]) -> None:
-        """Copy ``masters`` into the fp32 masters and write each one's rounding back into its leaf."""
-        for p, m, v in zip(self.params, self.masters, masters):
+        """Copy ``masters`` into the fp32 masters (and their ZeRO-1 shards) and
+        write each one's rounding back into its leaf."""
+        for p, m, s, v in zip(self.params, self.masters, self.shards, masters):
             m.copy_(v)
+            if s is not m:
+                s.copy_(pmesh.zero1_shard(m, self.mesh))
             if m is not p:
                 p.copy_(m)
 
@@ -187,14 +262,16 @@ def make_adamw(
     eps: float = 1e-8,
     max_grad_norm: Optional[float] = 1.0,
     use_8bit: bool = False,
+    mesh=None,
 ):
     """``ClippedAdamW``, or with ``use_8bit`` the blockwise-int8 ``AdamW8bit``
-    (the reference's optional ``bnb.optim.AdamW8bit``), which has its interface."""
+    (the reference's optional ``bnb.optim.AdamW8bit``), which has its
+    interface; with a ``mesh`` their state is ZeRO-1 sharded over its data axis."""
     if use_8bit:
         from instantir_tpu_torch.train.adam8bit import AdamW8bit
 
-        return AdamW8bit(params, lr, weight_decay, b1, b2, eps, max_grad_norm)
-    return ClippedAdamW(params, lr, weight_decay, b1, b2, eps, max_grad_norm)
+        return AdamW8bit(params, lr, weight_decay, b1, b2, eps, max_grad_norm, mesh=mesh)
+    return ClippedAdamW(params, lr, weight_decay, b1, b2, eps, max_grad_norm, mesh=mesh)
 
 
 def quantize_frozen_unet(unet: nn.Module, keep_pred: Optional[PathPred] = None) -> nn.Module:
@@ -215,28 +292,107 @@ def quantize_frozen_unet(unet: nn.Module, keep_pred: Optional[PathPred] = None) 
     return quantize_tree(unet, weight_only=True, exclude=exclude)
 
 
-def normal_draw(given: Optional[torch.Tensor], shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class RankRows:
+    """The generator of a data-parallel rank's step: ``generator`` (the same
+    stream on every rank) draws the global batch, of ``size`` times the
+    rank's rows, and the rank keeps its rows, so that a step's draws do not
+    depend on how many ranks share the batch."""
+
+    generator: torch.Generator
+    rank: int
+    size: int
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        b = t.shape[0] // self.size
+        return t[self.rank * b:(self.rank + 1) * b]
+
+
+def _drawn(draw, batch: int, generator):
+    """``draw(global batch, generator)``, this rank's rows of it for a ``RankRows``."""
+    if isinstance(generator, RankRows):
+        return generator.rows(draw(batch * generator.size, generator.generator))
+    return draw(batch, generator)
+
+
+def normal_draw(given: Optional[torch.Tensor], shape, generator, device) -> torch.Tensor:
     """``given`` on ``device``, or an fp32 standard-normal draw of ``shape`` from ``generator``."""
     if given is not None:
         return given.to(device)
-    return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    return _drawn(lambda b, g: torch.randn((b,) + tuple(shape[1:]), generator=g, dtype=torch.float32,
+                                           device=device), shape[0], generator)
 
 
-def uniform_draw(given: Optional[torch.Tensor], batch: int, generator: Optional[torch.Generator],
-                 device) -> torch.Tensor:
+def uniform_draw(given: Optional[torch.Tensor], batch: int, generator, device) -> torch.Tensor:
     """``given`` as ``[batch]`` on ``device``, or ``batch`` fp32 uniforms in [0, 1) from ``generator``."""
     if given is not None:
         return given.to(device).reshape(batch)
-    return torch.rand((batch,), generator=generator, dtype=torch.float32, device=device)
+    return _drawn(lambda b, g: torch.rand((b,), generator=g, dtype=torch.float32, device=device), batch, generator)
 
 
-def sample_timesteps(generator: torch.Generator, batch: int, num_train_timesteps: int,
+def randint_draw(high: int, batch: int, generator, device) -> torch.Tensor:
+    """``batch`` integers uniform in [0, high) from ``generator``."""
+    return _drawn(lambda b, g: torch.randint(0, high, (b,), generator=g, device=device), batch, generator)
+
+
+def sample_timesteps(generator, batch: int, num_train_timesteps: int,
                      importance_weights=None, device=None) -> torch.Tensor:
     """Uniform or importance-weighted t ~ p(t), int64 ``[batch]``."""
     if importance_weights is None:
-        return torch.randint(0, num_train_timesteps, (batch,), generator=generator, device=device)
+        return randint_draw(num_train_timesteps, batch, generator, device)
     probs = torch.as_tensor(importance_weights, dtype=torch.float32, device=device)
-    return torch.multinomial(probs, batch, replacement=True, generator=generator)
+    return _drawn(lambda b, g: torch.multinomial(probs, b, replacement=True, generator=g), batch, generator)
+
+
+# ---------------------------------------------------------------------------
+# data parallelism (twins of the JAX trainers' mesh helpers)
+# ---------------------------------------------------------------------------
+
+
+def resolve_mesh(mesh, batch_size: int, device="cuda"):
+    """A trainer's mesh argument: None -> no mesh; a mesh is kept (its data
+    axis must divide ``batch_size``), one of one rank too; ``"auto"`` (every
+    trainer's default, the analogue of accelerate's implicit DDP wrap) -> the
+    launched group's ``data`` axis when a process group exists or a launcher
+    started this process (``torchrun``), it has more than one rank and its
+    size divides ``batch_size``, else no mesh (the JAX rule: a group of one
+    trains as a single process, with no collective)."""
+    if mesh is None:
+        return None
+    if mesh != "auto":
+        if batch_size % pmesh.axis_size(mesh):
+            raise ValueError(f"train_batch_size={batch_size} not divisible by mesh data axis "
+                             f"{pmesh.axis_size(mesh)}")
+        return mesh
+    if not dist.is_initialized() and not pmesh.launched():
+        return None
+    if not pmesh.initialize_distributed(device=device):
+        return None
+    n = dist.get_world_size()
+    if n <= 1 or batch_size % n:
+        return None
+    return pmesh.make_mesh(device=device)
+
+
+@torch.no_grad()
+def all_reduce_mean(tensors: List[torch.Tensor], mesh) -> None:
+    """Each tensor <- its mean over the mesh's data axis, in place: flat fp32
+    buckets of at most ``GATHER_BUCKET`` values, one a dtype at a time (a
+    bf16 gradient is summed in fp32 and its mean rounded back)."""
+    n = pmesh.axis_size(mesh)
+    group = pmesh.axis_group(mesh)
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        for i, j in _buckets(ts):
+            flat = torch.cat([t.reshape(-1).float() for t in ts[i:j]])
+            dist.all_reduce(flat, group=group)
+            flat /= n
+            off = 0
+            for t in ts[i:j]:
+                t.copy_(flat[off:off + t.numel()].view(t.shape))
+                off += t.numel()
 
 
 # ---------------------------------------------------------------------------
@@ -288,12 +444,19 @@ def _host_f32(x):
     return x.float() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
 
 
-def degradation_generators(seed: int, step: int, device) -> Tuple[torch.Generator, torch.Generator]:
+def degradation_seed(seed: int, step: int, rank: int = 0) -> int:
+    """``seed·7919 + step``, the seed of the JAX trainers' ``host_rng``, for
+    data-parallel rank 0; another rank's seed is offset by ``rank·2⁴⁰`` so
+    that the ranks degrade their rows of a batch independently."""
+    return seed * 7919 + step + (rank << 40)
+
+
+def degradation_generators(seed: int, step: int, device, rank: int = 0) -> Tuple[torch.Generator, torch.Generator]:
     """(CPU generator of the chain's per-call choices, generator of its pixel
-    noise on ``device``) for ``step``: both seeded from ``seed·7919 + step``,
-    the seed of the JAX trainers' ``host_rng``, so a step's degradation does
-    not depend on which thread prepares it or on what ran before."""
-    base = seed * 7919 + step
+    noise on ``device``) for ``step``: both seeded from ``degradation_seed``,
+    so a step's degradation does not depend on which thread prepares it or
+    on what ran before."""
+    base = degradation_seed(seed, step, rank)
     return (torch.Generator().manual_seed(base),
             torch.Generator(device=torch.device(device)).manual_seed(base + (1 << 32)))
 
@@ -737,14 +900,22 @@ class Trainer:
     ``self._loss_fn(batch, draws, generator) -> (total, metrics)``.
     ``device="cuda"`` (the default) raises without a card; pass
     ``device="cpu"`` to train on the CPU. The checkpoint directory and the
-    event file are made at their first write."""
+    event file are made at their first write.
+
+    ``mesh`` (``resolve_mesh``; ``"auto"`` by default) makes the step data
+    parallel: every rank holds rank 0's parameters, steps on its rows of the
+    global batch (``cfg.train_batch_size``, which the data axis divides) and
+    its rows of the global draws, and takes the mean gradient and metrics
+    over the ranks; ``shard_optimizer_state`` shards the optimiser's state
+    (ZeRO-1). Only rank 0 (``is_main``) logs and writes checkpoints."""
 
     def __init__(self, tag: str, models: Dict[str, nn.Module], cfg, pred: PathPred,
-                 losses_config: Optional[LossesConfig], schedule, device):
+                 losses_config: Optional[LossesConfig], schedule, device, mesh="auto"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"{type(self).__name__}: device 'cuda' requested but no CUDA device is available "
                                "(pass device='cpu' to train on the CPU)")
+        self.mesh = resolve_mesh(mesh, cfg.train_batch_size, device=self.device)
         self.cfg = cfg
         self.models = models
         for name, model in models.items():
@@ -757,11 +928,15 @@ class Trainer:
         if cfg.quantize_frozen_unet:
             quantize_frozen_unet(models["unet"], keep_pred=self.frozen_unet_keep)
         self.trainable_names = set_trainable(models, pred)
+        if self.mesh is not None:
+            for model in models.values():
+                pmesh.replicate_params(model, self.mesh)
         named = self.named_parameters()
         self.trainable: List[nn.Parameter] = [named[n] for n in self.trainable_names]
         self.optimizer = make_adamw(
             self.trainable, lr_schedule(cfg.lr_scheduler, cfg.learning_rate, cfg.lr_warmup_steps, cfg.max_train_steps),
-            weight_decay=cfg.weight_decay, use_8bit=cfg.use_8bit_adam, max_grad_norm=cfg.max_grad_norm)
+            weight_decay=cfg.weight_decay, use_8bit=cfg.use_8bit_adam, max_grad_norm=cfg.max_grad_norm,
+            mesh=self.mesh if cfg.shard_optimizer_state else None)
         self._loss_fn: Optional[Callable] = None
         self.last_validation: Optional[np.ndarray] = None  # the strips of run's newest validation render
         self._accumulated: Optional[List[torch.Tensor]] = None
@@ -772,8 +947,29 @@ class Trainer:
         self.tag = tag
         self.degradation = RealESRGANDegradation(resolution=cfg.resolution)
         self.ckpt = CheckpointManager(cfg.output_dir, cfg.checkpoints_total_limit, async_save=cfg.async_checkpointing)
-        self.tracker = Tracker(os.path.join(cfg.output_dir, "logs") if cfg.output_dir else None, backend=cfg.report_to)
-        print(f"[{tag}] trainable params: {count_params(self.trainable) / 1e6:.2f}M")
+        self.tracker = Tracker(os.path.join(cfg.output_dir, "logs") if cfg.output_dir and self.is_main else None,
+                               backend=cfg.report_to)
+        if self.is_main:
+            print(f"[{tag}] trainable params: {count_params(self.trainable) / 1e6:.2f}M")
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process logs and writes: rank 0 of the data axis, or the only process."""
+        return pmesh.axis_rank(self.mesh) == 0
+
+    def step_draws(self, draws, generator: Optional[torch.Generator]):
+        """(draws, generator) of this rank's step: under a mesh the given
+        draws of the global batch cut to the rank's rows and the generator
+        wrapped to draw the global batch and keep its rows (``RankRows``)."""
+        generator = generator or self._generator
+        if self.mesh is None:
+            return draws, generator
+        rows = RankRows(generator, pmesh.axis_rank(self.mesh), pmesh.axis_size(self.mesh))
+        if draws is not None:
+            draws = dataclasses.replace(draws, **{f.name: rows.rows(getattr(draws, f.name))
+                                                  for f in dataclasses.fields(draws)
+                                                  if getattr(draws, f.name) is not None})
+        return draws, rows
 
     # with ``quantize_frozen_unet``: the UNet bases kept in fp (a predicate over
     # ``("unet", *module path)``), the trained ones
@@ -840,6 +1036,7 @@ class Trainer:
         given in another dtype than fp32)."""
         if "lq" in batch and "gt" in batch:
             return {"lq": to_device(batch["lq"], self.device), "gt": to_device(batch["gt"], self.device)}
+        rank = pmesh.axis_rank(self.mesh)
         missing = [k for k in ("images", "kernel", "kernel2", "sinc_kernel") if k not in batch]
         if missing:
             raise ValueError(f"prepare_batch: a batch holds 'lq' and 'gt', or raw 'images' with their kernels; "
@@ -847,13 +1044,13 @@ class Trainer:
         step = self.global_step if step is None else step
         images = to_device(_host_f32(batch["images"]), self.device)
         kernels = tuple(to_device(_host_f32(batch[k]), self.device) for k in ("kernel", "kernel2", "sinc_kernel"))
-        generator, device_generator = degradation_generators(self.cfg.seed, step, self.device)
+        generator, device_generator = degradation_generators(self.cfg.seed, step, self.device, rank)
         if draws is None and takes_traced_chain(self.degradation, images.shape, self.cfg.jit_degradation):
             sf = self.degradation.degrade_opt["sf"]
             draws = self.degradation.draw_choices(images.shape[0], (images.shape[1] // sf, images.shape[2] // sf),
                                                   generator)
         return {"images": images, "kernels": kernels, "step": step, "draws": draws, "noise": noise,
-                "device_generator": device_generator}
+                "device_generator": device_generator, "rank": rank}
 
     def finish_batch(self, staged: Dict[str, Any], cond: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The device half of ``prepare_batch``, on the thread that runs the
@@ -863,7 +1060,8 @@ class Trainer:
             step = staged["step"]
             lq, gt = run_degradation(self.degradation, staged["images"], staged["kernels"],
                                      jit_mode=self.cfg.jit_degradation,
-                                     host_rng=np.random.default_rng(self.cfg.seed * 7919 + step), draws=staged["draws"],
+                                     host_rng=np.random.default_rng(degradation_seed(self.cfg.seed, step, staged["rank"])),
+                                     draws=staged["draws"],
                                      noise=staged["noise"], device_generator=staged["device_generator"])
         else:
             lq, gt = staged["lq"], staged["gt"]
@@ -872,14 +1070,24 @@ class Trainer:
         return out
 
     def loss(self, batch, draws=None, generator: Optional[torch.Generator] = None):
-        """The differentiable forward of a step: (weighted loss total, metrics)."""
-        return self._loss_fn(batch, draws, generator or self._generator)
+        """The differentiable forward of a step on this rank's rows: (weighted loss total, metrics)."""
+        return self._loss_fn(batch, *self.step_draws(draws, generator))
+
+    # metrics that stay per rank (not means over the batch)
+    LOCAL_METRICS = ("_vis_strip",)
 
     def loss_and_grads(self, batch, draws=None, generator: Optional[torch.Generator] = None):
-        """(loss, metrics, gradients of the trainable leaves in ``trainable_names`` order)."""
+        """(loss, metrics, gradients of the trainable leaves in ``trainable_names``
+        order); under a mesh each the mean over the data axis, the global
+        batch's (every loss is a mean over samples, so the mean of the ranks'
+        equal-sized means)."""
         total, metrics = self.loss(batch, draws, generator)
-        grads = torch.autograd.grad(total, self.trainable)
-        return total.detach(), metrics, list(grads)
+        grads = list(torch.autograd.grad(total, self.trainable))
+        total = total.detach()
+        if self.mesh is not None:
+            means = [m for k, m in metrics.items() if k not in self.LOCAL_METRICS and isinstance(m, torch.Tensor)]
+            all_reduce_mean([total, *grads, *means], self.mesh)
+        return total, metrics, grads
 
     def train_step(self, batch, draws=None, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """One (micro-)step. With ``gradient_accumulation_steps = k`` the
@@ -944,10 +1152,21 @@ class Trainer:
         return step
 
     def save_checkpoint(self) -> None:
-        """Save the state at the current step, once (the in-loop save and the final save may meet)."""
-        if self.ckpt.latest_step() == self.global_step:
+        """Save the state at the current step, once (the in-loop save and the
+        final save may meet). Under a mesh every rank gathers the state
+        (ZeRO-1) and rank 0 alone writes, rank 0 deciding for all whether the
+        step is saved already."""
+        saved = self.ckpt.latest_step() == self.global_step if self.is_main else False
+        if self.mesh is not None:
+            flag = torch.tensor([int(saved)], dtype=torch.int32, device=self.device)
+            group = pmesh.axis_group(self.mesh)
+            dist.broadcast(flag, src=dist.get_global_rank(group, 0), group=group)
+            saved = bool(flag.item())
+        if saved:
             return
-        self.ckpt.save(self.global_step, self.checkpoint_state())
+        state = self.checkpoint_state()
+        if self.is_main:
+            self.ckpt.save(self.global_step, state)
 
     def run(self, data_iter: Iterator, cond, val_batch=None) -> List[Dict[str, float]]:
         """The host loop (the JAX trainers' ``run``): resume, then until
@@ -994,7 +1213,8 @@ class Trainer:
                     values["steps_per_sec"] = cfg.logging_steps / dt
                     self.tracker.scalars(self.global_step, values)
                     records.append({"step": self.global_step, **values})
-                if val_batch is not None and cfg.validation_steps > 0 and self.global_step % cfg.validation_steps == 0:
+                if (val_batch is not None and cfg.validation_steps > 0 and self.global_step % cfg.validation_steps == 0
+                        and self.is_main):
                     self.last_validation = self.validate(val_batch, cond)
                 if self.global_step % cfg.checkpointing_steps == 0:
                     self.save_checkpoint()

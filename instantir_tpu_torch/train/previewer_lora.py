@@ -57,7 +57,7 @@ class PreviewerConfig:
     output_dir: str = "previewer_out"
     max_train_steps: int = 1000
     train_batch_size: int = 32
-    shard_optimizer_state: bool = True  # a no-op on one device; more devices are not ported
+    shard_optimizer_state: bool = True  # ZeRO-1 AdamW state over the mesh's data axis (common.make_adamw)
     learning_rate: float = 1e-4
     lr_scheduler: str = "constant"
     lr_warmup_steps: int = 100
@@ -170,7 +170,7 @@ def build_previewer_step(unet, resampler, vae, image_encoder, schedule, losses, 
 
             index = draws.solver_index
             if index is None:
-                index = torch.randint(0, cfg.num_ddim_timesteps, (bsz,), generator=generator, device=dev)
+                index = common.randint_draw(cfg.num_ddim_timesteps, bsz, generator, dev)
             index = index.to(dev).long()
             start_t = solver_ts[index]
             t = (start_t - topk).clamp(min=0)
@@ -234,15 +234,17 @@ def build_previewer_step(unet, resampler, vae, image_encoder, schedule, losses, 
 class PreviewerTrainer(common.Trainer):
     """Holds the models, the optimiser over every LoRA leaf, the DINOLoss
     center and the step (``common.Trainer``). ``device="cuda"`` (the default)
-    raises without a card; pass ``device="cpu"`` to train on the CPU."""
+    raises without a card; pass ``device="cpu"`` to train on the CPU.
+    ``mesh`` as ``common.Trainer``: the DINOLoss teacher mean that moves the
+    center is a metric, so its mean over the global batch."""
 
     def __init__(self, unet, resampler, vae, image_encoder, cfg: PreviewerConfig,
-                 losses_config: Optional[LossesConfig] = None, schedule=None, device="cuda"):
+                 losses_config: Optional[LossesConfig] = None, schedule=None, device="cuda", mesh="auto"):
         self.unet, self.resampler, self.vae, self.image_encoder = unet, resampler, vae, image_encoder
         models = {"unet": unet, "resampler": resampler, "vae": vae, "image_encoder": image_encoder}
         if not any(lora_trainable_pred(tuple(n.split("."))) for n in common.named_parameters(models)):
             raise ValueError("no LoRA params found: build the UNet/Resampler with lora_rank > 0")
-        super().__init__("previewer", models, cfg, lora_trainable_pred, losses_config, schedule, device)
+        super().__init__("previewer", models, cfg, lora_trainable_pred, losses_config, schedule, device, mesh)
         self._dino = next((loss for loss, _ in self.losses if isinstance(loss, DINOLoss)), None)
         self._vis = next((loss for loss, _ in self.losses if isinstance(loss, LCMVisualization)), None)
         # running teacher-token center of DINOLoss, fp32 whatever the models' dtype
@@ -259,7 +261,7 @@ class PreviewerTrainer(common.Trainer):
     def loss(self, batch, draws: Optional[PreviewerDraws] = None, generator: Optional[torch.Generator] = None):
         """The differentiable forward of a step at the current DINOLoss
         center: (weighted loss total, metrics)."""
-        return self._loss_fn(batch, draws, generator or self._generator, self.dino_center)
+        return self._loss_fn(batch, *self.step_draws(draws, generator), self.dino_center)
 
     def train_step(self, batch, draws: Optional[PreviewerDraws] = None,
                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:

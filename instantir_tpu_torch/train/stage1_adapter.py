@@ -23,8 +23,8 @@ Public tensors keep the JAX layout: NHWC images in [-1, 1], NHWC noise.
 renders ``validate_stage1`` every ``validation_steps``. ``use_8bit_adam``
 takes the blockwise-int8 AdamW (``train/adam8bit.py``);
 ``quantize_frozen_unet`` stores the frozen UNet's bases as W8 in place, the
-trained ip projections kept in fp. Not ported yet: optimiser-state sharding
-over more than one device.
+trained ip projections kept in fp. ``mesh="auto"`` trains data parallel over
+the launched process group with ZeRO-1 (``common.Trainer``).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ class Stage1Config:
     output_dir: str = "stage1_out"
     max_train_steps: int = 1000
     train_batch_size: int = 96
-    shard_optimizer_state: bool = True  # a no-op on one device; more devices are not ported
+    shard_optimizer_state: bool = True  # ZeRO-1 AdamW state over the mesh's data axis (common.make_adamw)
     learning_rate: float = 1e-4
     lr_scheduler: str = "cosine"
     lr_warmup_steps: int = 100
@@ -160,13 +160,13 @@ def build_stage1_step(unet, resampler, vae, image_encoder, schedule, losses, cfg
 class Stage1Trainer(common.Trainer):
     """Holds the models, the optimiser and the step (``common.Trainer``).
     ``device="cuda"`` (the default) raises without a card; pass
-    ``device="cpu"`` to train on the CPU."""
+    ``device="cpu"`` to train on the CPU; ``mesh`` as ``common.Trainer``."""
 
     def __init__(self, unet, resampler, vae, image_encoder, cfg: Stage1Config,
-                 losses_config: Optional[LossesConfig] = None, schedule=None, device="cuda"):
+                 losses_config: Optional[LossesConfig] = None, schedule=None, device="cuda", mesh="auto"):
         self.unet, self.resampler, self.vae, self.image_encoder = unet, resampler, vae, image_encoder
         models = {"unet": unet, "resampler": resampler, "vae": vae, "image_encoder": image_encoder}
-        super().__init__("stage1", models, cfg, stage1_trainable_pred, losses_config, schedule, device)
+        super().__init__("stage1", models, cfg, stage1_trainable_pred, losses_config, schedule, device, mesh)
         self._loss_fn = build_stage1_step(unet, resampler, vae, image_encoder, self.schedule, self.losses, cfg)
 
     frozen_unet_keep = staticmethod(stage1_trainable_pred)

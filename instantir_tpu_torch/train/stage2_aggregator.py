@@ -67,7 +67,7 @@ class Stage2Config:
     output_dir: str = "stage2_out"
     max_train_steps: int = 1000
     train_batch_size: int = 6
-    shard_optimizer_state: bool = True  # a no-op on one device; more devices are not ported
+    shard_optimizer_state: bool = True  # ZeRO-1 AdamW state over the mesh's data axis (common.make_adamw)
     learning_rate: float = 1e-4
     lr_scheduler: str = "constant"
     lr_warmup_steps: int = 100
@@ -302,11 +302,12 @@ class Stage2Trainer(common.Trainer):
     card; pass ``device="cpu"`` to train on the CPU. With ``aggregator_adapter``
     the Aggregator must have been built with the adapter and ``agg_resampler``
     given (``enable_aggregator_adapter`` makes both): it joins the models as
-    ``"agg_resampler"``."""
+    ``"agg_resampler"``. ``mesh`` as ``common.Trainer``: the EMA copy stays
+    whole on every rank, which all apply the same update to the same masters."""
 
     def __init__(self, unet, aggregator, resampler, vae, image_encoder, cfg: Stage2Config,
                  losses_config: Optional[LossesConfig] = None, schedule=None, device="cuda",
-                 agg_resampler: Optional[Resampler] = None):
+                 agg_resampler: Optional[Resampler] = None, mesh="auto"):
         if cfg.aggregator_adapter:
             if agg_resampler is None:
                 raise ValueError("aggregator_adapter=True needs the aggregator's Resampler module "
@@ -321,7 +322,7 @@ class Stage2Trainer(common.Trainer):
                   "image_encoder": image_encoder}
         if self.agg_resampler is not None:
             models["agg_resampler"] = self.agg_resampler
-        super().__init__("stage2", models, cfg, stage2_trainable_pred(cfg), losses_config, schedule, device)
+        super().__init__("stage2", models, cfg, stage2_trainable_pred(cfg), losses_config, schedule, device, mesh)
         self.ema_adapter: Optional[Dict[str, torch.Tensor]] = None
         if cfg.use_ema_adapter:
             self.ema_adapter = {n: p.detach().float().clone() for n, p in self.named_parameters().items()
@@ -332,7 +333,7 @@ class Stage2Trainer(common.Trainer):
     def loss(self, batch, draws: Optional[Stage2Draws] = None, generator: Optional[torch.Generator] = None):
         """The differentiable forward of a step, the previewer on the EMA
         adapter: (weighted loss total, metrics)."""
-        return self._loss_fn(batch, draws, generator or self._generator, self.ema_adapter)
+        return self._loss_fn(batch, *self.step_draws(draws, generator), self.ema_adapter)
 
     def train_step(self, batch, draws: Optional[Stage2Draws] = None,
                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:

@@ -657,20 +657,18 @@ def test_cli_parser_takes_every_jax_flag():
 
 @pytest.mark.parametrize("flag", ["--quantized", "--sequence_parallel", "--use_clip_encoder"])
 def test_cli_refuses_the_flags_not_ported(flag, tmp_path):
-    """``--sequence_parallel`` still raises, naming itself; ``--quantized``
-    and ``--use_clip_encoder`` (ported since) get past the check to the
-    load, which fails on the missing folder."""
+    """Every one of these flags is ported now: ``--quantized``,
+    ``--use_clip_encoder`` and ``--sequence_parallel`` (without torchrun the
+    process-group join is a no-op) get past the flag checks to the load,
+    which fails on the missing folder."""
     argv = ["--sdxl_path", str(tmp_path / "s"), "--instantir_path", "i", "--vision_encoder_path", "v",
             "--test_path", "t", flag]
-    if flag in ("--quantized", "--use_clip_encoder"):
-        parsed = tinfer.build_parser().parse_args(argv)
-        assert parsed.quantized == "w8a8" if flag == "--quantized" else parsed.use_clip_encoder
-        with pytest.raises(Exception) as info:
-            tinfer.main(argv, device="cpu")
-        assert not isinstance(info.value, NotImplementedError)
-        return
-    with pytest.raises(NotImplementedError, match=flag):
+    parsed = tinfer.build_parser().parse_args(argv)
+    assert {"--quantized": parsed.quantized == "w8a8", "--use_clip_encoder": parsed.use_clip_encoder,
+            "--sequence_parallel": parsed.sequence_parallel}[flag]
+    with pytest.raises(Exception) as info:
         tinfer.main(argv, device="cpu")
+    assert not isinstance(info.value, NotImplementedError)
 
 
 def test_watermark_matches_jax():

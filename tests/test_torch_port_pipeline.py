@@ -201,10 +201,12 @@ def test_restore_draws_its_own_noise_without_injection(pipelines, inputs):
 
 @pytest.mark.parametrize("field,value", [("sequence_parallel", True)])
 def test_unported_options_raise(pipelines, inputs, field, value):
+    """``sequence_parallel`` is ported: without a mesh (``pipe.shard``) it is
+    refused as in the JAX package, naming itself."""
     _, tpipe = pipelines
     lq, pe, pp = (torch.from_numpy(x) for x in inputs)
     cfg = dataclasses.replace(RestoreConfig(**RESTORE), **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
+    with pytest.raises(ValueError, match=field):
         tpipe.restore(lq, pe, pp, cfg=cfg)
 
 
