@@ -81,7 +81,7 @@ which ends the script with a nonzero exit on failure:
    int32 (a dense layer and a 3x3 convolution; their ms beside the bf16 op's),
    each pipeline staged and as one CUDA graph on one noise (the graph equal
    to the staged restore), PSNR against the bf16 image (W8 no further from
-   it than W8A8), s/image of bf16, W8 and W8A8 in turns, peaks, launches
+   it than W8A8), s/image of bf16, W8 and W8A8 in one pass, peaks, launches
    derived (the bf16 path's); ``RestoreServer`` on the W8 pipeline (its
    budget's weights against bf16's, a request replayed without a launch);
    ``cli.infer.main --quantized w8 --fused`` on phase 4c's loaded pipeline
@@ -116,6 +116,23 @@ which ends the script with a nonzero exit on failure:
    InstantIR folder for the 768-wide Resampler, and ``cli.infer.main
    --use_clip_encoder --fused`` with its own load on one 1024² PNG (launches
    derived as in 4c, its PNG equal to the in-memory restore's);
+4j. tensor parallelism, on phase 4c's tree before it is deleted: K1 at the
+   local heads of a ``model`` axis of 2 ((2, 4096, 5), (2, 1024, 10), (2,
+   8192, 5), (2, 2048, 10)) and K5 at the resnets' local ``norm2`` channels
+   (16 groups) against their plain versions; the analytic FLOPs per 1024²
+   image of config #4 and of the 4-step restore (``utils/flops.py``, counted
+   on ``meta`` by a process started beside phase 2, ``--count_flops``) and the
+   4-step graph replay's achieved TFLOP/s; ``PhaseTimer`` over a staged
+   restore; an NCCL group of two ranks on the card (``--tp_probe``, beside
+   phase 2; NCCL takes one rank a device), then two ranks in an explicit
+   gloo group over the CUDA tensors (``--tp_worker``) running ``cli.serve
+   --mesh --model_parallel 2 --no-fused`` on the tree: each loads and shards
+   the pipeline, restores at the warmup (1024², 2 steps, CFG 7) and for one
+   request; each rank's launches per restore derived at the local shapes,
+   both ranks' inputs equal, each image within ``TP_TOL`` of the one-rank
+   restore of its inputs, the served PNG the request's image as uint8, the
+   per-rank weight bytes against ``tp_spec``'s prediction (the seconds are
+   not TP speed: two ranks share the card);
 5. stage-2 (Aggregator) training at full SDXL width: two
    ``Stage2Trainer.train_step``s at 512² (batch 2) and one at 1024² (batch 1,
    gradient checkpointing on the UNet and the Aggregator); loss,
@@ -213,6 +230,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Optional
@@ -293,6 +311,18 @@ GN_UNET_SHAPES = [(320, 128, 128), (640, 128, 128), (960, 128, 128), (320, 64, 6
 GN_AGG_SHAPES = [(320, 256, 128), (320, 128, 64), (640, 128, 64), (640, 64, 32), (1280, 64, 32)]
 GN_SHAPES = GN_UNET_SHAPES + GN_AGG_SHAPES + [(320, 45, 45), (128, 512, 512)]
 GN_BATCH = 2
+# the tensor-parallel phase (4j): two ranks on the one card, a (1, 2) mesh; K1 runs at half the heads
+# ((2, 4096, 5), (2, 1024, 10), (2, 8192, 5), (2, 2048, 10)), the resnets' norm2 (K5) at half the channels with
+# 16 of the 32 groups; the restore and the server take BASELINE config #4's settings at TP_STEPS steps
+TP_SIZE = 2
+TP_STEPS = 2
+TP_RESTORE_SHAPES = [(b, s, h // TP_SIZE) for b, s, h in RESTORE_SHAPES]
+# relative L2 of the two-rank restore's image against the one-rank restore's on the same inputs: each
+# row-parallel layer rounds its two bf16 partials before their sum where one rank rounds once, a one-ulp
+# difference at some outputs of every such layer, which two CFG-7 steps amplify as they do the fused GroupNorm's
+# (RESTORE_TOL's 5.2e-2 at four steps): 5e-2 predicted, RESTORE_TOL the bound
+TP_TOL = RESTORE_TOL
+TP_TIMEOUT = 900  # seconds the two ranks may take, loads, restore and server included
 
 
 def fail(msg: str) -> None:
@@ -654,7 +684,7 @@ def graph_ms(torch, fn, calls: int = 10, replays: int = 3) -> float:
 
 
 def check_group_norm(torch, group_norm, gn_by_shape: dict, path_cases: list, base: bool = True,
-                     host: bool = True) -> list:
+                     host: bool = True, groups: int = 32) -> list:
     """Phase 3, K5: the fused GroupNorm(+SiLU) against ``group_norm_silu_nchw``
     (its fp32 values: see ``GN_TOL``) at every shape of the 1024² restore
     path and the extra ones in bf16, fp16 and fp32, and at the other main
@@ -663,7 +693,8 @@ def check_group_norm(torch, group_norm, gn_by_shape: dict, path_cases: list, bas
     the host time of the dispatch under ``torch.no_grad()`` (bf16 and fp16),
     bound, plain version, ``F.group_norm`` and the launch plan (cluster size
     and path; "-" for a package without one). ``base=False`` checks the
-    ``path_cases`` alone, ``host=False`` leaves out the host timing."""
+    ``path_cases`` alone, ``host=False`` leaves out the host timing; ``groups``
+    is the GroupNorm's (16 at the tensor-parallel resnets' ``norm2``)."""
     import torch.nn.functional as F
 
     if sorted(gn_by_shape) != sorted(GN_UNET_SHAPES + GN_AGG_SHAPES):
@@ -680,11 +711,11 @@ def check_group_norm(torch, group_norm, gn_by_shape: dict, path_cases: list, bas
             scale = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
             bias = 0.1 * torch.randn(c, generator=g, device="cuda")
             scale_d, bias_d = scale.to(dtype), bias.to(dtype)
-            plan = plan_of(batch, c, hh * ww, 32, x.element_size()) if plan_of else None
+            plan = plan_of(batch, c, hh * ww, groups, x.element_size()) if plan_of else None
             for silu in (False, True):
-                y = group_norm.group_norm_silu_fused(x, scale, bias, 32, 1e-5, silu)
+                y = group_norm.group_norm_silu_fused(x, scale, bias, groups, 1e-5, silu)
                 torch.cuda.synchronize()
-                ref = group_norm.group_norm_silu_nchw(x.float(), scale, bias, 32, 1e-5, silu)
+                ref = group_norm.group_norm_silu_nchw(x.float(), scale, bias, groups, 1e-5, silu)
                 err = (y.float() - ref).abs().max().item()
                 where = f"B={batch} C={c} {hh}x{ww} {name} silu={silu}"
                 if y.dtype != dtype or not err <= GN_TOL[name]:
@@ -692,27 +723,27 @@ def check_group_norm(torch, group_norm, gn_by_shape: dict, path_cases: list, bas
                 del y, ref
 
                 def fused():
-                    return group_norm.group_norm_silu_fused(x, scale, bias, 32, 1e-5, silu)
+                    return group_norm.group_norm_silu_fused(x, scale, bias, groups, 1e-5, silu)
 
                 def dispatch():
-                    return group_norm.group_norm_silu(x, scale, bias, 32, 1e-5, silu)
+                    return group_norm.group_norm_silu(x, scale, bias, groups, 1e-5, silu)
 
                 with torch.no_grad():
                     host_us = host_us_per_call(torch, dispatch) if host and dtype != torch.float32 else None
                 bound, bound_by = bound_ms(8.0 * x.numel(), 2.0 * x.numel() * x.element_size())
-                row = dict(B=batch, C=c, H=hh, W=ww, dtype=name, silu=silu, max_abs_err=err, bound_ms=bound, bound_by=bound_by,
+                row = dict(B=batch, C=c, H=hh, W=ww, G=groups, dtype=name, silu=silu, max_abs_err=err, bound_ms=bound, bound_by=bound_by,
                            cs=plan.cs if plan else None, path=plan.path if plan else None,
                            ms=time_ms(torch, fused), device_ms=graph_ms(torch, fused),
                            host_us=host_us,
-                           plain_ms=time_ms(torch, lambda: group_norm.group_norm_silu_nchw(x, scale, bias, 32, 1e-5, silu),
+                           plain_ms=time_ms(torch, lambda: group_norm.group_norm_silu_nchw(x, scale, bias, groups, 1e-5, silu),
                                             iters=5, warmup=1),
                            library_ms=None if silu else time_ms(
-                               torch, lambda: F.group_norm(x, 32, scale_d, bias_d, 1e-5)))
+                               torch, lambda: F.group_norm(x, groups, scale_d, bias_d, 1e-5)))
                 rows.append(row)
                 lib = "-" if silu else f"{row['library_ms']:.4f}"
-                host = "-" if row["host_us"] is None else f"{row['host_us']:.1f}"
+                host_txt = "-" if row["host_us"] is None else f"{row['host_us']:.1f}"
                 log(f"  group_norm {where}: max_abs_err {err:.2e}  kernel {row['ms']:.4f} ms  device "
-                    f"{row['device_ms']:.4f} ms ({bound / row['device_ms']:.0%} of bound)  host {host} us  bound "
+                    f"{row['device_ms']:.4f} ms ({bound / row['device_ms']:.0%} of bound)  host {host_txt} us  bound "
                     f"{bound:.4f} ms ({bound_by})  plain {row['plain_ms']:.4f} ms  F.group_norm {lib} ms  cs "
                     f"{row['cs'] or '-'} {row['path'] or '-'}")
             del x
@@ -2260,14 +2291,13 @@ def run_quantized(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> 
     (``check_int8_products``); each pipeline's restore staged and as one CUDA
     graph on the bf16 restore's noise (the graph equal to the staged
     restore), images finite, their PSNR against the bf16 image (W8 no
-    further from it than W8A8), s/image of bf16, W8 and W8A8 in turns (staged
-    and replayed), peaks, launch counts derived from the config (the same as
+    further from it than W8A8), s/image of bf16, W8 and W8A8 in one pass
+    (staged and replayed), peaks, launch counts derived from the config (the same as
     bf16's: quantization touches neither attention nor GroupNorm);
     ``RestoreServer`` on the W8 pipeline at 1024² (its budget row against
     bf16's, one request replayed without a launch). With ``steps`` other
-    than 4 (the 4-step times then in one pass, not in turns), config #4 as
-    graphs in W8 and W8A8, each recorded and replayed once, against a bf16
-    staged restore on the same noise."""
+    than 4, config #4 as graphs in W8 and W8A8, each recorded and replayed
+    once, against a bf16 staged restore on the same noise."""
     import numpy as np
 
     from instantir_tpu_torch.cli.serve import RestoreServer, ServeConfig, estimate_hbm_budget
@@ -2344,7 +2374,7 @@ def run_quantized(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> 
     out["weight_gb"] = {k: v / 1e9 for k, v in weights.items()}
     out["int8_ms"] = check_int8_products(torch, pipes["w8a8"], card_line)
 
-    # 2. staged and recorded restores on one noise; PSNR against bf16; s/image in turns
+    # 2. staged and recorded restores on one noise; PSNR against bf16; s/image in one pass
     args = inputs(4)
     images, peaks = {}, {}
     for mode, p in pipes.items():
@@ -2364,12 +2394,12 @@ def run_quantized(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> 
         fail(f"phase 4e: the W8 image is further from bf16 ({psnr['w8']:.2f} dB) than the W8A8 one "
              f"({psnr['w8a8']:.2f} dB)")
     secs = {}
-    for mode in ("bf16", "w8", "w8a8", "w8a8", "w8", "bf16") if steps == 4 else ("bf16", "w8", "w8a8"):
+    for mode in ("bf16", "w8", "w8a8"):
         for kind in ("staged", "graph"):
             _, sec, _, _ = restore(f"{mode} {kind} restore", pipes[mode], base if kind == "staged" else fused_cfg,
                                    args, expected if kind == "staged" else {})
             secs.setdefault(f"{mode}_{kind}", []).append(sec)
-    log(f"  1024² 4 steps, s/image in turns: "
+    log(f"  1024² 4 steps, s/image in one pass: "
         f"{json.dumps({k: ['%.3f' % x for x in v] for k, v in secs.items()})} on {card_line}")
     out.update(psnr=psnr, peak_gb=peaks, sec={k: min(v) for k, v in secs.items()})
 
@@ -4546,7 +4576,7 @@ def run_restore_2048(torch, pipe, mods: dict, ucfg, card_line: str) -> dict:
              f"derived {expected}, {k1_want}, {gn_want}")
     if tuple(staged.shape) != (1, res, res, 3) or not torch.isfinite(staged).all():
         fail(f"phase 4h: the staged 2048² image has shape {tuple(staged.shape)} or is not finite")
-    staged_secs = [restore(cfg)[1] for _ in range(2)]
+    staged_secs = [restore(cfg)[1]]
 
     # one CUDA graph on the same noise: a recording (warm-up and capture), then replays
     gcfg = dataclasses.replace(cfg, fused=True)
@@ -4555,7 +4585,7 @@ def run_restore_2048(torch, pipe, mods: dict, ucfg, card_line: str) -> dict:
     graph_image, record_sec = restore(gcfg)
     record_launches = read_counters(mods)
     peak_graph = torch.cuda.max_memory_allocated() / 1e9
-    graph_secs = [restore(gcfg)[1] for _ in range(2)]
+    graph_secs = [restore(gcfg)[1]]
     pool_gb = torch.cuda.memory_reserved() / 1e9
     diff = ((graph_image - staged).abs().max() / staged.abs().max()).item()
     log(f"  2048² 4 steps as one CUDA graph: recording {record_sec:.3f} s (launches {record_launches}), replays "
@@ -4788,6 +4818,462 @@ def run_stage1_dp(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     return out
 
 
+def norm2_shapes_per_forward(cfg, lat_h: int, lat_w: int, with_up: bool, concat: int = 1) -> dict:
+    """The resnets' ``norm2`` calls of one UNet (``with_up``) or Aggregator
+    (``concat=2``) forward, by (C, H, W): the GroupNorm after ``conv1``, whose
+    channels tensor parallelism splits (a subset of
+    ``group_norm_shapes_per_forward``)."""
+    counts: dict = {}
+    chans = cfg.block_out_channels
+
+    def add(c: int, level: int, k: int):
+        key = (c, (lat_h * concat) >> level, lat_w >> level)
+        counts[key] = counts.get(key, 0) + k
+
+    for i in range(len(chans)):
+        add(chans[i], i, cfg.layers_per_block)
+    add(chans[-1], len(chans) - 1, 2)  # the mid block's two resnets
+    if with_up:
+        for i in range(len(cfg.up_block_types)):
+            add(chans[len(chans) - 1 - i], len(chans) - 1 - i, cfg.layers_per_block + 1)
+    return counts
+
+
+def tp_launches_by_shape(cfg, phases, lat: int, tp: int = TP_SIZE):
+    """K1 and K5 launches of one tensor-parallel restore on each rank, by
+    shape: K1 by (B, S, H / tp), K5 by (C, H, W, groups) -- a resnet's
+    ``norm2`` at (C / tp, 32 / tp groups), every other GroupNorm whole."""
+    unet = flash_calls_per_forward(cfg, lat, lat, with_up=True)
+    agg = flash_calls_per_forward(cfg, lat, lat, with_up=False, concat=2)
+    heads = {**heads_by_seq(cfg, lat), **heads_by_seq(cfg, lat, concat=2)}
+    k1 = {(2, s, heads[s] // tp): n for s, n in flash_launches_by_seq(phases, unet, agg).items()}
+    n_unet, n_agg = forwards_per_restore(phases)
+    k5: dict = {}
+    for with_up, concat, n in ((True, 1, n_unet), (False, 2, n_agg)):
+        norm2 = norm2_shapes_per_forward(cfg, lat, lat, with_up, concat)
+        for (c, h, w), k in group_norm_shapes_per_forward(cfg, lat, lat, with_up, concat).items():
+            for key, m in (((c, h, w, 32), k - norm2.get((c, h, w), 0)), ((c // tp, h, w, 32 // tp),
+                                                                          norm2.get((c, h, w), 0))):
+                if m:
+                    k5[key] = k5.get(key, 0) + m * n
+    return k1, k5
+
+
+def flops_main(out: str) -> None:
+    """``--count_flops OUT``: the analytic FLOPs of one 1024² restore at SDXL
+    width (``utils/flops.py``), config #4 and the 4-step one, counted on the
+    ``meta`` device -- shapes only, no card -- so that the count runs on one
+    CPU core beside the card's phases; written to OUT as JSON. On ``meta``
+    every attention takes the plain path, whose two products the flash
+    wrappers' formula counts on the card: the same number (CPU-checked
+    against ``jaxpr_flops`` in ``tests/test_torch_port_utils.py``). The image
+    encoder's tokens of the zero image are cached first, as a served restore
+    has them."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    torch.set_num_threads(1)
+    from instantir_tpu_torch.models.aggregator import Aggregator
+    from instantir_tpu_torch.models.dinov2 import DINOv2Model, dinov2_large_config
+    from instantir_tpu_torch.models.resampler import Resampler, instantir_resampler_config
+    from instantir_tpu_torch.models.unet import UNet2DConditionModel, sdxl_base_config
+    from instantir_tpu_torch.models.vae import AutoencoderKL, sdxl_vae_config
+    from instantir_tpu_torch.pipeline.instantir import InstantIRPipeline, RestoreNoise, inference_timesteps
+    from instantir_tpu_torch.schedulers.diffusion import sdxl_schedule
+    from instantir_tpu_torch.utils.flops import count_flops
+
+    meta, bf16, res = torch.device("meta"), torch.bfloat16, 1024
+    ucfg = sdxl_base_config(with_ip=True, lora_rank=64)
+    pipe = InstantIRPipeline(UNet2DConditionModel(ucfg, dtype=bf16, device=meta), Aggregator(ucfg, dtype=bf16, device=meta),
+                             AutoencoderKL(sdxl_vae_config(), device=meta),
+                             Resampler(instantir_resampler_config(lora_rank=64), dtype=bf16, device=meta),
+                             DINOv2Model(dinov2_large_config(), dtype=bf16, device=meta), sdxl_schedule(), device=meta)
+    pipe._uncond_tokens(pipe.image_encoder.config.image_size, torch.float32)
+    counts = {}
+    for steps in (4, 30):
+        cfg = restore_config(steps)
+        lat = torch.zeros(1, res // 8, res // 8, 4, device=meta)
+        noise = RestoreNoise(vae=lat, init=lat, steps=[lat] * len(inference_timesteps(cfg)))
+        t0 = time.perf_counter()
+        counts[steps], _ = count_flops(pipe.restore, torch.zeros(1, res, res, 3, device=meta),
+                                       torch.zeros(1, 77, 2048, dtype=bf16, device=meta),
+                                       torch.zeros(1, 1280, dtype=bf16, device=meta), cfg=cfg, noise=noise,
+                                       output_type="pt")
+        counts[f"sec_{steps}"] = time.perf_counter() - t0
+    with open(out, "w") as f:
+        json.dump(counts, f)
+
+
+def phase_times(torch, pipe, cfg, res: int) -> dict:
+    """``utils/profiling.PhaseTimer`` over one staged restore: the VAE encode,
+    the denoise loop and the decode, each synchronised on the card."""
+    from instantir_tpu_torch.utils.profiling import PhaseTimer
+
+    timer = PhaseTimer()
+    g = torch.Generator(device="cuda").manual_seed(42)
+    lq = torch.rand(1, res, res, 3, generator=g, device="cuda") * 2.0 - 1.0
+    pe = (torch.randn(1, 77, 2048, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+    pooled = (torch.randn(1, 1280, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+    wrapped = {"encode": "encode_vae_image", "denoise": "_sample", "decode": "decode_latents"}
+    for phase, attr in wrapped.items():
+        def timed(*a, _fn=getattr(pipe, attr), _phase=phase, **k):
+            with timer.phase(_phase, sync_on=lq):
+                return _fn(*a, **k)
+        setattr(pipe, attr, timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.restore(lq, pe, pooled, cfg=cfg, generator=torch.Generator(device="cuda").manual_seed(0), output_type="pt")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for attr in wrapped.values():
+            delattr(pipe, attr)
+    return {**timer.summary(), "restore": total}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn_ranks(flag: str, world: int, args: list, log_dir: str):
+    """Start ``world`` processes of this script (``flag RANK WORLD *args``)
+    under torchrun's environment on a free port, every one on GPU 0; returns
+    (processes, their log files) for ``_wait_ranks``."""
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world),
+               LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(world), PYTHONPATH=str(REPO))
+    procs, logs = [], []
+    for r in range(world):
+        f = open(os.path.join(log_dir, f"{flag.strip('-')}_{r}.log"), "w")
+        logs.append(f)
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag, str(r), str(world), *args],
+                                      cwd=str(REPO), env=dict(env, RANK=str(r)), stdout=f, stderr=subprocess.STDOUT))
+    return procs, logs
+
+
+def _wait_ranks(started, timeout: float):
+    """Wait for ``_spawn_ranks``' processes (killing all past ``timeout``);
+    returns their exit codes and logs."""
+    procs, logs = started
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    texts = [open(f.name).read() for f in logs]
+    return [p.returncode for p in procs], texts
+
+
+def tp_probe_main(rank: int, world: int) -> None:
+    """``--tp_probe``: an NCCL group of ``world`` ranks on the one card and
+    one all-reduce (NCCL takes one rank a device: this is expected to fail)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", world_size=world, rank=rank)
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    print(f"nccl all_reduce at {world} ranks on one card: {x.tolist()}", flush=True)
+
+
+def tp_worker_main(rank: int, world: int, out: str, backend: str) -> None:
+    """``--tp_worker``: one rank of phase 4j. Joins a ``backend`` group of
+    ``world`` ranks on the one card and runs ``cli.serve.main --mesh
+    --model_parallel world`` on phase 4c's tree: each rank loads the
+    pipeline and shards it (``InstantIRPipeline.shard(make_mesh(
+    model_parallel=world))``); rank 0 serves one request from a client thread
+    and drains on SIGTERM, the other ranks follow. Every restore call the
+    server makes (its warmup's and the request's) is recorded with its
+    inputs, image and launches; writes ``tp_rank{rank}.pt``."""
+    import signal
+    import threading
+    from http.client import HTTPConnection
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from instantir_tpu_torch import kernels
+    from instantir_tpu_torch.cli import serve
+    from instantir_tpu_torch.ops import attention, group_norm
+    from instantir_tpu_torch.pipeline.instantir import InstantIRPipeline
+
+    kernels.build()
+    mods = {"attention": attention, "group_norm": group_norm}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = torch.load(os.path.join(out, "tp_job.pt"), weights_only=False)
+    # the group made here, explicitly (serve.main then finds it joined; the mesh's groups take its backend)
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, world_size=world, rank=rank)
+
+    calls = []
+    restore = InstantIRPipeline.restore
+
+    def recorded(self, *a, **k):
+        if not calls:  # the shard's weight bytes and the model group's backend, before the first restore
+            res.update(bytes_rank=model_bytes([getattr(self, n) for n in self._MODELS]),
+                       backend=dist.get_backend(self.mesh.get_group("model")),
+                       allocated_gb=torch.cuda.memory_allocated() / 1e9)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters(mods)
+        t0 = time.perf_counter()
+        image = restore(self, *a, **k)
+        torch.cuda.synchronize()
+        cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v  # noqa: E731
+        noise = k["noise"]
+        calls.append({"args": [cpu(t) for t in a], "kwargs": {kk: cpu(vv) for kk, vv in k.items() if kk != "noise"},
+                      "noise": [t.cpu() for t in (noise.vae, noise.init, *noise.steps)], "image": image[0],
+                      "launches": read_counters(mods), "sec": time.perf_counter() - t0,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        return image
+
+    res, got = {}, {}
+    InstantIRPipeline.restore = recorded
+    port = _free_port()
+    if rank == 0:
+        def client():
+            deadline = time.time() + TP_TIMEOUT
+            while time.time() < deadline:
+                try:
+                    conn = HTTPConnection("127.0.0.1", port, timeout=600)
+                    conn.request("GET", "/healthz")
+                    if conn.getresponse().status == 200:
+                        break
+                except OSError:
+                    time.sleep(0.5)
+            conn = HTTPConnection("127.0.0.1", port, timeout=600)
+            t1 = time.perf_counter()
+            conn.request("POST", "/restore", body=job["png"])
+            resp = conn.getresponse()
+            got.update(status=resp.status, body=resp.read(), sec=time.perf_counter() - t1)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+        threading.Thread(target=client, daemon=True).start()
+    t0 = time.perf_counter()
+    try:
+        serve.main(job["serve_argv"] + ["--port", str(port)], device="cuda")
+    finally:
+        InstantIRPipeline.restore = restore
+    res["serve_sec"] = time.perf_counter() - t0
+    res["fingerprints"] = [[float(t.double().sum()) for t in (*c["args"], *c["noise"]) if isinstance(t, torch.Tensor)]
+                           for c in calls]
+    res["calls"] = [{k: c[k] for k in ("launches", "sec", "peak_gb")} for c in calls]
+    if rank == 0:
+        res["served"] = got
+        res["restores"] = [{k: c[k] for k in ("args", "kwargs", "noise", "image")} for c in calls]
+    torch.save(res, os.path.join(out, f"tp_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    banned = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "instantir_tpu")]
+    if banned:
+        fail(f"a tensor-parallel rank imported {banned[:5]}")
+    log(f"[4j rank {rank}] done: {len(calls)} restores {[round(c['sec'], 2) for c in calls]} s, server run "
+        f"{res['serve_sec']:.1f} s")
+
+
+def start_background(root: str) -> dict:
+    """The work phase 4j reads that needs neither the card's time nor its
+    memory, started beside phase 2's build: the NCCL probe of two ranks on
+    the card (``--tp_probe``) and the FLOP count on ``meta``
+    (``--count_flops``, no CUDA). Every process is killed at exit."""
+    import atexit
+
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    out = {"flops_out": os.path.join(root, "flops.json"), "probe": _spawn_ranks("--tp_probe", TP_SIZE, [], root)}
+    out["flops"] = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--count_flops", out["flops_out"]],
+                                    cwd=str(REPO), env=env, stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+
+    def stop():
+        for p in [out["flops"], *out["probe"][0]]:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(root, ignore_errors=True)
+
+    atexit.register(stop)
+    return out
+
+
+def run_tensor_parallel(torch, pipe, paths: dict, mods: dict, ucfg, gn_by_shape: dict, graph_sec: float,
+                        card_line: str, background: dict) -> dict:
+    """Phase 4j, on phase 4c's tree and phase 4's models: tensor parallelism
+    at two ranks on the one card. K1 at the local heads and K5 at the local
+    channels (16 groups) against their plain versions; config #4's analytic
+    FLOPs per image (``utils/flops.py``) and the 4-step graph replay's
+    achieved rate; ``PhaseTimer`` over one restore. Then an NCCL group of two
+    ranks on the card is tried (``--tp_probe``); where NCCL refuses, the two
+    ranks run in an explicit gloo group over the CUDA tensors
+    (``--tp_worker``): ``cli.serve --mesh --model_parallel 2`` on the tree,
+    each rank loading and sharding the pipeline
+    (``InstantIRPipeline.shard(make_mesh(model_parallel=2))``) and restoring
+    1024² (CFG 7, ``TP_STEPS`` steps, staged) at the server's warmup and for
+    one request. Checked: each rank's launches per restore against
+    ``tp_launches_by_shape``, both ranks' restores on the same inputs, each
+    image within ``TP_TOL`` of the one-rank restore of its inputs (made here,
+    on phase 4's models, which the tree holds), the served PNG the request's
+    image as uint8, the ranks' weight bytes against ``tp_spec``. The seconds
+    are not TP speed: two ranks share one card and gloo copies through the
+    host."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from instantir_tpu_torch.cli.serve import to_uint8
+    from instantir_tpu_torch.ops import attention, group_norm
+    from instantir_tpu_torch.parallel.tp import kept_whole, tp_spec
+    from instantir_tpu_torch.pipeline.instantir import RestoreNoise, build_step_phases
+
+    res = 1024
+    cfg = restore_config(TP_STEPS)
+    phases = build_step_phases(cfg)
+    k1_by_shape, k5_by_shape = tp_launches_by_shape(ucfg, phases, res // 8)
+    want = expected_restore_launches(ucfg, cfg, phases, res // 8)
+    if sum(k1_by_shape.values()) != want["flash_attention_fwd"] or sum(k5_by_shape.values()) != want["group_norm_silu"]:
+        fail(f"phase 4j: the launches by shape {k1_by_shape} {k5_by_shape} do not add up to {want}")
+    if sorted({k[:3] for k in k1_by_shape}) != sorted(TP_RESTORE_SHAPES):
+        fail(f"phase 4j: K1's derived shapes {sorted(k1_by_shape)} are not TP_RESTORE_SHAPES {TP_RESTORE_SHAPES}")
+    log(f"  K1 at the local heads {TP_RESTORE_SHAPES}, K5 at the local channels "
+        f"{sorted(k[:3] for k in k5_by_shape if k[3] == 32 // TP_SIZE)} (16 groups), against their plain versions")
+    k1_rows = check_flash(torch, attention, [(b, s, s, h) for b, s, h in TP_RESTORE_SHAPES], host_timing=False)
+    gn_rows = check_group_norm(torch, group_norm, gn_by_shape,
+                               [(GN_BATCH, k[:3], (torch.bfloat16,)) for k in sorted(k5_by_shape) if k[3] != 32],
+                               base=False, host=False, groups=32 // TP_SIZE)
+
+    # the FLOP counter (counted on meta since phase 2, --count_flops) and the phase timer, on one rank
+    try:
+        background["flops"].wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("phase 4j: the FLOP count on meta (--count_flops) took more than 600 s past phase 2")
+    if background["flops"].returncode != 0:
+        fail(f"phase 4j: the FLOP count on meta exited {background['flops'].returncode}")
+    with open(background["flops_out"]) as f:
+        counted = json.load(f)
+    flops4, flops30 = counted["4"], counted["30"]
+    tflops = flops4 / graph_sec / 1e12
+    log(f"  analytic FLOPs per 1024² image (utils/flops.py, on meta beside the card's phases: "
+        f"{counted['sec_4'] + counted['sec_30']:.0f} s of one core): config #4 (30 steps) {flops30 / 1e12:.2f} TFLOP, "
+        f"the 4-step restore {flops4 / 1e12:.2f} TFLOP; the 4-step graph replay ({graph_sec:.3f} s, phase 4b) achieves "
+        f"{tflops:.1f} TFLOP/s, {tflops / (PEAK_BF16_FLOPS / 1e12):.1%} of 989; on {card_line}")
+    times = phase_times(torch, pipe, restore_config(4), res)
+    log(f"  PhaseTimer over one staged 4-step 1024² restore (s): {json.dumps({k: round(v, 4) for k, v in times.items()})}"
+        f"; on {card_line}")
+
+    root = tempfile.mkdtemp(prefix="tp_")
+    try:
+        rgb = (torch.rand(res, res, 3, generator=torch.Generator().manual_seed(33)) * 255).to(torch.uint8).numpy()
+        write_png(os.path.join(root, "request.png"), rgb)
+        serve_argv = ["--sdxl_path", paths["sdxl"], "--instantir_path", paths["instantir"], "--vision_encoder_path",
+                      paths["dinov2"], "--resolution", str(res), "--batch_size", "1", "--num_inference_steps",
+                      str(TP_STEPS), "--cfg", "7", "--no-fused", "--host", "127.0.0.1", "--mesh", "--model_parallel",
+                      str(TP_SIZE)]
+        torch.save({"png": open(os.path.join(root, "request.png"), "rb").read(), "serve_argv": serve_argv},
+                   os.path.join(root, "tp_job.pt"))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        rcs, texts = _wait_ranks(background["probe"], 90)
+        nccl_ok = all(rc == 0 for rc in rcs)
+        nccl_error = next((line.strip() for t in texts for line in t.splitlines()
+                           if "rror" in line and "Traceback" not in line), f"exit codes {rcs}")
+        log(f"  NCCL group of {TP_SIZE} ranks on the one card (tried beside phase 2): "
+            f"{'works' if nccl_ok else 'refused: ' + nccl_error[:400]}")
+        backend = "nccl" if nccl_ok else "gloo"
+        t0 = time.perf_counter()
+        rcs, texts = _wait_ranks(_spawn_ranks("--tp_worker", TP_SIZE, [root, backend], root), TP_TIMEOUT)
+        sec = time.perf_counter() - t0
+        os.makedirs(REPO / "chiprun_out", exist_ok=True)
+        for r, t in enumerate(texts):
+            (REPO / "chiprun_out" / f"tp_rank{r}.log").write_text(t)
+        if any(rc != 0 for rc in rcs):
+            fail(f"phase 4j: the tensor-parallel ranks exited {rcs}; rank logs in chiprun_out/tp_rank*.log:\n"
+                 + "\n".join(t[-3000:] for t in texts))
+        ranks = [torch.load(os.path.join(root, f"tp_rank{r}.pt"), weights_only=False) for r in range(TP_SIZE)]
+
+        # launches: every rank's two restores (the server's warmup and the request) those derived at the local shapes
+        derived = every_counter(want)
+        for r, out in enumerate(ranks):
+            if [c["launches"] for c in out["calls"]] != [derived, derived]:
+                fail(f"phase 4j rank {r}: launches {[c['launches'] for c in out['calls']]} (warmup, request), "
+                     f"derived {derived} each")
+            if out["backend"] != backend:
+                fail(f"phase 4j rank {r}: the model group is {out['backend']}, not {backend}")
+        if ranks[0]["fingerprints"] != ranks[1]["fingerprints"]:
+            fail("phase 4j: the ranks' restores differ in their inputs")
+
+        # each TP restore against the one-rank restore of its inputs; the answer is the request's image as uint8
+        rels = []
+        for call in ranks[0]["restores"]:
+            args = [t.cuda() if isinstance(t, torch.Tensor) else t for t in call["args"]]
+            kwargs = {k: (v.cuda() if isinstance(v, torch.Tensor) else v) for k, v in call["kwargs"].items()}
+            vae, init, *steps = (t.cuda() for t in call["noise"])
+            one = pipe.restore(*args, noise=RestoreNoise(vae=vae, init=init, steps=steps), **kwargs)[0]
+            tp_image = torch.as_tensor(call["image"])
+            if not (torch.isfinite(tp_image).all() and tp_image.shape == (1, res, res, 3)):
+                fail(f"phase 4j: a TP restore gave {tuple(tp_image.shape)}, finite {torch.isfinite(tp_image).all()}")
+            rels.append(rel_l2(torch, tp_image, torch.as_tensor(one)))
+        served = ranks[0]["served"]
+        if served.get("status") != 200:
+            fail(f"phase 4j: the TP server answered {served.get('status')}: {served.get('body', b'')[:300]!r}")
+        from PIL import Image
+
+        png = np.asarray(Image.open(io.BytesIO(served["body"])).convert("RGB"))
+        same_png = np.array_equal(png, to_uint8(ranks[0]["restores"][-1]["image"][0]))
+        calls = ranks[0]["calls"]
+        log(f"  TP restores (the server's InstantIRPipeline.shard(make_mesh(model_parallel={TP_SIZE})), {backend}, "
+            f"1024² {TP_STEPS} steps CFG 7, staged): the warmup's and the request's {rels[0]:.3e} / {rels[1]:.3e} "
+            f"relative L2 from the one-rank restores of the same inputs (TP_TOL {TP_TOL}); the served PNG "
+            f"{png.shape} the request's uint8 image: {same_png}; launches per rank and restore "
+            f"{calls[0]['launches']}; on {card_line}")
+        log(f"  not TP speed (two ranks share the card{', gloo copies through the host' if backend == 'gloo' else ''}): "
+            f"restores {[round(c['sec'], 2) for c in calls]} s, peaks {[round(c['peak_gb'], 2) for c in calls]} GB, "
+            f"the request answered in {served['sec']:.2f} s, the server run (load, shard, warmup, request, drain) "
+            f"{[round(o['serve_sec'], 1) for o in ranks]} s, the phase's ranks {sec:.1f} s")
+        if not same_png or max(rels) > TP_TOL:
+            fail(f"phase 4j: the served PNG is its restore's image: {same_png}; relative L2 {rels} (> {TP_TOL}?)")
+
+        # weight bytes per rank against the prediction from tp_spec
+        predicted = whole = 0
+        for name in pipe._MODELS:
+            for n, p in getattr(pipe, name).named_parameters():
+                nbytes = p.numel() * p.element_size()
+                split = tp_spec(n, tuple(p.shape), TP_SIZE) is not None and not kept_whole(n)
+                predicted += nbytes // TP_SIZE if split else nbytes
+                whole += nbytes
+            bufs = sum(b.numel() * b.element_size() for b in getattr(pipe, name).buffers())
+            predicted, whole = predicted + bufs, whole + bufs
+        per_rank = [o["bytes_rank"] for o in ranks]
+        log(f"  weight bytes: one rank {whole / 1e9:.3f} GB, each of {TP_SIZE} ranks {[round(b / 1e9, 3) for b in per_rank]} "
+            f"GB ({per_rank[0] / whole:.1%}); predicted from tp_spec {predicted / 1e9:.3f} GB (the leaves it shards "
+            f"halved, KEPT_WHOLE and the rest whole; the column-parallel biases and the norm2 scales, sliced too, "
+            f"make the difference); allocated before the first restore {[round(o['allocated_gb'], 2) for o in ranks]} GB")
+        if not (per_rank[0] == per_rank[1] and 0.99 * per_rank[0] <= predicted <= 1.02 * per_rank[0]):
+            fail(f"phase 4j: per-rank weight bytes {per_rank} against the prediction {predicted}")
+        return {"k1_rows": k1_rows, "gn_rows": gn_rows, "k1_by_shape": k1_by_shape, "k5_by_shape": k5_by_shape,
+                "launches": calls[0]["launches"], "serve_launches": {k: 2 * v for k, v in calls[0]["launches"].items()},
+                "rel_l2": rels, "backend": backend, "nccl_error": None if nccl_ok else nccl_error,
+                "flops4": flops4, "flops30": flops30, "tflops": tflops, "phase_times": times,
+                "bytes": {"whole": whole, "rank": per_rank, "predicted": predicted}, "seconds": sec}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _weighted(rows, key, weights):
     total = sum(weights)
     return sum(r[key] * w for r, w in zip(rows, weights)) / total
@@ -4845,9 +5331,10 @@ def main() -> None:
         f"{torch.cuda.device_count()} device(s); TF32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
-    # 2. build
+    # 2. build; beside it, phase 4j's NCCL probe and its FLOP count on meta (no card time)
     from instantir_tpu_torch import kernels
 
+    background = None if args.only else start_background(tempfile.mkdtemp(prefix="chip_smoke_bg_"))
     t0 = time.time()
     try:
         paths = kernels.build()
@@ -4949,10 +5436,18 @@ def main() -> None:
         clip = run_clip_encoder(torch, pipe, paths, towers, mods, ucfg, card_line)
         phase("[4c] cli.infer.main --sequence_parallel at 1024² on the tree, one rank under torchrun's environment")
         clip["cli_sp"] = run_cli_sequence_parallel(torch, pipe, paths, towers, mods, ucfg, card_line)
+        phase(f"[4j] tensor parallelism on the tree: K1 / K5 at the local shapes, the FLOP counter, then {TP_SIZE} ranks "
+              f"on the one card restore 1024² ({TP_STEPS} steps, CFG 7) and serve one request (cli.serve --mesh "
+              f"--model_parallel {TP_SIZE})")
+        clip["tp"] = run_tensor_parallel(torch, pipe, paths, mods, ucfg, gn_by_shape, options["graph_sec"], card_line,
+                                         background)
         return clip
 
     cli = run_load_and_cli(torch, pipe, args.steps, mods, ucfg, card_line, after_tree=phase_4g)
     clip_enc = cli["after_tree"]
+    tp = clip_enc["tp"]
+    k1_rows += tp["k1_rows"]
+    gn_rows += tp["gn_rows"]
 
     # 4d. serving
     phase("[4d] serving at SDXL width: the whole-request server, the demo app's adapter swap, the slot sampler, "
@@ -5067,7 +5562,8 @@ def main() -> None:
                 "restore_2048_sp": long_restore["launches"]["restore_2048_sp"][name],
                 "restore_cli_sp": clip_enc["cli_sp"]["launches"][name],
                 "restore_sharded": sharded["launches"][name],
-                "train_stage1_dp": stage1_dp["launches"][name]}
+                "train_stage1_dp": stage1_dp["launches"][name],
+                "serve_tp_rank0": tp["serve_launches"][name]}
 
     src = "instantir_tpu_torch/csrc/"
     jax_attn = "instantir_tpu/ops/attention.py"
@@ -5087,15 +5583,17 @@ def main() -> None:
     def train_weights(name, rows):
         return [sum(by_shape[p][name].get(shape_of(r), 0) for p in by_shape) for r in rows]
 
+    # the tensor-parallel server's (phase 4j: two restores on each rank, the same counts at the local heads)
     k1_weights = [w + (2 * by_seq.get(r["S"], 0) if shape_of(r) in RESTORE_SHAPES else 0)
-                  + long_restore["k1_by_shape"].get(shape_of(r), 0)
+                  + long_restore["k1_by_shape"].get(shape_of(r), 0) + 2 * tp["k1_by_shape"].get(shape_of(r), 0)
                   for r, w in zip(k1_rows, train_weights("flash_attention_fwd", k1_rows))]
     k2_weights = [w + long_restore["k2_by_shape"].get(shape_of(r), 0)
                   for r, w in zip(train_rows["fwd_lse"], train_weights("flash_attention_fwd_lse", train_rows["fwd_lse"]))]
     # K5: weighted over the 1024² restore (bf16, CFG batch 2), the path its entry's launches count
     gn_long = group_norm_launches_by_shape(ucfg, build_step_phases(restore_config(4)), LONG_RES // 8)
     gn_weights = [(gn_by_shape.get((r["C"], r["H"], r["W"]), 0) + (gn_long.get((r["C"], r["H"], r["W"]), 0)
-                                                                  if (r["C"], r["H"], r["W"]) in long_gn else 0))
+                                                                  if (r["C"], r["H"], r["W"]) in long_gn else 0)
+                   if r["G"] == 32 else 2 * tp["k5_by_shape"].get((r["C"], r["H"], r["W"], r["G"]), 0))
                   if (r["dtype"], r["B"]) == ("bfloat16", GN_BATCH) else 0 for r in gn_rows]
     # fp32: K1 by the 512² restore's launches per sequence (all CFG batch 2), K2-K4 by the stage-1 step's shape
     f32_fwd_weights = [f32["by_seq"].get(r["S"], 0) if shape_of(r) in F32_PATH_SHAPES[:3] else 0
@@ -5209,6 +5707,13 @@ def main() -> None:
           f"{long_restore['sp_rel_l2']:.3e}; sharded 1024² restore on one rank {sharded['seconds']:.3f} s; CLI "
           f"--sequence_parallel 1024² {clip_enc['cli_sp']['seconds']:.2f} s; torchrun stage-1 CLI 2 steps "
           f"{stage1_dp['cli_sec']:.2f} s, its resume to 3 {stage1_dp['resume_sec']:.2f} s; on {card_line}")
+    phase(f"[9] tensor parallelism ({TP_SIZE} ranks on one card, {tp['backend']}): the restore's image "
+          f"{tp['rel_l2'][0]:.3e} (the server's warmup) and {tp['rel_l2'][1]:.3e} (the request) relative L2 from one "
+          f"rank's; "
+          f"weights per rank {tp['bytes']['rank'][0] / 1e9:.3f} of {tp['bytes']['whole'] / 1e9:.3f} GB; analytic "
+          f"FLOPs per 1024² image {tp['flops30'] / 1e12:.2f} TFLOP (config #4), the 4-step graph replay "
+          f"{tp['tflops']:.1f} TFLOP/s ({tp['tflops'] / (PEAK_BF16_FLOPS / 1e12):.1%} of 989); PhaseTimer "
+          f"{json.dumps({k: round(v, 4) for k, v in tp['phase_times'].items()})} s; on {card_line}")
     log(json.dumps({"kernels": entries}))
     log(card_line)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5216,4 +5721,11 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--count_flops":
+        flops_main(sys.argv[2])
+    elif len(sys.argv) >= 4 and sys.argv[1] == "--tp_probe":
+        tp_probe_main(int(sys.argv[2]), int(sys.argv[3]))
+    elif len(sys.argv) == 6 and sys.argv[1] == "--tp_worker":
+        tp_worker_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    else:
+        main()

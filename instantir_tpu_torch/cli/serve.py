@@ -20,12 +20,25 @@ Twin of ``instantir_tpu/cli/serve.py``:
     per-request latency serving metric).
 
 ``ContinuousRestoreServer`` batches by denoise step instead
-(``pipeline/slots.py``). The batching core is transport-independent; the
-HTTP layer is a thin adapter over it. On a CPU pipeline (tests) the servers
-need ``fused=False``; on a CUDA pipeline the staged restore is served only
-when ``fused=False`` is asked for.
+(``pipeline/slots.py``).
 
-Usage (on the card):
+``--mesh`` serves over a ``(data, model)`` mesh of one process per GPU
+(``torchrun --nproc_per_node N ... --mesh --model_parallel M``): every rank
+loads the pipeline and takes its place on the mesh (``pipe.shard``; a
+``model`` axis of M > 1 is tensor parallelism); rank 0 runs the HTTP layer
+and the server, and broadcasts each batch's inputs and settings over the
+whole group before its restore (``lead_mesh``); every other rank runs
+``follow_mesh``, which takes each broadcast and makes the same restore call,
+until the drained leader broadcasts the stop. Each bucket's batch must
+divide the ``data`` axis; ``--continuous`` with ``--mesh`` is refused, as
+in the JAX package. A tensor-parallel server serves the staged restore
+(``--fused`` is off by default there, and refused). The batching core is
+transport-independent; the HTTP layer is a thin adapter over it. On a CPU
+pipeline (tests) the servers need ``fused=False``; on a CUDA pipeline the
+staged restore is served only when ``fused=False`` is asked for.
+
+Usage (on the card; on several, ``torchrun --nproc_per_node N -m
+instantir_tpu_torch.cli.serve ... --mesh --model_parallel M``):
   python -m instantir_tpu_torch.cli.serve --sdxl_path /path/sdxl \\
       --instantir_path /path/instantir --vision_encoder_path /path/dinov2 \\
       --resolutions 512,1024 --batch_sizes 2,1 --port 8000
@@ -48,7 +61,7 @@ import numpy as np
 import torch
 
 from instantir_tpu_torch.cli.infer import DEFAULT_NEG_PROMPT, DEFAULT_PROMPT
-from instantir_tpu_torch.pipeline.instantir import RestoreConfig
+from instantir_tpu_torch.pipeline.instantir import RestoreConfig, RestoreNoise
 from instantir_tpu_torch.pipeline.slots import SlotSampler
 
 
@@ -734,6 +747,70 @@ def make_http_server(server: RestoreServer, host: str = "0.0.0.0", port: int = 8
     return ThreadingHTTPServer((host, port), Handler)
 
 
+def _broadcast_call(pipe, header: Optional[dict], tensors: List[Optional[torch.Tensor]]) -> None:
+    """Rank 0's side of one mesh call: ``header`` (None: stop) as an object,
+    then every given tensor, over the whole group."""
+    import torch.distributed as dist
+
+    if header is not None:
+        tensors = [None if t is None else t.to(pipe.device).contiguous() for t in tensors]
+        header = dict(header, specs=[None if t is None else (tuple(t.shape), t.dtype) for t in tensors])
+    dist.broadcast_object_list([header], src=0)
+    for t in tensors if header is not None else ():
+        if t is not None:
+            dist.broadcast(t, src=0)
+
+
+def lead_mesh(pipe) -> None:
+    """Rank 0 of a serving mesh: from now on every ``pipe.restore`` call
+    (the server's, warmup included) first broadcasts its inputs, draws and
+    ``RestoreConfig`` over the whole group, so that the followers make the
+    same call (``follow_mesh``). ``stop_mesh`` ends them."""
+    restore = pipe.restore
+
+    def broadcast_restore(lq_images, prompt_embeds, pooled_embeds, negative_prompt_embeds=None,
+                          negative_pooled_embeds=None, cfg: RestoreConfig = RestoreConfig(), generator=None,
+                          noise: Optional[RestoreNoise] = None, reference_latents=None, output_type: str = "np"):
+        if noise is None:  # the followers need the draws themselves: draw them here
+            b, h, w, _ = lq_images.shape
+            noise = pipe.draw_noise(cfg, b, h, w, generator or torch.Generator(device=pipe.device).manual_seed(0))
+        tensors = [lq_images, prompt_embeds, pooled_embeds, negative_prompt_embeds, negative_pooled_embeds,
+                   reference_latents, noise.vae, noise.init, *noise.steps]
+        _broadcast_call(pipe, {"cfg": cfg, "output_type": output_type}, tensors)
+        return restore(lq_images, prompt_embeds, pooled_embeds, negative_prompt_embeds, negative_pooled_embeds,
+                       cfg=cfg, noise=noise, reference_latents=reference_latents, output_type=output_type)
+
+    pipe.restore = broadcast_restore
+
+
+def stop_mesh(pipe) -> None:
+    """Rank 0: tell the followers to stop (after the server drained)."""
+    _broadcast_call(pipe, None, [])
+
+
+def follow_mesh(pipe) -> int:
+    """A rank other than 0 of a serving mesh: make each restore call rank 0
+    broadcasts, until it broadcasts the stop. Returns the calls made."""
+    import torch.distributed as dist
+
+    calls = 0
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        header = box[0]
+        if header is None:
+            return calls
+        tensors = [None if spec is None else torch.empty(spec[0], dtype=spec[1], device=pipe.device)
+                   for spec in header["specs"]]
+        for t in tensors:
+            if t is not None:
+                dist.broadcast(t, src=0)
+        lq, pe, pooled, npe, npooled, ref, vae, init, *steps = tensors
+        pipe.restore(lq, pe, pooled, npe, npooled, cfg=header["cfg"], noise=RestoreNoise(vae=vae, init=init, steps=steps),
+                     reference_latents=ref, output_type=header["output_type"])
+        calls += 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="InstantIR serving (PyTorch/CUDA port)")
     p.add_argument("--sdxl_path", type=str, required=True)
@@ -761,9 +838,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--deepcache_interval", type=int, default=1,
                    help="DeepCache block caching: refresh cadence (1 = exact)")
     p.add_argument("--deepcache_depth", type=int, default=1)
-    p.add_argument("--fused", action=argparse.BooleanOptionalAction, default=True,
+    p.add_argument("--fused", action=argparse.BooleanOptionalAction, default=None,
                    help="serve CUDA graphs recorded at warmup (the restore per bucket, or each slot step "
-                   "variant); --no-fused serves the staged restore")
+                   "variant); --no-fused serves the staged restore (default: fused, staged under "
+                   "--model_parallel > 1, which does not record a graph)")
     p.add_argument("--quantized", nargs="?", const="w8a8", default=None, choices=("w8a8", "w8"),
                    help="int8 UNet+Aggregator: 'w8a8' (dynamic activation quant, int8 products) or 'w8' "
                    "(weight-only: weights dequantized at use, half the weight bytes)")
@@ -779,11 +857,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--limit_gb", type=float, default=None,
                    help="device memory the budget may fill (default: the card's total less a reserve)")
     p.add_argument("--mesh", action="store_true",
-                   help="not ported yet (raises NotImplementedError; the tensor-parallel slice, parallel/tp.py): "
-                   "shard the serve batch over devices")
+                   help="serve over a (data, model) mesh of one process per GPU (launch with torchrun "
+                   "--nproc_per_node N): each bucket's batch shards over the data axis (it must divide it); rank 0 "
+                   "serves HTTP and broadcasts each batch to the other ranks")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="not ported yet (raises NotImplementedError when > 1; the tensor-parallel slice, "
-                   "parallel/tp.py): tensor-parallel axis size")
+                   help="with --mesh: tensor-parallel axis size (ranks = data x model): attention/MLP weights and "
+                   "resnet/sampler conv channels split over the model axis (parallel/tp.py), cutting each GPU's "
+                   "weight bytes; served staged (--fused is refused)")
     return p
 
 
@@ -799,7 +879,8 @@ def serve_config(args: argparse.Namespace) -> ServeConfig:
         creative_start=args.creative_start, shared_cfg=args.shared_cfg,
         deepcache_interval=args.deepcache_interval, deepcache_depth=args.deepcache_depth,
         continuous=args.continuous, tick_steps=args.tick_steps,
-        allow_overbudget=args.allow_overbudget, limit_gb=args.limit_gb, fused=args.fused,
+        allow_overbudget=args.allow_overbudget, limit_gb=args.limit_gb,
+        fused=args.model_parallel == 1 if args.fused is None else args.fused,
     )
 
 
@@ -809,13 +890,30 @@ def main(argv: Optional[List[str]] = None, device="cuda"):
     from instantir_tpu_torch.pipeline.load import load_instantir_pipeline, load_text_encoders
 
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet: the serving mesh comes with the tensor-parallel slice "
-                                  "(parallel/tp.py)")
-    if args.model_parallel != 1:
-        raise NotImplementedError("--model_parallel is not ported yet: it is the tensor-parallel slice "
-                                  "(parallel/tp.py)")
+    if args.model_parallel != 1 and not args.mesh:
+        raise SystemExit("--model_parallel needs --mesh")
+    if args.model_parallel > 1 and args.fused:
+        raise SystemExit("--fused does not compose with --model_parallel > 1 yet (the tensor-parallel restore is "
+                         "not recorded as a CUDA graph): serve with --no-fused")
+    if args.mesh and args.continuous:
+        raise SystemExit("--continuous does not compose with --mesh yet; scale continuous serving with one server "
+                         "process per GPU (pipeline/slots.py)")
     initialize_distributed(device=device)  # a no-op without torchrun
+    mesh = None
+    if args.mesh:
+        from instantir_tpu_torch.parallel import make_mesh
+        from instantir_tpu_torch.parallel.mesh import axis_size
+
+        mesh = make_mesh(model_parallel=args.model_parallel, device=device)
+        # each bucket's batch must divide the mesh data axis, or its first restore raises: check up front
+        data_size = axis_size(mesh, "data")
+        cfg = serve_config(args)
+        buckets = tuple(sorted(set(cfg.resolutions))) or (cfg.resolution,)
+        batches = cfg.batch_sizes or (cfg.batch_size,) * len(buckets)
+        for r, b in zip(buckets, batches):
+            if b % data_size:
+                raise SystemExit(f"--mesh: bucket {r}² batch {b} does not divide the mesh data axis ({data_size} "
+                                 "ranks); adjust --batch_sizes/--batch_size")
     pipe = load_instantir_pipeline(
         args.sdxl_path, args.instantir_path,
         vision_encoder_path=args.vision_encoder_path,
@@ -825,6 +923,15 @@ def main(argv: Optional[List[str]] = None, device="cuda"):
     )
     if args.quantized:
         pipe.quantize(weight_only=args.quantized == "w8")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        pipe.shard(mesh)
+        if dist.get_rank() != 0:
+            calls = follow_mesh(pipe)
+            print(f"[serve] rank {dist.get_rank()}: stopped after {calls} restore call(s)", flush=True)
+            return
+        lead_mesh(pipe)
     encoders = load_text_encoders(args.sdxl_path, device=device)
 
     def encode(prompts: List[str]):
@@ -832,8 +939,13 @@ def main(argv: Optional[List[str]] = None, device="cuda"):
 
     cfg = serve_config(args)
     server_cls = ContinuousRestoreServer if args.continuous else RestoreServer
-    server = server_cls(pipe, encode, cfg).start(warmup=True)
-    httpd = make_http_server(server, args.host, args.port)
+    try:
+        server = server_cls(pipe, encode, cfg).start(warmup=True)
+        httpd = make_http_server(server, args.host, args.port)
+    except BaseException:
+        if mesh is not None:  # the followers wait for a broadcast: release them
+            stop_mesh(pipe)
+        raise
 
     # SIGTERM (preemption / redeploy) and SIGINT drain gracefully: stop
     # accepting connections, finish every accepted request, then exit
@@ -854,6 +966,8 @@ def main(argv: Optional[List[str]] = None, device="cuda"):
     finally:
         httpd.server_close()
         server.drain()
+        if mesh is not None:
+            stop_mesh(pipe)
         print(f"[serve] drained: {server.requests_served} request(s) served", flush=True)
 
 

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from instantir_tpu_torch.models.layers import TimestepEmbedding
+from instantir_tpu_torch.models.layers import LoRAConv2d, TimestepEmbedding
 from instantir_tpu_torch.models.unet import (
     UNetConfig,
     build_down_blocks,
@@ -138,8 +138,8 @@ class Aggregator(nn.Module):
         no_lora = dict(lora_rank=0, lora_alpha=1.0)
         variant = dict(attn1_with_ip=aggregator_adapter, attn1_mode=attn1_mode)
         c0 = cfg.block_out_channels[0]
-        self.conv_in = nn.Conv2d(cfg.in_channels, c0, 3, padding=1, **common)
-        self.ref_conv_in = nn.Conv2d(cfg.in_channels, c0, 3, padding=1, **common)
+        self.conv_in = LoRAConv2d(cfg.in_channels, c0, 3, padding=1, **common)  # LoRA-less bases, quantizable
+        self.ref_conv_in = LoRAConv2d(cfg.in_channels, c0, 3, padding=1, **common)
         self.time_embedding = TimestepEmbedding(c0, cfg.time_embed_dim, **common)
         self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, cfg.time_embed_dim,
                                                **common)

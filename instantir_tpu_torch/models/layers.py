@@ -40,6 +40,7 @@ class _Quantizable:
     ``weight_scale [out]`` beside the codes."""
 
     quant_mode: Optional[str] = None
+    tp = None  # the layer's tensor-parallel placement (``parallel.tp.TPShard``), set by ``parallel.tp.tp_shard_``
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -70,18 +71,26 @@ class LoRALinear(_Quantizable, nn.Linear):
             self.lora_B = nn.Linear(lora_rank, out_features, bias=False, dtype=dtype, device=device)
             nn.init.zeros_(self.lora_B.weight)
 
+    def product(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """The base layer's output (fp, W8 or W8A8), with or without its bias."""
+        b = self.bias if bias else None
+        if self.quant_mode is None:
+            return F.linear(x, self.weight, b)
+        if self.quant_mode == "w8":
+            return quant.w8_op(x, self.weight_qw, self.weight_scale, b, self._compute_dtype)
+        y = quant.w8a8_dense(x, self.weight_q, self.weight_scale)
+        return y if b is None else y + b.to(y.dtype)
+
+    def lora(self, x: torch.Tensor, lora_scale: float) -> torch.Tensor:
+        return (lora_scale * self.lora_alpha / self.lora_rank) * self.lora_B(self.lora_A(x))
+
     def forward(self, x: torch.Tensor, lora_scale: float = 0.0) -> torch.Tensor:
         x = x.to(self.compute_dtype)
-        if self.quant_mode is None:
-            y = F.linear(x, self.weight, self.bias)
-        elif self.quant_mode == "w8":
-            y = quant.w8_op(x, self.weight_qw, self.weight_scale, self.bias, self._compute_dtype)
-        else:
-            y = quant.w8a8_dense(x, self.weight_q, self.weight_scale)
-            if self.bias is not None:
-                y = y + self.bias.to(y.dtype)
+        if self.tp is not None:
+            return self.tp(self, x, lora_scale)
+        y = self.product(x)
         if self.lora_rank > 0 and lora_scale != 0.0:
-            y = y + (lora_scale * self.lora_alpha / self.lora_rank) * self.lora_B(self.lora_A(x))
+            y = y + self.lora(x, lora_scale)
         return y
 
 
@@ -101,19 +110,27 @@ class LoRAConv2d(_Quantizable, nn.Conv2d):
             self.lora_B = nn.Conv2d(lora_rank, out_channels, 1, bias=False, dtype=dtype, device=device)
             nn.init.zeros_(self.lora_B.weight)
 
+    def product(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """The base layer's output (fp, W8 or W8A8), with or without its bias."""
+        b = self.bias if bias else None
+        if self.quant_mode is None:
+            return self._conv_forward(x, self.weight, b)
+        if self.quant_mode == "w8":
+            return quant.w8_op(x, self.weight_qw, self.weight_scale, b, self._compute_dtype, self.stride[0],
+                               self.padding[0])
+        y = quant.w8a8_conv(x, self.weight_q, self.weight_scale, self.stride[0], self.padding[0])
+        return y if b is None else y + b.to(y.dtype).reshape(1, -1, 1, 1)
+
+    def lora(self, x: torch.Tensor, lora_scale: float) -> torch.Tensor:
+        return (lora_scale * self.lora_alpha / self.lora_rank) * self.lora_B(self.lora_A(x))
+
     def forward(self, x: torch.Tensor, lora_scale: float = 0.0) -> torch.Tensor:
         x = x.to(self.compute_dtype)
-        if self.quant_mode is None:
-            y = super().forward(x)
-        elif self.quant_mode == "w8":
-            y = quant.w8_op(x, self.weight_qw, self.weight_scale, self.bias, self._compute_dtype, self.stride[0],
-                            self.padding[0])
-        else:
-            y = quant.w8a8_conv(x, self.weight_q, self.weight_scale, self.stride[0], self.padding[0])
-            if self.bias is not None:
-                y = y + self.bias.to(y.dtype).reshape(1, -1, 1, 1)
+        if self.tp is not None:
+            return self.tp(self, x, lora_scale)
+        y = self.product(x)
         if self.lora_rank > 0 and lora_scale != 0.0:
-            y = y + (lora_scale * self.lora_alpha / self.lora_rank) * self.lora_B(self.lora_A(x))
+            y = y + self.lora(x, lora_scale)
         return y
 
 
@@ -222,7 +239,11 @@ class TimestepEmbedding(nn.Module):
 
 class AdaLayerNorm(nn.Module):
     """Time-conditioned LayerNorm: ``LN(x)·(1+scale) + shift`` with
-    ``(shift, scale) = Linear(SiLU(temb))``; the linear is LoRA-capable."""
+    ``(shift, scale) = Linear(SiLU(temb))``; the linear is LoRA-capable.
+    Under tensor parallelism (``tp``) it normalises this rank's features of
+    a column-parallel projection."""
+
+    tp = None
 
     def __init__(self, embedding_dim: int, temb_dim: int, lora_rank: int = 0, lora_alpha: float = 1.0,
                  dtype=torch.float32, device=None):
@@ -235,5 +256,9 @@ class AdaLayerNorm(nn.Module):
     def forward(self, x: torch.Tensor, temb: torch.Tensor, lora_scale: float = 0.0) -> torch.Tensor:
         emb = self.linear(F.silu(temb.to(self.linear.compute_dtype)), lora_scale)
         shift, scale = emb[:, None, :].chunk(2, dim=-1)
-        normed = F.layer_norm(x.float(), (x.shape[-1],), eps=1e-6).to(x.dtype)
+        if self.tp is None:
+            normed = F.layer_norm(x.float(), (x.shape[-1],), eps=1e-6).to(x.dtype)
+        else:  # ``x`` holds this rank's features: the statistics are the whole row's, shift and scale its slice
+            normed = self.tp.layer_norm(x, 1e-6)
+            shift, scale = self.tp.local(shift, -1), self.tp.local(scale, -1)
         return normed * (1.0 + scale) + shift

@@ -23,7 +23,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from instantir_tpu_torch.models.layers import GroupNorm32, TimestepEmbedding, get_timestep_embedding
+from instantir_tpu_torch.models.layers import GroupNorm32, LoRAConv2d, TimestepEmbedding, get_timestep_embedding
 from instantir_tpu_torch.models.unet_blocks import (
     CrossAttnDownBlock2D,
     CrossAttnUpBlock2D,
@@ -162,7 +162,7 @@ class UNet2DConditionModel(nn.Module):
         common = dict(dtype=dtype, device=device)
         lora = dict(lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
         c0 = cfg.block_out_channels[0]
-        self.conv_in = nn.Conv2d(cfg.in_channels, c0, 3, padding=1, **common)
+        self.conv_in = LoRAConv2d(cfg.in_channels, c0, 3, padding=1, **common)  # a LoRA-less base, quantizable
         self.time_embedding = TimestepEmbedding(c0, cfg.time_embed_dim, cfg.time_cond_proj_dim, **common)
         self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, cfg.time_embed_dim,
                                                **common)
@@ -199,7 +199,7 @@ class UNet2DConditionModel(nn.Module):
             prev_ch = out_ch
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = GroupNorm32(cfg.norm_num_groups, c0, fuse_silu=True, **common)
-        self.conv_out = nn.Conv2d(c0, cfg.out_channels, 3, padding=1, **common)
+        self.conv_out = LoRAConv2d(c0, cfg.out_channels, 3, padding=1, **common)
 
     def forward(
         self,

@@ -64,6 +64,15 @@ def sequence_parallel_scope(mesh, axis: str = "data", min_seq: int = 8192):
     finally:
         _SP_SCOPE.pop()
 
+
+@contextlib.contextmanager
+def tensor_parallel_scope(mesh, axis: str = "model"):
+    """Twin of the JAX scope, which shard_maps the Pallas call onto each
+    chip's local heads; ``parallel/tp.py`` already hands every attention its
+    local heads, so here the scope does nothing."""
+    yield
+
+
 # Launches of each kernel in this process (bumped only where it launches).
 flash_attention_launches = 0  # forward without lse (inference)
 flash_attention_lse_launches = 0  # forward with lse (training)

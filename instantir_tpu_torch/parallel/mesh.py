@@ -1,14 +1,16 @@
-"""The mesh's ``data`` axis over ``torch.distributed``.
+"""The ``(data, model)`` mesh over ``torch.distributed``.
 
 Twin of ``instantir_tpu/parallel/mesh.py``. The JAX package puts one
-``jax.sharding.Mesh`` with a ``data`` axis over the devices and lets GSPMD
-insert the collectives; the port runs one process per GPU (``torchrun
---nproc_per_node N``), builds a ``(data, model)`` ``DeviceMesh`` over the
-process group, and makes each collective explicit where the JAX program gets
-it from a sharding: the batch rows a rank keeps (``shard_batch``), the
-parameters every rank holds alike (``replicate_params``), and the ZeRO-1
-layout of the optimiser state (``zero1_spec`` / ``zero1_shard``). The
-``model`` axis is reserved for tensor parallelism, which is not ported yet.
+``jax.sharding.Mesh`` with ``data`` and ``model`` axes over the devices and
+lets GSPMD insert the collectives; the port runs one process per GPU
+(``torchrun --nproc_per_node N``), builds a ``(data, model)`` ``DeviceMesh``
+over the process group, and makes each collective explicit where the JAX
+program gets it from a sharding: the batch rows a rank keeps
+(``shard_batch``), the parameters every rank holds alike
+(``replicate_params``), and the ZeRO-1 layout of the optimiser state
+(``zero1_spec`` / ``zero1_shard``). The ``model`` axis carries tensor
+parallelism (``parallel/tp.py``): its group (``axis_group(mesh, "model")``)
+carries the TP all-reduces.
 
 The backend follows the device: NCCL for CUDA tensors, gloo for CPU tensors,
 chosen from the device and never as a fallback.
@@ -84,13 +86,13 @@ def _free_port() -> int:
 def make_mesh(num_devices: Optional[int] = None, model_parallel: int = 1, device="cuda"):
     """The ``(data, model)`` ``DeviceMesh`` over the process group, one GPU
     (or, on the CPU, one process) a rank, ``mesh_dim_names=("data",
-    "model")``. With no group yet it joins the launcher's
-    (``initialize_distributed``); with neither it raises: it never builds a
-    mesh over the CPU by itself. ``num_devices`` must be the group's size
-    when given. ``model_parallel > 1`` is tensor parallelism: not ported."""
-    if model_parallel != 1:
-        raise NotImplementedError(f"make_mesh(model_parallel={model_parallel}): the mesh's 'model' axis (tensor "
-                                  "parallelism, parallel/tp.py) is not ported yet; it is the next slice")
+    "model")``, of shape ``(world / model_parallel, model_parallel)``: rank r
+    sits at ``(r // model_parallel, r % model_parallel)``, so the ranks of one
+    ``model`` group are neighbours. A world that ``model_parallel`` does not
+    divide raises, as in the JAX package. With no group yet it joins the
+    launcher's (``initialize_distributed``); with neither it raises: it never
+    builds a mesh over the CPU by itself. ``num_devices`` must be the group's
+    size when given."""
     if not dist.is_initialized() and not initialize_distributed(device=device):
         raise RuntimeError("make_mesh: no process group. Launch one process per GPU with "
                            "'torchrun --nproc_per_node N <script>' (or call initialize_distributed(force=True) "
@@ -99,9 +101,12 @@ def make_mesh(num_devices: Optional[int] = None, model_parallel: int = 1, device
     if num_devices is not None and num_devices != n:
         raise ValueError(f"make_mesh(num_devices={num_devices}): the process group has {n} ranks; the port's mesh "
                          "spans the whole group (launch that many processes)")
+    if model_parallel < 1 or n % model_parallel:
+        raise ValueError(f"{n} devices not divisible by model_parallel={model_parallel}")
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(torch.device(device).type, (n, 1), mesh_dim_names=("data", "model"))
+    return init_device_mesh(torch.device(device).type, (n // model_parallel, model_parallel),
+                            mesh_dim_names=("data", "model"))
 
 
 def axis_size(mesh, axis: str = "data") -> int:
@@ -156,25 +161,27 @@ def gather_batch(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 @torch.no_grad()
-def replicate_params(params, mesh) -> None:
+def replicate_params(params, mesh, axis: str = "data", broadcast: bool = True) -> None:
     """Make every rank hold rank 0's values of ``params`` (an ``nn.Module``,
-    or a dict or list of tensors), in place: a broadcast over the data axis,
-    then a check that the ranks agree (a per-tensor fingerprint, max and min
-    over the ranks)."""
+    or a dict or list of tensors), in place: a broadcast over ``axis``, then
+    a check that the ranks agree (a per-tensor fingerprint, max and min over
+    the ranks). ``broadcast=False`` only checks: it raises where the ranks
+    hold different values."""
     tensors = list(params.parameters()) + list(params.buffers()) if isinstance(params, torch.nn.Module) else \
         list(params.values()) if isinstance(params, dict) else list(params)
-    if axis_size(mesh) == 1 or not tensors:
+    if axis_size(mesh, axis) == 1 or not tensors:
         return
-    group = axis_group(mesh)
+    group = axis_group(mesh, axis)
     src = dist.get_global_rank(group, 0)
-    for t in tensors:
+    for t in tensors if broadcast else ():
         dist.broadcast(t.data, src=src, group=group)
     fp = torch.stack([t.detach().double().sum() for t in tensors])
     hi, lo = fp.clone(), fp.clone()
     dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
     dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
     if not torch.equal(hi, lo):
-        raise RuntimeError("replicate_params: the ranks hold different values after the broadcast")
+        raise RuntimeError("replicate_params: the ranks hold different values" + (" after the broadcast" if broadcast
+                                                                                  else ": give each the same weights"))
 
 
 def zero1_spec(shape, mesh) -> Optional[int]:

@@ -22,11 +22,15 @@ NCHW inside. Every random draw is injectable (``RestoreNoise``) so a run can be
 held against the JAX pipeline's ``jax.random`` draws; otherwise the draws come
 from a ``torch.Generator`` on the pipeline's device.
 
-``shard(mesh)`` attaches the mesh's ``data`` axis (``parallel/mesh.py``, one
-process per GPU): a restore then runs each rank's rows of the batch and
-all-gathers the result, or, with ``RestoreConfig.sequence_parallel``, runs
-the whole batch on every rank and rings each long self-attention over the
-ranks (``parallel/ring_attention.py``).
+``shard(mesh)`` attaches a ``(data, model)`` mesh (``parallel/mesh.py``, one
+process per GPU): a restore then runs each rank's rows of the batch over the
+``data`` axis and all-gathers the result, or, with
+``RestoreConfig.sequence_parallel``, runs the whole batch on every rank and
+rings each long self-attention over the ranks
+(``parallel/ring_attention.py``); a ``model`` axis larger than 1 puts the
+five models in the tensor-parallel layout (``parallel/tp.py``), each rank
+holding its shard and the ranks of a ``model`` group running every restore
+together.
 """
 
 from __future__ import annotations
@@ -56,8 +60,9 @@ from instantir_tpu_torch.models.vae import (
     vae_scale_factor,
 )
 from instantir_tpu_torch.ops import group_norm, quant
-from instantir_tpu_torch.ops.attention import sequence_parallel_scope
+from instantir_tpu_torch.ops.attention import sequence_parallel_scope, tensor_parallel_scope
 from instantir_tpu_torch.parallel.mesh import axis_size, gather_batch, replicate_params, shard_batch
+from instantir_tpu_torch.parallel.tp import shard_weights, tp_shard_
 from instantir_tpu_torch.schedulers.diffusion import (
     DiffusionSchedule,
     add_noise,
@@ -241,24 +246,64 @@ class InstantIRPipeline:
 
     def shard(self, mesh) -> "InstantIRPipeline":
         """Attach ``mesh`` (``parallel.make_mesh``; None detaches), the twin of
-        the JAX ``shard`` on its ``data`` axis: every rank's parameters become
-        rank 0's (``replicate_params``, a broadcast), and each ``restore``
-        then restores this rank's rows of the batch, which the data axis
-        must divide, and all-gathers the result, so that every rank returns
-        the whole batch; with ``sequence_parallel`` every rank restores the
-        whole batch and rings the long self-attentions. A ``model`` axis
-        larger than 1 is tensor parallelism: not ported yet."""
+        the JAX ``shard``: every rank's parameters become rank 0's
+        (``replicate_params``, a broadcast over the ``data`` axis), and each
+        ``restore`` then restores this rank's rows of the batch, which the
+        ``data`` axis must divide, and all-gathers the result, so that every
+        rank returns the whole batch; with ``sequence_parallel`` every rank
+        restores the whole batch and rings the long self-attentions.
+
+        A ``model`` axis larger than 1 is tensor parallelism: the ranks of a
+        ``model`` group must hold the same weights (loaded from one checkpoint
+        or built from one seed; a fingerprint check raises otherwise), and the
+        five models then take the TP layout in place (``parallel.tp.tp_shard_``: attention
+        and MLP weights split over heads and features, resnet and sampler
+        convs over channels, column/row pairs closed by one all-reduce over
+        the ``model`` group), a frozen previewer's merged weights with them
+        (``shard_weights``), and the ranks of a ``model`` group run every
+        restore together. An int8 base (``quantize`` first, as in the JAX
+        package) stays whole. A TP layout cannot be undone: re-sharding or
+        detaching such a pipeline raises (rebuild it)."""
+        if self.tp_size > 1:
+            raise ValueError("this pipeline already holds a tensor-parallel shard of its models; shard() cannot "
+                             "place it again or detach it: rebuild the pipeline")
         if mesh is not None:
-            if axis_size(mesh, "model") > 1:
-                raise NotImplementedError("InstantIRPipeline.shard: a mesh 'model' axis > 1 (tensor parallelism, "
-                                          "parallel/tp.py) is not ported yet; it is the next slice")
-            for name in self._MODELS:
-                replicate_params(getattr(self, name), mesh)
-            if self._frozen is not None:
-                replicate_params(self._frozen, mesh)
+            tp = axis_size(mesh, "model") > 1
+            # the data axis broadcasts rank 0's weights; the ranks of a model group must already hold the same
+            # whole weights (each takes its own slice): checked, not copied
+            for axis, broadcast in (("data", True), ("model", False)) if tp else (("data", True),):
+                for name in self._MODELS:
+                    replicate_params(getattr(self, name), mesh, axis, broadcast)
+                if self._frozen is not None:
+                    replicate_params(self._frozen, mesh, axis, broadcast)
+            if tp:
+                for name in self._MODELS:
+                    tp_shard_(getattr(self, name), mesh)
+                if self._frozen is not None:
+                    self._frozen = shard_weights(self.unet, self._frozen)
+                self._graphs.clear()
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
             self._uncond = None  # tokens computed before the broadcast
         self.mesh = mesh
         return self
+
+    @property
+    def tp_size(self) -> int:
+        """The size of the attached mesh's ``model`` axis (1: no tensor parallelism)."""
+        return axis_size(self.mesh, "model") if self.mesh is not None else 1
+
+    def _trace_scopes(self, cfg: RestoreConfig) -> contextlib.ExitStack:
+        """The parallelism scopes of one restore on the attached mesh: the
+        ring's when ``sequence_parallel``, the TP scope when the mesh has a
+        ``model`` axis (``ops/attention.py``); none without a mesh."""
+        stack = contextlib.ExitStack()
+        if self.mesh is not None:
+            if cfg.sequence_parallel:
+                stack.enter_context(sequence_parallel_scope(self.mesh, min_seq=cfg.sp_min_seq))
+            if self.tp_size > 1:
+                stack.enter_context(tensor_parallel_scope(self.mesh))
+        return stack
 
     def freeze_previewer(self, alpha: float = 1.0) -> "InstantIRPipeline":
         """Inference only: merge the UNet's previewer LoRA at strength
@@ -307,6 +352,10 @@ class InstantIRPipeline:
             raise ValueError("quantize() after freeze_previewer() is unsupported: quantize first")
         if self.quantized is not None:
             return self
+        if self.tp_size > 1:
+            raise ValueError("quantize() after a tensor-parallel shard() would take each rank's per-channel scales "
+                             "from its shard: quantize before shard(), as in the JAX package (the int8 bases then "
+                             "stay whole)")
         for model in (self.unet, self.aggregator):
             quant.quantize_tree(model, min_size=min_size, weight_only=weight_only)
         self._graphs.clear()
@@ -745,6 +794,10 @@ class InstantIRPipeline:
             raise ValueError("sequence_parallel=True requires an attached mesh (pipe.shard(mesh))")
         if seq_par and cfg.fused:
             raise ValueError("sequence_parallel does not compose with cfg.fused")
+        if cfg.fused and self.tp_size > 1:
+            raise ValueError("RestoreConfig.fused does not compose with tensor parallelism yet: a CUDA graph of the "
+                             "restore would have to capture the model group's all-reduces, which no run has "
+                             "recorded and replayed; restore with fused=False")
         prev_weights = None
         if self._frozen is not None and cfg.lora_alpha:
             if cfg.lora_alpha != self._frozen_alpha:
@@ -769,9 +822,10 @@ class InstantIRPipeline:
         draws = [t.to(dev) for t in draws]
         uncond = self._uncond_tokens(self.image_encoder.config.image_size, lq_images.dtype)
         if cfg.fused and output_type != "latent":
-            image, previews = self._graph_replay(cfg, [*inputs, uncond, *draws], n_steps, prev_weights)
+            with self._trace_scopes(cfg):
+                image, previews = self._graph_replay(cfg, [*inputs, uncond, *draws], n_steps, prev_weights)
         else:
-            with sequence_parallel_scope(self.mesh, min_seq=cfg.sp_min_seq) if seq_par else contextlib.nullcontext():
+            with self._trace_scopes(cfg):
                 latents, row, image, previews = self._restore_body(cfg, *inputs, uncond, draws[0], draws[1],
                                                                    draws[2:], prev_weights,
                                                                    decode=output_type != "latent")

@@ -225,10 +225,9 @@ def test_initialize_distributed_is_a_noop_without_a_launcher(monkeypatch):
     for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
         monkeypatch.delenv(k, raising=False)
     assert initialize_distributed(device="cpu") is False
-    with pytest.raises(RuntimeError, match="torchrun"):
-        make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor"):
-        make_mesh(model_parallel=2, device="cpu")
+    for model_parallel in (1, 2):  # the tensor-parallel mesh too: no group, no mesh
+        with pytest.raises(RuntimeError, match="torchrun"):
+            make_mesh(model_parallel=model_parallel, device="cpu")
 
 
 def test_initialize_distributed_is_idempotent_once_initialized(runs):

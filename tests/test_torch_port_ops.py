@@ -98,7 +98,8 @@ def test_port_imports_no_jax():
     assert not bad, bad
     covered = {str(f.relative_to(REPO)) for f in files}
     for new in ("train/common.py", "train/stage1_adapter.py", "losses/losses.py", "losses/loss_config.py",
-                "ops/group_norm.py", "data/degradation.py", "data/dataset.py", "cli/train.py"):
+                "ops/group_norm.py", "data/degradation.py", "data/dataset.py", "cli/train.py", "parallel/tp.py",
+                "utils/flops.py", "utils/profiling.py", "data/native_loader.py"):
         assert f"instantir_tpu_torch/{new}" in covered
 
 
