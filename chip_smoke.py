@@ -44,7 +44,12 @@ which ends the script with a nonzero exit on failure:
    decode and restore, and VAE slicing at 512², batch 2, against the
    unsliced encode, decode and restore; every count derived from the config
    (``expected_restore_launches``). With ``--steps 30`` also config #4 staged
-   and as a graph, with the dynamic and the merged LoRA, in turns;
+   and as a graph, with the dynamic and the merged LoRA, in turns. Then the
+   VAE's GroupNorms on the plain version (the port before K5 took them)
+   against K5, in turns: the 1024² fp32 encode and decode (ms, peaks) and
+   the graph replay at 4 steps (s/image; with ``--steps 30`` config #4's),
+   each setting's graph on a pipeline of its own, its recording's launches
+   derived (the plain one's without the VAE's K5);
 4c. phase 4's models written as a checkpoint tree in the released layout
    (diffusers SDXL folder with two synthetic full-width CLIP towers and
    tokenizers, ``adapter.pt``, ``previewer_lora_weights.bin``,
@@ -117,9 +122,10 @@ which ends the script with a nonzero exit on failure:
    --use_clip_encoder --fused`` with its own load on one 1024² PNG (launches
    derived as in 4c, its PNG equal to the in-memory restore's);
 4j. tensor parallelism, on phase 4c's tree before it is deleted: K1 at the
-   local heads of a ``model`` axis of 2 ((2, 4096, 5), (2, 1024, 10), (2,
-   8192, 5), (2, 2048, 10)) and K5 at the resnets' local ``norm2`` channels
-   (16 groups) against their plain versions; the analytic FLOPs per 1024²
+   local heads of a ``model`` axis of 2 and of 4 at 512² (half the heads; 3
+   or 2 of the 10 heads, 5 of the 20) and K5 at the resnets' local ``norm2``
+   shapes (16 and 8 groups; the VAE's in fp32) against their plain versions
+   (phase 3 checks K1 at both axes' local heads at 1024²); the analytic FLOPs per 1024²
    image of config #4 and of the 4-step restore (``utils/flops.py``, counted
    on ``meta`` by a process started beside phase 2, ``--count_flops``) and the
    4-step graph replay's achieved TFLOP/s; ``PhaseTimer`` over a staged
@@ -127,12 +133,14 @@ which ends the script with a nonzero exit on failure:
    phase 2; NCCL takes one rank a device), then two ranks in an explicit
    gloo group over the CUDA tensors (``--tp_worker``) running ``cli.serve
    --mesh --model_parallel 2 --no-fused`` on the tree: each loads and shards
-   the pipeline, restores at the warmup (1024², 2 steps, CFG 7) and for one
+   the pipeline, restores at the warmup (512², 2 steps, CFG 7) and for one
    request; each rank's launches per restore derived at the local shapes,
    both ranks' inputs equal, each image within ``TP_TOL`` of the one-rank
    restore of its inputs, the served PNG the request's image as uint8, the
-   per-rank weight bytes against ``tp_spec``'s prediction (the seconds are
-   not TP speed: two ranks share the card);
+   per-rank weight bytes against ``tp_held_bytes`` (the seconds are not TP
+   speed: the ranks share the card); four ranks at ``--model_parallel 4``
+   the same way, started first (the two once the four have sharded), every
+   rank's image against the one-rank restore of its inputs;
 5. stage-2 (Aggregator) training at full SDXL width: two
    ``Stage2Trainer.train_step``s at 512² (batch 2) and one at 1024² (batch 1,
    gradient checkpointing on the UNet and the Aggregator); loss,
@@ -205,8 +213,12 @@ which ends the script with a nonzero exit on failure:
 8. fp32, after the bf16 models are freed: ``build_pipeline`` with its default
    dtype restores a 512² image in 4 steps and one fp32 ``Stage1Trainer`` step
    runs at 512², batch 1, both through the fp32 flash entry points and the
-   fused GroupNorm with launch counts derived from the config;
+   fused GroupNorm (the VAE's norms too) with launch counts derived from the
+   config;
 9. summary: one JSON line of kernels, the card line, and the result line.
+
+Every K5 count includes the fp32 VAE's GroupNorms, each a K5 launch
+(``vae_group_norm_shapes``, ``vae_restore_k5``).
 
 ``--only kernels`` stops after phase 3 (exit 0, no result line): the quick
 check of a kernel edit; ``--only group_norm`` runs phase 3 for K5 alone,
@@ -255,6 +267,12 @@ F32_LSE_TOL = 1e-5  # max abs error of lse (values near 10: a few fp32 ulps)
 # their rounding to x's dtype): half an ulp of outputs below 8 plus the fp32 difference; fp16 the bf16 band
 # over its 8x finer ulp. Two values rounded apart can differ by a whole ulp (0.031 in bf16 above 4).
 GN_TOL = {"bfloat16": 2e-2, "float16": 2.5e-3, "float32": 1e-4}
+# max abs error of the kernel's and of the plain version's outputs against the same formula evaluated in fp64
+# (``gn_f64``), at the VAE's slabs of up to 8.4 M elements (normalised outputs |y| < 8): bf16 half an ulp
+# above 4 (1.56e-2) plus the statistics' error; fp32 about three times the largest error measured on an H100 at
+# the VAE's shapes (kernel 7.2e-7 to 1.64e-6, plain version 9.7e-7 to 1.52e-6: the fp32 statistics of the
+# E[x²] − μ² form and the output's rounding; half an ulp of |y| ~ 6 is 2.4e-7)
+GN_F64_TOL = {"bfloat16": 2e-2, "float16": 2.5e-3, "float32": 5e-6}
 FORWARD_TOL = 5e-2  # relative L2 of one UNet forward through a kernel against the same forward through its plain path
 # relative L2 of two whole restores that differ in one kernel: four CFG-7 steps
 # amplify a one-ulp bf16 difference a few thousand-fold (5.2e-2 measured for the
@@ -311,11 +329,13 @@ GN_UNET_SHAPES = [(320, 128, 128), (640, 128, 128), (960, 128, 128), (320, 64, 6
 GN_AGG_SHAPES = [(320, 256, 128), (320, 128, 64), (640, 128, 64), (640, 64, 32), (1280, 64, 32)]
 GN_SHAPES = GN_UNET_SHAPES + GN_AGG_SHAPES + [(320, 45, 45), (128, 512, 512)]
 GN_BATCH = 2
-# the tensor-parallel phase (4j): two ranks on the one card, a (1, 2) mesh; K1 runs at half the heads
-# ((2, 4096, 5), (2, 1024, 10), (2, 8192, 5), (2, 2048, 10)), the resnets' norm2 (K5) at half the channels with
-# 16 of the 32 groups; the restore and the server take BASELINE config #4's settings at TP_STEPS steps
+# the tensor-parallel phase (4j): two ranks on the one card, a (1, 2) mesh, at TP_RES²; K1 runs at half the heads,
+# the resnets' norm2 (K5) at half the channels with 16 of the 32 groups; the restore and the server take BASELINE
+# config #4's settings at TP_STEPS steps. Phase 3 checks K1 at the 1024² restore's halved heads
+# ((2, 4096, 5), (2, 1024, 10), (2, 8192, 5), (2, 2048, 10))
 TP_SIZE = 2
 TP_STEPS = 2
+TP_RES = 512
 TP_RESTORE_SHAPES = [(b, s, h // TP_SIZE) for b, s, h in RESTORE_SHAPES]
 # relative L2 of the two-rank restore's image against the one-rank restore's on the same inputs: each
 # row-parallel layer rounds its two bf16 partials before their sum where one rank rounds once, a one-ulp
@@ -323,6 +343,11 @@ TP_RESTORE_SHAPES = [(b, s, h // TP_SIZE) for b, s, h in RESTORE_SHAPES]
 # (RESTORE_TOL's 5.2e-2 at four steps): 5e-2 predicted, RESTORE_TOL the bound
 TP_TOL = RESTORE_TOL
 TP_TIMEOUT = 900  # seconds the two ranks may take, loads, restore and server included
+# model axes whose splits are uneven at SDXL width: 4 cuts the 10-head attentions 3 / 3 / 2 / 2 (phase 4j runs
+# it: four ranks on the one card, TP_RES², TP_STEPS steps); 5 cuts the resnets' 32 groups 7 / 7 / 6 / 6 / 6
+# (phase 3 checks K5 at its local shapes)
+TP_MODEL4 = 4
+TP_UNEVEN = 5
 
 
 def fail(msg: str) -> None:
@@ -683,18 +708,38 @@ def graph_ms(torch, fn, calls: int = 10, replays: int = 3) -> float:
     return statistics.median(means)
 
 
+def gn_f64(torch, x, scale, bias, groups: int, eps: float, silu: bool):
+    """GroupNorm(+SiLU) of channels-first ``x`` evaluated in fp64: the
+    formula both the kernel and the plain version compute (E[x²] − μ²
+    clamped at 0, eps, the affine, SiLU), without their fp32 roundings."""
+    b, c = x.shape[:2]
+    xd = x.double().reshape(b, groups, -1)
+    mean = xd.mean(dim=-1, keepdim=True)
+    var = ((xd * xd).mean(dim=-1, keepdim=True) - mean * mean).clamp(min=0.0)
+    y = ((xd - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    del xd
+    affine = (1, c) + (1,) * (x.dim() - 2)
+    y = y * scale.double().reshape(affine) + bias.double().reshape(affine)
+    return y * torch.sigmoid(y) if silu else y
+
+
 def check_group_norm(torch, group_norm, gn_by_shape: dict, path_cases: list, base: bool = True,
                      host: bool = True, groups: int = 32) -> list:
     """Phase 3, K5: the fused GroupNorm(+SiLU) against ``group_norm_silu_nchw``
     (its fp32 values: see ``GN_TOL``) at every shape of the 1024² restore
     path and the extra ones in bf16, fp16 and fp32, and at the other main
-    paths' ``path_cases`` ((B, (C, H, W), dtypes): training, the fp32
-    paths), with and without SiLU: back-to-back and device (CUDA graph) time,
-    the host time of the dispatch under ``torch.no_grad()`` (bf16 and fp16),
-    bound, plain version, ``F.group_norm`` and the launch plan (cluster size
-    and path; "-" for a package without one). ``base=False`` checks the
-    ``path_cases`` alone, ``host=False`` leaves out the host timing; ``groups``
-    is the GroupNorm's (16 at the tensor-parallel resnets' ``norm2``)."""
+    paths' ``path_cases`` ((B, (C, H, W), dtypes) or (B, (C, H, W), dtypes,
+    options): training, the fp32 paths, the VAE's), with and without SiLU:
+    back-to-back and device (CUDA graph) time, the host time of the dispatch
+    under ``torch.no_grad()`` (bf16 and fp16), bound, plain version,
+    ``F.group_norm`` and the launch plan (cluster size and path; "-" for a
+    package without one). ``base=False`` checks the ``path_cases`` alone,
+    ``host=False`` leaves out the host timing; ``groups`` is the GroupNorm's
+    (16 at the tensor-parallel resnets' ``norm2`` of model 2). A case's
+    options: ``groups`` (its own), ``silus`` (the SiLU settings to check),
+    ``f64`` (hold the kernel and the plain version each to ``gn_f64`` within
+    ``GN_F64_TOL``: the VAE's long slabs, where the fp32 summation order
+    alone moves the statistics past ``GN_TOL``'s half ulp)."""
     import torch.nn.functional as F
 
     if sorted(gn_by_shape) != sorted(GN_UNET_SHAPES + GN_AGG_SHAPES):
@@ -704,48 +749,68 @@ def check_group_norm(torch, group_norm, gn_by_shape: dict, path_cases: list, bas
     rows = []
     every_dtype = (torch.bfloat16, torch.float16, torch.float32)
     cases = ([(GN_BATCH, shape, every_dtype) for shape in GN_SHAPES] if base else []) + path_cases
-    for batch, (c, hh, ww), dtypes in cases:
+    for case in cases:
+        batch, (c, hh, ww), dtypes = case[:3]
+        opts = case[3] if len(case) > 3 else {}
+        grp = opts.get("groups", groups)
         for dtype in dtypes:
             name = str(dtype).split(".")[-1]
             x = (torch.randn(batch, c, hh, ww, generator=g, device="cuda") * 1.5 + 0.5).to(dtype)
             scale = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
             bias = 0.1 * torch.randn(c, generator=g, device="cuda")
             scale_d, bias_d = scale.to(dtype), bias.to(dtype)
-            plan = plan_of(batch, c, hh * ww, groups, x.element_size()) if plan_of else None
-            for silu in (False, True):
-                y = group_norm.group_norm_silu_fused(x, scale, bias, groups, 1e-5, silu)
+            plan = plan_of(batch, c, hh * ww, grp, x.element_size()) if plan_of else None
+            big = x.numel() * x.element_size() > 2**28  # past 256 MB: the plain version timed at fewer calls
+            for silu in opts.get("silus", (False, True)):
+                y = group_norm.group_norm_silu_fused(x, scale, bias, grp, 1e-5, silu)
                 torch.cuda.synchronize()
-                ref = group_norm.group_norm_silu_nchw(x.float(), scale, bias, groups, 1e-5, silu)
+                ref = group_norm.group_norm_silu_nchw(x.float(), scale, bias, grp, 1e-5, silu)
                 err = (y.float() - ref).abs().max().item()
-                where = f"B={batch} C={c} {hh}x{ww} {name} silu={silu}"
+                del ref
+                where = f"B={batch} C={c} {hh}x{ww} G={grp} {name} silu={silu}"
                 if y.dtype != dtype or not err <= GN_TOL[name]:
                     fail(f"fused GroupNorm disagrees with group_norm_silu_nchw at {where}: {err} > {GN_TOL[name]}")
-                del y, ref
+                f64 = {}
+                if opts.get("f64"):
+                    ref = gn_f64(torch, x, scale, bias, grp, 1e-5, silu)
+                    f64["f64_err"] = (y.double() - ref).abs().max().item()
+                    plain = group_norm.group_norm_silu_nchw(x, scale, bias, grp, 1e-5, silu)
+                    f64["plain_f64_err"] = (plain.double() - ref).abs().max().item()
+                    f64["f64_scale"] = ref.abs().max().item()
+                    del ref, plain
+                    if not max(f64["f64_err"], f64["plain_f64_err"]) <= GN_F64_TOL[name]:
+                        fail(f"GroupNorm at {where} against its fp64 evaluation: kernel {f64['f64_err']:.3e}, plain "
+                             f"version {f64['plain_f64_err']:.3e} (> {GN_F64_TOL[name]})")
+                del y
 
                 def fused():
-                    return group_norm.group_norm_silu_fused(x, scale, bias, groups, 1e-5, silu)
+                    return group_norm.group_norm_silu_fused(x, scale, bias, grp, 1e-5, silu)
 
                 def dispatch():
-                    return group_norm.group_norm_silu(x, scale, bias, groups, 1e-5, silu)
+                    return group_norm.group_norm_silu(x, scale, bias, grp, 1e-5, silu)
 
                 with torch.no_grad():
                     host_us = host_us_per_call(torch, dispatch) if host and dtype != torch.float32 else None
                 bound, bound_by = bound_ms(8.0 * x.numel(), 2.0 * x.numel() * x.element_size())
-                row = dict(B=batch, C=c, H=hh, W=ww, G=groups, dtype=name, silu=silu, max_abs_err=err, bound_ms=bound, bound_by=bound_by,
-                           cs=plan.cs if plan else None, path=plan.path if plan else None,
-                           ms=time_ms(torch, fused), device_ms=graph_ms(torch, fused),
-                           host_us=host_us,
-                           plain_ms=time_ms(torch, lambda: group_norm.group_norm_silu_nchw(x, scale, bias, groups, 1e-5, silu),
-                                            iters=5, warmup=1),
+                plain_iters = (2, 0, 2) if big else (5, 1, 3)
+                row = dict(B=batch, C=c, H=hh, W=ww, G=grp, dtype=name, silu=silu, max_abs_err=err, bound_ms=bound,
+                           bound_by=bound_by, cs=plan.cs if plan else None, path=plan.path if plan else None,
+                           ms=time_ms(torch, fused), device_ms=graph_ms(torch, fused, calls=4 if big else 10),
+                           host_us=host_us, **f64,
+                           plain_ms=time_ms(torch, lambda: group_norm.group_norm_silu_nchw(x, scale, bias, grp, 1e-5, silu),
+                                            iters=plain_iters[0], warmup=plain_iters[1], groups=plain_iters[2]),
                            library_ms=None if silu else time_ms(
-                               torch, lambda: F.group_norm(x, groups, scale_d, bias_d, 1e-5)))
+                               torch, lambda: F.group_norm(x, grp, scale_d, bias_d, 1e-5)))
                 rows.append(row)
                 lib = "-" if silu else f"{row['library_ms']:.4f}"
                 host_txt = "-" if row["host_us"] is None else f"{row['host_us']:.1f}"
-                log(f"  group_norm {where}: max_abs_err {err:.2e}  kernel {row['ms']:.4f} ms  device "
+                f64_txt = (f"  fp64: kernel {f64['f64_err']:.2e}, plain {f64['plain_f64_err']:.2e} (|y| <= "
+                           f"{f64['f64_scale']:.2f})" if f64 else "")
+                log(f"  group_norm {where}: max_abs_err {err:.2e}{f64_txt}  kernel {row['ms']:.4f} ms  device "
                     f"{row['device_ms']:.4f} ms ({bound / row['device_ms']:.0%} of bound)  host {host_txt} us  bound "
                     f"{bound:.4f} ms ({bound_by})  plain {row['plain_ms']:.4f} ms  F.group_norm {lib} ms  cs "
                     f"{row['cs'] or '-'} {row['path'] or '-'}")
+                torch.cuda.empty_cache()
             del x
     return rows
 
@@ -781,6 +846,139 @@ def group_norm_shapes_per_forward(cfg, lat_h: int, lat_w: int, with_up: bool, co
                 add(c_in, level, 2 if kind == "CrossAttnUpBlock2D" else 1)
         add(chans[0], 0)  # conv_norm_out
     return counts
+
+
+def vae_group_norm_shapes(vcfg, h: int, w: int, part: str, tp: int = 1, rank: int = 0) -> dict:
+    """GroupNorm32 calls of one VAE encode of an ``h`` x ``w`` image
+    (``part="encoder"``) or decode of ``h`` x ``w`` latents ("decoder"), by
+    (C, H, W, groups, silu), from ``VAEConfig``: each resnet normalises its
+    input and its ``conv1`` output (both with SiLU), the mid block's attention
+    its input (no SiLU), then ``conv_norm_out``. The encoder halves the map
+    after every block but the last, the decoder doubles it. With tensor
+    parallelism (a ``model`` axis of ``tp``) a resnet whose channels ``tp``
+    divides and whose groups are at least ``tp`` normalises at ``norm2``
+    rank ``rank``'s share of its groups (``tp_shares``) and their channels;
+    every other norm is whole."""
+    counts: dict = {}
+    g = vcfg.norm_num_groups
+
+    def add(c: int, hh: int, ww: int, silu: bool = True, local: bool = False):
+        key = (c, hh, ww, g, silu)
+        if local and tp > 1 and c % tp == 0 and g >= tp:
+            mine = tp_shares(g, tp)[rank]
+            key = (c // g * mine, hh, ww, mine, silu)
+        counts[key] = counts.get(key, 0) + 1
+
+    def resnet(c_in: int, c_out: int, hh: int, ww: int):
+        add(c_in, hh, ww)
+        add(c_out, hh, ww, local=True)
+
+    def mid(c: int, hh: int, ww: int):
+        resnet(c, c, hh, ww)
+        add(c, hh, ww, silu=False)
+        resnet(c, c, hh, ww)
+
+    chans = vcfg.block_out_channels
+    if part == "encoder":
+        c_in = chans[0]
+        for i, c in enumerate(chans):
+            for _ in range(vcfg.layers_per_block):
+                resnet(c_in, c, h, w)
+                c_in = c
+            if i < len(chans) - 1:
+                h, w = h // 2, w // 2
+        mid(chans[-1], h, w)
+        add(chans[-1], h, w)
+    else:
+        rev = tuple(reversed(chans))
+        mid(rev[0], h, w)
+        c_in = rev[0]
+        for i, c in enumerate(rev):
+            for _ in range(vcfg.layers_per_block + 1):
+                resnet(c_in, c, h, w)
+                c_in = c
+            if i < len(rev) - 1:
+                h, w = 2 * h, 2 * w
+        add(rev[-1], h, w)
+    return counts
+
+
+def tp_shares(units: int, tp: int) -> list:
+    from instantir_tpu_torch.parallel.tp import tp_shares as shares
+
+    return shares(units, tp)
+
+
+def vae_k5(vcfg, h: int, w: int, part: str) -> int:
+    """K5 launches of one VAE encode (``h`` x ``w`` pixels) or decode (``h`` x
+    ``w`` latents): one a GroupNorm call."""
+    return sum(vae_group_norm_shapes(vcfg, h, w, part).values())
+
+
+def vae_gn_cases(torch, vcfg, res: int = 1024, tile: int = 96) -> list:
+    """Phase 3's VAE cases: every (C, H, W) of the encode of a ``res``²
+    image and of the decode of its latents (batch 1), in fp32 (the restore's
+    VAE) and bf16 (``decode_dtype="bfloat16"``), with and without SiLU, the
+    decoder's 1 GiB fp32 row included; then the shapes a ``tile``-latent
+    tile adds (``vae_tiling``, the 2048² restore), fp32. Each is held to its
+    fp64 evaluation."""
+    from instantir_tpu_torch.models.vae import vae_scale_factor
+
+    f = vae_scale_factor(vcfg)
+    shapes = set()
+    for part, hw in (("encoder", res), ("decoder", res // f)):
+        shapes |= {k[:3] for k in vae_group_norm_shapes(vcfg, hw, hw, part)}
+    cases = [(1, shape, (torch.float32, torch.bfloat16), {"f64": True}) for shape in sorted(shapes)]
+    tiles = set()
+    for part, hw in (("encoder", tile * f), ("decoder", tile)):
+        tiles |= {k[:3] for k in vae_group_norm_shapes(vcfg, hw, hw, part)}
+    cases += [(1, shape, (torch.float32,), {"f64": True, "silus": (True,)}) for shape in sorted(tiles - shapes)]
+    return cases
+
+
+def vae_restore_k5_by_shape(rcfg, h: int, w: int, batch: int = 1, decode: bool = True, vcfg=None) -> dict:
+    """K5 launches of a restore's VAE by the input's shape (B, C, H, W): the
+    encode of its ``batch`` of ``h`` x ``w`` images and, with ``decode``, the
+    decode of its latents, in ``rcfg.decode_dtype``; tile by tile with
+    ``vae_tiling`` (``_tile_starts``' tiles where the image passes a tile),
+    one sample at a time with ``vae_slicing``; each GroupNorm call a
+    launch."""
+    from instantir_tpu_torch.models.vae import _tile_starts, sdxl_vae_config, vae_scale_factor
+
+    if rcfg.save_preview_row:
+        fail("vae_restore_k5 derives no preview row's decodes (no phase asks for one)")
+    vcfg = vcfg or sdxl_vae_config()
+    f = vae_scale_factor(vcfg)
+    enc_tiles = dec_tiles = 1
+    enc_hw, dec_hw = (h, w), (h // f, w // f)
+    if rcfg.vae_tiling:
+        tile = rcfg.vae_tile_latent
+        if h // f > tile or w // f > tile:
+            t = min(tile, h // f, w // f)
+            stride = max(1, int(t * (1.0 - rcfg.vae_tile_overlap)))
+            dec_tiles = len(_tile_starts(h // f, t, stride)) * len(_tile_starts(w // f, t, stride))
+            dec_hw = (t, t)
+        ts = tile * f
+        if h > ts or w > ts:
+            t = min(ts, h, w)
+            t -= t % f
+            stride = max(f, int(t * (1.0 - rcfg.vae_tile_overlap)))
+            stride -= stride % f
+            enc_tiles = len(_tile_starts(h, t, stride)) * len(_tile_starts(w, t, stride))
+            enc_hw = (t, t)
+    per, b = (batch, 1) if rcfg.vae_slicing else (1, batch)
+    out: dict = {}
+    for part, hw, tiles in (("encoder", enc_hw, enc_tiles), ("decoder", dec_hw, dec_tiles)):
+        if part == "decoder" and not decode:
+            continue
+        for (c, hh, ww, _, _), n in vae_group_norm_shapes(vcfg, *hw, part).items():
+            out[(b, c, hh, ww)] = out.get((b, c, hh, ww), 0) + per * tiles * n
+    return out
+
+
+def vae_restore_k5(rcfg, h: int, w: int, batch: int = 1, decode: bool = True, vcfg=None) -> int:
+    """The launches of ``vae_restore_k5_by_shape`` in all."""
+    return sum(vae_restore_k5_by_shape(rcfg, h, w, batch, decode, vcfg).values())
 
 
 def forwards_per_restore(phases):
@@ -930,6 +1128,17 @@ def group_norms_per_forward(cfg, with_up: bool = True) -> dict:
     return {"total": total, "down0": down0}
 
 
+def vae_train_k5(lat: int, encodes: int = 1, decodes: int = 0) -> int:
+    """K5 launches of a training step's fp32 VAE at ``lat`` latents (8·lat
+    pixels): ``encodes`` encodes of its images under ``no_grad`` and
+    ``decodes`` decodes (the previewer's image branch), each norm a launch
+    where the dispatch takes its shape."""
+    from instantir_tpu_torch.models.vae import sdxl_vae_config
+
+    vcfg = sdxl_vae_config()
+    return encodes * vae_k5(vcfg, 8 * lat, 8 * lat, "encoder") + decodes * vae_k5(vcfg, lat, lat, "decoder")
+
+
 def expected_train_launches(cfg, lat: int, checkpointing: bool) -> dict:
     """Kernel launches of one stage-1 ``train_step`` (no accumulation). Only the
     image-prompt projections and the Resampler train, so the first transformer
@@ -944,7 +1153,7 @@ def expected_train_launches(cfg, lat: int, checkpointing: bool) -> dict:
     no_grad = 1 if first_is_long else 0
     passes = 2 if checkpointing else 1
     gn = group_norms_per_forward(cfg)
-    gn_launches = gn["total"] + ((gn["total"] - gn["down0"] - 1) if checkpointing else 0)
+    gn_launches = gn["total"] + ((gn["total"] - gn["down0"] - 1) if checkpointing else 0) + vae_train_k5(lat)
     return {"flash_attention_fwd": no_grad * passes, "flash_attention_fwd_lse": (n_long - no_grad) * passes,
             "flash_attention_bwd_dq": n_long - no_grad, "flash_attention_bwd_dkv": n_long - no_grad,
             "group_norm_silu": gn_launches}
@@ -980,10 +1189,10 @@ def expected_stage2_launches(cfg, s2cfg, lat: int, checkpointing: bool) -> dict:
     gn_again = up_group_norms(cfg) + gn_agg if checkpointing else 0
     return {"flash_attention_fwd": previewer * full + down_mid, "flash_attention_fwd_lse": grad_attn * passes,
             "flash_attention_bwd_dq": grad_attn, "flash_attention_bwd_dkv": grad_attn,
-            "group_norm_silu": (previewer + 1) * gn_unet + gn_agg + gn_again}
+            "group_norm_silu": (previewer + 1) * gn_unet + gn_agg + gn_again + vae_train_k5(lat, encodes=2)}
 
 
-def expected_previewer_launches(cfg, lat: int, checkpointing: bool) -> dict:
+def expected_previewer_launches(cfg, lat: int, checkpointing: bool, image_branch: bool = False) -> dict:
     """Kernel launches of one previewer ``train_step`` (no accumulation). The
     teacher's cond and uncond passes and the target run under ``no_grad``:
     three UNet forwards, K1 on every long self-attention. The student runs
@@ -992,15 +1201,19 @@ def expected_previewer_launches(cfg, lat: int, checkpointing: bool) -> dict:
     once, dQ (K3) and dK/dV (K4). K5 runs in all four forwards. Gradient
     checkpointing recomputes every block of the student (each holds LoRA
     leaves): K2 twice, and K5 again but for ``conv_norm_out``, which lies
-    outside the blocks. The image branch (VAE decodes, DINOv2) adds none: the
-    VAE's GroupNorms run the plain version, and neither model's attention is
-    long enough for the flash kernels."""
+    outside the blocks. The fp32 VAE encodes the batch (K5 at every norm the
+    dispatch takes); the image branch (``image_branch``: a loss that reads
+    images) decodes the target under ``no_grad`` and the prediction under
+    gradient checkpointing, which decodes it again in the backward: three
+    decodes' K5. Neither the VAE's nor DINOv2's attention is long enough for
+    the flash kernels."""
     n_long = sum(flash_calls_per_forward(cfg, lat, lat, with_up=True).values())
     passes = 2 if checkpointing else 1
     gn = group_norms_per_forward(cfg)["total"]
     return {"flash_attention_fwd": 3 * n_long, "flash_attention_fwd_lse": n_long * passes,
             "flash_attention_bwd_dq": n_long, "flash_attention_bwd_dkv": n_long,
-            "group_norm_silu": 4 * gn + ((gn - 1) if checkpointing else 0)}
+            "group_norm_silu": 4 * gn + ((gn - 1) if checkpointing else 0)
+            + vae_train_k5(lat, decodes=3 if image_branch else 0)}
 
 
 def heads_by_seq(cfg, lat: int, concat: int = 1) -> dict:
@@ -1157,7 +1370,7 @@ def run_restore(torch, steps: int, mods: dict, ucfg):
     agg_calls = flash_calls_per_forward(ucfg, lat_hw, lat_hw, with_up=False, concat=2)
     by_seq = flash_launches_by_seq(phases, unet_calls, agg_calls)
     expected = expected_restore_launches(ucfg, cfg, phases, lat_hw)
-    by_shape = sum(group_norm_launches_by_shape(ucfg, phases, lat_hw).values())
+    by_shape = sum(group_norm_launches_by_shape(ucfg, phases, lat_hw).values()) + vae_restore_k5(cfg, res, res)
     if (by_shape, sum(by_seq.values())) != (expected["group_norm_silu"], expected["flash_attention_fwd"]):
         fail(f"launches derived by shape (K5 {by_shape}) and by sequence (K1 {sum(by_seq.values())}) differ from "
              f"those derived by block ({expected})")
@@ -1248,13 +1461,17 @@ def forward_launches(cfg, lat: int, lat_w: Optional[int] = None):
     return unet, agg
 
 
-def expected_restore_launches(cfg, rcfg, phases, lat: int, lat_w: Optional[int] = None) -> dict:
+def expected_restore_launches(cfg, rcfg, phases, lat: int, lat_w: Optional[int] = None, batch: int = 1,
+                              decode: bool = True) -> dict:
     """K1 and K5 launches of one bf16 restore with the fused GroupNorm on, by
     step: a fresh step of mode A runs the Aggregator and the main UNet, B adds
     the previewer UNet, C runs the main UNet; a DeepCache stale step runs the
-    shallow UNet alone (``stale_step_launches``). The Heun lookahead, the
-    merged LoRA and the VAE options change no count. ``lat`` x ``lat_w`` is
-    the latent's height x width (square when ``lat_w`` is None)."""
+    shallow UNet alone (``stale_step_launches``); then the fp32 VAE's K5
+    launches (``vae_restore_k5``: the encode of a ``batch`` of images, the
+    decode unless ``decode`` is False, ``output_type="latent"``; tiled,
+    sliced or in bf16 as ``rcfg`` says). The Heun lookahead and the merged
+    LoRA change no count. ``lat`` x ``lat_w`` is the latent's height x width
+    (square when ``lat_w`` is None)."""
     lat_w = lat if lat_w is None else lat_w
     unet, agg = forward_launches(cfg, lat, lat_w)
     stale = stale_step_launches(cfg, lat, rcfg.deepcache_depth, lat_w)
@@ -1267,6 +1484,7 @@ def expected_restore_launches(cfg, rcfg, phases, lat: int, lat_w: Optional[int] 
                     out[name] += n_unet * unet[name] + n_agg * agg[name]
                 else:
                     out[name] += stale[name]
+    out["group_norm_silu"] += vae_restore_k5(rcfg, 8 * lat, 8 * lat_w, batch, decode)
     return out
 
 
@@ -1281,7 +1499,9 @@ def run_restore_options(torch, pipe, steps: int, mods: dict, ucfg, card_line: st
     DeepCache (interval 2, depth 1), the Heun lookahead, the bf16 decode, VAE
     tiling (96-latent tiles over 128 latents: 2 x 2 tiles) and slicing. With
     ``steps`` other than 4, config #4 at ``steps`` staged and as a graph, with
-    the dynamic and the merged LoRA, in turns."""
+    the dynamic and the merged LoRA, in turns. Then the VAE's GroupNorms on
+    the plain version against K5 in turns: the encode, the decode and the
+    graph replay at ``steps`` steps."""
     from instantir_tpu_torch.pipeline.instantir import InstantIRPipeline, RestoreNoise, build_step_phases
 
     group_norm = mods["group_norm"]
@@ -1407,7 +1627,9 @@ def run_restore_options(torch, pipe, steps: int, mods: dict, ucfg, card_line: st
         f"{rel_l2(heun_img, staged_img):.3e}")
 
     # 5. the bf16 decode: against the fp32 decode of the same latents, and its time
-    latents, _, _ = restore("latent restore", pipe, base, args, expected, output_type="latent")
+    latents, _, _ = restore("latent restore", pipe, base, args,
+                            expected_restore_launches(ucfg, base, build_step_phases(base), lat, decode=False),
+                            output_type="latent")
     z = latents.permute(0, 3, 1, 2)
     with torch.no_grad():
         dec32 = pipe.decode_latents(z)
@@ -1415,8 +1637,9 @@ def run_restore_options(torch, pipe, steps: int, mods: dict, ucfg, card_line: st
         ms32 = time_ms(torch, lambda: pipe.decode_latents(z), iters=3, warmup=1)
         ms16 = time_ms(torch, lambda: pipe.decode_latents(z, torch.bfloat16), iters=3, warmup=1)
     close("bf16 decode vs fp32 decode", dec16, dec32)
-    bf16_img, bf16_sec, _ = restore("decode_dtype=bfloat16 restore", pipe,
-                                    dataclasses.replace(base, decode_dtype="bfloat16"), args, expected)
+    bf16_cfg = dataclasses.replace(base, decode_dtype="bfloat16")
+    bf16_img, bf16_sec, _ = restore("decode_dtype=bfloat16 restore", pipe, bf16_cfg, args,
+                                    expected_restore_launches(ucfg, bf16_cfg, build_step_phases(bf16_cfg), lat))
     log(f"  decode 1024²: fp32 {ms32:.2f} ms, bf16 {ms16:.2f} ms; decode_dtype=bfloat16 restore {bf16_sec:.3f} s/image")
     out.update(decode_ms_f32=ms32, decode_ms_bf16=ms16, bf16_sec=bf16_sec)
 
@@ -1424,8 +1647,9 @@ def run_restore_options(torch, pipe, steps: int, mods: dict, ucfg, card_line: st
     with torch.no_grad():
         tiled_dec = pipe.decode_latents(z, tiling=(96, 0.25))
     close("tiled vs untiled decode of the same latents", tiled_dec, dec32)
-    tiled_img, tiled_sec, tiled_peak = restore("vae_tiling restore", pipe, dataclasses.replace(base, vae_tiling=True),
-                                               args, expected)
+    tiled_cfg = dataclasses.replace(base, vae_tiling=True)
+    tiled_img, tiled_sec, tiled_peak = restore("vae_tiling restore", pipe, tiled_cfg, args,
+                                               expected_restore_launches(ucfg, tiled_cfg, build_step_phases(base), lat))
     close("vae_tiling restore vs the untiled one", tiled_img, staged_img)
     log(f"  vae_tiling restore {tiled_sec:.3f} s/image, peak {tiled_peak:.2f} GB (untiled {staged_peak:.2f})")
 
@@ -1438,10 +1662,13 @@ def run_restore_options(torch, pipe, steps: int, mods: dict, ucfg, card_line: st
                                                                                       slicing=True), z_whole, 1e-4)
         close("sliced vs unsliced fp32 decode, batch 2 at 512²", pipe.decode_latents(z_whole, slicing=True),
               pipe.decode_latents(z_whole), 1e-4)
-    exp512 = expected_restore_launches(ucfg, base, build_step_phases(base), 512 // 8)
-    sliced_img, sliced_sec, sliced_peak = restore("vae_slicing restore", pipe,
-                                                  dataclasses.replace(base, vae_slicing=True), small, exp512)
-    whole_img, whole_sec, whole_peak = restore("unsliced batch-2 restore", pipe, base, small, exp512)
+    sliced_cfg = dataclasses.replace(base, vae_slicing=True)
+    sliced_img, sliced_sec, sliced_peak = restore(
+        "vae_slicing restore", pipe, sliced_cfg, small,
+        expected_restore_launches(ucfg, sliced_cfg, build_step_phases(base), 512 // 8, batch=2))
+    whole_img, whole_sec, whole_peak = restore(
+        "unsliced batch-2 restore", pipe, base, small,
+        expected_restore_launches(ucfg, base, build_step_phases(base), 512 // 8, batch=2))
     close("vae_slicing vs unsliced, batch 2 at 512²", sliced_img, whole_img)
     log(f"  512² batch 2: sliced {sliced_sec:.3f} s, peak {sliced_peak:.2f} GB; unsliced {whole_sec:.3f} s, peak "
         f"{whole_peak:.2f} GB")
@@ -1467,6 +1694,61 @@ def run_restore_options(torch, pipe, steps: int, mods: dict, ucfg, card_line: st
             log(f"  config #4, {steps} steps, {kind}, {'merged' if merged else 'dynamic'} LoRA: "
                 f"{['%.3f' % x for x in secs]} s/image on {card_line}")
         out["config4"] = {f"{kind}_{'merged' if merged else 'dynamic'}": min(v) for (kind, merged), v in runs.items()}
+
+    # 9. the VAE's GroupNorms on the plain version (as the port ran them before K5 took them: hooks on the encoder
+    # and the decoder turn USE_FUSED off while they run) against K5, in turns -- plain, K5, K5, plain: the fp32
+    # encode and decode at 1024² (ms and the peak above what was allocated) and the graph replay of config #4 at
+    # ``steps`` steps (``--steps 30``: config #4 itself), each setting's graph recorded on a pipeline of its own
+    # over the same models
+    def switch(on: bool):
+        def hook(*_):
+            group_norm.USE_FUSED = on
+        return hook
+
+    def vae_call(fn):
+        with torch.no_grad():
+            ms = time_ms(torch, fn, iters=3, warmup=1, groups=1)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+        return ms, (torch.cuda.max_memory_allocated() - before) / 1e9
+
+    c4 = restore_config(steps)
+    c4_graph = dataclasses.replace(c4, fused=True)
+    c4_args = inputs(res, 1, steps)
+    c4_k5 = expected_restore_launches(ucfg, c4, build_step_phases(c4), lat)
+    vae_n = vae_restore_k5(c4, res, res)
+    pipes = {setting: InstantIRPipeline(pipe.unet, pipe.aggregator, pipe.vae, pipe.resampler, pipe.image_encoder,
+                                        pipe.schedule, device="cuda") for setting in ("plain", "K5")}
+    vae_lq, vae_noise = c4_args[0], c4_args[3].vae
+    with torch.no_grad():
+        z = pipe.encode_vae_image(vae_lq, vae_noise)
+    turns = []
+    for setting in ("plain", "K5", "K5", "plain"):
+        hooks = ([h for m in (pipe.vae.encoder, pipe.vae.decoder)
+                  for h in (m.register_forward_pre_hook(switch(False)), m.register_forward_hook(switch(True)))]
+                 if setting == "plain" else [])
+        enc_ms, enc_peak = vae_call(lambda: pipe.encode_vae_image(vae_lq, vae_noise))
+        dec_ms, dec_peak = vae_call(lambda: pipe.decode_latents(z))
+        if not any(t["setting"] == setting for t in turns):  # the VAE's K5 launches only in K5's recording
+            want = dict(c4_k5, group_norm_silu=c4_k5["group_norm_silu"] - (vae_n if setting == "plain" else 0))
+            restore(f"{steps}-step graph recording, VAE norms {setting}", pipes[setting], c4_graph, c4_args,
+                    {k: 2 * n for k, n in want.items()})
+        _, sec, _ = restore(f"{steps}-step graph replay, VAE norms {setting}", pipes[setting], c4_graph, c4_args, {})
+        for h in hooks:
+            h.remove()
+        turns.append(dict(setting=setting, encode_ms=enc_ms, encode_peak_gb=enc_peak, decode_ms=dec_ms,
+                          decode_peak_gb=dec_peak, replay_sec=sec))
+        log(f"  VAE norms {setting}: encode 1024² {enc_ms:.2f} ms (peak +{enc_peak:.2f} GB), decode {dec_ms:.2f} ms "
+            f"(peak +{dec_peak:.2f} GB), {steps}-step graph replay {sec:.3f} s/image; on {card_line}")
+    if group_norm.USE_FUSED is not True:
+        fail("phase 4b: the VAE turns left USE_FUSED off")
+    del pipes, z
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["vae_turns"] = turns
     return out
 
 
@@ -1493,6 +1775,41 @@ def png_size(path):
     with open(path, "rb") as f:
         head = f.read(24)
     return struct.unpack(">II", head[16:24])
+
+
+def read_png(data: bytes):
+    """``[H, W, 3]`` uint8 pixels of an 8-bit RGB or RGBA PNG (not
+    interlaced; every filter type), with zlib alone."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    pos, idat, head = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", data[pos + 8:pos + 21])
+        elif kind == b"IDAT":
+            idat.append(data[pos + 8:pos + 8 + n])
+        pos += 12 + n
+    if head is None or head[2] != 8 or head[3] not in (2, 6) or head[6]:
+        fail(f"read_png: not an 8-bit RGB / RGBA PNG without interlace: IHDR {head}")
+    w, h, ch = head[0], head[1], 3 if head[3] == 2 else 4
+    raw, stride = zlib.decompress(b"".join(idat)), w * ch
+    rows, prev = [], [0] * stride
+    for y in range(h):
+        kind, line = raw[y * (stride + 1)], list(raw[y * (stride + 1) + 1:(y + 1) * (stride + 1)])
+        for i in range(stride):
+            a = line[i - ch] if i >= ch else 0
+            b, c = prev[i], (prev[i - ch] if i >= ch else 0)
+            if kind == 4:
+                pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                a = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            line[i] = (line[i] + (0, a, b, (a + b) // 2, a)[kind]) & 255
+        rows.append(line)
+        prev = line
+    return np.array(rows, np.uint8).reshape(h, w, ch)[..., :3]
 
 
 def write_tokenizer(folder: str, pad_token: Optional[str] = None) -> None:
@@ -2150,7 +2467,11 @@ def run_serving(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> di
             lat.append(state.latents[slot].clone())
         return lat
 
-    alone_a, alone_b = counted("slot steps 512", alone, recorded_slot_launches(ucfg, 64, variants))
+    # each prelude encodes its image (the fp32 VAE's K5 launches); the steps record or replay
+    enc512 = vae_restore_k5(cfg, 512, 512, decode=False)
+    slot512 = recorded_slot_launches(ucfg, 64, variants)
+    alone_a, alone_b = counted("slot steps 512", alone, dict(slot512, group_norm_silu=slot512["group_norm_silu"]
+                                                             + 2 * enc512))
 
     def mixed():
         sampler.insert(state, payload_of(1), 0)
@@ -2163,7 +2484,7 @@ def run_serving(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> di
             sampler.step(state)
         return mixed_variants
 
-    mixed_variants = counted("slot steps 512 mixed", mixed, {})
+    mixed_variants = counted("slot steps 512 mixed", mixed, {"group_norm_silu": 2 * enc512})
     same_a, same_b = torch.equal(state.latents[0], alone_a), torch.equal(state.latents[1], alone_b)
     log(f"  SlotSampler 512², two slots, B admitted three steps into A (variants {mixed_variants}): A bitwise equal "
         f"to A alone {same_a}, B to B alone {same_b}")
@@ -2175,9 +2496,11 @@ def run_serving(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> di
 
     # (c) the continuous server
     cont = ContinuousRestoreServer(pipe, encode, ServeConfig(continuous=True, tick_steps=2, **base))
-    counted("serve continuous warmup", lambda: cont.start(warmup=True),
-            {k: sum(recorded_slot_launches(ucfg, r // 8, variants)[k] for r in buckets)
-             for k in ("flash_attention_fwd", "group_norm_silu")})
+    # per bucket: a prelude (the VAE encode), every step variant recorded, the batch-1 decode
+    warm = {k: sum(recorded_slot_launches(ucfg, r // 8, variants)[k] for r in buckets)
+            for k in ("flash_attention_fwd", "group_norm_silu")}
+    warm["group_norm_silu"] += sum(vae_restore_k5(cfg, r, r) for r in buckets)
+    counted("serve continuous warmup", lambda: cont.start(warmup=True), warm)
     for rep in cont.warmup_report:
         log(f"  continuous bucket {rep['bucket']}² {rep['batch']} slot(s): warmup {rep['seconds']:.3f} s, peak "
             f"increment {rep['peak_gb']:.3f} GB, held {rep['held_gb']:.3f} GB, reserved after "
@@ -2185,8 +2508,13 @@ def run_serving(torch, pipe, steps: int, mods: dict, ucfg, card_line: str) -> di
     out["continuous_warmup"] = cont.warmup_report
     sizes = [(512, 512), (400, 512), (1024, 1024), (1024, 768), (512, 512)]
     images = [png_pixels(w, h) for w, h in sizes]
-    sec = counted("serve continuous traffic", lambda: concurrent(cont, images, "five concurrent requests"), {})
-    log(f"  continuous server, five concurrent requests {sizes}: {sec:.3f} s, no launch (replays); stats "
+    # the steps replay; each request's prelude encodes and its decode decodes at its bucket (the smallest that
+    # covers its longer side)
+    traffic = sum(vae_restore_k5(cfg, *(2 * (next(b for b in buckets if b >= max(size)),))) for size in sizes)
+    sec = counted("serve continuous traffic", lambda: concurrent(cont, images, "five concurrent requests"),
+                  {"group_norm_silu": traffic})
+    log(f"  continuous server, five concurrent requests {sizes}: {sec:.3f} s, no step launch (replays; the preludes' "
+        f"and decodes' K5 {traffic}); stats "
         f"{json.dumps(cont.stats())} on {card_line}")
     cont.stop()
     del cont
@@ -3447,8 +3775,8 @@ def run_previewer(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(8)
     fused = mods["group_norm"].USE_FUSED
 
-    def expected_for(res: int, checkpointing: bool) -> dict:
-        expected = every_counter(expected_previewer_launches(ucfg, res // 8, checkpointing))
+    def expected_for(res: int, checkpointing: bool, image_branch: bool = False) -> dict:
+        expected = every_counter(expected_previewer_launches(ucfg, res // 8, checkpointing, image_branch))
         if not fused:
             expected["group_norm_silu"] = 0
         return expected
@@ -3472,7 +3800,7 @@ def run_previewer(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     image_trainer = PreviewerTrainer(pipe.unet, pipe.resampler, pipe.vae, pipe.image_encoder, cfg, losses,
                                      device="cuda")
     launches, out["sec_dino"], metrics = train_step_checked(
-        torch, image_trainer, batch, g, mods, expected,
+        torch, image_trainer, batch, g, mods, expected_for(512, False, image_branch=True),
         "previewer train_step at 512² batch 2, Huber + DINOLoss + LCMVisualization", card_line)
     out["peak_gb_dino"] = torch.cuda.max_memory_allocated() / 1e9
     for name, n in launches.items():
@@ -3535,9 +3863,9 @@ def run_perceptual(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     full-width synthetic VGG16 LPIPS; DreamSim's ``embed_fns`` one synthetic
     ViT-B/16 ``CLIPVisionModel`` projection, fp32) in turns with a Huber-only
     trainer over the same models (Huber, perceptual, perceptual, Huber, after
-    one perceptual warm-up step): the launches of phase 7's 512² step (the
-    towers launch no kernel: the VAE's
-    GroupNorms and the towers' attention run the plain versions), every
+    one perceptual warm-up step): the launches of phase 7's 512² step and of
+    the image branch's three VAE decodes (the towers launch no kernel: their
+    attention runs the plain version), every
     LoRA master moved, no frozen leaf changed, the masters fp32; s/step and
     peaks. Then a forward and a backward through ``pred_image`` at 512²
     batch 2 for each of LPIPSLoss, CLIPLoss (ViT-B/16 towers, 4
@@ -3578,14 +3906,16 @@ def run_perceptual(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
     frozen = {n: p for n, p in named.items() if not p.requires_grad}
     masters = trainer_masters(torch, perceptual, "previewer with LPIPS + DreamSim")
     before_train, before_frozen = _checksums(torch, masters), _checksums(torch, frozen)
-    expected = every_counter(expected_previewer_launches(ucfg, 512 // 8, False))
+    # the perceptual steps decode images (the image branch: three fp32 VAE decodes' K5), the Huber steps do not
+    expected = {branch: every_counter(expected_previewer_launches(ucfg, 512 // 8, False, image_branch=branch))
+                for branch in (False, True)}
     batch = perceptual.prepare_batch(*training_batch(torch, g, 2, 512, torch.bfloat16, uncond=True))
     out = {"sec": {"huber": [], "perceptual": []}, "peak_gb": {"huber": [], "perceptual": []},
            "train_previewer_perceptual": {name: 0 for name in COUNTERS}}
     # the first perceptual step warms up the towers (cuDNN plans for VGG16 and the ViT); the turns follow
     for kind in ("warm-up", "huber", "perceptual", "perceptual", "huber"):
         t = huber if kind == "huber" else perceptual
-        launches, sec, metrics = train_step_checked(torch, t, batch, g, mods, expected,
+        launches, sec, metrics = train_step_checked(torch, t, batch, g, mods, expected[kind != "huber"],
                                                     f"previewer step at 512² batch 2, {kind}", card_line)
         if kind != "warm-up":
             out["sec"][kind].append(sec)
@@ -4029,11 +4359,16 @@ def train_cli_phases(torch, pipe, ucfg, mods: dict, card_line: str) -> dict:
         return counts
 
     s1_step = derived(expected_train_launches(ucfg, 512 // 8, checkpointing=False))
-    # the validation renders at 512², batch 2: stage 1 samples 30 steps (Stage1Config: one UNet forward a step),
-    # the previewer takes one UNet forward, stage 2 restores with config #4 at 30 steps (RestoreConfig)
+    # the validation renders at 512², batch 2: stage 1 samples 30 steps (Stage1Config: one UNet forward a step) and
+    # decodes, the previewer encodes, takes one UNet forward and decodes (the fp32 VAE's K5 each), stage 2
+    # restores with config #4 at 30 steps (RestoreConfig)
     unet_fwd, _ = forward_launches(ucfg, 512 // 8)
     val_cfg = restore_config(30)
-    val_launches = {"stage1": derived({k: 30 * n for k, n in unet_fwd.items()}), "previewer": derived(unet_fwd),
+    dec512 = vae_train_k5(512 // 8, encodes=0, decodes=1)
+    val_launches = {"stage1": derived({k: 30 * n + (dec512 if k == "group_norm_silu" else 0)
+                                       for k, n in unet_fwd.items()}),
+                    "previewer": derived({k: n + (vae_train_k5(512 // 8, 1, 1) if k == "group_norm_silu" else 0)
+                                          for k, n in unet_fwd.items()}),
                     "stage2": derived(expected_restore_launches(ucfg, val_cfg, build_step_phases(val_cfg), 512 // 8))}
     out["validation_sec"] = {}
     g = torch.Generator(device="cuda").manual_seed(23)
@@ -4279,7 +4614,7 @@ def run_turns(torch, pipe, mods: dict, s1_step: dict, card_line: str, steps: int
 def run_fp32(torch, ucfg, mods: dict, card_line: str) -> dict:
     """Phase 8: the default (fp32) ``build_pipeline`` restores a 512² image in
     4 steps, then one fp32 ``Stage1Trainer`` step at 512², batch 1; both
-    through the fp32 flash entry points and K5 (fp32 UNet and Aggregator
+    through the fp32 flash entry points and K5 (fp32 UNet, Aggregator and VAE
     GroupNorms), counts derived from the config."""
     from instantir_tpu_torch.models.dinov2 import dinov2_large_config
     from instantir_tpu_torch.models.resampler import instantir_resampler_config
@@ -4304,8 +4639,9 @@ def run_fp32(torch, ucfg, mods: dict, card_line: str) -> dict:
     by_seq = flash_launches_by_seq(phases, flash_calls_per_forward(ucfg, lat, lat, with_up=True),
                                    flash_calls_per_forward(ucfg, lat, lat, with_up=False, concat=2))
     fused = mods["group_norm"].USE_FUSED
+    # K5: the fp32 UNet's and Aggregator's norms and the VAE's encode and decode
     expected = every_counter({"flash_attention_fwd_f32": sum(by_seq.values()), "group_norm_silu": sum(
-        group_norm_launches_by_shape(ucfg, phases, lat).values()) if fused else 0})
+        group_norm_launches_by_shape(ucfg, phases, lat).values()) + vae_restore_k5(cfg, res, res) if fused else 0})
     g = torch.Generator(device="cuda").manual_seed(6)
     lq = torch.rand(1, res, res, 3, generator=g, device="cuda") * 2.0 - 1.0
     pe = torch.randn(1, 77, 2048, generator=g, device="cuda") * 0.1
@@ -4533,6 +4869,8 @@ def run_restore_2048(torch, pipe, mods: dict, ucfg, card_line: str) -> dict:
     heads = {**heads_by_seq(ucfg, lat), **heads_by_seq(ucfg, lat, concat=2)}
     k1_want = {(2, s, heads[s]): n for s, n in by_seq.items()}
     gn_want = {(2,) + shape: n for shape, n in group_norm_launches_by_shape(ucfg, phases, lat).items()}
+    for shape, n in vae_restore_k5_by_shape(cfg, LONG_RES, LONG_RES).items():  # the VAE's tiles
+        gn_want[shape] = gn_want.get(shape, 0) + n
     if sorted(k1_want) != sorted(LONG_RESTORE_SHAPES) or sum(k1_want.values()) != expected["flash_attention_fwd"]:
         fail(f"phase 4h: K1 shapes derived {k1_want} are not LONG_RESTORE_SHAPES or do not add up to {expected}")
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -4839,21 +5177,33 @@ def norm2_shapes_per_forward(cfg, lat_h: int, lat_w: int, with_up: bool, concat:
     return counts
 
 
-def tp_launches_by_shape(cfg, phases, lat: int, tp: int = TP_SIZE):
-    """K1 and K5 launches of one tensor-parallel restore on each rank, by
-    shape: K1 by (B, S, H / tp), K5 by (C, H, W, groups) -- a resnet's
-    ``norm2`` at (C / tp, 32 / tp groups), every other GroupNorm whole."""
+def local_heads(heads: int, tp: int, rank: int) -> int:
+    """Rank ``rank``'s heads of an attention of ``heads`` heads of 64 under a
+    ``model`` axis of ``tp``: its ``tp_shares`` share where ``tp`` divides the
+    features and the heads are at least ``tp``, else all (the layer stays
+    whole)."""
+    return tp_shares(heads, tp)[rank] if (heads * 64) % tp == 0 and heads >= tp else heads
+
+
+def tp_launches_by_shape(cfg, phases, lat: int, tp: int = TP_SIZE, rank: int = 0):
+    """K1 and K5 launches of one tensor-parallel restore (UNet and
+    Aggregator) on rank ``rank``, by shape: K1 by (B, S, local heads), K5 by
+    (C, H, W, groups) -- a resnet's ``norm2`` at its share of the groups
+    (``tp_shares``) where ``tp`` divides its channels, every other GroupNorm
+    whole."""
     unet = flash_calls_per_forward(cfg, lat, lat, with_up=True)
     agg = flash_calls_per_forward(cfg, lat, lat, with_up=False, concat=2)
     heads = {**heads_by_seq(cfg, lat), **heads_by_seq(cfg, lat, concat=2)}
-    k1 = {(2, s, heads[s] // tp): n for s, n in flash_launches_by_seq(phases, unet, agg).items()}
+    k1 = {(2, s, local_heads(heads[s], tp, rank)): n for s, n in flash_launches_by_seq(phases, unet, agg).items()}
     n_unet, n_agg = forwards_per_restore(phases)
+    g = cfg.norm_num_groups
     k5: dict = {}
     for with_up, concat, n in ((True, 1, n_unet), (False, 2, n_agg)):
         norm2 = norm2_shapes_per_forward(cfg, lat, lat, with_up, concat)
         for (c, h, w), k in group_norm_shapes_per_forward(cfg, lat, lat, with_up, concat).items():
-            for key, m in (((c, h, w, 32), k - norm2.get((c, h, w), 0)), ((c // tp, h, w, 32 // tp),
-                                                                          norm2.get((c, h, w), 0))):
+            mine = tp_shares(g, tp)[rank] if c % tp == 0 and g >= tp else g
+            for key, m in (((c, h, w, g), k - norm2.get((c, h, w), 0)),
+                           ((c // g * mine, h, w, mine), norm2.get((c, h, w), 0))):
                 if m:
                     k5[key] = k5.get(key, 0) + m * n
     return k1, k5
@@ -5030,6 +5380,7 @@ def tp_worker_main(rank: int, world: int, out: str, backend: str) -> None:
             res.update(bytes_rank=model_bytes([getattr(self, n) for n in self._MODELS]),
                        backend=dist.get_backend(self.mesh.get_group("model")),
                        allocated_gb=torch.cuda.memory_allocated() / 1e9)
+            Path(os.path.join(out, f"sharded{rank}")).touch()  # loaded and sharded: its whole copy freed
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counters(mods)
@@ -5075,9 +5426,10 @@ def tp_worker_main(rank: int, world: int, out: str, backend: str) -> None:
     res["fingerprints"] = [[float(t.double().sum()) for t in (*c["args"], *c["noise"]) if isinstance(t, torch.Tensor)]
                            for c in calls]
     res["calls"] = [{k: c[k] for k in ("launches", "sec", "peak_gb")} for c in calls]
+    res["images"] = [c["image"] for c in calls]
     if rank == 0:
         res["served"] = got
-        res["restores"] = [{k: c[k] for k in ("args", "kwargs", "noise", "image")} for c in calls]
+        res["restores"] = [{k: c[k] for k in ("args", "kwargs", "noise")} for c in calls]
     torch.save(res, os.path.join(out, f"tp_rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -5110,51 +5462,200 @@ def start_background(root: str) -> dict:
     return out
 
 
-def run_tensor_parallel(torch, pipe, paths: dict, mods: dict, ucfg, gn_by_shape: dict, graph_sec: float,
-                        card_line: str, background: dict) -> dict:
-    """Phase 4j, on phase 4c's tree and phase 4's models: tensor parallelism
-    at two ranks on the one card. K1 at the local heads and K5 at the local
-    channels (16 groups) against their plain versions; config #4's analytic
-    FLOPs per image (``utils/flops.py``) and the 4-step graph replay's
-    achieved rate; ``PhaseTimer`` over one restore. Then an NCCL group of two
-    ranks on the card is tried (``--tp_probe``); where NCCL refuses, the two
-    ranks run in an explicit gloo group over the CUDA tensors
-    (``--tp_worker``): ``cli.serve --mesh --model_parallel 2`` on the tree,
-    each rank loading and sharding the pipeline
-    (``InstantIRPipeline.shard(make_mesh(model_parallel=2))``) and restoring
-    1024² (CFG 7, ``TP_STEPS`` steps, staged) at the server's warmup and for
-    one request. Checked: each rank's launches per restore against
-    ``tp_launches_by_shape``, both ranks' restores on the same inputs, each
-    image within ``TP_TOL`` of the one-rank restore of its inputs (made here,
-    on phase 4's models, which the tree holds), the served PNG the request's
-    image as uint8, the ranks' weight bytes against ``tp_spec``. The seconds
-    are not TP speed: two ranks share one card and gloo copies through the
-    host."""
-    import io
+def tp_restore_launches(ucfg, tp: int, res: int, rank: int):
+    """Rank ``rank``'s launches in one tensor-parallel restore at ``res``²
+    (``restore_config(TP_STEPS)``, batch 1, CFG batch 2) on a ``model`` axis
+    of ``tp``: K1 by (B, S, local heads) and K5 by (C, H, W, groups) of the
+    UNet and the Aggregator (``tp_launches_by_shape``), the fp32 VAE's K5 by
+    (C, H, W, groups) at its local ``norm2`` shapes, and the counts in all."""
+    from instantir_tpu_torch.models.vae import sdxl_vae_config
+    from instantir_tpu_torch.pipeline.instantir import build_step_phases
+
+    cfg = restore_config(TP_STEPS)
+    phases = build_step_phases(cfg)
+    k1, k5 = tp_launches_by_shape(ucfg, phases, res // 8, tp, rank)
+    vae: dict = {}
+    for part, hw in (("encoder", res), ("decoder", res // 8)):
+        for (c, h, w, g, _), n in vae_group_norm_shapes(sdxl_vae_config(), hw, hw, part, tp, rank).items():
+            vae[(c, h, w, g)] = vae.get((c, h, w, g), 0) + n
+    want = expected_restore_launches(ucfg, cfg, phases, res // 8)
+    if (sum(k1.values()), sum(k5.values()) + sum(vae.values())) != (want["flash_attention_fwd"],
+                                                                     want["group_norm_silu"]):
+        fail(f"phase 4j: the launches by shape at model {tp} rank {rank} ({k1}, {k5}, {vae}) do not add up to {want}")
+    return k1, k5, vae, every_counter(want)
+
+
+def start_tp_ranks(torch, paths: dict, tp: int, res: int, backend: str) -> dict:
+    """Start ``tp`` ranks in a ``backend`` group on the one card
+    (``--tp_worker``) serving ``res``² through ``cli.serve --mesh
+    --model_parallel tp --no-fused`` on the tree (``finish_tp_ranks`` waits
+    for them and checks them)."""
     import tempfile
 
+    root = tempfile.mkdtemp(prefix=f"tp{tp}_")
+    rgb = (torch.rand(res, res, 3, generator=torch.Generator().manual_seed(33 + tp)) * 255).to(torch.uint8).numpy()
+    write_png(os.path.join(root, "request.png"), rgb)
+    serve_argv = ["--sdxl_path", paths["sdxl"], "--instantir_path", paths["instantir"], "--vision_encoder_path",
+                  paths["dinov2"], "--resolution", str(res), "--batch_size", "1", "--num_inference_steps",
+                  str(TP_STEPS), "--cfg", "7", "--no-fused", "--host", "127.0.0.1", "--mesh", "--model_parallel",
+                  str(tp)]
+    torch.save({"png": open(os.path.join(root, "request.png"), "rb").read(), "serve_argv": serve_argv},
+               os.path.join(root, "tp_job.pt"))
+    return {"tp": tp, "res": res, "root": root, "t0": time.perf_counter(),
+            "started": _spawn_ranks("--tp_worker", tp, [root, backend], root)}
+
+
+def wait_sharded(run: dict, timeout: float) -> None:
+    """Wait until every rank of ``start_tp_ranks``' ``run`` has loaded and
+    sharded its pipeline (its whole copy freed), or one has exited."""
+    deadline = time.time() + timeout
+    procs = run["started"][0]
+    while time.time() < deadline:
+        if all(os.path.exists(os.path.join(run["root"], f"sharded{r}")) for r in range(run["tp"])):
+            return
+        if any(p.poll() is not None for p in procs):
+            return  # finish_tp_ranks reports it
+        time.sleep(1.0)
+
+
+def finish_tp_ranks(torch, pipe, ucfg, run: dict, backend: str, card_line: str) -> dict:
+    """``tp`` ranks in a ``backend`` group on the one card (``--tp_worker``),
+    each running ``cli.serve --mesh --model_parallel tp --no-fused`` on the
+    tree: each loads and shards the pipeline and restores ``res``² (CFG 7,
+    ``TP_STEPS`` steps, staged) at the server's warmup and for one request.
+    Checked: each rank's launches per restore against the counts derived at
+    its local shapes (``tp_restore_launches``), every rank's restores on the
+    same inputs, every rank's image within ``TP_TOL`` of the one-rank restore
+    of those inputs (made here, on phase 4's models, which the tree holds),
+    the served PNG the request's image as uint8, each rank's weight bytes
+    those ``tp_held_bytes`` derives for it (beside the JAX rule's share,
+    ``tp_spec``). The seconds are not TP speed: the ranks share one card and
+    gloo copies through the host."""
     import numpy as np
 
     from instantir_tpu_torch.cli.serve import to_uint8
-    from instantir_tpu_torch.ops import attention, group_norm
-    from instantir_tpu_torch.parallel.tp import kept_whole, tp_spec
-    from instantir_tpu_torch.pipeline.instantir import RestoreNoise, build_step_phases
+    from instantir_tpu_torch.parallel.tp import kept_whole, tp_held_bytes, tp_spec
+    from instantir_tpu_torch.pipeline.instantir import RestoreNoise
 
-    res = 1024
-    cfg = restore_config(TP_STEPS)
-    phases = build_step_phases(cfg)
-    k1_by_shape, k5_by_shape = tp_launches_by_shape(ucfg, phases, res // 8)
-    want = expected_restore_launches(ucfg, cfg, phases, res // 8)
-    if sum(k1_by_shape.values()) != want["flash_attention_fwd"] or sum(k5_by_shape.values()) != want["group_norm_silu"]:
-        fail(f"phase 4j: the launches by shape {k1_by_shape} {k5_by_shape} do not add up to {want}")
-    if sorted({k[:3] for k in k1_by_shape}) != sorted(TP_RESTORE_SHAPES):
-        fail(f"phase 4j: K1's derived shapes {sorted(k1_by_shape)} are not TP_RESTORE_SHAPES {TP_RESTORE_SHAPES}")
-    log(f"  K1 at the local heads {TP_RESTORE_SHAPES}, K5 at the local channels "
-        f"{sorted(k[:3] for k in k5_by_shape if k[3] == 32 // TP_SIZE)} (16 groups), against their plain versions")
-    k1_rows = check_flash(torch, attention, [(b, s, s, h) for b, s, h in TP_RESTORE_SHAPES], host_timing=False)
-    gn_rows = check_group_norm(torch, group_norm, gn_by_shape,
-                               [(GN_BATCH, k[:3], (torch.bfloat16,)) for k in sorted(k5_by_shape) if k[3] != 32],
-                               base=False, host=False, groups=32 // TP_SIZE)
+    tp, res, root = run["tp"], run["res"], run["root"]
+    try:
+        rcs, texts = _wait_ranks(run["started"], max(1.0, TP_TIMEOUT - (time.perf_counter() - run["t0"])))
+        sec = time.perf_counter() - run["t0"]
+        os.makedirs(REPO / "chiprun_out", exist_ok=True)
+        for r, t in enumerate(texts):
+            (REPO / "chiprun_out" / f"tp{tp}_rank{r}.log").write_text(t)
+        if any(rc != 0 for rc in rcs):
+            fail(f"phase 4j: the {tp} tensor-parallel ranks exited {rcs}; rank logs in chiprun_out/tp{tp}_rank*.log:\n"
+                 + "\n".join(t[-3000:] for t in texts))
+        ranks = [torch.load(os.path.join(root, f"tp_rank{r}.pt"), weights_only=False) for r in range(tp)]
+
+        # launches: every rank's two restores (the server's warmup and the request) those derived at its local shapes
+        derived = [tp_restore_launches(ucfg, tp, res, r)[3] for r in range(tp)]
+        for r, out in enumerate(ranks):
+            if [c["launches"] for c in out["calls"]] != [derived[r], derived[r]]:
+                fail(f"phase 4j, model {tp}, rank {r}: launches {[c['launches'] for c in out['calls']]} (warmup, "
+                     f"request), derived {derived[r]} each")
+            if out["backend"] != backend:
+                fail(f"phase 4j, model {tp}, rank {r}: the model group is {out['backend']}, not {backend}")
+        if any(o["fingerprints"] != ranks[0]["fingerprints"] for o in ranks):
+            fail(f"phase 4j, model {tp}: the ranks' restores differ in their inputs")
+
+        # every rank's TP restores against the one-rank restore of their inputs; the answer is the request's image
+        rels = []
+        for i, call in enumerate(ranks[0]["restores"]):
+            args = [t.cuda() if isinstance(t, torch.Tensor) else t for t in call["args"]]
+            kwargs = {k: (v.cuda() if isinstance(v, torch.Tensor) else v) for k, v in call["kwargs"].items()}
+            vae, init, *steps = (t.cuda() for t in call["noise"])
+            one = torch.as_tensor(pipe.restore(*args, noise=RestoreNoise(vae=vae, init=init, steps=steps), **kwargs)[0])
+            for r, out in enumerate(ranks):
+                tp_image = torch.as_tensor(out["images"][i])
+                if not (torch.isfinite(tp_image).all() and tp_image.shape == (1, res, res, 3)):
+                    fail(f"phase 4j, model {tp}, rank {r}: a TP restore gave {tuple(tp_image.shape)}, finite "
+                         f"{torch.isfinite(tp_image).all()}")
+                rels.append(rel_l2(torch, tp_image, one))
+        served = ranks[0]["served"]
+        if served.get("status") != 200:
+            fail(f"phase 4j, model {tp}: the TP server answered {served.get('status')}: "
+                 f"{served.get('body', b'')[:300]!r}")
+        png = read_png(served["body"])
+        same_png = np.array_equal(png, to_uint8(ranks[0]["images"][-1][0]))
+        calls = ranks[0]["calls"]
+        log(f"  model {tp}: TP restores (the server's InstantIRPipeline.shard(make_mesh(model_parallel={tp})), "
+            f"{backend}, {res}² {TP_STEPS} steps CFG 7, staged): every rank's warmup and request images "
+            f"{', '.join(f'{x:.3e}' for x in rels)} relative L2 from the one-rank restores of the same inputs (TP_TOL "
+            f"{TP_TOL}); the served PNG {png.shape} the request's uint8 image: {same_png}; launches per restore, "
+            f"rank 0 {calls[0]['launches']}; on {card_line}")
+        log(f"  model {tp}, not TP speed ({tp} ranks share the card"
+            f"{', gloo copies through the host' if backend == 'gloo' else ''}): rank 0's restores "
+            f"{[round(c['sec'], 2) for c in calls]} s, peaks {[round(c['peak_gb'], 2) for c in calls]} GB, the request "
+            f"answered in {served['sec']:.2f} s, the server runs (load, shard, warmup, request, drain) "
+            f"{[round(o['serve_sec'], 1) for o in ranks]} s, the ranks {sec:.1f} s")
+        if not same_png or max(rels) > TP_TOL:
+            fail(f"phase 4j, model {tp}: the served PNG is its restore's image: {same_png}; relative L2 {rels} "
+                 f"(> {TP_TOL}?)")
+
+        # weight bytes per rank: the port's layout (tp_held_bytes) exactly, the JAX rule's even share beside it
+        held = [0] * tp
+        jax_rule = whole = 0
+        for name in pipe._MODELS:
+            model = getattr(pipe, name)
+            held = [h + m for h, m in zip(held, tp_held_bytes(model, tp))]
+            for n, p in model.named_parameters():
+                nbytes = p.numel() * p.element_size()
+                split = tp_spec(n, tuple(p.shape), tp) is not None and not kept_whole(n)
+                jax_rule += nbytes // tp if split else nbytes
+                whole += nbytes
+            bufs = sum(b.numel() * b.element_size() for b in model.buffers())
+            jax_rule, whole = jax_rule + bufs, whole + bufs
+        per_rank = [o["bytes_rank"] for o in ranks]
+        log(f"  model {tp}, weight bytes: one rank {whole / 1e9:.3f} GB; each of {tp} ranks "
+            f"{[round(b / 1e9, 3) for b in per_rank]} GB ({per_rank[0] / whole:.1%} on rank 0), tp_held_bytes "
+            f"{[round(b / 1e9, 3) for b in held]} GB; the JAX rule's leaves split evenly (tp_spec) "
+            f"{jax_rule / 1e9:.3f} GB a rank; allocated before the first restore "
+            f"{[round(o['allocated_gb'], 2) for o in ranks]} GB")
+        if per_rank != held:
+            fail(f"phase 4j, model {tp}: per-rank weight bytes {per_rank} differ from tp_held_bytes {held}")
+        return {"launches": calls[0]["launches"], "serve_launches": {k: 2 * v for k, v in calls[0]["launches"].items()},
+                "rel_l2": rels, "bytes": {"whole": whole, "rank": per_rank, "held": held, "jax_rule": jax_rule},
+                "seconds": sec, "restore_sec": [c["sec"] for c in calls]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_tensor_parallel(torch, pipe, paths: dict, mods: dict, ucfg, gn_by_shape: dict, graph_sec: float,
+                        card_line: str, background: dict) -> dict:
+    """Phase 4j, on phase 4c's tree and phase 4's models: tensor parallelism
+    on the one card at ``TP_RES``², at a ``model`` axis of 2 and of 4 (where
+    the 10-head attentions split 3 / 3 / 2 / 2). K1 at the local heads and
+    K5 at the local ``norm2`` shapes (the UNet's and the Aggregator's in
+    bf16, the VAE's in fp32) against their plain versions; config #4's
+    analytic FLOPs per image (``utils/flops.py``) and the 4-step graph
+    replay's achieved rate; ``PhaseTimer`` over one restore. Then an NCCL
+    group of two ranks on the card is tried (``--tp_probe``); where NCCL
+    refuses, the ranks run in an explicit gloo group over the CUDA tensors
+    (``start_tp_ranks`` / ``finish_tp_ranks``: ``cli.serve --mesh
+    --model_parallel`` on the tree), the four model-4 ranks first and the two
+    model-2 ranks beside them once the four have sharded."""
+    from instantir_tpu_torch.ops import attention, group_norm
+
+    k1_rows, gn_rows, shapes = [], [], {}
+    for tp, res in ((TP_SIZE, TP_RES), (TP_MODEL4, TP_RES)):
+        k1_by_shape, k5_by_shape, vae_by_shape = {}, {}, {}
+        for rank in range(tp):
+            k1, k5, vae, _ = tp_restore_launches(ucfg, tp, res, rank)
+            for acc, d in ((k1_by_shape, k1), (k5_by_shape, k5), (vae_by_shape, vae)):
+                for key, n in d.items():
+                    acc[key] = acc.get(key, 0) + n
+        shapes[tp] = {"k1": k1_by_shape, "k5": k5_by_shape, "vae": vae_by_shape}
+        local5 = sorted(k for k in k5_by_shape if k[3] != 32)
+        local_vae = sorted(k for k in vae_by_shape if k[3] != 32)
+        log(f"  model {tp} at {res}²: K1 at the local heads {sorted(k1_by_shape)}, K5 at the local norm2 shapes "
+            f"{local5} (bf16) and the VAE's {local_vae} (fp32), against their plain versions")
+        k1_rows += check_flash(torch, attention, [(b, s, s, h) for b, s, h in sorted(k1_by_shape)], host_timing=False)
+        gn_rows += check_group_norm(torch, group_norm, gn_by_shape,
+                                    [(GN_BATCH, k[:3], (torch.bfloat16,), {"groups": k[3]}) for k in local5]
+                                    + [(1, k[:3], (torch.float32,), {"groups": k[3], "silus": (True,), "f64": True})
+                                       for k in local_vae], base=False, host=False)
 
     # the FLOP counter (counted on meta since phase 2, --count_flops) and the phase timer, on one rank
     try:
@@ -5171,107 +5672,31 @@ def run_tensor_parallel(torch, pipe, paths: dict, mods: dict, ucfg, gn_by_shape:
         f"{counted['sec_4'] + counted['sec_30']:.0f} s of one core): config #4 (30 steps) {flops30 / 1e12:.2f} TFLOP, "
         f"the 4-step restore {flops4 / 1e12:.2f} TFLOP; the 4-step graph replay ({graph_sec:.3f} s, phase 4b) achieves "
         f"{tflops:.1f} TFLOP/s, {tflops / (PEAK_BF16_FLOPS / 1e12):.1%} of 989; on {card_line}")
-    times = phase_times(torch, pipe, restore_config(4), res)
+    times = phase_times(torch, pipe, restore_config(4), 1024)
     log(f"  PhaseTimer over one staged 4-step 1024² restore (s): {json.dumps({k: round(v, 4) for k, v in times.items()})}"
         f"; on {card_line}")
 
-    root = tempfile.mkdtemp(prefix="tp_")
-    try:
-        rgb = (torch.rand(res, res, 3, generator=torch.Generator().manual_seed(33)) * 255).to(torch.uint8).numpy()
-        write_png(os.path.join(root, "request.png"), rgb)
-        serve_argv = ["--sdxl_path", paths["sdxl"], "--instantir_path", paths["instantir"], "--vision_encoder_path",
-                      paths["dinov2"], "--resolution", str(res), "--batch_size", "1", "--num_inference_steps",
-                      str(TP_STEPS), "--cfg", "7", "--no-fused", "--host", "127.0.0.1", "--mesh", "--model_parallel",
-                      str(TP_SIZE)]
-        torch.save({"png": open(os.path.join(root, "request.png"), "rb").read(), "serve_argv": serve_argv},
-                   os.path.join(root, "tp_job.pt"))
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        rcs, texts = _wait_ranks(background["probe"], 90)
-        nccl_ok = all(rc == 0 for rc in rcs)
-        nccl_error = next((line.strip() for t in texts for line in t.splitlines()
-                           if "rror" in line and "Traceback" not in line), f"exit codes {rcs}")
-        log(f"  NCCL group of {TP_SIZE} ranks on the one card (tried beside phase 2): "
-            f"{'works' if nccl_ok else 'refused: ' + nccl_error[:400]}")
-        backend = "nccl" if nccl_ok else "gloo"
-        t0 = time.perf_counter()
-        rcs, texts = _wait_ranks(_spawn_ranks("--tp_worker", TP_SIZE, [root, backend], root), TP_TIMEOUT)
-        sec = time.perf_counter() - t0
-        os.makedirs(REPO / "chiprun_out", exist_ok=True)
-        for r, t in enumerate(texts):
-            (REPO / "chiprun_out" / f"tp_rank{r}.log").write_text(t)
-        if any(rc != 0 for rc in rcs):
-            fail(f"phase 4j: the tensor-parallel ranks exited {rcs}; rank logs in chiprun_out/tp_rank*.log:\n"
-                 + "\n".join(t[-3000:] for t in texts))
-        ranks = [torch.load(os.path.join(root, f"tp_rank{r}.pt"), weights_only=False) for r in range(TP_SIZE)]
-
-        # launches: every rank's two restores (the server's warmup and the request) those derived at the local shapes
-        derived = every_counter(want)
-        for r, out in enumerate(ranks):
-            if [c["launches"] for c in out["calls"]] != [derived, derived]:
-                fail(f"phase 4j rank {r}: launches {[c['launches'] for c in out['calls']]} (warmup, request), "
-                     f"derived {derived} each")
-            if out["backend"] != backend:
-                fail(f"phase 4j rank {r}: the model group is {out['backend']}, not {backend}")
-        if ranks[0]["fingerprints"] != ranks[1]["fingerprints"]:
-            fail("phase 4j: the ranks' restores differ in their inputs")
-
-        # each TP restore against the one-rank restore of its inputs; the answer is the request's image as uint8
-        rels = []
-        for call in ranks[0]["restores"]:
-            args = [t.cuda() if isinstance(t, torch.Tensor) else t for t in call["args"]]
-            kwargs = {k: (v.cuda() if isinstance(v, torch.Tensor) else v) for k, v in call["kwargs"].items()}
-            vae, init, *steps = (t.cuda() for t in call["noise"])
-            one = pipe.restore(*args, noise=RestoreNoise(vae=vae, init=init, steps=steps), **kwargs)[0]
-            tp_image = torch.as_tensor(call["image"])
-            if not (torch.isfinite(tp_image).all() and tp_image.shape == (1, res, res, 3)):
-                fail(f"phase 4j: a TP restore gave {tuple(tp_image.shape)}, finite {torch.isfinite(tp_image).all()}")
-            rels.append(rel_l2(torch, tp_image, torch.as_tensor(one)))
-        served = ranks[0]["served"]
-        if served.get("status") != 200:
-            fail(f"phase 4j: the TP server answered {served.get('status')}: {served.get('body', b'')[:300]!r}")
-        from PIL import Image
-
-        png = np.asarray(Image.open(io.BytesIO(served["body"])).convert("RGB"))
-        same_png = np.array_equal(png, to_uint8(ranks[0]["restores"][-1]["image"][0]))
-        calls = ranks[0]["calls"]
-        log(f"  TP restores (the server's InstantIRPipeline.shard(make_mesh(model_parallel={TP_SIZE})), {backend}, "
-            f"1024² {TP_STEPS} steps CFG 7, staged): the warmup's and the request's {rels[0]:.3e} / {rels[1]:.3e} "
-            f"relative L2 from the one-rank restores of the same inputs (TP_TOL {TP_TOL}); the served PNG "
-            f"{png.shape} the request's uint8 image: {same_png}; launches per rank and restore "
-            f"{calls[0]['launches']}; on {card_line}")
-        log(f"  not TP speed (two ranks share the card{', gloo copies through the host' if backend == 'gloo' else ''}): "
-            f"restores {[round(c['sec'], 2) for c in calls]} s, peaks {[round(c['peak_gb'], 2) for c in calls]} GB, "
-            f"the request answered in {served['sec']:.2f} s, the server run (load, shard, warmup, request, drain) "
-            f"{[round(o['serve_sec'], 1) for o in ranks]} s, the phase's ranks {sec:.1f} s")
-        if not same_png or max(rels) > TP_TOL:
-            fail(f"phase 4j: the served PNG is its restore's image: {same_png}; relative L2 {rels} (> {TP_TOL}?)")
-
-        # weight bytes per rank against the prediction from tp_spec
-        predicted = whole = 0
-        for name in pipe._MODELS:
-            for n, p in getattr(pipe, name).named_parameters():
-                nbytes = p.numel() * p.element_size()
-                split = tp_spec(n, tuple(p.shape), TP_SIZE) is not None and not kept_whole(n)
-                predicted += nbytes // TP_SIZE if split else nbytes
-                whole += nbytes
-            bufs = sum(b.numel() * b.element_size() for b in getattr(pipe, name).buffers())
-            predicted, whole = predicted + bufs, whole + bufs
-        per_rank = [o["bytes_rank"] for o in ranks]
-        log(f"  weight bytes: one rank {whole / 1e9:.3f} GB, each of {TP_SIZE} ranks {[round(b / 1e9, 3) for b in per_rank]} "
-            f"GB ({per_rank[0] / whole:.1%}); predicted from tp_spec {predicted / 1e9:.3f} GB (the leaves it shards "
-            f"halved, KEPT_WHOLE and the rest whole; the column-parallel biases and the norm2 scales, sliced too, "
-            f"make the difference); allocated before the first restore {[round(o['allocated_gb'], 2) for o in ranks]} GB")
-        if not (per_rank[0] == per_rank[1] and 0.99 * per_rank[0] <= predicted <= 1.02 * per_rank[0]):
-            fail(f"phase 4j: per-rank weight bytes {per_rank} against the prediction {predicted}")
-        return {"k1_rows": k1_rows, "gn_rows": gn_rows, "k1_by_shape": k1_by_shape, "k5_by_shape": k5_by_shape,
-                "launches": calls[0]["launches"], "serve_launches": {k: 2 * v for k, v in calls[0]["launches"].items()},
-                "rel_l2": rels, "backend": backend, "nccl_error": None if nccl_ok else nccl_error,
-                "flops4": flops4, "flops30": flops30, "tflops": tflops, "phase_times": times,
-                "bytes": {"whole": whole, "rank": per_rank, "predicted": predicted}, "seconds": sec}
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    rcs, texts = _wait_ranks(background["probe"], 90)
+    nccl_ok = all(rc == 0 for rc in rcs)
+    nccl_error = next((line.strip() for t in texts for line in t.splitlines()
+                       if "rror" in line and "Traceback" not in line), f"exit codes {rcs}")
+    log(f"  NCCL group of {TP_SIZE} ranks on the one card (tried beside phase 2): "
+        f"{'works' if nccl_ok else 'refused: ' + nccl_error[:400]}")
+    backend = "nccl" if nccl_ok else "gloo"
+    # the four model-4 ranks first; once each has loaded and sharded (its whole 10 GB copy freed), the two
+    # model-2 ranks beside them: the groups overlap on the card and its host, each within the card's memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = {TP_MODEL4: start_tp_ranks(torch, paths, TP_MODEL4, TP_RES, backend)}
+    wait_sharded(started[TP_MODEL4], TP_TIMEOUT / 2)
+    started[TP_SIZE] = start_tp_ranks(torch, paths, TP_SIZE, TP_RES, backend)
+    runs = {tp: finish_tp_ranks(torch, pipe, ucfg, started[tp], backend, card_line) for tp in (TP_SIZE, TP_MODEL4)}
+    two = runs[TP_SIZE]
+    return {"k1_rows": k1_rows, "gn_rows": gn_rows, "shapes": shapes, "runs": runs,
+            "launches": two["launches"], "serve_launches": {k: sum(r["serve_launches"][k] for r in runs.values())
+                                                            for k in two["serve_launches"]},
+            "rel_l2": two["rel_l2"], "backend": backend, "nccl_error": None if nccl_ok else nccl_error,
+            "flops4": flops4, "flops30": flops30, "tflops": tflops, "phase_times": times, "bytes": two["bytes"]}
 
 
 def _weighted(rows, key, weights):
@@ -5351,6 +5776,7 @@ def main() -> None:
 
     # 3. kernel check
     from instantir_tpu_torch.models.unet import sdxl_base_config
+    from instantir_tpu_torch.models.vae import sdxl_vae_config
     from instantir_tpu_torch.ops import attention, group_norm
     from instantir_tpu_torch.pipeline.instantir import build_step_phases
 
@@ -5414,6 +5840,30 @@ def main() -> None:
     if args.only != "flash_f32":
         gn_rows += check_group_norm(torch, group_norm, gn_by_shape, [(GN_BATCH, shape, (bf16,)) for shape in long_gn],
                                     base=False, host=False)
+    # the VAE's shapes (batch 1: the restore's fp32 encode and decode, the bf16 decode, the 2048² restore's tiles),
+    # each held to its fp64 evaluation; the uneven local shapes of a model axis of 5 (the 1024² restore's resnets'
+    # norm2 at 7 and at 6 of the 32 groups) and K1 at a model axis of 4's local heads (3 and 2 of 10, 5 of 20)
+    vcfg = sdxl_vae_config()
+    tp_phases = build_step_phases(restore_config(4))
+    uneven = sorted({key for rank in (0, TP_UNEVEN - 1)
+                     for key in tp_launches_by_shape(ucfg, tp_phases, 1024 // 8, TP_UNEVEN, rank)[1] if key[3] != 32})
+    tp4_heads = sorted({key for rank in range(TP_MODEL4)
+                        for key in tp_launches_by_shape(ucfg, tp_phases, 1024 // 8, TP_MODEL4, rank)[0]})
+    tp2_heads = sorted(tp_launches_by_shape(ucfg, tp_phases, 1024 // 8, TP_SIZE)[0])
+    if sorted(k[:3] for k in tp2_heads) != sorted(TP_RESTORE_SHAPES):
+        fail(f"phase 3: K1's derived model-2 shapes {tp2_heads} are not TP_RESTORE_SHAPES {TP_RESTORE_SHAPES}")
+    if args.only != "flash_f32":
+        phase(f"[3] K5 at the VAE's shapes, fp32 and bf16, against the plain version and fp64; at a model axis of "
+              f"{TP_UNEVEN}'s uneven local norm2 shapes {uneven}")
+        gn_rows += check_group_norm(torch, group_norm, gn_by_shape, vae_gn_cases(torch, vcfg), base=False, host=False)
+        gn_rows += check_group_norm(torch, group_norm, gn_by_shape,
+                                    [(GN_BATCH, key[:3], (bf16,), {"groups": key[3]}) for key in uneven],
+                                    base=False, host=False)
+    if args.only not in ("group_norm", "flash_f32"):
+        phase(f"[3] K1 at the 1024² restore's local heads of a model axis of {TP_MODEL4} {tp4_heads} and of "
+              f"{TP_SIZE} {tp2_heads}")
+        k1_rows += check_flash(torch, attention, [(b, s, s, h) for b, s, h in tp4_heads + tp2_heads],
+                               host_timing=False)
     if args.only:
         log(f"kernel check passed (--only {args.only}: no restore, no training, no result line)")
         return
@@ -5436,9 +5886,9 @@ def main() -> None:
         clip = run_clip_encoder(torch, pipe, paths, towers, mods, ucfg, card_line)
         phase("[4c] cli.infer.main --sequence_parallel at 1024² on the tree, one rank under torchrun's environment")
         clip["cli_sp"] = run_cli_sequence_parallel(torch, pipe, paths, towers, mods, ucfg, card_line)
-        phase(f"[4j] tensor parallelism on the tree: K1 / K5 at the local shapes, the FLOP counter, then {TP_SIZE} ranks "
-              f"on the one card restore 1024² ({TP_STEPS} steps, CFG 7) and serve one request (cli.serve --mesh "
-              f"--model_parallel {TP_SIZE})")
+        phase(f"[4j] tensor parallelism on the tree: K1 / K5 at the local shapes, the FLOP counter, then {TP_MODEL4} "
+              f"and {TP_SIZE} ranks on the one card restore {TP_RES}² ({TP_STEPS} steps, CFG 7) and serve one request "
+              f"(cli.serve --mesh --model_parallel {TP_MODEL4} and {TP_SIZE})")
         clip["tp"] = run_tensor_parallel(torch, pipe, paths, mods, ucfg, gn_by_shape, options["graph_sec"], card_line,
                                          background)
         return clip
@@ -5583,18 +6033,36 @@ def main() -> None:
     def train_weights(name, rows):
         return [sum(by_shape[p][name].get(shape_of(r), 0) for p in by_shape) for r in rows]
 
-    # the tensor-parallel server's (phase 4j: two restores on each rank, the same counts at the local heads)
+    # the tensor-parallel servers' (phase 4j: two restores on each rank at its local heads; models 2 and 4)
+    tp_k1, tp_k5, tp_vae = {}, {}, {}
+    for shapes in tp["shapes"].values():
+        for acc, d in ((tp_k1, shapes["k1"]), (tp_k5, shapes["k5"]), (tp_vae, shapes["vae"])):
+            for key, n in d.items():
+                acc[key] = acc.get(key, 0) + 2 * n
     k1_weights = [w + (2 * by_seq.get(r["S"], 0) if shape_of(r) in RESTORE_SHAPES else 0)
-                  + long_restore["k1_by_shape"].get(shape_of(r), 0) + 2 * tp["k1_by_shape"].get(shape_of(r), 0)
+                  + long_restore["k1_by_shape"].get(shape_of(r), 0) + tp_k1.get(shape_of(r), 0)
                   for r, w in zip(k1_rows, train_weights("flash_attention_fwd", k1_rows))]
     k2_weights = [w + long_restore["k2_by_shape"].get(shape_of(r), 0)
                   for r, w in zip(train_rows["fwd_lse"], train_weights("flash_attention_fwd_lse", train_rows["fwd_lse"]))]
-    # K5: weighted over the 1024² restore (bf16, CFG batch 2), the path its entry's launches count
+    # K5: weighted over the 1024² restore (bf16 UNet and Aggregator at CFG batch 2; the fp32 VAE at batch 1, by
+    # SiLU setting), the path its entry's launches count, the 2048² restore's and the tensor-parallel servers'
     gn_long = group_norm_launches_by_shape(ucfg, build_step_phases(restore_config(4)), LONG_RES // 8)
-    gn_weights = [(gn_by_shape.get((r["C"], r["H"], r["W"]), 0) + (gn_long.get((r["C"], r["H"], r["W"]), 0)
-                                                                  if (r["C"], r["H"], r["W"]) in long_gn else 0)
-                   if r["G"] == 32 else 2 * tp["k5_by_shape"].get((r["C"], r["H"], r["W"], r["G"]), 0))
-                  if (r["dtype"], r["B"]) == ("bfloat16", GN_BATCH) else 0 for r in gn_rows]
+    vae_restore = {}
+    for part, hw in (("encoder", 1024), ("decoder", 1024 // 8)):
+        for (c, h, w, _, silu), n in vae_group_norm_shapes(vcfg, hw, hw, part).items():
+            vae_restore[(c, h, w, silu)] = vae_restore.get((c, h, w, silu), 0) + n
+
+    def gn_weight(r) -> int:
+        key = (r["C"], r["H"], r["W"])
+        if (r["dtype"], r["B"]) == ("bfloat16", GN_BATCH):
+            if r["G"] == 32:
+                return gn_by_shape.get(key, 0) + (gn_long.get(key, 0) if key in long_gn else 0)
+            return tp_k5.get(key + (r["G"],), 0)
+        if (r["dtype"], r["B"]) == ("float32", 1) and "f64_err" in r:  # the VAE's rows
+            return vae_restore.get(key + (r["silu"],), 0) if r["G"] == 32 else tp_vae.get(key + (r["G"],), 0)
+        return 0
+
+    gn_weights = [gn_weight(r) for r in gn_rows]
     # fp32: K1 by the 512² restore's launches per sequence (all CFG batch 2), K2-K4 by the stage-1 step's shape
     f32_fwd_weights = [f32["by_seq"].get(r["S"], 0) if shape_of(r) in F32_PATH_SHAPES[:3] else 0
                        for r in f32_rows["fwd"]]
@@ -5707,10 +6175,12 @@ def main() -> None:
           f"{long_restore['sp_rel_l2']:.3e}; sharded 1024² restore on one rank {sharded['seconds']:.3f} s; CLI "
           f"--sequence_parallel 1024² {clip_enc['cli_sp']['seconds']:.2f} s; torchrun stage-1 CLI 2 steps "
           f"{stage1_dp['cli_sec']:.2f} s, its resume to 3 {stage1_dp['resume_sec']:.2f} s; on {card_line}")
-    phase(f"[9] tensor parallelism ({TP_SIZE} ranks on one card, {tp['backend']}): the restore's image "
-          f"{tp['rel_l2'][0]:.3e} (the server's warmup) and {tp['rel_l2'][1]:.3e} (the request) relative L2 from one "
-          f"rank's; "
-          f"weights per rank {tp['bytes']['rank'][0] / 1e9:.3f} of {tp['bytes']['whole'] / 1e9:.3f} GB; analytic "
+    tp_text = "; ".join(
+        f"model {m}: images {max(r['rel_l2']):.3e} at most (relative L2 from one rank's), weights per rank "
+        f"{[round(b / 1e9, 3) for b in r['bytes']['rank']]} of {r['bytes']['whole'] / 1e9:.3f} GB (the JAX rule's even "
+        f"share {r['bytes']['jax_rule'] / 1e9:.3f}), restores {[round(x, 2) for x in r['restore_sec']]} s"
+        for m, r in tp["runs"].items())
+    phase(f"[9] tensor parallelism (ranks on one card, {tp['backend']}): {tp_text}; analytic "
           f"FLOPs per 1024² image {tp['flops30'] / 1e12:.2f} TFLOP (config #4), the 4-step graph replay "
           f"{tp['tflops']:.1f} TFLOP/s ({tp['tflops'] / (PEAK_BF16_FLOPS / 1e12):.1%} of 989); PhaseTimer "
           f"{json.dumps({k: round(v, 4) for k, v in tp['phase_times'].items()})} s; on {card_line}")

@@ -103,14 +103,15 @@ class ServeConfig:
 # Device-memory planning. _HBM_ACT_GB_PER_MPIX is the memory a bucket's
 # recorded restore holds beyond the weights (its graph's private pool), per
 # megapixel and image, with margin: with the bf16 SDXL-width models at 4
-# steps on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 4d), 9.83
-# GB at 1024² batch 1 (9.38 per megapixel) and 4.95 GB at 512² batch 2
-# (9.45). A restore's peak allocation over the weights is 1.8x smaller (5.44
-# and 2.75 GB), but a recording keeps its whole pool reserved.
+# steps and the fp32 VAE's GroupNorms on the fused kernel, on an NVIDIA H100
+# 80GB HBM3 at 700 W (chip_smoke.py phase 4d), 8.76 GB at 1024² batch 1
+# (8.35 per megapixel) and 3.61-3.88 GB at 512² batch 2 (6.88-7.40). A
+# restore's peak allocation over the weights is smaller (4.64 and 2.31 GB),
+# but a recording keeps its whole pool reserved.
 # _HBM_RESERVE_GB is held back from the card's total memory: the CUDA
 # context, cuBLAS and cuDNN workspaces, allocator slack, and the two SDXL text
 # towers the CLI loads beside the pipeline (1.6 GB in bf16).
-_HBM_ACT_GB_PER_MPIX = 10.5
+_HBM_ACT_GB_PER_MPIX = 9.5
 _HBM_RESERVE_GB = 4.0
 
 

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from instantir_tpu_torch.ops import quant
-from instantir_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_nchw
+from instantir_tpu_torch.ops.group_norm import group_norm_silu
 
 
 class _Quantizable:
@@ -161,24 +161,21 @@ def merge_lora(model: nn.Module, lora_scale: float) -> Dict[str, torch.Tensor]:
 class GroupNorm32(nn.Module):
     """GroupNorm with fp32 statistics in the E[x^2] - mu^2 form (+ optional
     fused SiLU); fp32 ``weight``/``bias``; output in ``dtype``. Whether the
-    fused kernel or the plain version runs is ``ops.group_norm.USE_FUSED``;
-    a module built with ``use_kernel=False`` (the VAE's) always runs the
-    plain version."""
+    fused kernel or the plain version runs is ``ops.group_norm.USE_FUSED``,
+    for every model's norms, the VAE's included."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5, fuse_silu: bool = False,
-                 dtype=torch.float32, device=None, use_kernel: bool = True):
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
         self.fuse_silu = fuse_silu
-        self.use_kernel = use_kernel
         self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(num_channels, dtype=torch.float32, device=device))
         self.bias = nn.Parameter(torch.zeros(num_channels, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        norm = group_norm_silu if self.use_kernel else group_norm_silu_nchw
-        y = norm(x, self.weight, self.bias, self.num_groups, self.eps, self.fuse_silu)
+        y = group_norm_silu(x, self.weight, self.bias, self.num_groups, self.eps, self.fuse_silu)
         return y.to(self.dtype)
 
 

@@ -9,10 +9,10 @@ argument. ``decode(z, dtype=torch.bfloat16)`` runs the decoder in bf16 from
 the fp32 weights, as the JAX package's bf16 ``AutoencoderKL`` applies the fp32
 tree. ``tiled_decode`` / ``tiled_encode_moments`` / ``tiled_encode`` are the
 constant-memory tiled VAE (uniform tiles, the last one shifted inward,
-weight-normalised tent blending). Its GroupNorms run the plain version
-(``use_kernel=False``) on every device: the fused kernel is built and checked
-for the UNet's and the Aggregator's slabs, and at 1024² a VAE slab (up to 16
-MB a group in fp32) is far past a cluster's shared memory.
+weight-normalised tent blending). Its GroupNorms take the dispatch every
+``GroupNorm32`` takes (``ops.group_norm.group_norm_silu``): on the card the
+fused kernel, whose ``reread`` path takes the long slabs (up to 33.5 MB a
+group in fp32 at 1024²).
 """
 
 from __future__ import annotations
@@ -60,9 +60,9 @@ class VAEResnetBlock(nn.Module):
                  device=None):
         super().__init__()
         common = dict(dtype=dtype, device=device)
-        self.norm1 = GroupNorm32(norm_num_groups, in_channels, eps=1e-6, fuse_silu=True, use_kernel=False, **common)
+        self.norm1 = GroupNorm32(norm_num_groups, in_channels, eps=1e-6, fuse_silu=True, **common)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1, **common)
-        self.norm2 = GroupNorm32(norm_num_groups, out_channels, eps=1e-6, fuse_silu=True, use_kernel=False, **common)
+        self.norm2 = GroupNorm32(norm_num_groups, out_channels, eps=1e-6, fuse_silu=True, **common)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1, **common)
         self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1, **common) if in_channels != out_channels else None
 
@@ -80,7 +80,7 @@ class VAEAttentionBlock(nn.Module):
     def __init__(self, channels: int, norm_num_groups: int = 32, dtype=torch.float32, device=None):
         super().__init__()
         common = dict(dtype=dtype, device=device)
-        self.group_norm = GroupNorm32(norm_num_groups, channels, eps=1e-6, use_kernel=False, **common)
+        self.group_norm = GroupNorm32(norm_num_groups, channels, eps=1e-6, **common)
         self.to_q = nn.Linear(channels, channels, **common)
         self.to_k = nn.Linear(channels, channels, **common)
         self.to_v = nn.Linear(channels, channels, **common)
@@ -137,7 +137,7 @@ class Encoder(nn.Module):
             in_ch = ch
         self.down_blocks = nn.ModuleList(blocks)
         self.mid_block = VAEMidBlock(chans[-1], **rn)
-        self.conv_norm_out = GroupNorm32(cfg.norm_num_groups, chans[-1], eps=1e-6, fuse_silu=True, use_kernel=False, **common)
+        self.conv_norm_out = GroupNorm32(cfg.norm_num_groups, chans[-1], eps=1e-6, fuse_silu=True, **common)
         self.conv_out = nn.Conv2d(chans[-1], 2 * cfg.latent_channels, 3, padding=1, **common)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -169,7 +169,7 @@ class Decoder(nn.Module):
                                     None if final else _Sampler(ch, 1, 1, dtype, device)))
             in_ch = ch
         self.up_blocks = nn.ModuleList(blocks)
-        self.conv_norm_out = GroupNorm32(cfg.norm_num_groups, rev[-1], eps=1e-6, fuse_silu=True, use_kernel=False, **common)
+        self.conv_norm_out = GroupNorm32(cfg.norm_num_groups, rev[-1], eps=1e-6, fuse_silu=True, **common)
         self.conv_out = nn.Conv2d(rev[-1], cfg.out_channels, 3, padding=1, **common)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:

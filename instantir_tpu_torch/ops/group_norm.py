@@ -16,8 +16,8 @@ port rounds where the JAX package does.
 * ``group_norm_silu_diff`` -- the ``torch.autograd.Function`` around the
   wrapper (twin of ``_gn_silu_diff``): backward differentiates the plain
   formula and saves x, not the fp32 intermediates.
-* ``group_norm_silu`` -- the dispatch ``GroupNorm32`` calls, governed by the
-  module-level setting ``USE_FUSED``.
+* ``group_norm_silu`` -- the dispatch every ``GroupNorm32`` calls (the VAE's
+  too), governed by the module-level setting ``USE_FUSED``.
 
 The kernel (its source note has the details): what bounds it on the H100 is
 bytes -- x read once and y written once against a few operations per element.
@@ -41,9 +41,9 @@ import torch.nn.functional as F
 from instantir_tpu_torch import kernels
 
 # The port's counterpart of the JAX package's INSTANTIR_PALLAS_GN switch: True
-# sends every GroupNorm32 on a CUDA tensor through the fused kernel (except
-# the VAE's, built with ``use_kernel=False``), False through the plain version. On by default from the H100
-# measurements of chip_smoke.py (PERF.md).
+# sends every GroupNorm32 through the fused kernel (on a CUDA tensor; a CPU
+# tensor takes its plain version), the VAE's included, False through the plain
+# version. On by default from the H100 measurements of chip_smoke.py (PERF.md).
 USE_FUSED = True
 
 # Launches of the fused kernel in this process (bumped only where it launches).
@@ -252,10 +252,10 @@ def group_norm_silu_diff(x, scale, bias, num_groups: int, eps: float = 1e-5, app
 
 def group_norm_silu(x, scale, bias, num_groups: int, eps: float = 1e-5, apply_silu: bool = False):
     """Dispatching GroupNorm(+SiLU) over ``[B, C, *spatial]``: with
-    ``USE_FUSED`` on, the fused kernel in every dtype, through its autograd
-    Function only where an input needs a gradient (the restore, under
-    ``torch.no_grad()``, calls the wrapper directly); with it off, the plain
-    version."""
+    ``USE_FUSED`` on, the fused kernel in every dtype and at every shape,
+    through its autograd Function only where an input needs a gradient (the
+    restore, under ``torch.no_grad()``, calls the wrapper directly); with it
+    off, the plain version."""
     if USE_FUSED:
         x = x.contiguous()
         if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or bias.requires_grad):

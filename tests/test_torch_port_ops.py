@@ -439,10 +439,11 @@ def test_group_norm_dispatch_skips_the_function_without_grad(monkeypatch):
 
 
 def test_only_the_vae_group_norms_skip_the_dispatch(monkeypatch):
-    """Every ``GroupNorm32`` of the UNet and the Aggregator goes through the
-    dispatch (on the card: the fused kernel, whatever the dtype -- fp32
-    models included); the VAE's are built with ``use_kernel=False`` and run
-    the plain version whatever ``USE_FUSED`` says."""
+    """No model's GroupNorms skip the dispatch any more: every
+    ``GroupNorm32`` of the UNet, the Aggregator and the VAE goes through
+    ``group_norm_silu`` (on the card: the fused kernel, whatever the shape
+    and the dtype), none is built to bypass it, and with ``USE_FUSED`` on a VAE norm reaches the wrapper
+    (on the CPU its plain version, bit for bit)."""
     from instantir_tpu_torch.models.dinov2 import tiny_dinov2_config
     from instantir_tpu_torch.models.resampler import tiny_resampler_config
     from instantir_tpu_torch.models.unet import tiny_unet_config
@@ -454,24 +455,117 @@ def test_only_the_vae_group_norms_skip_the_dispatch(monkeypatch):
     norms = {name: [m for m in getattr(pipe, name).modules() if isinstance(m, tlayers.GroupNorm32)]
              for name in ("unet", "aggregator", "vae")}
     assert all(norms.values())
-    assert all(m.use_kernel for m in norms["unet"] + norms["aggregator"])
-    assert not any(m.use_kernel for m in norms["vae"])
+    assert not any(hasattr(m, "use_kernel") for ms in norms.values() for m in ms)
+    source = (REPO / "instantir_tpu_torch" / "models" / "vae.py").read_text()
+    assert "use_kernel" not in source and "group_norm_silu_nchw" not in source
 
     monkeypatch.setattr(tgn, "USE_FUSED", True)
-    calls = []
-    real = tlayers.group_norm_silu
+    calls, wrapped = [], []
+    real, real_fused = tlayers.group_norm_silu, tgn.group_norm_silu_fused
     monkeypatch.setattr(tlayers, "group_norm_silu", lambda *a: calls.append(1) or real(*a))
-    x = torch.randn(1, norms["vae"][0].weight.shape[0], 4, 4, generator=torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        y = norms["vae"][0](x)
-    assert not calls
+    monkeypatch.setattr(tgn, "group_norm_silu_fused", lambda *a: wrapped.append(1) or real_fused(*a))
     m = norms["vae"][0]
+    x = torch.randn(1, m.weight.shape[0], 4, 4, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        y = m(x)
+    assert calls == [1] and wrapped == [1]
     torch.testing.assert_close(y, tgn.group_norm_silu_nchw(x, m.weight, m.bias, m.num_groups, m.eps, m.fuse_silu),
                                rtol=0, atol=0)
     m = norms["unet"][0]
     with torch.no_grad():
         m(torch.randn(1, m.weight.shape[0], 4, 4, generator=torch.Generator().manual_seed(1)))
-    assert calls == [1]
+    assert calls == [1, 1] and wrapped == [1, 1]
+
+
+# (B, C, H, W, groups): a VAE-like row (4 channels a group, H·W a multiple of 512), the UNet's and the
+# Aggregator's maps at a narrow width, a pad_concat map (an odd number of rows), 1024x768's deepest map (32 x 24
+# = 768 pixels, not a multiple of 512), maps below 512 pixels and of odd sides, the uneven local groups of a
+# model axis of 5 (7 and 6 groups of 10 channels) and groups of 8 and 16 channels
+DISPATCH_SHAPES = [(1, 128, 64, 64, 32), (1, 32, 128, 128, 32), (2, 64, 32, 32, 32), (2, 64, 33, 16, 32),
+                   (2, 64, 32, 24, 32), (2, 128, 16, 16, 32), (1, 32, 45, 45, 32), (2, 32, 13, 7, 32),
+                   (1, 64, 16, 33, 32), (2, 70, 16, 16, 7), (2, 60, 16, 16, 6), (1, 256, 8, 8, 32),
+                   (2, 8, 32, 32, 1), (1, 64, 24, 24, 8), (2, 48, 20, 20, 16)]
+# |port - JAX| <= atol + rtol * |JAX|: the fp32 statistics' summation order (atol), and one ulp of the output
+# where the two fp32 values round apart (rtol: 2^-7 in bf16, 2^-10 in fp16, none in fp32)
+DISPATCH_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2.0**-7), "float16": (1e-5, 2.0**-10)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("shape", DISPATCH_SHAPES)
+def test_group_norm_dispatch_takes_the_wrapper_and_matches_jax(shape, dtype, monkeypatch):
+    """With ``USE_FUSED`` on, the dispatch sends every shape to the fused
+    kernel's wrapper (on the card the kernel; here, a CPU tensor, its plain
+    version) -- none to the plain version for its shape, where the JAX
+    dispatch's TPU bounds would -- and its output matches the JAX
+    ``group_norm_silu`` on the same input in every dtype."""
+    b, c, h, w, groups = shape
+    rng = np.random.default_rng(sum(shape))
+    x = (0.5 + 1.5 * rng.standard_normal((b, h, w, c))).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}[dtype]
+    want = np.asarray(jgn.group_norm_silu(jnp.asarray(x).astype(jdt), jnp.asarray(scale), jnp.asarray(bias),
+                                          groups, 1e-6, True).astype(jnp.float32))
+    monkeypatch.setattr(tgn, "USE_FUSED", True)
+    wrapped = []
+    real = tgn.group_norm_silu_fused
+    monkeypatch.setattr(tgn, "group_norm_silu_fused", lambda *a: wrapped.append(tuple(a[0].shape)) or real(*a))
+    xt = _t(x).to(getattr(torch, dtype)).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        got = tgn.group_norm_silu(xt, _t(scale), _t(bias), groups, 1e-6, True)
+    assert wrapped == [(b, c, h, w)] and got.dtype == xt.dtype
+    atol, rtol = DISPATCH_TOL[dtype]
+    err = np.abs(got.float().permute(0, 2, 3, 1).numpy() - want)
+    assert (err <= atol + rtol * np.abs(want)).all(), err.max()
+
+
+@pytest.mark.parametrize("apply_silu", [False, True])
+def test_group_norm_vae_slab_matches_pallas_interpret(apply_silu):
+    """A VAE-like fp32 slab (4 channels a group over 128², the VAE's eps
+    1e-6, offset and spread like its activations) through the JAX Pallas
+    kernel in interpret mode against the port's plain version, which the
+    card's kernel is held to (and both to fp64 in ``chip_smoke.py``)."""
+    rng = np.random.default_rng(31)
+    x = (2.0 + 3.0 * rng.standard_normal((1, 128, 128, 128))).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.standard_normal(128)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(128)).astype(np.float32)
+    want = np.asarray(jgn.group_norm_silu_pallas(jnp.asarray(x), scale, bias, 32, 1e-6, apply_silu, interpret=True))
+    got = tgn.group_norm_silu_nchw(_t(x).permute(0, 3, 1, 2), _t(scale), _t(bias), 32, 1e-6, apply_silu)
+    assert np.abs(got.permute(0, 2, 3, 1).numpy() - want).max() <= 1e-5
+
+
+def test_vae_group_norm_shapes_are_the_dispatched_ones(monkeypatch):
+    """``chip_smoke.vae_group_norm_shapes`` (the VAE's K5 launches derived
+    from ``VAEConfig``) lists the calls the SDXL VAE makes to the dispatch in
+    an encode at 1024² and a decode of its latents, counted on the ``meta``
+    device (no memory), whole and at a model axis of 4 on rank 2 (its
+    resnets' ``norm2`` at 8 of the 32 groups)."""
+    import chip_smoke
+    from instantir_tpu_torch.models.vae import AutoencoderKL, sdxl_vae_config
+    from instantir_tpu_torch.parallel import tp as ttp
+
+    cfg = sdxl_vae_config()
+    for tp, rank in ((1, 0), (4, 2)):
+        vae = AutoencoderKL(cfg, device=torch.device("meta"))
+        if tp > 1:
+            place = ttp._Placer(vae, None, rank, tp)
+            ttp._place(vae, place)
+        seen = {}
+
+        def counted(x, scale, bias, groups, eps, silu):
+            key = (x.shape[1], x.shape[2], x.shape[3], groups, silu)
+            seen[key] = seen.get(key, 0) + 1
+            return x
+
+        monkeypatch.setattr(tlayers, "group_norm_silu", counted)
+        monkeypatch.setattr(ttp.TPShard, "reduce", lambda self, y: y)
+        for part, call, hw in (("encoder", lambda v, t: v.encoder(t), 1024), ("decoder", lambda v, t: v.decoder(t), 128)):
+            seen.clear()
+            chans = 3 if part == "encoder" else 4
+            call(vae, torch.empty(1, chans, hw, hw, device="meta"))
+            assert seen == chip_smoke.vae_group_norm_shapes(cfg, hw, hw, part, tp, rank), (part, tp)
+    assert chip_smoke.vae_k5(cfg, 128, 128, "decoder") == 30 and chip_smoke.vae_k5(cfg, 1024, 1024, "encoder") == 22
+
 
 def test_timestep_embedding_and_adaln(jlayers):
     rng = np.random.default_rng(6)

@@ -93,7 +93,9 @@ def _ring_worker(mesh, rank: int, out: str) -> None:
         np.savez(os.path.join(out, "ring.npz"), **res)
 
 
-def _port_pipeline(out: str):
+def _port_pipeline(out: str, unet: dict = None, vae: dict = None, resampler: dict = None):
+    """The port's tiny pipeline (``_jax_pipeline``'s configs, with the same
+    overrides) holding the JAX trees' weights written to ``out``."""
     import torch
 
     from instantir_tpu_torch.models.dinov2 import tiny_dinov2_config
@@ -102,8 +104,9 @@ def _port_pipeline(out: str):
     from instantir_tpu_torch.models.vae import tiny_vae_config
     from instantir_tpu_torch.pipeline.factory import build_pipeline
 
-    pipe = build_pipeline(tiny_unet_config(**SLIM), tiny_vae_config(), tiny_resampler_config(output_dim=32, lora_rank=2),
-                          tiny_dinov2_config(), device="cpu")
+    pipe = build_pipeline(tiny_unet_config(**{**SLIM, **(unet or {})}), tiny_vae_config(**(vae or {})),
+                          tiny_resampler_config(output_dim=32, lora_rank=2, **(resampler or {})), tiny_dinov2_config(),
+                          device="cpu")
     state = torch.load(os.path.join(out, "weights.pt"), weights_only=True)
     for name in MODELS:
         getattr(pipe, name).load_state_dict(state[name], strict=True)
@@ -211,10 +214,12 @@ def _jax_noise(seed, n_steps, batch, latent):
             **{f"step{i}": s for i, s in enumerate(steps)}}
 
 
-def _jax_pipeline():
+def _jax_pipeline(unet: dict = None, vae: dict = None, resampler: dict = None):
     """The JAX tiny pipeline: parameter trees of each module's ``init``
     structure (``jax.eval_shape``, no compile), every leaf drawn from a numpy
-    seed (zero-init leaves included, so every path is exercised)."""
+    seed (zero-init leaves included, so every path is exercised); ``unet``,
+    ``vae`` and ``resampler`` override their tiny configs (the UNet's applies
+    to the Aggregator too)."""
     import jax
 
     from instantir_tpu.models.aggregator import Aggregator
@@ -225,10 +230,10 @@ def _jax_pipeline():
     from instantir_tpu.pipeline.instantir import InstantIRPipeline
     from instantir_tpu.schedulers.diffusion import sdxl_schedule
 
-    ucfg = tiny_unet_config(**SLIM)
-    rcfg = tiny_resampler_config(output_dim=ucfg.cross_attention_dim, lora_rank=2)
+    ucfg = tiny_unet_config(**{**SLIM, **(unet or {})})
+    rcfg = tiny_resampler_config(output_dim=ucfg.cross_attention_dim, lora_rank=2, **(resampler or {}))
     dcfg = tiny_dinov2_config()
-    unet, agg, vae = UNet2DConditionModel(ucfg), Aggregator(ucfg), AutoencoderKL(tiny_vae_config())
+    unet, agg, vae = UNet2DConditionModel(ucfg), Aggregator(ucfg), AutoencoderKL(tiny_vae_config(**(vae or {})))
     res, dino = Resampler(rcfg), DINOv2Model(dcfg)
 
     def init(module, seed, *args, **kwargs):

@@ -14,26 +14,29 @@ imported no JAX. The groups, started once and together:
   port's one-rank forward and JAX's TP forward; W8 bases, which stay whole,
   against JAX's quantized TP forward and the one-rank quantized forward, and
   W8A8 bases against the one-rank quantized forward; the restore at
-  ``(1, 2)``; a frozen previewer sharded or frozen on the shards; the refusals: heads and GroupNorm groups the ``model`` axis
-  does not divide (JAX runs both: GSPMD reshards a head or a group across
-  chips, measured 2.2e-6 from its one-chip forward at model 4; the port runs
-  each attention on whole local heads and each norm on whole local groups,
-  so it refuses, naming the module), a world ``model_parallel`` does not
-  divide, ``quantize`` after a TP ``shard``, ``fused`` under TP, external
-  K/V tokens on a sharded attention;
+  ``(1, 2)``; a frozen previewer sharded or frozen on the shards; a UNet
+  with fewer heads or groups than ranks (sharded: those layers stay whole);
+  the refusals: a world ``model_parallel`` does not divide, ``quantize``
+  after a TP ``shard``, ``fused`` under TP, external K/V tokens on a sharded
+  attention;
   then the serving CLI: ``cli.serve.main`` alone on rank 0, then with
   ``--mesh --model_parallel 2`` on both ranks, each answering one request
   on a tiny checkpoint tree (``chip_smoke.write_checkpoint_tree``).
 * ``tp4`` (a ``(2, 2)`` mesh): the restore at ``(2, 2)`` and the refusal of
   a batch the ``data`` axis does not divide (as in JAX).
+* ``tpm4`` (a ``(1, 4)`` mesh): the restore at model 4, which cuts the tiny
+  pipeline's heads and groups unevenly (``M4``), each rank's local heads and
+  groups, and the bytes it holds against ``tp_held_bytes``.
 
 The JAX side runs beside them in one process (``--jax DIR``) on the suite's
 virtual 8-device CPU mesh at XLA's lowest CPU level: the TP forward of the
 UNet (``tp_shard_params`` on a ``(1, 2)`` mesh), fp32 and W8
 (``quantize_tree`` before ``tp_shard_params``, as ``InstantIRPipeline.quantize``
 before ``shard``), and the TP restore on a
-``(2, 2)`` mesh (``pipe.shard(make_mesh(num_devices=4, model_parallel=2))``),
-phase A with CFG 7, fed the same ``jax.random`` draws as the port. The
+``(1, 4)`` mesh (``pipe.shard(make_mesh(num_devices=4, model_parallel=4))``:
+GSPMD cuts the ``M4`` pipeline's heads and groups, the port splits them on
+their boundaries), phase A with CFG 7, fed the same ``jax.random`` draws as
+the port. The
 layout (``tp_spec`` leaf by leaf over every model of the tiny pipeline,
 through ``convert.py``'s name map) and the byte share of the SDXL UNet are
 checked in the test process itself, the byte share against the JAX
@@ -54,6 +57,12 @@ import pytest
 
 B, RES, LATENT, STEPS = 2, 32, 16, 2
 TINY_UNET = dict(with_ip=True, lora_rank=4)
+# the restore's tiny pipeline: heads and groups that a model axis of 4 does not divide while it divides the
+# features (the UNet's and the Aggregator's 40 / 80 channels in 10 groups, their 80-channel attentions in 10 heads
+# of 8: 3 / 3 / 2 / 2 a rank; the VAE's 24 / 48 channels in 6 groups: 2 / 2 / 1 / 1; the Resampler's 6 heads of 8),
+# so that the (1, 4) group and JAX's (1, 4) mesh (GSPMD cuts heads and groups) run the uneven layout
+M4 = dict(unet=dict(block_out_channels=(40, 80, 80), num_attention_heads=(5, 10, 10), norm_num_groups=10),
+          vae=dict(block_out_channels=(24, 48), norm_num_groups=6), resampler=dict(heads=6))
 # phase A (the Aggregator and the main UNet) with CFG 7, as the sharded restore of tests/test_torch_port_parallel.py
 RESTORE_CFG = dict(num_inference_steps=STEPS, guidance_scale=7.0, preview_start=1.0, control_guidance_end=1.0)
 # every step previews (phase B): the previewer UNet on freeze_previewer's merged weights
@@ -153,14 +162,14 @@ def _tp2_worker(mesh, rank: int, out: str) -> dict:
     res.update(_w8a8_blocks(mesh))
 
     data = np.load(os.path.join(out, "inputs.npz"))
-    pipe = _port_pipeline(out)
+    pipe = _port_pipeline(out, **M4)
     res["restore_one"] = _restore(pipe, data, None)
     pipe.shard(mesh)
     res["restore_tp"] = _restore(pipe, data, mesh)
     # the frozen previewer's merged weights: merged from the shards, or merged whole and then sharded
     frozen = {}
     for order in ("one", "freeze_then_shard", "shard_then_freeze"):
-        p = _port_pipeline(out)
+        p = _port_pipeline(out, **M4)
         if order == "shard_then_freeze":
             p.shard(mesh)
         p.freeze_previewer(1.0)
@@ -273,7 +282,7 @@ def _serve(rank: int, out: str) -> dict:
 
         args, kwargs = one[-1][2], one[-1][3]
         f32 = lambda t: t.float() if isinstance(t, torch.Tensor) else t  # noqa: E731
-        res["fp32_image"] = _port_pipeline(out).restore(*map(f32, args), **{k: f32(v) for k, v in kwargs.items()})[0]
+        res["fp32_image"] = _port_pipeline(out, **M4).restore(*map(f32, args), **{k: f32(v) for k, v in kwargs.items()})[0]
     return res
 
 
@@ -318,9 +327,42 @@ def _tp4_worker(mesh, rank: int, out: str) -> dict:
     from test_torch_port_parallel import _port_pipeline
 
     data = np.load(os.path.join(out, "inputs.npz"))
-    pipe = _port_pipeline(out).shard(mesh)
+    pipe = _port_pipeline(out, **M4).shard(mesh)
     res = {"restore_tp": _restore(pipe, data, mesh)}
     res["refused_batch"] = np.asarray(_refusal(lambda: _restore(pipe, data, mesh, batch=1)))
+    return res
+
+
+def _tpm4_worker(mesh, rank: int, out: str) -> dict:
+    """The restore on a (1, 4) mesh: every head count and group count of the
+    tiny pipeline cut unevenly. Records this rank's local heads and groups,
+    the bytes it holds against ``tp_held_bytes``, and (rank 0) the restore."""
+    import torch.distributed as dist
+
+    from instantir_tpu_torch.models.attention import Attention
+    from instantir_tpu_torch.models.layers import GroupNorm32
+    from instantir_tpu_torch.models.resampler import PerceiverAttention
+    from instantir_tpu_torch.parallel.tp import tp_held_bytes
+    from test_torch_port_parallel import _port_pipeline
+
+    data = np.load(os.path.join(out, "inputs.npz"))
+    pipe = _port_pipeline(out, **M4)
+    predicted = [tp_held_bytes(getattr(pipe, name), 4)[rank] for name in pipe._MODELS]
+    pipe.shard(mesh)
+    held = [sum(t.numel() * t.element_size() for t in (*getattr(pipe, name).parameters(),
+                                                          *getattr(pipe, name).buffers())) for name in pipe._MODELS]
+    local = {"unet_heads": [m.heads for m in pipe.unet.modules() if isinstance(m, Attention)],
+             "resampler_heads": [m.heads for m in pipe.resampler.modules() if isinstance(m, PerceiverAttention)],
+             "unet_groups": [m.num_groups for n, m in pipe.unet.named_modules()
+                             if isinstance(m, GroupNorm32) and n.endswith("norm2")],
+             "vae_groups": [m.num_groups for n, m in pipe.vae.named_modules()
+                            if isinstance(m, GroupNorm32) and n.endswith("norm2")],
+             "vae_norms": sum(isinstance(m, GroupNorm32) for m in pipe.vae.modules())}
+    every = [None] * 4
+    dist.all_gather_object(every, local, group=mesh.get_group("model"))
+    res = {"restore_tp": _restore(pipe, data, mesh), "held": np.asarray(held), "predicted": np.asarray(predicted)}
+    for key in local:
+        res[f"local_{key}"] = np.asarray([e[key] for e in every])
     return res
 
 
@@ -334,9 +376,11 @@ def worker_main(group: str, rank: int, world: int, out: str) -> None:
 
     torch.set_num_threads(1)
     initialize_distributed(init_method="file://" + os.path.join(out, f"{group}.rendezvous"), device="cpu")
-    mesh = make_mesh(model_parallel=2, device="cpu")
+    mesh = make_mesh(model_parallel=4 if group == "tpm4" else 2, device="cpu")
     t0 = time.perf_counter()
-    res = (_tp2_worker if group == "tp2" else _tp4_worker)(mesh, rank, out)
+    res = {"tp2": _tp2_worker, "tp4": _tp4_worker, "tpm4": _tpm4_worker}[group](mesh, rank, out)
+    if group == "tpm4":  # every rank's held bytes against its own prediction
+        np.savez(os.path.join(out, f"{group}.rank{rank}.npz"), held=res["held"], predicted=res["predicted"])
     if rank == 0:
         np.savez(os.path.join(out, f"{group}.npz"), **res)
     dist.barrier()
@@ -378,7 +422,8 @@ def _jax_unet():
 
 def jax_main(out: str) -> None:
     """The JAX side: the UNet's TP forward on a (1, 2) mesh and the TP
-    restore on a (2, 2) mesh, into ``jax.npz``."""
+    restore on a (1, 4) mesh (GSPMD cuts the uneven heads and groups), into
+    ``jax.npz``."""
     import jax
 
     assert len(jax.devices()) == 8, "the JAX process runs on the suite's virtual 8-device CPU mesh"
@@ -400,19 +445,20 @@ def jax_main(out: str) -> None:
     # side tree stays whole, the LoRA branches shard
     want["w8_tp"] = np.asarray(forward(tp_shard_params(quantize_tree(params, min_size=256, weight_only=True), mesh), x))
 
-    bundle = _jax_pipeline()
+    bundle = _jax_pipeline(**M4)
     data = np.load(os.path.join(out, "inputs.npz"))
     pipe = InstantIRPipeline(bundle.unet, bundle.aggregator, bundle.vae, bundle.resampler, bundle.image_encoder,
-                             bundle.schedule, bundle.params).shard(make_mesh(num_devices=4, model_parallel=2))
+                             bundle.schedule, bundle.params).shard(make_mesh(num_devices=4, model_parallel=4))
     want["restore_tp"] = np.asarray(pipe.restore(*(jnp.asarray(data[k]) for k in ("lq", "pe", "pooled")),
                                                  cfg=RestoreConfig(**RESTORE_CFG), key=jax.random.PRNGKey(7),
                                                  output_type="latent")[0])
     want["sdxl_bytes"] = np.asarray(_jax_sdxl_bytes())
+    want["sdxl_bytes4"] = np.asarray(_jax_sdxl_bytes(4))
     np.savez(os.path.join(out, "jax.npz"), **want)
 
 
-def _jax_sdxl_bytes():
-    """(sharded, total) bytes of the SDXL UNet (ip branch, LoRA rank 64, bf16) at model 2, by the JAX walk of
+def _jax_sdxl_bytes(model_size: int = 2):
+    """(sharded, total) bytes of the SDXL UNet (ip branch, LoRA rank 64, bf16) at ``model_size``, by the JAX walk of
     its ``eval_shape`` tree (``tests/test_tensor_parallel.py``)."""
     import jax
     import jax.numpy as jnp
@@ -426,7 +472,7 @@ def _jax_sdxl_bytes():
         jax.random.PRNGKey(0), jnp.zeros((1, 128, 128, 4), jnp.bfloat16), jnp.zeros((1,), jnp.int32),
         jnp.zeros((1, 77, 2048), jnp.bfloat16), jnp.zeros((1, 1280), jnp.bfloat16), jnp.zeros((1, 6), jnp.bfloat16),
         ip_hidden_states=jnp.zeros((1, 64, 2048), jnp.bfloat16)))
-    return tp_sharded_bytes(shapes, model_size=2)
+    return tp_sharded_bytes(shapes, model_size=model_size)
 
 
 def _write_tree(bundle, out: str) -> None:
@@ -438,7 +484,7 @@ def _write_tree(bundle, out: str) -> None:
     from instantir_tpu_torch.pipeline.factory import synthesize_weights
     from test_torch_port_parallel import _port_pipeline
 
-    pipe = _port_pipeline(out)
+    pipe = _port_pipeline(out, **M4)
     g = torch.Generator().manual_seed(6)
     encoders = [synthesize_weights(CLIPTextModel(tiny_clip_text_config(vocab_size=49408, eos_token_id=49407, **kw),
                                                  device=torch.device("cpu")), g)
@@ -476,7 +522,7 @@ def bundle():
     """The JAX tiny pipeline (``tests/test_torch_port_parallel.py``'s, every leaf from a numpy seed)."""
     from test_torch_port_parallel import _jax_pipeline
 
-    return _jax_pipeline()
+    return _jax_pipeline(**M4)
 
 
 @pytest.fixture(scope="module")
@@ -501,13 +547,17 @@ def runs(tmp_path_factory, bundle):
               **_jax_noise(7, STEPS, B, LATENT)}
     np.savez(os.path.join(out, "inputs.npz"), **inputs)
     tp4 = _spawn(["--worker", "tp4"], 4, out)
+    tpm4 = _spawn(["--worker", "tpm4"], 4, out)
     _write_tree(bundle, out)
     tp2 = _spawn(["--worker", "tp2"], 2, out)
     _wait(jax_proc, "jax")
     _wait(tp4, "tp4")
+    _wait(tpm4, "tpm4")
     _wait(tp2, "tp2")
     want = dict(np.load(os.path.join(out, "jax.npz")))
-    got = {f"{g}.{k}": v for g in ("tp2", "tp4") for k, v in np.load(os.path.join(out, f"{g}.npz")).items()}
+    got = {f"{g}.{k}": v for g in ("tp2", "tp4", "tpm4") for k, v in np.load(os.path.join(out, f"{g}.npz")).items()}
+    for r in range(4):
+        got.update({f"tpm4.rank{r}.{k}": v for k, v in np.load(os.path.join(out, f"tpm4.rank{r}.npz")).items()})
     print(f"[tp] groups and JAX side in {time.perf_counter() - t0:.1f} s")
     return want, got
 
@@ -529,16 +579,18 @@ def _jax_codes(tree, model_size: int):
     return jax.tree_util.tree_map_with_path(code, tree)
 
 
-def test_tp_spec_matches_jax_leaf_by_leaf(bundle):
+@pytest.mark.parametrize("model_size", [2, 4])
+def test_tp_spec_matches_jax_leaf_by_leaf(bundle, model_size):
     """The JAX decision of every leaf of the tiny pipeline, carried to the
     port's names by the exporters (a constant array stays constant through a
-    re-layout), equals the port's ``tp_spec``, except the leaves the port
-    keeps whole, which JAX shards; every sharded leaf is placed by
-    ``tp_shard_`` (a leaf without a placement raises)."""
+    re-layout), equals the port's ``tp_spec`` at a model axis of 2 and of 4
+    (whose heads and groups the tiny pipeline's do not all divide), except
+    the leaves the port keeps whole, which JAX shards; every sharded leaf is
+    placed by ``tp_shard_`` (a leaf without a placement raises)."""
     from instantir_tpu_torch import convert
     from instantir_tpu_torch.parallel.tp import kept_whole, tp_spec
 
-    codes = _jax_codes(bundle.params, 2)
+    codes = _jax_codes(bundle.params, model_size)
     exported = {"unet": convert.export_unet(codes["unet"]), "aggregator": convert.export_aggregator(codes["aggregator"]),
                 "vae": convert.export_vae(codes["vae"]), "resampler": convert.export_resampler(codes["resampler"]),
                 "image_encoder": convert.export_dinov2(codes["image_encoder"], bundle.image_encoder.config.num_layers)}
@@ -548,7 +600,7 @@ def test_tp_spec_matches_jax_leaf_by_leaf(bundle):
             values = np.unique(arr)
             assert values.size == 1, (model, name, values)
             want = {0.0: None, 1.0: 0, 2.0: 1}[float(values[0])]
-            got = tp_spec(name, arr.shape, 2)
+            got = tp_spec(name, arr.shape, model_size)
             assert got == want, (model, name, arr.shape, got, want)
             sharded += want is not None
             if want is not None and kept_whole(name):
@@ -580,8 +632,9 @@ def test_quantize_tree_takes_the_bases_jax_takes(bundle, model):
 
     jtree = jax.tree_util.tree_map(np.asarray, j_quantize_tree(bundle.params[model], min_size=1, weight_only=True))
     want = convert.export_quantized(getattr(convert, f"export_{model}"), jtree)
-    pipe = build_pipeline(tiny_unet_config(**SLIM), tiny_vae_config(), tiny_resampler_config(output_dim=32, lora_rank=2),
-                          tiny_dinov2_config(), device="cpu")
+    pipe = build_pipeline(tiny_unet_config(**SLIM, **M4["unet"]), tiny_vae_config(**M4["vae"]),
+                          tiny_resampler_config(output_dim=32, lora_rank=2, **M4["resampler"]), tiny_dinov2_config(),
+                          device="cpu")
     got = quant.quantize_tree(getattr(pipe, model), min_size=1, weight_only=True).state_dict()
     bases = lambda state: sorted(k[:-len(".weight_qw")] for k in state if k.endswith(".weight_qw"))  # noqa: E731
     assert bases(got) == bases(want)
@@ -589,20 +642,30 @@ def test_quantize_tree_takes_the_bases_jax_takes(bundle, model):
     assert set(stems) <= set(bases(got))
 
 
-def test_sdxl_unet_sharded_bytes_equal_jax_eval_shape(runs):
+@pytest.mark.parametrize("model_size", [2, 4])
+def test_sdxl_unet_sharded_bytes_equal_jax_eval_shape(runs, model_size):
     """``tp_sharded_bytes`` of the SDXL UNet (ip branch, LoRA rank 64, bf16)
     built on ``meta`` equals the JAX walk of its ``eval_shape`` tree (in the
-    JAX process), and exceeds the 0.75 of ``tests/test_tensor_parallel.py``."""
+    JAX process), and exceeds the 0.75 of ``tests/test_tensor_parallel.py``;
+    ``tp_held_bytes`` (what each rank holds under the port's layout) adds up
+    to the whole UNet's bytes plus the leaves kept whole on every rank, each
+    rank holding its share of the sharded leaves within one head's or one
+    group's bytes."""
     import torch
 
     from instantir_tpu_torch.models.unet import UNet2DConditionModel, sdxl_base_config
-    from instantir_tpu_torch.parallel.tp import tp_sharded_bytes
+    from instantir_tpu_torch.parallel.tp import tp_held_bytes, tp_sharded_bytes
 
     unet = UNet2DConditionModel(sdxl_base_config(with_ip=True, lora_rank=64), dtype=torch.bfloat16,
                                 device=torch.device("meta"))
-    got = tp_sharded_bytes(unet, model_size=2)
-    assert got == tuple(runs[0]["sdxl_bytes"].tolist()), (got, runs[0]["sdxl_bytes"])
+    got = tp_sharded_bytes(unet, model_size=model_size)
+    want = runs[0]["sdxl_bytes" if model_size == 2 else "sdxl_bytes4"]
+    assert got == tuple(want.tolist()), (got, want)
     assert got[0] / got[1] > 0.75
+    held = tp_held_bytes(unet, model_size)
+    whole = got[1] - got[0]
+    assert all(whole + got[0] // model_size * 0.97 <= h <= whole + got[0] // model_size * 1.03 for h in held), held
+    assert held == sorted(held, reverse=True) and (model_size == 2) == (len(set(held)) == 1)
 
 
 # -- the groups ------------------------------------------------------------------
@@ -636,10 +699,13 @@ def test_tp_keeps_int8_bases_whole_and_matches_one_rank(runs):
         assert np.abs(got[f"tp2.w8a8_{name}_1.0_one"] - got[f"tp2.w8a8_{name}_0.0_one"]).max() > 1e-3  # LoRA ran
 
 
-@pytest.mark.parametrize("group", ["tp2", "tp4"])
+@pytest.mark.parametrize("group", ["tp2", "tp4", "tpm4"])
 def test_tp_restore_matches_jax(runs, group):
-    """At (data 1, model 2) and (data 2, model 2) against JAX's TP restore
-    on a (2, 2) mesh: ``tests/test_sharded_inference.py``'s tolerance."""
+    """At (data 1, model 2), (data 2, model 2) and (data 1, model 4: heads
+    and groups cut unevenly) against JAX's TP restore on a (1, 4) mesh:
+    ``tests/test_sharded_inference.py``'s tolerance. The module's one JAX
+    compile is that model-only restore, so the data axis is held only
+    through the port's own (2, 2) run against JAX's (1, 4) answer."""
     want, got = runs
     lat = got[f"{group}.restore_tp"]
     assert lat.shape == want["restore_tp"].shape == (B, LATENT, LATENT, 4)
@@ -657,10 +723,12 @@ def test_tp_frozen_previewer_matches_one_rank(runs, order):
 
 
 def test_tp_refusals(runs):
+    """What the tensor-parallel layout refuses, and what it no longer
+    does: heads or groups the ``model`` axis does not divide, fewer than its
+    ranks even, shard (the group stays whole, as JAX runs them)."""
     _, got = runs
-    heads, groups = str(got["tp2.refused_heads"]), str(got["tp2.refused_groups"])
-    assert re.search(r"Attention 'down_blocks\.1\.attentions\.0\.transformer_blocks\.0\.attn1' has 1 heads", heads), heads
-    assert "GroupNorm 'down_blocks.0.resnets.0.norm2' has 1 groups" in groups, groups
+    assert str(got["tp2.refused_heads"]) == "" and str(got["tp2.refused_groups"]) == "", (
+        got["tp2.refused_heads"], got["tp2.refused_groups"])
     assert "2 devices not divisible by model_parallel=3" in str(got["tp2.refused_world"])
     assert "not divisible by mesh data axis" in str(got["tp4.refused_batch"])
     assert "quantize before shard()" in str(got["tp2.refused_quantize"])
@@ -673,6 +741,58 @@ def test_tp_refusals(runs):
                     "--model_parallel", "2", "--fused"],
                    device="cpu")
     assert "rebuild the pipeline" in str(got["tp2.refused_reshard"])
+
+
+def test_tp_shares_and_uneven_gather(monkeypatch):
+    """``tp_shares`` splits heads and groups nearest to equal, the first
+    ranks one more; ``TPShard.gather`` (a row-parallel int8 base's whole
+    input) pads each rank's uneven share to the widest for the all-gather and
+    trims it back, so that the features come back whole and in order; and
+    ``local`` takes each rank's own span."""
+    import torch
+
+    from instantir_tpu_torch.parallel import tp as ttp
+
+    assert ttp.tp_shares(10, 4) == [3, 3, 2, 2] and ttp.tp_shares(32, 5) == [7, 7, 6, 6, 6]
+    assert ttp.tp_shares(20, 4) == [5] * 4 and ttp.tp_shares(6, 4) == [2, 2, 1, 1]
+    spans, starts = [], 0
+    for n in ttp.tp_shares(10, 4):
+        spans.append((8 * starts, 8 * n))
+        starts += n
+    whole = torch.arange(2 * 3 * 80, dtype=torch.float32).reshape(2, 3, 80)
+    shards = [whole.narrow(-1, a, n) for a, n in spans]
+
+    def all_gather(parts, x, group=None):
+        for r, part in enumerate(parts):
+            mine = shards[r]
+            part.copy_(torch.cat([mine, mine.new_zeros(*mine.shape[:-1], x.shape[-1] - mine.shape[-1])], dim=-1))
+
+    monkeypatch.setattr(ttp.dist, "all_gather", all_gather)
+    for rank in range(4):
+        shard = ttp.TPShard("row", None, rank, 4, tuple(spans))
+        assert shard.features == 80
+        torch.testing.assert_close(shard.local(whole, -1), shards[rank], rtol=0, atol=0)
+        torch.testing.assert_close(shard.gather(shards[rank].clone(), -1), whole, rtol=0, atol=0)
+
+
+def test_tp_model4_cuts_heads_and_groups_unevenly(runs):
+    """At a model axis of 4 the tiny pipeline's 10-head attentions run 3 /
+    3 / 2 / 2 heads a rank, the Resampler's 6 heads 2 / 2 / 1 / 1, the
+    UNet's 10-group ``norm2``s 3 / 3 / 2 / 2 groups and the VAE's 6-group
+    ones 2 / 2 / 1 / 1 (every VAE norm still a GroupNorm32, so that the
+    dispatch sees each); each rank holds the bytes ``tp_held_bytes``
+    predicts for it, the first ranks more than the last."""
+    _, got = runs
+    heads = got["tpm4.local_unet_heads"]
+    assert heads.shape[0] == 4 and heads.shape[1] > 4 and (heads.T == [3, 3, 2, 2]).all(), heads
+    assert (got["tpm4.local_resampler_heads"].T == [2, 2, 1, 1]).all(), got["tpm4.local_resampler_heads"]
+    assert (got["tpm4.local_unet_groups"].T == [3, 3, 2, 2]).all(), got["tpm4.local_unet_groups"]
+    assert (got["tpm4.local_vae_groups"].T == [2, 2, 1, 1]).all(), got["tpm4.local_vae_groups"]
+    assert len(set(got["tpm4.local_vae_norms"].tolist())) == 1
+    for r in range(4):
+        np.testing.assert_array_equal(got[f"tpm4.rank{r}.held"], got[f"tpm4.rank{r}.predicted"])
+    totals = [int(got[f"tpm4.rank{r}.held"].sum()) for r in range(4)]
+    assert totals[0] == totals[1] > totals[2] == totals[3], totals
 
 
 def test_serve_cli_mesh_answers_with_the_one_rank_servers_image(runs):
